@@ -1,0 +1,68 @@
+// K2 fp_segment_sum: Fp128 sums over contiguous term ranges.
+//
+// out[s] = sum over t in [starts[s], ends[s]) of term(t), where term(t) is
+//   mode 0: x[t]                      (_contig_fold, lazy_segment_sum)
+//   mode 1: v[t] * W[h1[t]] * W[h0[t]], or 0 where bmask[t] is set; a
+//           masked term whose product W[h1] * W[h0] is nonzero sets *bad
+//           (the beta-mask zero check of _eval_layer)
+// An empty range sums to zero.
+//
+// Replaces sumcheck/prover_device.py:157 _contig_fold and :372
+// _eval_layer (prime branch), and fields/fp.py:561 lazy_segment_sum
+// (byte-split columns + segment_sum + renormalise) of the JAX package.
+//
+// Bound on the H100: bytes of the gathers.  Mode 1 reads per term two
+// random 16-byte rows of W, v and three indices; the layer's W (at most
+// 2^15 elements, 512 KiB) stays in L2.  One warp per segment: the lanes
+// stride over the segment's terms with coalesced reads of the term
+// arrays, keep four 64-bit limb accumulators (exact, no carries), reduce
+// them by shuffles and lane 0 reduces the sum modulo p once.  The terms
+// are g-sorted, so a warp's segment is contiguous.
+#include "fp128.cuh"
+
+__global__ void k_fp_segment_sum(int mode, uint4* __restrict__ out,
+                                 int* __restrict__ bad,
+                                 const uint4* __restrict__ x,
+                                 const uint4* __restrict__ W,
+                                 const int* __restrict__ h0,
+                                 const int* __restrict__ h1,
+                                 const uint4* __restrict__ v,
+                                 const unsigned char* __restrict__ bmask,
+                                 const int* __restrict__ starts,
+                                 const int* __restrict__ ends, int nseg) {
+  int seg = (int)(((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5);
+  int lane = threadIdx.x & 31;
+  if (seg >= nseg) return;  // the whole warp leaves together
+  u64 acc[4] = {0, 0, 0, 0};
+  int e = ends[seg];
+  for (int t = starts[seg] + lane; t < e; t += 32) {
+    if (mode == 0) {
+      fp_acc(acc, fp_load(x, t));
+    } else {
+      Fp prod = fp_mul(fp_load(W, h1[t]), fp_load(W, h0[t]));
+      if (bmask[t]) {
+        if (!fp_is_zero(prod)) *bad = 1;
+      } else {
+        fp_acc(acc, fp_mul(prod, fp_load(v, t)));
+      }
+    }
+  }
+  warp_sum4(acc);
+  if (lane == 0) fp_store(out, seg, fp_reduce_acc(acc));
+}
+
+extern "C" int fp_segment_sum(int mode, void* out, void* bad, const void* x,
+                              const void* W, const void* h0, const void* h1,
+                              const void* v, const void* bmask,
+                              const void* starts, const void* ends, int nseg,
+                              void* stream) {
+  if (nseg <= 0) return 0;
+  const int threads = 256;
+  long long blocks = ((long long)nseg * 32 + threads - 1) / threads;
+  k_fp_segment_sum<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+      mode, (uint4*)out, (int*)bad, (const uint4*)x, (const uint4*)W,
+      (const int*)h0, (const int*)h1, (const uint4*)v,
+      (const unsigned char*)bmask, (const int*)starts, (const int*)ends,
+      nseg);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,59 @@
+"""Carrying state between the JAX package's layout and this package's.
+
+The JAX package holds an Fp128 tensor as uint32[8, ...]: eight 16-bit
+limbs on the leading axis.  This package holds it as int32[..., 4]: four
+32-bit limbs on the trailing axis.  Both are Montgomery form with
+R = 2^128, so the conversion moves bits and changes no value.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from ..sumcheck.circuit import Circuit, Layer, Quad
+
+
+def limbs_from_jax(arr: np.ndarray) -> torch.Tensor:
+    """uint32[8, ...] (16-bit limbs, leading) -> int32[..., 4] (CPU)."""
+    a = np.asarray(arr, dtype=np.uint32)
+    assert a.shape[0] == 8, a.shape
+    w = (a[0::2] & np.uint32(0xFFFF)) | ((a[1::2] & np.uint32(0xFFFF))
+                                         << np.uint32(16))
+    w = np.ascontiguousarray(np.moveaxis(w, 0, -1)).view(np.int32)
+    return torch.from_numpy(w.copy())
+
+
+def limbs_to_jax(t: torch.Tensor) -> np.ndarray:
+    """int32[..., 4] -> uint32[8, ...] (16-bit limbs, leading)."""
+    w = np.ascontiguousarray(t.detach().cpu().numpy()).view(np.uint32)
+    assert w.shape[-1] == 4, w.shape
+    lo = w & np.uint32(0xFFFF)
+    hi = w >> np.uint32(16)
+    out = np.stack([lo, hi], axis=-1).reshape(w.shape[:-1] + (8,))
+    return np.ascontiguousarray(np.moveaxis(out, -1, 0))
+
+
+def circuit_from_arrays(F, nv: int, nc: int, ninputs: int, npub_in: int,
+                        layers: Sequence[dict], subfield_boundary: int = 0,
+                        circuit_id: bytes = b"\x00" * 32) -> Circuit:
+    """This package's Circuit from numpy arrays.  Each layer is a dict with
+    nw, logw, and per term g, h0, h1 (integer arrays) and v (uint32[8, T]
+    JAX Montgomery limbs of the term constants; 0 marks an assert-zero
+    term)."""
+    out = []
+    for ly in layers:
+        v = F.from_limbs(limbs_from_jax(ly["v"]))
+        out.append(Layer(nw=int(ly["nw"]), logw=int(ly["logw"]),
+                         quad=Quad(g=np.asarray(ly["g"]),
+                                   h0=np.asarray(ly["h0"]),
+                                   h1=np.asarray(ly["h1"]),
+                                   v=[int(x) for x in np.ravel(v)])))
+    logv = (nv - 1).bit_length() if nv > 1 else 0
+    logc = (nc - 1).bit_length() if nc > 1 else 0
+    return Circuit(nv=nv, logv=logv, nc=nc, logc=logc, nl=len(out),
+                   ninputs=ninputs, npub_in=npub_in,
+                   subfield_boundary=subfield_boundary, layers=out,
+                   id=circuit_id)

@@ -1,0 +1,137 @@
+"""Build, load and launch the port's hand-written CUDA kernels.
+
+Each source under `csrc/` is compiled by its own `nvcc` (all started
+together) into a shared library with a plain C interface, in the
+package's ignored build directory `_build/`, at first use; the libraries
+are loaded with ctypes.  Nothing here runs when the package is imported.
+
+    K1 fp_elementwise  csrc/fp_ops.cu      fields/fp.py
+    K2 fp_segment_sum  csrc/segsum.cu      fields/fp.py
+    K3 fp_wire_round   csrc/wire_round.cu  fields/fp.py
+    K4 fp_ntt          csrc/ntt.cu         transforms/ntt.py
+
+`LAUNCHES` counts, per kernel, the CUDA launches its wrapper made; a run
+sets the counts to zero with `reset_launches()` and reads them after.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import threading
+
+import torch
+
+from .native import PKG_DIR, build_dir
+
+CSRC = os.path.join(PKG_DIR, "csrc")
+HEADER = os.path.join(CSRC, "fp128.cuh")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_LL = ctypes.c_longlong
+
+# kernel name -> (source, C entry point, argtypes)
+KERNELS = {
+    "fp_elementwise": ("fp_ops.cu", "fp_elementwise",
+                       [_I, _P, _P, _P, _P, _LL, _LL, _LL, _LL, _P]),
+    "fp_segment_sum": ("segsum.cu", "fp_segment_sum",
+                       [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P]),
+    "fp_wire_round": ("wire_round.cu", "fp_wire_round",
+                      [_I, _P, _P, _P, _P, _P, _P, _P, _LL, _LL, _LL, _LL,
+                       _I, _P]),
+    "fp_ntt": ("ntt.cu", "fp_ntt", [_P, _P, _P, _LL, _I, _P]),
+}
+
+LAUNCHES = {name: 0 for name in KERNELS}
+
+_lock = threading.Lock()
+_fns = {}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def nvcc_path() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def _lib_path(src: str) -> str:
+    return os.path.join(build_dir(), "lib" + src.replace(".cu", ".so"))
+
+
+def _stale(src: str) -> bool:
+    out = _lib_path(src)
+    if not os.path.exists(out):
+        return True
+    newest = max(os.path.getmtime(os.path.join(CSRC, src)),
+                 os.path.getmtime(HEADER))
+    return os.path.getmtime(out) < newest
+
+
+def build_all(verbose: bool = False) -> dict:
+    """Compiles every stale kernel library, one nvcc per source, all in
+    parallel.  Returns {source: compiler output}; raises on a failure."""
+    nvcc = nvcc_path()
+    srcs = sorted({src for src, _, _ in KERNELS.values()})
+    procs = {}
+    for src in srcs:
+        if not _stale(src):
+            continue
+        tmp = "%s.%d.tmp" % (_lib_path(src), os.getpid())
+        cmd = [nvcc] + NVCC_FLAGS + (["-Xptxas", "-v"] if verbose else []) + \
+            ["-o", tmp, os.path.join(CSRC, src)]
+        procs[src] = (tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    logs, failed = {}, []
+    for src, (tmp, proc) in procs.items():
+        logs[src] = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(src)
+        else:
+            os.replace(tmp, _lib_path(src))
+    if failed:
+        raise RuntimeError("nvcc failed for %s:\n%s" % (
+            ", ".join(failed), "\n".join(logs[s] for s in failed)))
+    return logs
+
+
+def _fn(name: str):
+    fn = _fns.get(name)
+    if fn is not None:
+        return fn
+    with _lock:
+        if name not in _fns:
+            src, entry, argtypes = KERNELS[name]
+            if _stale(src):
+                build_all()
+            lib = ctypes.CDLL(_lib_path(src))
+            f = getattr(lib, entry)
+            f.argtypes = argtypes
+            f.restype = ctypes.c_int
+            lib.lfzk_cuda_error_string.argtypes = [ctypes.c_int]
+            lib.lfzk_cuda_error_string.restype = ctypes.c_char_p
+            _fns[name] = (f, lib.lfzk_cuda_error_string)
+    return _fns[name]
+
+
+def launch(name: str, nlaunches: int, *args) -> None:
+    """Calls kernel `name`'s C entry point (which makes `nlaunches` CUDA
+    launches on the current stream) and raises on a launch error."""
+    f, errstr = _fn(name)
+    rc = f(*args, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError("%s: CUDA launch failed: %s"
+                           % (name, errstr(rc).decode()))
+    LAUNCHES[name] += nlaunches

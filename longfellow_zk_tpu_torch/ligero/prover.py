@@ -1,0 +1,217 @@
+"""Ligero prover: commit (RS-encoded tableau + Merkle column hashes) and
+prove (low-degree / linear / quadratic tests + column openings).
+
+Port of the JAX package's ligero/prover.py, semantic twin of reference
+lib/ligero/ligero_prover.h:34-356.  Every tableau row group with the same
+input width is encoded in one batched RS call (K4 NTTs and K1 scalings);
+the tableau stays on the device.  The columns are hashed on the host
+(native SHA-256), which gives the root of the JAX package's device route.
+The responses (y_ldt / y_dot / y_quad) are row combinations in K1 and
+column sums in K3; the column openings are a gather.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Sequence
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..merkle.merkle import MerkleCommitment, NONCE_LEN
+from ..utils.crypto import sha256
+from .param import (
+    LigeroCommitment,
+    LigeroParam,
+    LigeroProof,
+    inner_product_vector,
+    layout_Aext,
+)
+from .transcript import (
+    gen_alphal,
+    gen_alphaq,
+    gen_idx,
+    gen_uldt,
+    gen_uquad,
+    write_commitment,
+)
+
+
+class LigeroProver:
+    def __init__(self, p: LigeroParam, F, rs_factory: Callable, device=None):
+        """rs_factory(n, m) -> encoder with .interpolate([..., n, 4])
+        returning [..., m, 4] on `device`."""
+        self.p = p
+        self.F = F
+        self.rs_factory = rs_factory
+        self.device = resolve_device(device)
+        self.mc = MerkleCommitment(p.block_ext)
+        self.tableau = None  # [nrow, block_enc, 4] Montgomery limbs
+
+    # ------------------------------------------------------------------
+
+    def _commit_prep(self, W_host: Sequence, subfield_boundary: int, lqc,
+                     rng):
+        """Host-side tableau-row construction (witness blocks, blinding
+        rows, quadratic triples, nonces), consuming `rng` in the JAX
+        package's order.  Returns host ints: (block rows, dblock rows,
+        nonces)."""
+        p, F = self.p, self.F
+        for i in range(subfield_boundary):
+            assert F.in_subfield(W_host[i]), "element not in subfield"
+
+        zero = F.of_scalar(0)
+
+        def rand_row(n):
+            return [F.sample(rng.bytes) for _ in range(n)]
+
+        def rand_subfield_row(n):
+            return [F.sample_subfield(rng.bytes) for _ in range(n)]
+
+        # --- block-width rows (ildt, witness, quadratic) ---
+        block_rows = []  # list of [block] host scalars
+        # ildt
+        block_rows.append(rand_row(p.block))
+        # witness rows
+        for i in range(p.nwrow):
+            subfield_only = (i + 1) * p.w <= subfield_boundary
+            blinds = rand_subfield_row(p.r) if subfield_only else rand_row(p.r)
+            chunk = list(W_host[i * p.w : min((i + 1) * p.w, p.nw)])
+            chunk += [zero] * (p.w - len(chunk))
+            block_rows.append(blinds + chunk)
+        # quadratic rows x, y, z
+        qx, qy, qz = [], [], []
+        for i in range(p.nqtriples):
+            bx, by, bz = rand_row(p.r), rand_row(p.r), rand_row(p.r)
+            cx = [zero] * p.w
+            cy = [zero] * p.w
+            cz = [zero] * p.w
+            for j in range(p.w):
+                iw = j + i * p.w
+                if iw >= p.nq:
+                    break
+                l = lqc[iw]
+                assert W_host[l.z] == F.mul_i(W_host[l.x], W_host[l.y]), \
+                    "invalid quadratic constraints"
+                cx[j] = W_host[l.x]
+                cy[j] = W_host[l.y]
+                cz[j] = W_host[l.z]
+            qx.append(bx + cx)
+            qy.append(by + cy)
+            qz.append(bz + cz)
+        block_rows += qx + qy + qz
+
+        # --- dblock-width rows (idot, iquad) ---
+        # dot-blinding row constrained so the W part sums to zero
+        # (ligero_prover.h:188-194): subtract the W-part sum from W[0]
+        idot = rand_row(p.dblock)
+        s = zero
+        for v in idot[p.r : p.r + p.w]:
+            s = F.add_i(s, v)
+        idot[p.r] = F.sub_i(idot[p.r], s)
+        iquad = rand_row(p.dblock)
+        for j in range(p.w):
+            iquad[p.r + j] = zero
+
+        nonces = [rng.bytes(NONCE_LEN) for _ in range(p.block_ext)]
+        return block_rows, [idot, iquad], nonces
+
+    def commit(self, ts, W_host: Sequence, subfield_boundary: int, lqc,
+               rng) -> LigeroCommitment:
+        """Build and encode the tableau, Merkle-commit its columns
+        (ligero_prover.h:58-79)."""
+        p, F, dev = self.p, self.F, self.device
+        block_rows, dblock_rows, nonces = self._commit_prep(
+            W_host, subfield_boundary, lqc, rng)
+        arr_b = F.to_limbs([v for row in block_rows for v in row],
+                           dev).reshape(len(block_rows), p.block, -1)
+        arr_d = F.to_limbs([v for row in dblock_rows for v in row],
+                           dev).reshape(2, p.dblock, -1)
+        enc_b = self.rs_factory(p.block, p.block_enc).interpolate(arr_b)
+        enc_d = self.rs_factory(p.dblock, p.block_enc).interpolate(arr_d)
+        # row order [ildt, idot, iquad, iw.., iq..]
+        self.tableau = torch.cat([enc_b[:1], enc_d, enc_b[1:]])
+        # natural-form little-endian bytes of the extension columns
+        nat = F.from_mont(self.tableau[:, p.dblock :].contiguous())
+        raw = nat.cpu().numpy().view(np.uint8)  # [nrow, block_ext, 16]
+        cols = np.ascontiguousarray(
+            raw[:, :, : F.kBytes].transpose(1, 0, 2)).reshape(
+                p.block_ext, -1)
+        leaves = [sha256(nonces[j] + cols[j].tobytes())
+                  for j in range(p.block_ext)]
+        root = self.mc.commit_leaves(leaves, nonces)
+        commitment = LigeroCommitment(root=root)
+        write_commitment(commitment, ts)
+        return commitment
+
+    # ------------------------------------------------------------------
+
+    def _responses(self, u_ldt, A_rows, u_quad):
+        """The three Ligero tests (ligero_prover.h:283-350) over the
+        resident tableau: (y_ldt, y_dot, y_quad) tensors."""
+        p, F, T = self.p, self.F, self.tableau
+        wrows = T[p.iw : p.iw + p.nwqrow]
+        # low-degree test: ildt + sum_i u_i * w_i over [0, block)
+        t0 = F.mul(wrows[:, : p.block].contiguous(), u_ldt[:, None])
+        y_ldt = F.add(T[p.ildt, : p.block].contiguous(), F.lazy_sum(t0, 0))
+        # dot test: idot + sum_i Aext_i o w_i over [0, dblock)
+        aext = self.rs_factory(p.block, p.dblock).interpolate(A_rows)
+        t1 = F.mul(aext, wrows[:, : p.dblock].contiguous())
+        y_dot = F.add(T[p.idot, : p.dblock].contiguous(), F.lazy_sum(t1, 0))
+        # quadratic test: iquad + sum_i u_i * (z_i - x_i o y_i)
+        nqt = p.nqtriples
+        xr = T[p.iq : p.iq + nqt, : p.dblock].contiguous()
+        yr = T[p.iq + nqt : p.iq + 2 * nqt, : p.dblock].contiguous()
+        zr = T[p.iq + 2 * nqt : p.iq + 3 * nqt, : p.dblock].contiguous()
+        t2 = F.mul(F.sub(zr, F.mul(xr, yr)), u_quad[:, None])
+        y_quad = F.add(T[p.iquad, : p.dblock].contiguous(),
+                       F.lazy_sum(t2, 0))
+        return y_ldt, y_dot, y_quad
+
+    def prove(self, ts, nl: int, llterm, hash_of_llterm: bytes, lqc
+              ) -> LigeroProof:
+        """(ligero_prover.h:84-146)."""
+        p, F, dev = self.p, self.F, self.device
+        proof = LigeroProof()
+
+        ts.write_bytes(hash_of_llterm)
+
+        # All response challenges come from one squeeze phase (no writes
+        # between them, ligero_transcript.h).
+        u_ldt = gen_uldt(p, ts, F)
+        alphal = gen_alphal(nl, ts, F)
+        alphaq = gen_alphaq(p, ts, F)
+        A = inner_product_vector(F, p, nl, llterm, alphal, lqc, alphaq)
+        u_quad = gen_uquad(p, ts, F)
+
+        A_rows = F.to_limbs([v for i in range(p.nwqrow)
+                             for v in layout_Aext(F, p, i, A)],
+                            dev).reshape(p.nwqrow, p.block, -1)
+        y_ldt, y_dot, y_quad = self._responses(
+            F.to_limbs(u_ldt, dev), A_rows, F.to_limbs(u_quad, dev))
+        got = F.from_limbs(torch.cat([y_ldt, y_dot, y_quad]))
+        yq = got[p.block + p.dblock :]
+        assert all(v == 0 for v in yq[p.r : p.r + p.w]), \
+            "W part of y_quad is nonzero"
+
+        proof.y_ldt = list(got[: p.block])
+        proof.y_dot = list(got[p.block : p.block + p.dblock])
+        proof.y_quad_0 = list(yq[: p.r])
+        proof.y_quad_2 = list(yq[p.block : p.dblock])
+
+        # P -> V responses
+        ts.write_elts(proof.y_ldt, F)
+        ts.write_elts(proof.y_dot, F)
+        ts.write_elts(proof.y_quad_0, F)
+        ts.write_elts(proof.y_quad_2, F)
+
+        # column openings: a gather, one fetch
+        idx = gen_idx(p, ts, F)
+        idx_d = torch.as_tensor(np.asarray(idx, np.int64) + p.dblock,
+                                device=dev)
+        colv = F.from_limbs(self.tableau[:, idx_d])  # [nrow, nreq] ints
+        proof.req = [list(colv[i]) for i in range(p.nrow)]
+        path, nonces = self.mc.open(idx)
+        proof.merkle_path = path
+        proof.merkle_nonce = nonces
+        return proof

@@ -1,0 +1,336 @@
+"""Layered sumcheck prover (GKR wire rounds), rounds on the card.
+
+Port of the JAX package's sumcheck/prover_device.py, semantic twin of the
+reference ProverLayers (lib/sumcheck/prover_layers.h:37-497).  The
+control flow and the host transcript follow the JAX host prover
+(sumcheck/prover.py:128-270): one `TranscriptSumcheck.round` per
+hand-round, on the host.  The round math follows prover_device.py, on
+tensors, through the kernels:
+
+  - circuit evaluation, V[g] = sum v * W[h1] * W[h0] with the beta-mask
+    zero check: K2 (fp_eval_layer);
+  - the layer prologue (EQ tables, hv = vq * dot[g]): K1;
+  - per hand-round, with z_t = hv_t * W_o[ho_t],
+        a0 = sum_{t: h_t even} z_t * W_h[h_t]
+        a2 = sum_t (-1)^(h_t+1) * z_t * (W_h[h_t|1] - W_h[h_t & ~1])
+    in K3 (fp_wire_sums); then the bind of W_h and the hv update in K1;
+  - wire-round term merging (terms with equal (h0, h1) summed into one,
+    a host schedule from _wire_merge_plan): K2 (contiguous folds);
+  - bound_quad, the sum of the fully bound hv: K3.
+
+Arrays keep their padded power-of-two length with a zero tail, as in
+the JAX package.  Only circuits with one copy (logc = 0) are supported:
+copy rounds are not ported yet.
+
+Proof bytes equal the JAX package's (tests/test_torch_sumcheck.py).
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..fields.fp import fp_eval_layer, fp_wire_sums
+from .circuit import Circuit, LayerProof, Proof, ProofAux
+from .poly import eval_lagrange, evals_of_coefs, poly_sub
+
+
+def _eq_dev(F, logn: int, n: int, q: List, device) -> torch.Tensor:
+    """EQ[Q, i] for 0 <= i < n as a tensor [n, 4], from host challenges
+    q (>= logn of them), by logn interleave steps (eqs.h:104-134)."""
+    eq = F.to_limbs([F.of_scalar(1)], device)
+    if logn == 0:
+        return eq[:n]
+    qd = F.to_limbs(list(q[:logn]), device)
+    sizes = [n]
+    for _ in range(logn):
+        sizes.append((sizes[-1] + 1) // 2)
+    for l in range(logn - 1, -1, -1):
+        hi = F.mul(eq, qd[l])
+        lo = F.sub(eq, hi)
+        eq = torch.stack([lo, hi], dim=-2).reshape(-1, lo.shape[-1])
+        eq = eq[: sizes[l]]
+    return eq
+
+
+def _raw_eq2_dev(F, logn: int, n: int, g0: List, g1: List, alpha,
+                 device) -> torch.Tensor:
+    """EQ(G0, i) + alpha * EQ(G1, i) (eqs.h:46-53)."""
+    e0 = _eq_dev(F, logn, n, g0, device)
+    e1 = _eq_dev(F, logn, n, g1, device)
+    return F.add(e0, F.mul(e1, F.to_limbs(alpha, device)))
+
+
+def _wire_merge_plan(h0: np.ndarray, h1: np.ndarray, logw: int):
+    """Host-side static schedule for wire-round term merging.
+
+    Terms with equal (h0, h1) behave identically for the rest of the
+    layer (their hv updates and a0/a2 contributions depend only on the
+    index bits), so they can be summed into one.  As rounds shift the
+    indices right, more pairs collide.  Sorting once by the MSB-first
+    Morton interleave of (h0, h1) makes every merge a CONTIGUOUS segment
+    fold.
+
+    Returns (perm, stages): perm int32[T]; stages = list of
+    (nrounds, starts, ends, h0_rep, h1_rep) with nrounds summing to
+    logw; stage s folds stage (s-1)'s arrays."""
+    T = len(h0)
+    key = np.zeros(T, np.int64)
+    for b in range(logw):
+        key |= ((h0.astype(np.int64) >> b) & 1) << (2 * b + 1)
+        key |= ((h1.astype(np.int64) >> b) & 1) << (2 * b)
+    perm = np.argsort(key, kind="stable").astype(np.int32)
+    skey = key[perm]
+    sh0, sh1 = h0[perm].astype(np.int32), h1[perm].astype(np.int32)
+
+    # unique counts per shift
+    uniq = [len(np.unique(skey >> np.int64(2 * k)))
+            for k in range(logw + 1)]
+
+    # Stage policy (the JAX package's, kept so both run the same
+    # schedule): the initial dedup, plus one re-merge only when the pair
+    # count drops hard AND stays big enough to matter.
+    shifts = [0]
+    k2 = next((k for k in range(1, logw - 1)
+               if uniq[k] * 6 <= uniq[0]), None)
+    if k2 is not None and uniq[0] >= 262_144:
+        shifts.append(k2)
+
+    stages = []
+    prev_key = skey
+    prev_h0, prev_h1 = sh0, sh1
+    prev_n = T
+    for si, k in enumerate(shifts):
+        rel = k - (shifts[si - 1] if si else 0)
+        gk = prev_key >> np.int64(2 * rel)
+        _, starts = np.unique(gk, return_index=True)
+        starts = np.sort(starts).astype(np.int32)
+        ends = np.append(starts[1:], prev_n).astype(np.int32)
+        h0_rep = (prev_h0[starts] >> rel).astype(np.int32)
+        h1_rep = (prev_h1[starts] >> rel).astype(np.int32)
+        nrounds = (shifts[si + 1] if si + 1 < len(shifts) else logw) - k
+        stages.append((nrounds, starts, ends, h0_rep, h1_rep))
+        prev_key, prev_h0, prev_h1 = gk[starts], h0_rep, h1_rep
+        prev_n = len(starts)
+    assert sum(s[0] for s in stages) == logw
+    return perm, stages
+
+
+class SumcheckProver:
+    """Sumcheck prover over one-copy circuits; tensors on `device`."""
+
+    # terms below this count aren't worth the merge prologue
+    K_MERGE_MIN_TERMS = 4096
+
+    def __init__(self, F, device=None):
+        self.F = F
+        self.device = resolve_device(device)
+
+    # ------------------------------------------------------------------
+    # per-quad tensors, uploaded once per device
+    # ------------------------------------------------------------------
+
+    def _quad_dev(self, quad) -> dict:
+        cache = quad.__dict__.setdefault("_torch_cache", {})
+        key = ("quad", str(self.device))
+        if key not in cache:
+            F, dev = self.F, self.device
+            g = np.asarray(quad.g, dtype=np.int64)
+            h0 = np.asarray(quad.h0, dtype=np.int64)
+            h1 = np.asarray(quad.h1, dtype=np.int64)
+            bmask = np.asarray(quad.beta_mask())
+            if quad.kidx is not None:
+                tbl = F.to_limbs([1 if x == 0 else x for x in quad.ktable],
+                                 dev)
+                kidx = np.asarray(quad.kidx, dtype=np.int64)
+            else:
+                tbl = F.to_limbs([1 if x == 0 else x for x in quad.v], dev)
+                kidx = np.arange(len(g), dtype=np.int64)
+            order = np.argsort(g, kind="stable")
+            g, h0, h1, bmask, kidx = (g[order], h0[order], h1[order],
+                                      bmask[order], kidx[order])
+            cache[key] = dict(
+                g=torch.as_tensor(g, device=dev),
+                h0=torch.as_tensor(h0.astype(np.int32), device=dev),
+                h1=torch.as_tensor(h1.astype(np.int32), device=dev),
+                v=tbl[torch.as_tensor(kidx, device=dev)].contiguous(),
+                bmask=torch.as_tensor(bmask, device=dev),
+                g_np=g, h0_np=h0, h1_np=h1)
+        return cache[key]
+
+    def _segments(self, quad, nv: int):
+        """(starts, ends) int32 [nv]: output wire g's terms in g order."""
+        cache = quad.__dict__.setdefault("_torch_cache", {})
+        key = ("seg", str(self.device), nv)
+        if key not in cache:
+            g = self._quad_dev(quad)["g_np"]
+            wires = np.arange(nv)
+            cache[key] = tuple(
+                torch.as_tensor(np.searchsorted(g, wires, side=side)
+                                .astype(np.int32), device=self.device)
+                for side in ("left", "right"))
+        return cache[key]
+
+    def _wm_for(self, quad, logw: int):
+        """Device arrays of the term-merge plan, or None below the
+        K_MERGE_MIN_TERMS threshold."""
+        cache = quad.__dict__.setdefault("_torch_cache", {})
+        key = ("wm", str(self.device), logw, self.K_MERGE_MIN_TERMS)
+        if key not in cache:
+            qd = self._quad_dev(quad)
+            if len(qd["h0_np"]) < self.K_MERGE_MIN_TERMS:
+                cache[key] = None
+            else:
+                perm, stages = _wire_merge_plan(qd["h0_np"], qd["h1_np"],
+                                                logw)
+                dev = self.device
+
+                def t(a):
+                    return torch.as_tensor(a, device=dev)
+
+                cache[key] = dict(
+                    perm=t(perm.astype(np.int64)),
+                    stages=[(nr, t(s), t(e), t(h0r), t(h1r))
+                            for nr, s, e, h0r, h1r in stages])
+        return cache[key]
+
+    # ------------------------------------------------------------------
+    # circuit evaluation
+    # ------------------------------------------------------------------
+
+    def _eval(self, circ: Circuit, W0: torch.Tensor):
+        """(inputs per layer, final V, ok) with ok a 0-dim bool tensor."""
+        if circ.logc > 0:
+            raise NotImplementedError("copy rounds (logc > 0) are not ported")
+        F = self.F
+        nl = circ.nl
+        inputs: List = [None] * nl
+        inputs[nl - 1] = W0
+        W = W0
+        oks = []
+        for l in range(nl - 1, -1, -1):
+            nv = circ.layers[l - 1].nw if l > 0 else circ.nv
+            qd = self._quad_dev(circ.layers[l].quad)
+            starts, ends = self._segments(circ.layers[l].quad, nv)
+            W, ok = fp_eval_layer(F, W, qd["h0"], qd["h1"], qd["v"],
+                                  qd["bmask"], starts, ends)
+            oks.append(ok)
+            if l > 0:
+                inputs[l - 1] = W
+        return inputs, W, torch.stack(oks).all()
+
+    def eval_circuit(self, circ: Circuit, W0: torch.Tensor):
+        """W0: [ninputs, 4].  Returns (inputs per layer, final V), or
+        (None, None) if an assert-zero term fails."""
+        inputs, V, ok = self._eval(circ, W0)
+        if not bool(ok.item()):
+            return None, None
+        return inputs, V
+
+    # ------------------------------------------------------------------
+    # proving
+    # ------------------------------------------------------------------
+
+    def prove_with_witness(self, circ: Circuit, W0: torch.Tensor, ts,
+                           pad: Optional[Proof] = None,
+                           with_aux: bool = False):
+        """Circuit evaluation + sumcheck.  Returns (proof, aux, bindings),
+        or (None, None, None) if the witness does not satisfy the circuit
+        (then the transcript is left untouched)."""
+        inputs, V, ok = self._eval(circ, W0)
+        if not bool((ok & (V == 0).all()).item()):
+            return None, None, None
+        return self.prove(circ, inputs, ts, pad=pad, with_aux=with_aux)
+
+    def prove(self, circ: Circuit, inputs: List, ts,
+              pad: Optional[Proof] = None, with_aux: bool = False):
+        """The sumcheck proof (prover_layers.h:114-166).  ts is a
+        TranscriptSumcheck.  Returns (proof, aux, bindings) with bindings
+        = dict(q=[], g=[g0, g1], logv=...) for the caller."""
+        if circ.logc > 0:
+            raise NotImplementedError("copy rounds (logc > 0) are not ported")
+        F = self.F
+        _q, g_full = ts.begin_circuit()
+        bnd_g = [g_full, list(g_full)]
+        logv = circ.logv
+        WC = [F.of_scalar(0), F.of_scalar(0)]
+        proof = Proof()
+        aux = ProofAux() if with_aux else None
+        for ly, layer in enumerate(circ.layers):
+            lp, bnd_g, WC = self._layer(
+                ts, pad.layers[ly] if pad else None, layer, logv, bnd_g,
+                inputs[ly], WC)
+            proof.layers.append(lp)
+            if with_aux:
+                aux.bound_quad.append(lp._bound_quad)
+            logv = layer.logw
+        return proof, aux, dict(q=[], g=bnd_g, logv=logv)
+
+    def _layer(self, ts, pad_lp, layer, logv: int, bnd_g, W, WC):
+        """One layer (prover_layers.h:185-271): the prologue, logw wire
+        rounds of two hands each, and the final claims.
+        Returns (LayerProof, [g0, g1] challenges, [wc0, wc1])."""
+        F, dev = self.F, self.device
+        alpha, beta = ts.begin_layer()
+        claim = F.add_i(WC[0], F.mul_i(alpha, WC[1]))
+        qd = self._quad_dev(layer.quad)
+        dot = _raw_eq2_dev(F, logv, 1 << logv, bnd_g[0][:logv],
+                           bnd_g[1][:logv], alpha, dev)
+        vq = torch.where(qd["bmask"][:, None], F.to_limbs(beta, dev),
+                         qd["v"])
+        hv = F.mul(vq, dot[qd["g"]])
+        # one copy: the copy EQ array is [1]
+        eq0 = F.of_scalar(1)
+
+        N = 1 << layer.logw
+        Wh = torch.cat([W, F.zeros((N - W.shape[0],), dev)])
+        WH = [Wh, Wh]
+        plan = self._wm_for(layer.quad, layer.logw)
+        if plan is None:
+            stages = [(layer.logw, None, None, qd["h0"], qd["h1"])]
+        else:
+            hv = hv[plan["perm"]]
+            stages = plan["stages"]
+
+        lp = LayerProof(cp=[], hp=[[], []], wc=[None, None])
+        g_ch: List[List] = [[], []]
+        rnd = 0
+        for nr, starts, ends, h0, h1 in stages:
+            if starts is not None:
+                hv = F.lazy_segment_sum(hv, starts, ends)
+            h = [h0, h1]
+            for _ in range(nr):
+                for hand in range(2):
+                    a = fp_wire_sums(F, hv, WH[hand], WH[1 - hand], h[hand],
+                                     h[1 - hand])
+                    a0, a2 = F.from_limbs(a)
+                    c0 = F.mul_i(eq0, a0)
+                    c2 = F.mul_i(eq0, a2)
+                    c1 = F.sub_i(F.sub_i(F.sub_i(claim, c0), c0), c2)
+                    raw = evals_of_coefs(F, [c0, c1, c2])
+                    evals = raw if pad_lp is None else \
+                        poly_sub(F, raw, pad_lp.hp[hand][rnd])
+                    lp.hp[hand].append(evals)
+                    r = ts.round(evals)
+                    g_ch[hand].append(r)
+                    claim = eval_lagrange(F, raw, r)
+                    r_t = F.to_limbs(r, dev)
+                    WH[hand] = F.bind(WH[hand], r_t)
+                    hv = F.hv_update(hv, h[hand], r_t)
+                    h[hand] = h[hand] >> 1
+                rnd += 1
+
+        bq = F.lazy_sum(hv, 0)
+        wc0, wc1, bq = F.from_limbs(torch.stack([WH[0][0], WH[1][0], bq]))
+        expected = F.mul_i(eq0, F.mul_i(bq, F.mul_i(wc0, wc1)))
+        assert claim == expected, "sum != eq0*quad*wl*wr"
+        tt = [wc0, wc1]
+        if pad_lp is not None:
+            tt = [F.sub_i(wc0, pad_lp.wc[0]), F.sub_i(wc1, pad_lp.wc[1])]
+        lp.wc = tt
+        lp._bound_quad = bq
+        ts.write_elts(tt)
+        return lp, g_ch, [wc0, wc1]

@@ -1,0 +1,89 @@
+"""The port stands alone: importing every module of longfellow_zk_tpu_torch
+loads neither JAX nor any module of the JAX package, and its entry points
+refuse to run without a card unless the caller asks for the CPU.  Run in
+a subprocess with `jax` blocked (sys.modules["jax"] = None)."""
+
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_CHECK = r"""
+import importlib, os, pkgutil, sys
+sys.modules["jax"] = None          # any import of jax now fails
+sys.path.insert(0, %(repo)r)
+import longfellow_zk_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m == "jax" and sys.modules[m] is not None
+             or m.startswith("jax.") or m.startswith("jaxlib")
+             or m == "longfellow_zk_tpu" or m.startswith("longfellow_zk_tpu."))
+assert not bad, bad
+import torch
+assert not torch.cuda.is_available()
+from longfellow_zk_tpu_torch.fields.fp_instances import fp128, P128_OMEGA, P128_OMEGA_ORDER
+from longfellow_zk_tpu_torch.sumcheck.prover import SumcheckProver
+from longfellow_zk_tpu_torch.zk.testing import rs_factory_for
+for make in (lambda: SumcheckProver(fp128()),
+             lambda: rs_factory_for(fp128(), P128_OMEGA, P128_OMEGA_ORDER)):
+    try:
+        make()
+    except RuntimeError as e:
+        assert "no CUDA device" in str(e)
+    else:
+        raise AssertionError("an entry point ran without a card")
+SumcheckProver(fp128(), device="cpu")
+print("IMPORTED", len(names))
+"""
+
+
+def _run(code, cwd):
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    return subprocess.run([sys.executable, "-c", code], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=300)
+
+
+def test_port_imports_no_jax_and_needs_a_device():
+    r = _run(_CHECK % {"repo": REPO}, REPO)
+    assert r.returncode == 0, r.stderr
+    assert "IMPORTED" in r.stdout
+
+
+def test_chip_smoke_imports_no_jax_and_refuses_the_cpu(tmp_path):
+    """chip_smoke.py with JAX blocked and no card: exits non-zero with no
+    result line, and the failure is not an import of JAX."""
+    code = ("import runpy, sys\nsys.modules['jax'] = None\n"
+            "sys.argv = ['chip_smoke.py']\n"
+            "runpy.run_path(%r, run_name='__main__')\n"
+            % os.path.join(REPO, "chip_smoke.py"))
+    r = _run(code, str(tmp_path))
+    assert r.returncode != 0
+    assert '"ok": true' not in r.stdout
+    assert "jax" not in r.stderr.lower()
+
+
+def test_sources_import_no_jax():
+    """No import statement of the port or of chip_smoke.py names JAX or a
+    module of the JAX package."""
+    import ast
+
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(os.path.join(REPO, "longfellow_zk_tpu_torch")):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    for path in files:
+        with open(path) as f:
+            tree = ast.parse(f.read())
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                mods = [node.module or ""] if node.level == 0 else []
+            else:
+                continue
+            for m in mods:
+                assert not (m == "jax" or m.startswith(("jax.", "jaxlib"))
+                            or m == "longfellow_zk_tpu"
+                            or m.startswith("longfellow_zk_tpu.")), (path, m)

@@ -1,0 +1,130 @@
+"""The port's CUDA kernels (K1-K4) against their plain PyTorch versions,
+on the card.  Field arithmetic is exact: equality, tolerance 0.
+
+These tests need an NVIDIA GPU and nvcc; without a card they skip.  On a
+machine with one (and no JAX, which tests/conftest.py imports):
+
+    python -m pytest tests/test_torch_kernels.py --noconftest -o addopts="" -m cuda -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from longfellow_zk_tpu_torch import kernels
+from longfellow_zk_tpu_torch.fields import fp as fpm
+from longfellow_zk_tpu_torch.fields.fp_instances import (
+    P128_OMEGA, P128_OMEGA_ORDER, fp128)
+from longfellow_zk_tpu_torch.transforms.ntt import NTT, fp_ntt, ntt_plain
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the kernels run only on the card")
+    kernels.build_all()
+    return torch.device("cuda")
+
+
+def _elts(F, rng, n, dev):
+    """n field elements from a numpy seed, with 0, 1 and p - 1 first."""
+    vals = [0, 1, F.p - 1] + [
+        int.from_bytes(rng.bytes(16), "little") % F.p for _ in range(n)]
+    return F.to_limbs(vals[:n], dev)
+
+
+def _same(a, b):
+    torch.cuda.synchronize()
+    assert torch.equal(a.cpu(), b.cpu())
+
+
+@pytest.mark.parametrize("mode", [fpm.MUL, fpm.ADD, fpm.SUB])
+def test_k1_arith(dev, mode):
+    F, rng = fp128(), np.random.default_rng(1)
+    a = _elts(F, rng, 5000, dev)
+    b = _elts(F, rng, 5000, dev).flip(0).contiguous()
+    _same(fpm.fp_elementwise(F, mode, a, b),
+          fpm.elementwise_plain(F, mode, a, b))
+    # broadcast: a column [rows, 1] and a row [n] over [rows, n]
+    m = a[:4000].reshape(40, 100, 4)
+    col, row = b[:40].reshape(40, 1, 4), b[:100]
+    # (rows, 1, 2) over (rows, 5, 2) is not one block of dims: b is
+    # materialised
+    m3, b3 = a[:400].reshape(40, 5, 2, 4), b[:80].reshape(40, 1, 2, 4)
+    for x, y in ((m, col), (m, row), (m, b[0]), (row, m), (m3, b3)):
+        _same(fpm.fp_elementwise(F, mode, x, y),
+              fpm.elementwise_plain(F, mode, x, y))
+
+
+def test_k1_bind_hv(dev):
+    F, rng = fp128(), np.random.default_rng(2)
+    x = _elts(F, rng, 4096, dev)
+    r = _elts(F, rng, 7, dev)[5]
+    _same(F.bind(x, r), fpm.elementwise_plain(F, fpm.BIND, x, r))
+    h = torch.as_tensor(rng.integers(0, 1 << 15, 3000, dtype=np.int32),
+                        device=dev)
+    hv = _elts(F, rng, 3000, dev)
+    _same(F.hv_update(hv, h, r), fpm.elementwise_plain(F, fpm.HV, hv, r, h))
+
+
+def _segments(rng, nseg, T, dev):
+    g = np.sort(rng.integers(0, nseg, T))
+    g[: T // 10] = 3  # one long segment
+    g = np.sort(g)
+    s = np.searchsorted(g, np.arange(nseg), "left").astype(np.int32)
+    e = np.searchsorted(g, np.arange(nseg), "right").astype(np.int32)
+    return (torch.as_tensor(s, device=dev), torch.as_tensor(e, device=dev))
+
+
+def test_k2_segment_sum(dev):
+    F, rng = fp128(), np.random.default_rng(3)
+    x = _elts(F, rng, 20000, dev)
+    s, e = _segments(rng, 3000, 20000, dev)   # some segments are empty
+    _same(F.lazy_segment_sum(x, s, e), fpm.segment_sum_plain(F, x, s, e))
+
+
+@pytest.mark.parametrize("bad", [False, True])
+def test_k2_eval_layer(dev, bad):
+    F, rng = fp128(), np.random.default_rng(4)
+    T, nw, nseg = 20000, 1 << 12, 1 << 11
+    W = _elts(F, rng, nw, dev)
+    W[7] = 0  # beta-masked terms read a zero product
+    h0 = torch.as_tensor(rng.integers(0, nw, T, dtype=np.int32), device=dev)
+    h1 = torch.as_tensor(rng.integers(0, nw, T, dtype=np.int32), device=dev)
+    bm = torch.as_tensor(rng.random(T) < 0.1, device=dev)
+    h0[bm] = 7
+    if bad:
+        h0[int(torch.nonzero(bm)[0])] = 8
+    v = _elts(F, rng, T, dev)
+    s, e = _segments(rng, nseg, T, dev)
+    V, ok = fpm.fp_eval_layer(F, W, h0, h1, v, bm, s, e)
+    V2, ok2 = fpm.eval_layer_plain(F, W, h0, h1, v, bm, s, e)
+    _same(V, V2)
+    assert bool(ok) == bool(ok2) == (not bad)
+
+
+def test_k3_wire_and_sums(dev):
+    F, rng = fp128(), np.random.default_rng(5)
+    T, N = 70000, 1 << 14
+    hv = _elts(F, rng, T, dev)
+    Wh = _elts(F, rng, N, dev)
+    Wo = _elts(F, rng, N, dev)
+    h = torch.as_tensor(rng.integers(0, N, T, dtype=np.int32), device=dev)
+    ho = torch.as_tensor(rng.integers(0, N, T, dtype=np.int32), device=dev)
+    _same(fpm.fp_wire_sums(F, hv, Wh, Wo, h, ho),
+          fpm.wire_sums_plain(F, hv, Wh, Wo, h, ho))
+    x = hv[:68100].reshape(10, 15, 454, 4)
+    for dim in (0, 1, 2):
+        _same(F.lazy_sum(x, dim), fpm.axis_sum_plain(F, x, dim))
+    _same(F.lazy_sum(hv, 0), fpm.axis_sum_plain(F, hv, 0))
+
+
+@pytest.mark.parametrize("n", [2, 64, 2048])
+def test_k4_ntt(dev, n):
+    F, rng = fp128(), np.random.default_rng(6)
+    x = _elts(F, rng, 18 * n, dev).reshape(18, n, 4)
+    for inverse in (False, True):
+        tw = NTT(F, P128_OMEGA, P128_OMEGA_ORDER, dev).twiddles(n, inverse)
+        _same(fp_ntt(F, x, tw), ntt_plain(F, x, tw))
