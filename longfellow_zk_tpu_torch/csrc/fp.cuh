@@ -1,0 +1,322 @@
+// Prime-field arithmetic shared by the port's kernels, templated on the
+// field.  A field is a constants struct: its word count N, p, n0inv =
+// -p^-1 mod 2^32, R mod p and R^2 mod p, with R = 2^(32 N):
+//
+//   P128  p = 2^128 - 2^108 + 1                    N = 4, n0inv = 2^32 - 1
+//   P256  p = 2^256 - 2^224 + 2^192 + 2^96 - 1     N = 8, n0inv = 1
+//         (the NIST P-256 base field; p = -1 mod 2^32)
+//
+// An element Fp<C> is C::N little-endian 32-bit limbs (C::N / 4 uint4
+// vectors, 16 or 32 bytes), in Montgomery form with R = 2^(32 N), and
+// every function here returns it canonical (< p).  R is also the JAX
+// package's R (2N 16-bit limbs), so both hold the same integers; only
+// n0inv differs: mod 2^32 here, mod 2^16 there.  The multiply is plain
+// CIOS with 64-bit products and carries; it uses no special form of p.
+//
+// P-256's p exceeds 2^255, so a + b and the CIOS result can carry out of
+// 2^(32 N): fp_cond_sub takes that carry as a top word.
+//
+// Sums are exact: each 32-bit limb is added into a 64-bit accumulator
+// (fewer than 2^31 addends, so no accumulator overflows) and the N
+// accumulators are reduced once at the end (fp_reduce_acc).
+//
+// Fp2<C> = Fp<C>[i] / (i^2 + 1) is a pair (re, im) of Fp<C>, stored re
+// first (2 N limbs); it is what the Reed-Solomon NTT over P-256 runs on.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+typedef unsigned long long u64;
+
+struct P128 {
+  static constexpr int N = 4;
+  static constexpr uint32_t N0INV = 0xFFFFFFFFu;  // p = 1 mod 2^32
+  __device__ static __forceinline__ uint32_t p(int j) {
+    return j == 0 ? 0x00000001u : (j == 3 ? 0xFFFFF000u : 0u);
+  }
+  __device__ static __forceinline__ uint32_t one(int j) {  // R mod p
+    const uint32_t v[4] = {0xFFFFFFFFu, 0xFFFFFFFFu, 0xFFFFFFFFu,
+                           0x00000FFFu};
+    return v[j];
+  }
+  __device__ static __forceinline__ uint32_t r2(int j) {  // R^2 mod p
+    const uint32_t v[4] = {0xEFFFFF01u, 0xFFFEFFFFu, 0xFEFFFFEFu,
+                           0x000FDFFFu};
+    return v[j];
+  }
+};
+
+struct P256 {
+  static constexpr int N = 8;
+  static constexpr uint32_t N0INV = 0x00000001u;  // p = -1 mod 2^32
+  __device__ static __forceinline__ uint32_t p(int j) {
+    const uint32_t v[8] = {0xFFFFFFFFu, 0xFFFFFFFFu, 0xFFFFFFFFu,
+                           0x00000000u, 0x00000000u, 0x00000000u,
+                           0x00000001u, 0xFFFFFFFFu};
+    return v[j];
+  }
+  __device__ static __forceinline__ uint32_t one(int j) {  // R mod p
+    const uint32_t v[8] = {0x00000001u, 0x00000000u, 0x00000000u,
+                           0xFFFFFFFFu, 0xFFFFFFFFu, 0xFFFFFFFFu,
+                           0xFFFFFFFEu, 0x00000000u};
+    return v[j];
+  }
+  __device__ static __forceinline__ uint32_t r2(int j) {  // R^2 mod p
+    const uint32_t v[8] = {0x00000003u, 0x00000000u, 0xFFFFFFFFu,
+                           0xFFFFFFFBu, 0xFFFFFFFEu, 0xFFFFFFFFu,
+                           0xFFFFFFFDu, 0x00000004u};
+    return v[j];
+  }
+};
+
+template <class C>
+struct Fp {
+  static constexpr int V = C::N / 4;  // uint4 vectors per element
+  uint32_t l[C::N];
+
+  __device__ static __forceinline__ Fp load(const uint4* a, long long i) {
+    Fp r;
+#pragma unroll
+    for (int k = 0; k < V; k++) {
+      uint4 v = a[i * V + k];
+      r.l[4 * k] = v.x;
+      r.l[4 * k + 1] = v.y;
+      r.l[4 * k + 2] = v.z;
+      r.l[4 * k + 3] = v.w;
+    }
+    return r;
+  }
+
+  __device__ __forceinline__ void store(uint4* a, long long i) const {
+#pragma unroll
+    for (int k = 0; k < V; k++)
+      a[i * V + k] = make_uint4(l[4 * k], l[4 * k + 1], l[4 * k + 2],
+                                l[4 * k + 3]);
+  }
+};
+
+template <class C>
+__device__ __forceinline__ Fp<C> fp_zero() {
+  Fp<C> r;
+#pragma unroll
+  for (int j = 0; j < C::N; j++) r.l[j] = 0u;
+  return r;
+}
+
+// R mod p: the Montgomery form of 1.
+template <class C>
+__device__ __forceinline__ Fp<C> fp_one() {
+  Fp<C> r;
+#pragma unroll
+  for (int j = 0; j < C::N; j++) r.l[j] = C::one(j);
+  return r;
+}
+
+// R^2 mod p: fp_mul(x, R^2) = x * R mod p.
+template <class C>
+__device__ __forceinline__ Fp<C> fp_r2() {
+  Fp<C> r;
+#pragma unroll
+  for (int j = 0; j < C::N; j++) r.l[j] = C::r2(j);
+  return r;
+}
+
+template <class C>
+__device__ __forceinline__ bool fp_is_zero(const Fp<C>& a) {
+  uint32_t o = 0u;
+#pragma unroll
+  for (int j = 0; j < C::N; j++) o |= a.l[j];
+  return o == 0u;
+}
+
+// top * R + t, a value below 2p, to its canonical value.
+template <class C>
+__device__ __forceinline__ Fp<C> fp_cond_sub(const Fp<C>& t, uint32_t top) {
+  Fp<C> d;
+  uint32_t borrow = 0;
+#pragma unroll
+  for (int j = 0; j < C::N; j++) {
+    u64 s = (u64)t.l[j] - C::p(j) - borrow;
+    d.l[j] = (uint32_t)s;
+    borrow = (uint32_t)(s >> 63);
+  }
+  return (top != 0u || borrow == 0u) ? d : t;
+}
+
+template <class C>
+__device__ __forceinline__ Fp<C> fp_add(const Fp<C>& a, const Fp<C>& b) {
+  Fp<C> s;
+  u64 c = 0;
+#pragma unroll
+  for (int j = 0; j < C::N; j++) {
+    c += (u64)a.l[j] + b.l[j];
+    s.l[j] = (uint32_t)c;
+    c >>= 32;
+  }
+  return fp_cond_sub(s, (uint32_t)c);
+}
+
+template <class C>
+__device__ __forceinline__ Fp<C> fp_sub(const Fp<C>& a, const Fp<C>& b) {
+  Fp<C> d;
+  uint32_t borrow = 0;
+#pragma unroll
+  for (int j = 0; j < C::N; j++) {
+    u64 s = (u64)a.l[j] - b.l[j] - borrow;
+    d.l[j] = (uint32_t)s;
+    borrow = (uint32_t)(s >> 63);
+  }
+  if (borrow) {
+    u64 c = 0;
+#pragma unroll
+    for (int j = 0; j < C::N; j++) {
+      c += (u64)d.l[j] + C::p(j);
+      d.l[j] = (uint32_t)c;
+      c >>= 32;
+    }
+  }
+  return d;
+}
+
+template <class C>
+__device__ __forceinline__ Fp<C> fp_neg(const Fp<C>& a) {
+  return fp_sub(fp_zero<C>(), a);
+}
+
+// Montgomery product a * b * R^-1 mod p (CIOS over 32-bit words).
+// Needs a < R and b < p; the result is canonical.  The running sum stays
+// below a + p < 2R: N words and a top bit.
+template <class C>
+__device__ __forceinline__ Fp<C> fp_mul(const Fp<C>& a, const Fp<C>& b) {
+  constexpr int N = C::N;
+  uint32_t t[N + 2];
+#pragma unroll
+  for (int j = 0; j < N + 2; j++) t[j] = 0u;
+#pragma unroll
+  for (int i = 0; i < N; i++) {
+    u64 c = 0;
+#pragma unroll
+    for (int j = 0; j < N; j++) {
+      u64 s = (u64)t[j] + (u64)a.l[j] * b.l[i] + c;
+      t[j] = (uint32_t)s;
+      c = s >> 32;
+    }
+    u64 s = (u64)t[N] + c;
+    t[N] = (uint32_t)s;
+    t[N + 1] = (uint32_t)(s >> 32);
+    uint32_t m = t[0] * C::N0INV;
+    s = (u64)t[0] + (u64)m * C::p(0);
+    c = s >> 32;
+#pragma unroll
+    for (int j = 1; j < N; j++) {
+      s = (u64)t[j] + (u64)m * C::p(j) + c;
+      t[j - 1] = (uint32_t)s;
+      c = s >> 32;
+    }
+    s = (u64)t[N] + c;
+    t[N - 1] = (uint32_t)s;
+    t[N] = t[N + 1] + (uint32_t)(s >> 32);
+  }
+  Fp<C> r;
+#pragma unroll
+  for (int j = 0; j < N; j++) r.l[j] = t[j];
+  return fp_cond_sub(r, t[N]);
+}
+
+template <class C>
+__device__ __forceinline__ void fp_acc(u64* acc, const Fp<C>& x) {
+#pragma unroll
+  for (int j = 0; j < C::N; j++) acc[j] += x.l[j];
+}
+
+// sum_k acc[k] * 2^(32k), every acc[k] < 2^63, to its canonical value.
+template <class C>
+__device__ __forceinline__ Fp<C> fp_reduce_acc(const u64* acc) {
+  Fp<C> lo;
+  u64 c = 0;
+#pragma unroll
+  for (int j = 0; j < C::N; j++) {
+    c += acc[j];
+    lo.l[j] = (uint32_t)c;
+    c >>= 32;
+  }
+  // lo < R < 2p; the carry c < 2^32 stands for c * R.
+  Fp<C> low = fp_cond_sub(lo, 0u);
+  Fp<C> top = fp_zero<C>();
+  top.l[0] = (uint32_t)c;
+  return fp_add(low, fp_mul(top, fp_r2<C>()));
+}
+
+template <int N>
+__device__ __forceinline__ void warp_sum(u64* acc) {
+#pragma unroll
+  for (int j = 0; j < N; j++) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      acc[j] += __shfl_down_sync(0xFFFFFFFFu, acc[j], off);
+  }
+}
+
+// ---------------------------------------------------------------------
+// Fp2<C> = Fp<C>[i] / (i^2 + 1)
+// ---------------------------------------------------------------------
+
+template <class C>
+struct Fp2 {
+  Fp<C> re, im;
+
+  __device__ static __forceinline__ Fp2 load(const uint4* a, long long i) {
+    Fp2 r;
+    r.re = Fp<C>::load(a, 2 * i);
+    r.im = Fp<C>::load(a, 2 * i + 1);
+    return r;
+  }
+
+  __device__ __forceinline__ void store(uint4* a, long long i) const {
+    re.store(a, 2 * i);
+    im.store(a, 2 * i + 1);
+  }
+};
+
+template <class C>
+__device__ __forceinline__ Fp2<C> fp_add(const Fp2<C>& a, const Fp2<C>& b) {
+  Fp2<C> r;
+  r.re = fp_add(a.re, b.re);
+  r.im = fp_add(a.im, b.im);
+  return r;
+}
+
+template <class C>
+__device__ __forceinline__ Fp2<C> fp_sub(const Fp2<C>& a, const Fp2<C>& b) {
+  Fp2<C> r;
+  r.re = fp_sub(a.re, b.re);
+  r.im = fp_sub(a.im, b.im);
+  return r;
+}
+
+// Karatsuba: three base products.  p0 = a0 b0, p1 = a1 b1;
+// re = p0 - p1 (i^2 = -1), im = (a0 + a1)(b0 + b1) - p0 - p1.
+template <class C>
+__device__ __forceinline__ Fp2<C> fp_mul(const Fp2<C>& a, const Fp2<C>& b) {
+  Fp<C> p0 = fp_mul(a.re, b.re);
+  Fp<C> p1 = fp_mul(a.im, b.im);
+  Fp<C> s = fp_mul(fp_add(a.re, a.im), fp_add(b.re, b.im));
+  Fp2<C> r;
+  r.re = fp_sub(p0, p1);
+  r.im = fp_sub(fp_sub(s, p0), p1);
+  return r;
+}
+
+template <class C>
+__device__ __forceinline__ Fp2<C> fp_mul_base(const Fp2<C>& a,
+                                              const Fp<C>& s) {
+  Fp2<C> r;
+  r.re = fp_mul(a.re, s);
+  r.im = fp_mul(a.im, s);
+  return r;
+}
+
+extern "C" const char* lfzk_cuda_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}

@@ -1,4 +1,5 @@
-// K1 fp_elementwise: Fp128 elementwise ops, one element per thread.
+// K1 fp_elementwise: prime-field elementwise ops, one element per thread,
+// with an instance for Fp128 and one for the P-256 base field.
 //
 // Replaces the JAX package's limb-unrolled field ops inside its jitted
 // programs: PrimeField.add / sub / _mont_mul_limbs / from_mont_device
@@ -6,12 +7,13 @@
 // bind _bind_fixed (sumcheck/prover_device.py:139) and the hv update of
 // _wire_scan.one_hand (prover_device.py:595).
 //
-// Bound on the H100: bytes.  A multiply is about 50 integer operations
-// on 48 bytes of traffic, far below the card's operations-per-byte
-// balance, so the design only keeps the traffic minimal: one 16-byte
-// (uint4) load per operand, one 16-byte store, neighbouring threads on
-// neighbouring elements.  The second operand may be broadcast by index
-// arithmetic (i / bdiv) % bmod instead of being materialised.
+// Bound on the H100: bytes.  A multiply is 32 (Fp128) or 128 (P-256)
+// 32-bit multiplies on 48 or 96 bytes of traffic, below the card's
+// balance of about 5 multiplies per byte, so the design only keeps the
+// traffic minimal: uint4 loads and stores (one or two per element),
+// neighbouring threads on neighbouring elements.  The second operand may
+// be broadcast by index arithmetic (i / bdiv) % bmod instead of being
+// materialised.
 //
 // Modes:
 //   0 mul   out[i] = a[i] * b[(i / bdiv) % bmod]
@@ -20,58 +22,71 @@
 //   3 bind  rows of length `row`: out[j] = lo + (hi - lo) * r for the pair
 //           (a[2j], a[2j+1]) and j < row / 2, zero for the tail; r = b[0]
 //   4 hv    out[i] = a[i] * (h[i] odd ? r : 1 - r), r = b[0]
-#include "fp128.cuh"
+#include "fp.cuh"
 
+template <class C>
 __global__ void k_fp_elementwise(int mode, uint4* __restrict__ out,
                                  const uint4* __restrict__ a,
                                  const uint4* __restrict__ b,
                                  const int* __restrict__ h, long long n,
                                  long long row, long long bdiv,
                                  long long bmod) {
+  typedef Fp<C> E;
   long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  Fp r;
+  E r;
   switch (mode) {
     case 0:
-      r = fp_mul(fp_load(a, i), fp_load(b, (i / bdiv) % bmod));
+      r = fp_mul(E::load(a, i), E::load(b, (i / bdiv) % bmod));
       break;
     case 1:
-      r = fp_add(fp_load(a, i), fp_load(b, (i / bdiv) % bmod));
+      r = fp_add(E::load(a, i), E::load(b, (i / bdiv) % bmod));
       break;
     case 2:
-      r = fp_sub(fp_load(a, i), fp_load(b, (i / bdiv) % bmod));
+      r = fp_sub(E::load(a, i), E::load(b, (i / bdiv) % bmod));
       break;
     case 3: {
       long long base = (i / row) * row;
       long long j = i - base;
       if (j < row / 2) {
-        Fp lo = fp_load(a, base + 2 * j);
-        Fp hi = fp_load(a, base + 2 * j + 1);
-        r = fp_add(lo, fp_mul(fp_sub(hi, lo), fp_load(b, 0)));
+        E lo = E::load(a, base + 2 * j);
+        E hi = E::load(a, base + 2 * j + 1);
+        r = fp_add(lo, fp_mul(fp_sub(hi, lo), E::load(b, 0)));
       } else {
-        r = fp_zero();
+        r = fp_zero<C>();
       }
       break;
     }
     default: {
-      Fp rr = fp_load(b, 0);
-      Fp f = (h[i] & 1) ? rr : fp_sub(fp_one(), rr);
-      r = fp_mul(fp_load(a, i), f);
+      E rr = E::load(b, 0);
+      E f = (h[i] & 1) ? rr : fp_sub(fp_one<C>(), rr);
+      r = fp_mul(E::load(a, i), f);
       break;
     }
   }
-  fp_store(out, i, r);
+  r.store(out, i);
 }
 
-extern "C" int fp_elementwise(int mode, void* out, const void* a,
-                              const void* b, const void* h, long long n,
-                              long long row, long long bdiv, long long bmod,
-                              void* stream) {
+template <class C>
+static int fp_elementwise(int mode, void* out, const void* a, const void* b,
+                          const void* h, long long n, long long row,
+                          long long bdiv, long long bmod, void* stream) {
   if (n <= 0) return 0;
   const int threads = 256;
   long long blocks = (n + threads - 1) / threads;
-  k_fp_elementwise<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+  k_fp_elementwise<C><<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
       mode, (uint4*)out, (const uint4*)a, (const uint4*)b, (const int*)h, n,
       row, bdiv, bmod);
   return (int)cudaGetLastError();
+}
+
+#define LFZK_ARGS                                                          \
+  int mode, void *out, const void *a, const void *b, const void *h,       \
+      long long n, long long row, long long bdiv, long long bmod,         \
+      void *stream
+extern "C" int fp_elementwise_fp128(LFZK_ARGS) {
+  return fp_elementwise<P128>(mode, out, a, b, h, n, row, bdiv, bmod, stream);
+}
+extern "C" int fp_elementwise_fp256(LFZK_ARGS) {
+  return fp_elementwise<P256>(mode, out, a, b, h, n, row, bdiv, bmod, stream);
 }

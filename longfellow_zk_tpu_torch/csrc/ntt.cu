@@ -1,21 +1,24 @@
-// K4 fp_ntt: radix-2 number-theoretic transform over Fp128, on a batch of
-// rows of length n = 2^logn.
+// K4 fp_ntt: radix-2 number-theoretic transform on a batch of rows of
+// length n = 2^logn, with an instance over Fp128 and one over Fp2 on the
+// P-256 base field (Fp2 twiddles and Fp2 butterflies in the same body).
 //
 // Replaces NTT._transform of the JAX package
 // (longfellow_zk_tpu/transforms/ntt.py:94): bit reversal, then logn
 // butterfly stages; stage s (half-size m = 2^s) pairs x[2m*blk + j] with
 // x[2m*blk + j + m] under the twiddle tw[m - 1 + j] (the stage tables of
-// NTT._stage_tables, concatenated).  It serves FFTConvolution and the
-// Reed-Solomon extend of the Ligero commit (rows of n = 2048).
+// NTT._stage_tables, concatenated).  It serves FFTConvolution and, over
+// Fp2, FFTExtConvolution (ntt.py:178, :284): the Reed-Solomon extend of
+// the Ligero commit (rows of n = 2048).
 //
-// Bound on the H100: launch latency at the slice's sizes (18 rows of
-// 2048 elements are 576 KiB, 0.2 us of memory traffic per stage).  The
-// design is the simple one: one launch per stage, one butterfly per
-// thread, the whole array in device memory (it stays in L2).  The first
-// launch folds the bit reversal (by __brev, no table) into stage 0, which
-// needs no twiddle.
-#include "fp128.cuh"
+// Bound on the H100: launch latency at the slices' sizes (18 rows of 2048
+// Fp128 elements are 576 KiB, 14 rows of 2048 Fp2 elements 1.75 MiB:
+// 0.2-0.5 us of memory traffic per stage).  The design is the simple
+// one: one launch per stage, one butterfly per thread, the whole array in
+// device memory (it stays in L2).  The first launch folds the bit
+// reversal (by __brev, no table) into stage 0, which needs no twiddle.
+#include "fp.cuh"
 
+template <class E>
 __global__ void k_ntt_first(uint4* __restrict__ y, const uint4* __restrict__ x,
                             long long rows, int logn) {
   long long half = 1LL << (logn - 1);
@@ -25,12 +28,13 @@ __global__ void k_ntt_first(uint4* __restrict__ y, const uint4* __restrict__ x,
   long long base = r * (half * 2);
   unsigned j0 = __brev((unsigned)(2 * k)) >> (32 - logn);
   unsigned j1 = __brev((unsigned)(2 * k + 1)) >> (32 - logn);
-  Fp lo = fp_load(x, base + j0);
-  Fp hi = fp_load(x, base + j1);
-  fp_store(y, base + 2 * k, fp_add(lo, hi));
-  fp_store(y, base + 2 * k + 1, fp_sub(lo, hi));
+  E lo = E::load(x, base + j0);
+  E hi = E::load(x, base + j1);
+  fp_add(lo, hi).store(y, base + 2 * k);
+  fp_sub(lo, hi).store(y, base + 2 * k + 1);
 }
 
+template <class E>
 __global__ void k_ntt_stage(uint4* __restrict__ y, const uint4* __restrict__ tw,
                             long long rows, int logn, int s) {
   long long half = 1LL << (logn - 1);
@@ -41,28 +45,39 @@ __global__ void k_ntt_stage(uint4* __restrict__ y, const uint4* __restrict__ tw,
   long long blk = k >> s, j = k & (m - 1);
   long long i0 = r * (half * 2) + blk * 2 * m + j;
   long long i1 = i0 + m;
-  Fp lo = fp_load(y, i0);
-  Fp t = fp_mul(fp_load(y, i1), fp_load(tw, m - 1 + j));
-  fp_store(y, i0, fp_add(lo, t));
-  fp_store(y, i1, fp_sub(lo, t));
+  E lo = E::load(y, i0);
+  E t = fp_mul(E::load(y, i1), E::load(tw, m - 1 + j));
+  fp_add(lo, t).store(y, i0);
+  fp_sub(lo, t).store(y, i1);
 }
 
 // y, x: [rows, 2^logn] elements (y != x); tw: 2^logn - 1 elements.
 // Returns the first nonzero cudaGetLastError() of the logn launches.
-extern "C" int fp_ntt(void* y, const void* x, const void* tw, long long rows,
-                      int logn, void* stream) {
+template <class E>
+static int ntt(void* y, const void* x, const void* tw, long long rows,
+               int logn, void* stream) {
   if (logn <= 0 || rows <= 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
   const int threads = 256;
   long long work = rows * (1LL << (logn - 1));
   unsigned blocks = (unsigned)((work + threads - 1) / threads);
-  k_ntt_first<<<blocks, threads, 0, st>>>((uint4*)y, (const uint4*)x, rows,
-                                          logn);
+  k_ntt_first<E><<<blocks, threads, 0, st>>>((uint4*)y, (const uint4*)x,
+                                             rows, logn);
   int e = (int)cudaGetLastError();
   for (int s = 1; s < logn && e == 0; s++) {
-    k_ntt_stage<<<blocks, threads, 0, st>>>((uint4*)y, (const uint4*)tw, rows,
-                                            logn, s);
+    k_ntt_stage<E><<<blocks, threads, 0, st>>>((uint4*)y, (const uint4*)tw,
+                                               rows, logn, s);
     e = (int)cudaGetLastError();
   }
   return e;
+}
+
+extern "C" int fp_ntt_fp128(void* y, const void* x, const void* tw,
+                            long long rows, int logn, void* stream) {
+  return ntt<Fp<P128> >(y, x, tw, rows, logn, stream);
+}
+
+extern "C" int fp_ntt_fp256x2(void* y, const void* x, const void* tw,
+                              long long rows, int logn, void* stream) {
+  return ntt<Fp2<P256> >(y, x, tw, rows, logn, stream);
 }

@@ -1,5 +1,6 @@
 // K3 fp_wire_round: the sums of one sumcheck wire round, and field sums
-// along an axis.
+// along an axis, with an instance for Fp128 and one for the P-256 base
+// field.
 //
 // mode 0 (wire): for one hand, with z = hv[t] * Wo[ho[t]],
 //   out[0] = a0 = sum over t with h[t] even of z * Wh[h[t]]
@@ -14,29 +15,29 @@
 // Bound on the H100: bytes (per term three indices' worth of gathers and
 // one hv read), at sizes where launch latency dominates.  Blocks run in
 // no order, so the reduction has two passes: each block folds a
-// grid-stride slice of the terms into four 64-bit limb accumulators per
+// grid-stride slice of the terms into N 64-bit limb accumulators per
 // output (exact; a warp-shuffle then shared-memory block sum) and writes
 // them to scratch; one block per output then sums the partials and
 // reduces modulo p once.  No atomics, so the result does not depend on
 // the order in which blocks run.
-#include "fp128.cuh"
+#include "fp.cuh"
 
 #define NT 256
 
-// Sums acc over the block into dst[0..3] (thread 0 writes).
-__device__ __forceinline__ void block_sum4(u64 acc[4],
-                                           u64* dst) {
-  __shared__ u64 sm[NT / 32][4];
-  warp_sum4(acc);
+// Sums acc over the block into dst[0..N) (thread 0 writes).
+template <int N>
+__device__ __forceinline__ void block_sum(u64* acc, u64* dst) {
+  __shared__ u64 sm[NT / 32][N];
+  warp_sum<N>(acc);
   int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
   if (lane == 0) {
 #pragma unroll
-    for (int j = 0; j < 4; j++) sm[w][j] = acc[j];
+    for (int j = 0; j < N; j++) sm[w][j] = acc[j];
   }
   __syncthreads();
   if (threadIdx.x == 0) {
 #pragma unroll
-    for (int j = 0; j < 4; j++) {
+    for (int j = 0; j < N; j++) {
       u64 s = 0;
       for (int k = 0; k < NT / 32; k++) s += sm[k][j];
       dst[j] = s;
@@ -45,20 +46,25 @@ __device__ __forceinline__ void block_sum4(u64 acc[4],
   __syncthreads();  // sm is reused by the next call
 }
 
+template <class C>
 __global__ void k_wire_partial(const uint4* __restrict__ hv,
                                const uint4* __restrict__ Wh,
                                const uint4* __restrict__ Wo,
                                const int* __restrict__ h,
                                const int* __restrict__ ho, long long T,
                                u64* __restrict__ partial) {
-  u64 a0[4] = {0, 0, 0, 0}, a2[4] = {0, 0, 0, 0};
+  typedef Fp<C> E;
+  constexpr int N = C::N;
+  u64 a0[N], a2[N];
+#pragma unroll
+  for (int j = 0; j < N; j++) a0[j] = a2[j] = 0;
   for (long long t = (long long)blockIdx.x * NT + threadIdx.x; t < T;
        t += (long long)gridDim.x * NT) {
     int hh = h[t];
-    Fp z = fp_mul(fp_load(hv, t), fp_load(Wo, ho[t]));
-    Fp whi = fp_load(Wh, hh | 1);
-    Fp wlo = fp_load(Wh, hh & ~1);
-    Fp zd = fp_mul(z, fp_sub(whi, wlo));
+    E z = fp_mul(E::load(hv, t), E::load(Wo, ho[t]));
+    E whi = E::load(Wh, hh | 1);
+    E wlo = E::load(Wh, hh & ~1);
+    E zd = fp_mul(z, fp_sub(whi, wlo));
     if (hh & 1) {
       fp_acc(a2, zd);
     } else {
@@ -66,60 +72,80 @@ __global__ void k_wire_partial(const uint4* __restrict__ hv,
       fp_acc(a2, fp_neg(zd));
     }
   }
-  block_sum4(a0, partial + 4 * (long long)blockIdx.x);
-  block_sum4(a2, partial + 4 * ((long long)gridDim.x + blockIdx.x));
+  block_sum<N>(a0, partial + N * (long long)blockIdx.x);
+  block_sum<N>(a2, partial + N * ((long long)gridDim.x + blockIdx.x));
 }
 
 // grid (A * B, nblk): output o = a * B + b, block y takes a slice of R.
+template <class C>
 __global__ void k_sum_partial(const uint4* __restrict__ x, long long R,
-                              long long B,
-                              u64* __restrict__ partial) {
+                              long long B, u64* __restrict__ partial) {
+  typedef Fp<C> E;
+  constexpr int N = C::N;
   long long o = blockIdx.x;
   long long a = o / B, b = o - a * B;
-  const uint4* base = x + a * R * B + b;
-  u64 acc[4] = {0, 0, 0, 0};
+  u64 acc[N];
+#pragma unroll
+  for (int j = 0; j < N; j++) acc[j] = 0;
   for (long long r = (long long)blockIdx.y * NT + threadIdx.x; r < R;
        r += (long long)gridDim.y * NT)
-    fp_acc(acc, fp_load(base, r * B));
-  block_sum4(acc, partial + 4 * (o * gridDim.y + blockIdx.y));
+    fp_acc(acc, E::load(x, (a * R + r) * B + b));
+  block_sum<N>(acc, partial + N * (o * gridDim.y + blockIdx.y));
 }
 
 // One block per output: sums its nblk partials and reduces modulo p.
-__global__ void k_finish(const u64* __restrict__ partial,
-                         int nblk, uint4* __restrict__ out) {
+template <class C>
+__global__ void k_finish(const u64* __restrict__ partial, int nblk,
+                         uint4* __restrict__ out) {
+  constexpr int N = C::N;
   long long o = blockIdx.x;
-  u64 acc[4] = {0, 0, 0, 0};
+  u64 acc[N];
+#pragma unroll
+  for (int j = 0; j < N; j++) acc[j] = 0;
   for (int k = threadIdx.x; k < nblk; k += NT) {
 #pragma unroll
-    for (int j = 0; j < 4; j++) acc[j] += partial[4 * (o * nblk + k) + j];
+    for (int j = 0; j < N; j++) acc[j] += partial[N * (o * nblk + k) + j];
   }
-  __shared__ unsigned long long tot[4];
-  block_sum4(acc, tot);
-  if (threadIdx.x == 0) fp_store(out, o, fp_reduce_acc(tot));
+  __shared__ u64 tot[N];
+  block_sum<N>(acc, tot);
+  if (threadIdx.x == 0) fp_reduce_acc<C>(tot).store(out, o);
 }
 
-// scratch: at least 4 * nout * nblk 64-bit words; nout = 2 (wire) or A * B.
-extern "C" int fp_wire_round(int mode, void* out, void* scratch,
-                             const void* hv, const void* Wh, const void* Wo,
-                             const void* h, const void* ho, long long T,
-                             long long A, long long R, long long B, int nblk,
-                             void* stream) {
+// scratch: at least N * nout * nblk 64-bit words; nout = 2 (wire) or A * B.
+template <class C>
+static int fp_wire_round(int mode, void* out, void* scratch, const void* hv,
+                         const void* Wh, const void* Wo, const void* h,
+                         const void* ho, long long T, long long A, long long R,
+                         long long B, int nblk, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   u64* partial = (u64*)scratch;
   long long nout;
   if (mode == 0) {
     nout = 2;
-    k_wire_partial<<<nblk, NT, 0, st>>>((const uint4*)hv, (const uint4*)Wh,
-                                        (const uint4*)Wo, (const int*)h,
-                                        (const int*)ho, T, partial);
+    k_wire_partial<C><<<nblk, NT, 0, st>>>(
+        (const uint4*)hv, (const uint4*)Wh, (const uint4*)Wo, (const int*)h,
+        (const int*)ho, T, partial);
   } else {
     nout = A * B;
     if (nout == 0) return 0;
     dim3 grid((unsigned)nout, (unsigned)nblk);
-    k_sum_partial<<<grid, NT, 0, st>>>((const uint4*)hv, R, B, partial);
+    k_sum_partial<C><<<grid, NT, 0, st>>>((const uint4*)hv, R, B, partial);
   }
   int e = (int)cudaGetLastError();
   if (e) return e;
-  k_finish<<<(unsigned)nout, NT, 0, st>>>(partial, nblk, (uint4*)out);
+  k_finish<C><<<(unsigned)nout, NT, 0, st>>>(partial, nblk, (uint4*)out);
   return (int)cudaGetLastError();
+}
+
+#define LFZK_ARGS                                                          \
+  int mode, void *out, void *scratch, const void *hv, const void *Wh,     \
+      const void *Wo, const void *h, const void *ho, long long T,         \
+      long long A, long long R, long long B, int nblk, void *stream
+extern "C" int fp_wire_round_fp128(LFZK_ARGS) {
+  return fp_wire_round<P128>(mode, out, scratch, hv, Wh, Wo, h, ho, T, A, R,
+                             B, nblk, stream);
+}
+extern "C" int fp_wire_round_fp256(LFZK_ARGS) {
+  return fp_wire_round<P256>(mode, out, scratch, hv, Wh, Wo, h, ho, T, A, R,
+                             B, nblk, stream);
 }

@@ -1,9 +1,11 @@
 """Carrying state between the JAX package's layout and this package's.
 
-The JAX package holds an Fp128 tensor as uint32[8, ...]: eight 16-bit
-limbs on the leading axis.  This package holds it as int32[..., 4]: four
-32-bit limbs on the trailing axis.  Both are Montgomery form with
-R = 2^128, so the conversion moves bits and changes no value.
+The JAX package holds a prime-field tensor as uint32[2N, ...]: 2N 16-bit
+limbs on the leading axis (eight for Fp128, sixteen for P-256).  This
+package holds it as int32[..., N]: N 32-bit limbs on the trailing axis.
+An Fp2 tensor is planar there, uint32[2, 2N, ...] (re, im leading), and
+int32[..., 2, N] here.  Both packages use Montgomery form with
+R = 2^(32N), so the conversion moves bits and changes no value.
 """
 
 from __future__ import annotations
@@ -17,9 +19,9 @@ from ..sumcheck.circuit import Circuit, Layer, Quad
 
 
 def limbs_from_jax(arr: np.ndarray) -> torch.Tensor:
-    """uint32[8, ...] (16-bit limbs, leading) -> int32[..., 4] (CPU)."""
+    """uint32[2N, ...] (16-bit limbs, leading) -> int32[..., N] (CPU)."""
     a = np.asarray(arr, dtype=np.uint32)
-    assert a.shape[0] == 8, a.shape
+    assert a.shape[0] in (8, 16), a.shape
     w = (a[0::2] & np.uint32(0xFFFF)) | ((a[1::2] & np.uint32(0xFFFF))
                                          << np.uint32(16))
     w = np.ascontiguousarray(np.moveaxis(w, 0, -1)).view(np.int32)
@@ -27,20 +29,34 @@ def limbs_from_jax(arr: np.ndarray) -> torch.Tensor:
 
 
 def limbs_to_jax(t: torch.Tensor) -> np.ndarray:
-    """int32[..., 4] -> uint32[8, ...] (16-bit limbs, leading)."""
+    """int32[..., N] -> uint32[2N, ...] (16-bit limbs, leading)."""
     w = np.ascontiguousarray(t.detach().cpu().numpy()).view(np.uint32)
-    assert w.shape[-1] == 4, w.shape
+    assert w.shape[-1] in (4, 8), w.shape
     lo = w & np.uint32(0xFFFF)
     hi = w >> np.uint32(16)
-    out = np.stack([lo, hi], axis=-1).reshape(w.shape[:-1] + (8,))
+    out = np.stack([lo, hi], axis=-1).reshape(w.shape[:-1] +
+                                              (2 * w.shape[-1],))
     return np.ascontiguousarray(np.moveaxis(out, -1, 0))
+
+
+def fp2_from_jax(arr: np.ndarray) -> torch.Tensor:
+    """Fp2 uint32[2, 2N, ...] (planar re, im) -> int32[..., 2, N] (CPU)."""
+    a = np.asarray(arr, dtype=np.uint32)
+    assert a.shape[0] == 2, a.shape
+    return torch.stack([limbs_from_jax(a[0]), limbs_from_jax(a[1])], dim=-2)
+
+
+def fp2_to_jax(t: torch.Tensor) -> np.ndarray:
+    """int32[..., 2, N] -> Fp2 uint32[2, 2N, ...] (planar re, im)."""
+    assert t.shape[-2] == 2, tuple(t.shape)
+    return np.stack([limbs_to_jax(t[..., 0, :]), limbs_to_jax(t[..., 1, :])])
 
 
 def circuit_from_arrays(F, nv: int, nc: int, ninputs: int, npub_in: int,
                         layers: Sequence[dict], subfield_boundary: int = 0,
                         circuit_id: bytes = b"\x00" * 32) -> Circuit:
     """This package's Circuit from numpy arrays.  Each layer is a dict with
-    nw, logw, and per term g, h0, h1 (integer arrays) and v (uint32[8, T]
+    nw, logw, and per term g, h0, h1 (integer arrays) and v (uint32[2N, T]
     JAX Montgomery limbs of the term constants; 0 marks an assert-zero
     term)."""
     out = []

@@ -1,20 +1,22 @@
 """Prime-field arithmetic: host ints and PyTorch tensors.
 
 Host side (plain Python ints, natural form) is the JAX package's
-`PrimeField` host API, copied.  Tensor side: an element is four
+`PrimeField` host API, copied.  Tensor side: an element is N
 little-endian 32-bit limbs in the last axis of an int32 tensor
-(`[..., 4]`, 16 bytes, read as uint32 by the kernels), in Montgomery form
-with R = 2^128 and always canonical (< p).  R is the JAX package's R
-(eight 16-bit limbs), so the two packages hold the same integers
-(fields/bridge.py converts the layouts).
+(`[..., N]`, read as uint32 by the kernels), N = 4 for p < 2^128 and
+N = 8 for p < 2^256, in Montgomery form with R = 2^(32N) and always
+canonical (< p).  R is the JAX package's R (2N 16-bit limbs), so the two
+packages hold the same integers (fields/bridge.py converts the layouts).
 
 Every tensor operation is a wrapper over one of the hand-written kernels
 (K1 fp_elementwise, K2 fp_segment_sum, K3 fp_wire_round; see
 kernels.py).  For a CUDA tensor the wrapper launches its kernel; for a
 CPU tensor it runs the kernel's plain PyTorch version, which lives in
 this module too (`*_plain`) and computes in int64 over 16-bit limbs
-(CPU PyTorch has no uint32 `+`, `<<` or `>>`).  The kernels are written
-for p = 2^128 - 2^108 + 1; the plain versions take any odd p < 2^128.
+(CPU PyTorch has no uint32 `+`, `<<` or `>>`).  The kernels have an
+instance for each field of `fp_instances.KERNEL_TAGS` (Fp128 and the
+P-256 base field); a CUDA tensor of another field raises.  The plain
+versions take any odd p < 2^256.
 """
 
 from __future__ import annotations
@@ -27,8 +29,6 @@ import torch
 from .. import kernels
 
 MASK16 = 0xFFFF
-NLIMB = 4    # 32-bit limbs per element (the tensor layout)
-NL16 = 8     # 16-bit limbs per element (the plain versions)
 
 # K1 modes (csrc/fp_ops.cu)
 MUL, ADD, SUB, BIND, HV = 0, 1, 2, 3, 4
@@ -38,14 +38,19 @@ _K3_MAX_BLOCKS = 264
 
 
 class PrimeField:
-    """A prime field Fp, p < 2^128: host int ops and tensor ops."""
+    """A prime field Fp, p < 2^256: host int ops and tensor ops."""
 
     kCharacteristicTwo = False
     kNPolyEvaluationPoints = 6
 
     def __init__(self, p: int, name: str, nbytes: Optional[int] = None):
-        assert p % 2 == 1 and p < (1 << 128)
+        assert p % 2 == 1 and p < (1 << 256)
         self.p = p
+        # 32-bit limbs per element (the tensor layout), 16-bit limbs (the
+        # plain versions)
+        self.nlimb = 4 if p < (1 << 128) else 8
+        self.nl16 = 2 * self.nlimb
+        self.elt_shape = (self.nlimb,)
         self.char = p
         self.name = name
         self.bits = p.bit_length()
@@ -55,18 +60,20 @@ class PrimeField:
         # (fp_generic.h:47); there is no proper subfield.
         self.kSubFieldBytes = self.kBytes
         self.exact_bits = self.bits
-        self.R = 1 << 128
+        self.R = 1 << (32 * self.nlimb)
         self.Rinv = pow(self.R, -1, p)
         self.R2 = (self.R * self.R) % p
         self.mont_one_int = self.R % p
         # constants of the plain versions (16-bit limbs)
         self.n0inv16 = (-pow(p, -1, 1 << 16)) % (1 << 16)
-        self._p16 = [(p >> (16 * i)) & MASK16 for i in range(NL16)]
-        self._r2_16 = [(self.R2 >> (16 * i)) & MASK16 for i in range(NL16)]
+        self._p16 = [(p >> (16 * i)) & MASK16 for i in range(self.nl16)]
+        self._r2_16 = [(self.R2 >> (16 * i)) & MASK16
+                       for i in range(self.nl16)]
         self._one16 = [(self.mont_one_int >> (16 * i)) & MASK16
-                       for i in range(NL16)]
-        from .fp_instances import P128
-        self.has_kernels = p == P128
+                       for i in range(self.nl16)]
+        from .fp_instances import KERNEL_TAGS
+        # the kernels' instance for this field ("fp128", "fp256"), or None
+        self.tag = KERNEL_TAGS.get(p)
 
     # ------------------------------------------------------------------
     # host scalar (python int, natural form) ops
@@ -140,37 +147,36 @@ class PrimeField:
         return (x * self.Rinv) % self.p
 
     def to_limbs(self, xs: Union[int, Sequence[int]], device) -> torch.Tensor:
-        """Natural-form ints -> int32 [4] (one int) or [n, 4] Montgomery
+        """Natural-form ints -> int32 [N] (one int) or [n, N] Montgomery
         limbs on `device`."""
         one = isinstance(xs, (int, np.integer))
         vals = [int(xs)] if one else xs
-        R, p = self.R, self.p
-        buf = b"".join(((int(x) * R) % p).to_bytes(16, "little")
+        R, p, nb = self.R, self.p, 4 * self.nlimb
+        buf = b"".join(((int(x) * R) % p).to_bytes(nb, "little")
                        for x in vals)
-        arr = np.frombuffer(buf, dtype="<i4").reshape(len(vals), NLIMB)
+        arr = np.frombuffer(buf, dtype="<i4").reshape(len(vals), self.nlimb)
         t = torch.from_numpy(arr.copy()).to(device)
         return t[0] if one else t
 
     def from_limbs(self, t: torch.Tensor):
-        """int32 [..., 4] Montgomery limbs -> natural int ([4]) or a numpy
+        """int32 [..., N] Montgomery limbs -> natural int ([N]) or a numpy
         object array of ints (shape t.shape[:-1])."""
         a = np.ascontiguousarray(t.detach().cpu().numpy().astype("<i4"))
-        assert a.shape[-1] == NLIMB
+        assert a.shape[-1] == self.nlimb
         raw = a.tobytes()
-        Rinv, p = self.Rinv, self.p
-        n = len(raw) // 16
-        vals = [(int.from_bytes(raw[16 * j : 16 * j + 16], "little") * Rinv)
-                % p for j in range(n)]
+        Rinv, p, nb = self.Rinv, self.p, 4 * self.nlimb
+        vals = [(int.from_bytes(raw[j : j + nb], "little") * Rinv) % p
+                for j in range(0, len(raw), nb)]
         if a.ndim == 1:
             return vals[0]
         return np.array(vals, dtype=object).reshape(a.shape[:-1])
 
     def zeros(self, shape, device) -> torch.Tensor:
-        return torch.zeros(tuple(shape) + (NLIMB,), dtype=torch.int32,
+        return torch.zeros(tuple(shape) + self.elt_shape, dtype=torch.int32,
                            device=device)
 
     # ------------------------------------------------------------------
-    # tensor ops (int32 [..., 4], Montgomery, canonical)
+    # tensor ops (int32 [..., N], Montgomery, canonical)
     # ------------------------------------------------------------------
 
     def mul(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -184,11 +190,12 @@ class PrimeField:
 
     def from_mont(self, a: torch.Tensor) -> torch.Tensor:
         """Montgomery limbs -> limbs of the natural value (a * 1 * R^-1)."""
-        one = torch.tensor([1, 0, 0, 0], dtype=torch.int32, device=a.device)
+        one = torch.zeros(self.nlimb, dtype=torch.int32, device=a.device)
+        one[0] = 1
         return fp_elementwise(self, MUL, a, one)
 
     def bind(self, x: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
-        """Fixed-shape bind of x [..., n, 4] along the element axis:
+        """Fixed-shape bind of x [..., n, N] along the element axis:
         pairs fold to lo + (hi - lo) * r, the tail is zero-filled."""
         return fp_elementwise(self, BIND, x, r)
 
@@ -198,12 +205,12 @@ class PrimeField:
         return fp_elementwise(self, HV, hv, r, h=h)
 
     def lazy_sum(self, x: torch.Tensor, dim: int) -> torch.Tensor:
-        """Field sum along element axis `dim` of x [..., 4]."""
+        """Field sum along element axis `dim` of x [..., N]."""
         return fp_axis_sum(self, x, dim)
 
     def lazy_segment_sum(self, x: torch.Tensor, starts: torch.Tensor,
                          ends: torch.Tensor) -> torch.Tensor:
-        """x [T, 4] -> [S, 4]: out[s] = sum of x[starts[s]:ends[s]]."""
+        """x [T, N] -> [S, N]: out[s] = sum of x[starts[s]:ends[s]]."""
         return fp_segment_sum(self, x, starts, ends)
 
 
@@ -212,15 +219,15 @@ class PrimeField:
 # ----------------------------------------------------------------------
 
 def _split16(x: torch.Tensor) -> torch.Tensor:
-    """int32 [..., 4] -> int64 [..., 8] 16-bit limbs."""
+    """int32 [..., N] -> int64 [..., 2N] 16-bit limbs."""
     v = x.to(torch.int64) & 0xFFFFFFFF
     return torch.stack([v & MASK16, v >> 16], dim=-1).reshape(
-        x.shape[:-1] + (NL16,))
+        x.shape[:-1] + (2 * x.shape[-1],))
 
 
 def _join16(l16: torch.Tensor) -> torch.Tensor:
-    """int64 [..., 8] 16-bit limbs -> int32 [..., 4]."""
-    pairs = l16.reshape(l16.shape[:-1] + (NLIMB, 2))
+    """int64 [..., 2N] 16-bit limbs -> int32 [..., N]."""
+    pairs = l16.reshape(l16.shape[:-1] + (l16.shape[-1] // 2, 2))
     v = pairs[..., 0] | (pairs[..., 1] << 16)
     return torch.where(v >= (1 << 31), v - (1 << 32), v).to(torch.int32)
 
@@ -241,11 +248,11 @@ def _carry16(T: torch.Tensor):
 
 
 def _cond_sub16(F: PrimeField, t: torch.Tensor, top: torch.Tensor):
-    """top * 2^128 + t (< 2p, t in 16-bit limbs) -> canonical limbs."""
+    """top * R + t (< 2p, t in 16-bit limbs) -> canonical limbs."""
     d = t - _const16(F._p16, t)
     borrow = torch.zeros_like(t[..., 0])
     out = []
-    for i in range(NL16):
+    for i in range(F.nl16):
         di = d[..., i] - borrow
         borrow = (di < 0).to(torch.int64)
         out.append(di + (borrow << 16))
@@ -255,18 +262,19 @@ def _cond_sub16(F: PrimeField, t: torch.Tensor, top: torch.Tensor):
 
 def _mont_mul16(F: PrimeField, a: torch.Tensor, b: torch.Tensor):
     """Montgomery a * b * R^-1 over 16-bit limbs (a < R, b < p)."""
+    n = F.nl16
     p16 = _const16(F._p16, a)
-    prod = a[..., :, None] * b[..., None, :]          # [..., 8, 8] < 2^32
-    T = torch.zeros(prod.shape[:-2] + (2 * NL16 + 1,), dtype=torch.int64,
+    prod = a[..., :, None] * b[..., None, :]          # [..., n, n] < 2^32
+    T = torch.zeros(prod.shape[:-2] + (2 * n + 1,), dtype=torch.int64,
                     device=a.device)
-    for i in range(NL16):
-        T[..., i : i + NL16] += prod[..., i, :]       # columns < 2^36
-    for i in range(NL16):
+    for i in range(n):
+        T[..., i : i + n] += prod[..., i, :]          # columns < 2^37
+    for i in range(n):
         m = ((T[..., i] & MASK16) * F.n0inv16) & MASK16
-        T[..., i : i + NL16] += m[..., None] * p16
+        T[..., i : i + n] += m[..., None] * p16
         T[..., i + 1] += T[..., i] >> 16              # T[i] = 0 mod 2^16
-    limbs, c = _carry16(T[..., NL16 : 2 * NL16])
-    return _cond_sub16(F, limbs, T[..., 2 * NL16] + c)
+    limbs, c = _carry16(T[..., n : 2 * n])
+    return _cond_sub16(F, limbs, T[..., 2 * n] + c)
 
 
 def _add16(F: PrimeField, a: torch.Tensor, b: torch.Tensor):
@@ -278,7 +286,7 @@ def _sub16(F: PrimeField, a: torch.Tensor, b: torch.Tensor):
     d = a - b
     borrow = torch.zeros_like(d[..., 0])
     out = []
-    for i in range(NL16):
+    for i in range(F.nl16):
         di = d[..., i] - borrow
         borrow = (di < 0).to(torch.int64)
         out.append(di + (borrow << 16))
@@ -288,13 +296,14 @@ def _sub16(F: PrimeField, a: torch.Tensor, b: torch.Tensor):
 
 
 def _renorm16(F: PrimeField, cols: torch.Tensor) -> torch.Tensor:
-    """Columns [..., 8] (value = sum cols[k] 2^(16k), each < 2^62) -> the
+    """Columns [..., 2N] (value = sum cols[k] 2^(16k), each < 2^62) -> the
     canonical value mod p (16-bit limbs)."""
     limbs, top = _carry16(cols)
     low = _cond_sub16(F, limbs, torch.zeros_like(top))
-    # the carry stands for top * 2^128 = top * R: Montgomery-multiply the
-    # integer top by R^2
-    top16 = torch.stack([(top >> (16 * i)) & MASK16 for i in range(NL16)],
+    # the carry (an int64, so four 16-bit limbs) stands for top * R:
+    # Montgomery-multiply the integer top by R^2
+    top16 = torch.stack([(top >> (16 * i)) & MASK16 if i < 4
+                         else torch.zeros_like(top) for i in range(F.nl16)],
                         dim=-1)
     r2 = _const16(F._r2_16, cols).expand_as(top16)
     return _add16(F, low, _mont_mul16(F, top16, r2))
@@ -306,12 +315,12 @@ def elementwise_plain(F: PrimeField, mode: int, a: torch.Tensor,
     if mode == BIND:
         a16 = _split16(a)
         lo, hi = a16[..., 0::2, :], a16[..., 1::2, :]
-        r = _split16(b).reshape(NL16)
+        r = _split16(b).reshape(F.nl16)
         bound = _add16(F, lo, _mont_mul16(F, _sub16(F, hi, lo),
                                           r.expand_as(lo)))
         return _join16(torch.cat([bound, torch.zeros_like(bound)], dim=-2))
     if mode == HV:
-        r = _split16(b).reshape(NL16)
+        r = _split16(b).reshape(F.nl16)
         one = _const16(F._one16, r)
         f = torch.where((h & 1).bool()[..., None], r, _sub16(F, one, r))
         a16 = _split16(a)
@@ -349,7 +358,7 @@ def axis_sum_plain(F: PrimeField, x: torch.Tensor, dim: int) -> torch.Tensor:
 
 
 def wire_sums_plain(F: PrimeField, hv, Wh, Wo, h, ho) -> torch.Tensor:
-    """Plain version of K3 mode 0: [a0, a2] as a [2, 4] tensor."""
+    """Plain version of K3 mode 0: [a0, a2] as a [2, N] tensor."""
     h = h.long()
     z = elementwise_plain(F, MUL, hv, Wo[ho.long()])
     whi, wlo = Wh[h | 1], Wh[h & ~1]
@@ -366,28 +375,34 @@ def wire_sums_plain(F: PrimeField, hv, Wh, Wo, h, ho) -> torch.Tensor:
 # wrappers: the kernel for a CUDA tensor, the plain version for a CPU one
 # ----------------------------------------------------------------------
 
-def on_cuda(F: PrimeField, *ts) -> bool:
-    """True if the tensors lie on the card (then the kernel runs)."""
+def route(kernel: str, F, *ts) -> Optional[str]:
+    """None if the tensors lie on the CPU (then the plain version runs);
+    the name of `kernel`'s instance for F's tag if they lie on the card.
+    Raises for mixed devices and for a field without that instance."""
     dev = ts[0].device
     for t in ts:
         if t.device != dev:
             raise ValueError("tensors on different devices: %s, %s"
                              % (dev, t.device))
     if dev.type == "cpu":
-        return False
+        return None
     if dev.type != "cuda":
         raise ValueError("unsupported device %s" % dev)
-    if not F.has_kernels:
+    name = "%s[%s]" % (kernel, F.tag)
+    if name not in kernels.KERNELS:
         raise NotImplementedError(
-            "the CUDA kernels are written for Fp128 only, not %s" % F.name)
-    return True
+            "%s has no CUDA instance for %s" % (kernel, F.name))
+    return name
 
 
-def _check(t: torch.Tensor, name: str) -> None:
-    if t.dtype != torch.int32 or t.shape[-1] != NLIMB or \
-            not t.is_contiguous():
-        raise ValueError("%s must be a contiguous int32 [..., 4] tensor, got "
-                         "%s %s" % (name, t.dtype, tuple(t.shape)))
+def check_elts(t: torch.Tensor, name: str, elt_shape) -> None:
+    """Raises unless t is a contiguous int32 [..., *elt_shape] tensor."""
+    k = len(elt_shape)
+    if t.dtype != torch.int32 or tuple(t.shape[t.dim() - k:]) != \
+            tuple(elt_shape) or not t.is_contiguous():
+        raise ValueError("%s must be a contiguous int32 [..., %s] tensor, "
+                         "got %s %s" % (name, ", ".join(map(str, elt_shape)),
+                                        t.dtype, tuple(t.shape)))
 
 
 def _bcast_divmod(bshape, shape):
@@ -403,19 +418,44 @@ def _bcast_divmod(bshape, shape):
     return int(np.prod(shape[hi + 1 :])), int(np.prod(shape[lo : hi + 1]))
 
 
+def broadcast_operands(a: torch.Tensor, b: torch.Tensor, a_elt, b_elt,
+                       swap: bool):
+    """(a, b, bdiv, bmod) for a kernel that reads b[(i // bdiv) % bmod]
+    beside a[i]: a (elements of shape a_elt) is the operand of the full
+    broadcast shape, made contiguous; with swap (a_elt == b_elt), a and b
+    trade places when b is the full one.  b (elements of shape b_elt) is
+    materialised only where its broadcast is not of that form."""
+    ea, eb = a.shape[: a.dim() - len(a_elt)], b.shape[: b.dim() - len(b_elt)]
+    shape = tuple(torch.broadcast_shapes(ea, eb))
+    if swap and tuple(ea) != shape:
+        a, b, eb = b, a, ea
+    if tuple(a.shape[: a.dim() - len(a_elt)]) != shape or \
+            not a.is_contiguous():
+        a = a.expand(shape + tuple(a_elt)).contiguous()
+    dm = _bcast_divmod(eb, shape)
+    if dm is None:
+        b = b.expand(shape + tuple(b_elt))
+        dm = (1, int(np.prod(shape)))
+    b = b.contiguous()
+    check_elts(a, "a", a_elt)
+    check_elts(b, "b", b_elt)
+    return a, b, dm[0], dm[1]
+
+
 def fp_elementwise(F: PrimeField, mode: int, a: torch.Tensor, b: torch.Tensor,
                    h: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K1 wrapper.  mul/add/sub broadcast a and b over the element axes;
     bind and hv take a single element b (the challenge r)."""
-    if not on_cuda(F, a, b):
+    name = route("fp_elementwise", F, a, b)
+    if name is None:
         return elementwise_plain(F, mode, a, b, h)
     if mode in (BIND, HV):
-        _check(a, "a")
-        if b.numel() != NLIMB:
+        check_elts(a, "a", F.elt_shape)
+        if b.numel() != F.nlimb:
             raise ValueError("bind/hv take one challenge element")
         b = b.contiguous()
         out = torch.empty_like(a)
-        n = a.numel() // NLIMB
+        n = a.numel() // F.nlimb
         row = a.shape[-2] if mode == BIND else 1
         if mode == BIND and row % 2:
             raise ValueError("bind needs an even length, got %d" % row)
@@ -425,24 +465,15 @@ def fp_elementwise(F: PrimeField, mode: int, a: torch.Tensor, b: torch.Tensor,
                     not h.is_contiguous() or h.device != a.device:
                 raise ValueError("hv needs int32 indices h of a's length")
             hp = h.data_ptr()
-        kernels.launch("fp_elementwise", 1, mode, out.data_ptr(),
-                       a.data_ptr(), b.data_ptr(), hp, n, row, 1, 1)
+        kernels.launch(name, 1, mode, out.data_ptr(), a.data_ptr(),
+                       b.data_ptr(), hp, n, row, 1, 1)
         return out
-    shape = torch.broadcast_shapes(a.shape[:-1], b.shape[:-1])
-    if mode != SUB and tuple(a.shape[:-1]) != tuple(shape):
-        a, b = b, a                       # the full operand goes first
-    if tuple(a.shape[:-1]) != tuple(shape) or not a.is_contiguous():
-        a = a.expand(tuple(shape) + (NLIMB,)).contiguous()
-    dm = _bcast_divmod(b.shape[:-1], shape)
-    if dm is None:
-        b = b.expand(tuple(shape) + (NLIMB,))
-        dm = (1, int(np.prod(shape)))
-    b = b.contiguous()
-    _check(a, "a")
-    _check(b, "b")
+    # the full operand goes first (sub does not commute)
+    a, b, bdiv, bmod = broadcast_operands(a, b, F.elt_shape, F.elt_shape,
+                                          mode != SUB)
     out = torch.empty_like(a)
-    kernels.launch("fp_elementwise", 1, mode, out.data_ptr(), a.data_ptr(),
-                   b.data_ptr(), 0, a.numel() // NLIMB, 1, dm[0], dm[1])
+    kernels.launch(name, 1, mode, out.data_ptr(), a.data_ptr(), b.data_ptr(),
+                   0, a.numel() // F.nlimb, 1, bdiv, bmod)
     return out
 
 
@@ -454,14 +485,15 @@ def _i32(t: torch.Tensor, name: str) -> None:
 def fp_segment_sum(F: PrimeField, x: torch.Tensor, starts: torch.Tensor,
                    ends: torch.Tensor) -> torch.Tensor:
     """K2 wrapper, mode 0: out[s] = sum of x[starts[s]:ends[s]]."""
-    if not on_cuda(F, x, starts, ends):
+    name = route("fp_segment_sum", F, x, starts, ends)
+    if name is None:
         return segment_sum_plain(F, x, starts, ends)
-    _check(x, "x")
+    check_elts(x, "x", F.elt_shape)
     _i32(starts, "starts")
     _i32(ends, "ends")
     nseg = starts.numel()
-    out = torch.empty((nseg, NLIMB), dtype=torch.int32, device=x.device)
-    kernels.launch("fp_segment_sum", 1, 0, out.data_ptr(), 0, x.data_ptr(),
+    out = torch.empty((nseg, F.nlimb), dtype=torch.int32, device=x.device)
+    kernels.launch(name, 1, 0, out.data_ptr(), 0, x.data_ptr(),
                    0, 0, 0, 0, 0, starts.data_ptr(), ends.data_ptr(), nseg)
     return out
 
@@ -469,21 +501,22 @@ def fp_segment_sum(F: PrimeField, x: torch.Tensor, starts: torch.Tensor,
 def fp_eval_layer(F: PrimeField, W: torch.Tensor, h0: torch.Tensor,
                   h1: torch.Tensor, v: torch.Tensor, bmask: torch.Tensor,
                   starts: torch.Tensor, ends: torch.Tensor):
-    """K2 wrapper, mode 1: (V [S, 4], ok) for one circuit layer; ok is a
+    """K2 wrapper, mode 1: (V [S, N], ok) for one circuit layer; ok is a
     0-dim bool tensor on W's device (no host sync)."""
-    if not on_cuda(F, W, h0, h1, v, bmask, starts, ends):
+    name = route("fp_segment_sum", F, W, h0, h1, v, bmask, starts, ends)
+    if name is None:
         return eval_layer_plain(F, W, h0, h1, v, bmask, starts, ends)
-    for t, name in ((W, "W"), (v, "v")):
-        _check(t, name)
-    for t, name in ((h0, "h0"), (h1, "h1"), (starts, "starts"),
-                    (ends, "ends")):
-        _i32(t, name)
+    for t, tname in ((W, "W"), (v, "v")):
+        check_elts(t, tname, F.elt_shape)
+    for t, tname in ((h0, "h0"), (h1, "h1"), (starts, "starts"),
+                     (ends, "ends")):
+        _i32(t, tname)
     if bmask.dtype != torch.bool or not bmask.is_contiguous():
         raise ValueError("bmask must be a contiguous bool tensor")
     nseg = starts.numel()
-    out = torch.empty((nseg, NLIMB), dtype=torch.int32, device=W.device)
+    out = torch.empty((nseg, F.nlimb), dtype=torch.int32, device=W.device)
     bad = torch.zeros(1, dtype=torch.int32, device=W.device)
-    kernels.launch("fp_segment_sum", 1, 1, out.data_ptr(), bad.data_ptr(), 0,
+    kernels.launch(name, 1, 1, out.data_ptr(), bad.data_ptr(), 0,
                    W.data_ptr(), h0.data_ptr(), h1.data_ptr(), v.data_ptr(),
                    bmask.data_ptr(), starts.data_ptr(), ends.data_ptr(), nseg)
     return out, bad[0] == 0
@@ -495,20 +528,21 @@ def _k3_blocks(n: int) -> int:
 
 def fp_axis_sum(F: PrimeField, x: torch.Tensor, dim: int) -> torch.Tensor:
     """K3 wrapper, mode 1: field sum along element axis `dim`."""
-    if not on_cuda(F, x):
+    name = route("fp_wire_round", F, x)
+    if name is None:
         return axis_sum_plain(F, x, dim)
-    _check(x, "x")
+    check_elts(x, "x", F.elt_shape)
     eshape = x.shape[:-1]
     dim = dim % len(eshape)
     A = int(np.prod(eshape[:dim]))
     R = int(eshape[dim])
     B = int(np.prod(eshape[dim + 1 :]))
-    out = torch.empty(tuple(eshape[:dim]) + tuple(eshape[dim + 1 :]) + (NLIMB,),
-                      dtype=torch.int32, device=x.device)
+    out = torch.empty(tuple(eshape[:dim]) + tuple(eshape[dim + 1 :]) +
+                      F.elt_shape, dtype=torch.int32, device=x.device)
     nblk = _k3_blocks(R)
-    scratch = torch.empty(4 * A * B * nblk, dtype=torch.int64,
+    scratch = torch.empty(F.nlimb * A * B * nblk, dtype=torch.int64,
                           device=x.device)
-    kernels.launch("fp_wire_round", 2, 1, out.data_ptr(), scratch.data_ptr(),
+    kernels.launch(name, 2, 1, out.data_ptr(), scratch.data_ptr(),
                    x.data_ptr(), 0, 0, 0, 0, 0, A, R, B, nblk)
     return out
 
@@ -516,18 +550,20 @@ def fp_axis_sum(F: PrimeField, x: torch.Tensor, dim: int) -> torch.Tensor:
 def fp_wire_sums(F: PrimeField, hv: torch.Tensor, Wh: torch.Tensor,
                  Wo: torch.Tensor, h: torch.Tensor,
                  ho: torch.Tensor) -> torch.Tensor:
-    """K3 wrapper, mode 0: [a0, a2] ([2, 4]) of one hand's wire round."""
-    if not on_cuda(F, hv, Wh, Wo, h, ho):
+    """K3 wrapper, mode 0: [a0, a2] ([2, N]) of one hand's wire round."""
+    name = route("fp_wire_round", F, hv, Wh, Wo, h, ho)
+    if name is None:
         return wire_sums_plain(F, hv, Wh, Wo, h, ho)
-    for t, name in ((hv, "hv"), (Wh, "Wh"), (Wo, "Wo")):
-        _check(t, name)
+    for t, tname in ((hv, "hv"), (Wh, "Wh"), (Wo, "Wo")):
+        check_elts(t, tname, F.elt_shape)
     _i32(h, "h")
     _i32(ho, "ho")
     T = hv.shape[0]
-    out = torch.empty((2, NLIMB), dtype=torch.int32, device=hv.device)
+    out = torch.empty((2, F.nlimb), dtype=torch.int32, device=hv.device)
     nblk = _k3_blocks(T)
-    scratch = torch.empty(8 * nblk, dtype=torch.int64, device=hv.device)
-    kernels.launch("fp_wire_round", 2, 0, out.data_ptr(), scratch.data_ptr(),
+    scratch = torch.empty(2 * F.nlimb * nblk, dtype=torch.int64,
+                          device=hv.device)
+    kernels.launch(name, 2, 0, out.data_ptr(), scratch.data_ptr(),
                    hv.data_ptr(), Wh.data_ptr(), Wo.data_ptr(), h.data_ptr(),
                    ho.data_ptr(), T, 0, 0, 0, nblk)
     return out

@@ -1,5 +1,8 @@
 """Concrete prime-field instances: Fp128 (reference
-lib/algebra/fp_p128.h:26-56), the field of this slice of the port."""
+lib/algebra/fp_p128.h:26-56) and the NIST P-256 base field (reference
+lib/algebra/fp_p256.h, lib/ec/p256.h), with the Fp2 root of unity that
+the P-256 Reed-Solomon encoder uses (lib/circuits/mdoc/mdoc_zk.cc:82-88).
+"""
 
 from __future__ import annotations
 
@@ -13,7 +16,32 @@ P128 = (1 << 128) - (1 << 108) + 1
 P128_OMEGA = 17166008163159356379329005055841088858
 P128_OMEGA_ORDER = 1 << 108
 
+# --- NIST P-256 --------------------------------------------------------------
+P256 = 0xFFFFFFFF00000001000000000000000000000000FFFFFFFFFFFFFFFFFFFFFFFF
+P256_ORDER = 0xFFFFFFFF00000000FFFFFFFFFFFFFFFFBCE6FAADA7179E84F3B9CAC2FC632551
+
+# Root of unity of order 2^31 in Fp2 over the P-256 base field
+# (mdoc_zk.cc:83-88); element is kRootX + i*kRootY.
+P256_FP2_ROOT_X = int(
+    "11264922414641028187350045760969025837301884043048940872922371417158"
+    "2664680802"
+)
+P256_FP2_ROOT_Y = int(
+    "84087994358540907695740461427818660560182168997182378749313018254450"
+    "460212908"
+)
+P256_FP2_ROOT_ORDER = 1 << 31
+
+# The fields whose tensors the CUDA kernels take: p -> instance tag (the
+# suffix of the kernel names in kernels.py).
+KERNEL_TAGS = {P128: "fp128", P256: "fp256"}
+
 
 @functools.lru_cache(maxsize=None)
 def fp128() -> PrimeField:
     return PrimeField(P128, "Fp128")
+
+
+@functools.lru_cache(maxsize=None)
+def p256_base() -> PrimeField:
+    return PrimeField(P256, "Fp256Base")

@@ -4,19 +4,25 @@ Each source under `csrc/` is compiled by its own `nvcc` (all started
 together) into a shared library with a plain C interface, in the
 package's ignored build directory `_build/`, at first use; the libraries
 are loaded with ctypes.  Nothing here runs when the package is imported.
+The sources share the field arithmetic of `csrc/fp.cuh`, templated on the
+field; each kernel has one instance (and one C entry point) per field:
 
-    K1 fp_elementwise  csrc/fp_ops.cu      fields/fp.py
-    K2 fp_segment_sum  csrc/segsum.cu      fields/fp.py
-    K3 fp_wire_round   csrc/wire_round.cu  fields/fp.py
-    K4 fp_ntt          csrc/ntt.cu         transforms/ntt.py
+    K1 fp_elementwise   csrc/fp_ops.cu      [fp128] [fp256]     fields/fp.py
+    K2 fp_segment_sum   csrc/segsum.cu      [fp128] [fp256]     fields/fp.py
+    K3 fp_wire_round    csrc/wire_round.cu  [fp128] [fp256]     fields/fp.py
+    K4 fp_ntt           csrc/ntt.cu         [fp128] [fp256x2]   transforms/ntt.py
+    K5 fp2_elementwise  csrc/fp2_ops.cu     [fp256x2]           fields/fp2.py
 
-`LAUNCHES` counts, per kernel, the CUDA launches its wrapper made; a run
-sets the counts to zero with `reset_launches()` and reads them after.
+(fp128: p = 2^128 - 2^108 + 1; fp256: the P-256 base field; fp256x2: Fp2
+over it.)  A kernel's name here is "kernel[instance]".  `LAUNCHES` counts,
+per instance, the CUDA launches its wrapper made; a run sets the counts to
+zero with `reset_launches()` and reads them after.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import os
 import shutil
 import subprocess
@@ -27,7 +33,6 @@ import torch
 from .native import PKG_DIR, build_dir
 
 CSRC = os.path.join(PKG_DIR, "csrc")
-HEADER = os.path.join(CSRC, "fp128.cuh")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
@@ -35,17 +40,25 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
 
-# kernel name -> (source, C entry point, argtypes)
-KERNELS = {
-    "fp_elementwise": ("fp_ops.cu", "fp_elementwise",
-                       [_I, _P, _P, _P, _P, _LL, _LL, _LL, _LL, _P]),
-    "fp_segment_sum": ("segsum.cu", "fp_segment_sum",
-                       [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P]),
-    "fp_wire_round": ("wire_round.cu", "fp_wire_round",
-                      [_I, _P, _P, _P, _P, _P, _P, _P, _LL, _LL, _LL, _LL,
-                       _I, _P]),
-    "fp_ntt": ("ntt.cu", "fp_ntt", [_P, _P, _P, _LL, _I, _P]),
+# kernel -> (source, argtypes, instances); the C entry point of an
+# instance is "<kernel>_<instance>"
+_SOURCES = {
+    "fp_elementwise": ("fp_ops.cu", [_I, _P, _P, _P, _P, _LL, _LL, _LL, _LL,
+                                     _P], ("fp128", "fp256")),
+    "fp_segment_sum": ("segsum.cu", [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                     _P, _I, _P], ("fp128", "fp256")),
+    "fp_wire_round": ("wire_round.cu", [_I, _P, _P, _P, _P, _P, _P, _P, _LL,
+                                        _LL, _LL, _LL, _I, _P],
+                      ("fp128", "fp256")),
+    "fp_ntt": ("ntt.cu", [_P, _P, _P, _LL, _I, _P], ("fp128", "fp256x2")),
+    "fp2_elementwise": ("fp2_ops.cu", [_I, _P, _P, _P, _LL, _LL, _LL, _P],
+                        ("fp256x2",)),
 }
+
+# "kernel[instance]" -> (source, C entry point, argtypes)
+KERNELS = {"%s[%s]" % (k, inst): (src, "%s_%s" % (k, inst), argtypes)
+           for k, (src, argtypes, insts) in _SOURCES.items()
+           for inst in insts}
 
 LAUNCHES = {name: 0 for name in KERNELS}
 
@@ -72,12 +85,12 @@ def _lib_path(src: str) -> str:
 
 
 def _stale(src: str) -> bool:
+    """True if src's library is missing or older than src or any header."""
     out = _lib_path(src)
     if not os.path.exists(out):
         return True
-    newest = max(os.path.getmtime(os.path.join(CSRC, src)),
-                 os.path.getmtime(HEADER))
-    return os.path.getmtime(out) < newest
+    deps = [os.path.join(CSRC, src)] + glob.glob(os.path.join(CSRC, "*.cuh"))
+    return os.path.getmtime(out) < max(os.path.getmtime(d) for d in deps)
 
 
 def build_all(verbose: bool = False) -> dict:

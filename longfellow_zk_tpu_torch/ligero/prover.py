@@ -39,14 +39,14 @@ from .transcript import (
 
 class LigeroProver:
     def __init__(self, p: LigeroParam, F, rs_factory: Callable, device=None):
-        """rs_factory(n, m) -> encoder with .interpolate([..., n, 4])
-        returning [..., m, 4] on `device`."""
+        """rs_factory(n, m) -> encoder with .interpolate([..., n, N])
+        returning [..., m, N] on `device`."""
         self.p = p
         self.F = F
         self.rs_factory = rs_factory
         self.device = resolve_device(device)
         self.mc = MerkleCommitment(p.block_ext)
-        self.tableau = None  # [nrow, block_enc, 4] Montgomery limbs
+        self.tableau = None  # [nrow, block_enc, N] Montgomery limbs
 
     # ------------------------------------------------------------------
 
@@ -133,7 +133,8 @@ class LigeroProver:
         self.tableau = torch.cat([enc_b[:1], enc_d, enc_b[1:]])
         # natural-form little-endian bytes of the extension columns
         nat = F.from_mont(self.tableau[:, p.dblock :].contiguous())
-        raw = nat.cpu().numpy().view(np.uint8)  # [nrow, block_ext, 16]
+        # [nrow, block_ext, 4 N] bytes, of which an element is kBytes
+        raw = nat.cpu().numpy().view(np.uint8)
         cols = np.ascontiguousarray(
             raw[:, :, : F.kBytes].transpose(1, 0, 2)).reshape(
                 p.block_ext, -1)

@@ -39,7 +39,7 @@ from .poly import eval_lagrange, evals_of_coefs, poly_sub
 
 
 def _eq_dev(F, logn: int, n: int, q: List, device) -> torch.Tensor:
-    """EQ[Q, i] for 0 <= i < n as a tensor [n, 4], from host challenges
+    """EQ[Q, i] for 0 <= i < n as a tensor [n, N], from host challenges
     q (>= logn of them), by logn interleave steps (eqs.h:104-134)."""
     eq = F.to_limbs([F.of_scalar(1)], device)
     if logn == 0:
@@ -223,7 +223,7 @@ class SumcheckProver:
         return inputs, W, torch.stack(oks).all()
 
     def eval_circuit(self, circ: Circuit, W0: torch.Tensor):
-        """W0: [ninputs, 4].  Returns (inputs per layer, final V), or
+        """W0: [ninputs, N].  Returns (inputs per layer, final V), or
         (None, None) if an assert-zero term fails."""
         inputs, V, ok = self._eval(circ, W0)
         if not bool(ok.item()):

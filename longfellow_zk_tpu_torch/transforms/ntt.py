@@ -1,8 +1,8 @@
-"""Radix-2 NTT over a prime field, cyclic convolution, and the
+"""Radix-2 NTT over a prime field or Fp2, cyclic convolution, and the
 Reed-Solomon "extend" encoder of the Ligero commit.
 
-Port of the JAX package's transforms/ntt.py (prime-field branch), twin of
-the reference FFT (lib/algebra/fft.h:27-202):
+Port of the JAX package's transforms/ntt.py, twin of the reference FFT
+(lib/algebra/fft.h:27-202):
 
     fftb:  T[j] = SUM_k F[k] W^{jk}     (backward, positive exponent)
     fftf:  F[k] = SUM_j T[j] W^{-jk}    (forward = backward with W^-1)
@@ -10,8 +10,14 @@ the reference FFT (lib/algebra/fft.h:27-202):
 
 The transform runs in kernel K4 (`fp_ntt`, csrc/ntt.cu) over a batch of
 rows: bit reversal, then log2(n) butterfly stages with per-stage twiddle
-tables computed on the host.  Tensors are int32 [..., n, 4] (fields/fp.py);
-the transform runs along the element axis n.
+tables computed on the host.  K4 has an instance over Fp128 and one over
+Fp2 on the P-256 base field.  Tensors are int32 [..., n, *F.elt_shape]
+(fields/fp.py: [..., n, N]; fields/fp2.py: [..., n, 2, N]); the transform
+runs along the element axis n.
+
+A field without roots of unity of the needed order (P-256's base field)
+convolves through Fp2 (FFTExtConvolution): lift to Fp2 with im = 0,
+convolve there, take the real part.
 """
 
 from __future__ import annotations
@@ -23,7 +29,8 @@ import torch
 
 from .. import kernels
 from ..device import resolve_device
-from ..fields.fp import NLIMB, elementwise_plain, on_cuda, MUL, ADD, SUB
+from ..fields.fp import ADD, MUL, SUB, elementwise_plain, route
+from ..fields.fp2 import Fp2, fp2_elementwise_plain
 
 
 def bitrev_permutation(n: int) -> np.ndarray:
@@ -36,44 +43,51 @@ def bitrev_permutation(n: int) -> np.ndarray:
     return rev
 
 
+def _plain(F, mode: int, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    if isinstance(F, Fp2):
+        return fp2_elementwise_plain(F, mode, a, b)
+    return elementwise_plain(F, mode, a, b)
+
+
 def ntt_plain(F, x: torch.Tensor, tw: torch.Tensor) -> torch.Tensor:
-    """Plain version of K4: x [rows, n, 4] -> its transform under the
-    concatenated stage twiddles tw [n - 1, 4]; any device."""
-    rows, n = x.shape[0], x.shape[1]
+    """Plain version of K4: x [rows, n, *E] -> its transform under the
+    concatenated stage twiddles tw [n - 1, *E]; any device."""
+    rows, n, E = x.shape[0], x.shape[1], tuple(F.elt_shape)
     x = x[:, torch.as_tensor(bitrev_permutation(n), device=x.device)]
     s = 0
     while (1 << s) < n:
         m = 1 << s
-        xr = x.reshape(rows, n // (2 * m), 2, m, NLIMB)
+        xr = x.reshape((rows, n // (2 * m), 2, m) + E)
         lo, hi = xr[:, :, 0], xr[:, :, 1]
-        t = hi if s == 0 else elementwise_plain(F, MUL, hi, tw[m - 1 : 2 * m - 1])
-        x = torch.stack([elementwise_plain(F, ADD, lo, t),
-                         elementwise_plain(F, SUB, lo, t)],
-                        dim=2).reshape(rows, n, NLIMB)
+        t = hi if s == 0 else _plain(F, MUL, hi, tw[m - 1 : 2 * m - 1])
+        x = torch.stack([_plain(F, ADD, lo, t), _plain(F, SUB, lo, t)],
+                        dim=2).reshape((rows, n) + E)
         s += 1
     return x
 
 
 def fp_ntt(F, x: torch.Tensor, tw: torch.Tensor) -> torch.Tensor:
-    """K4 wrapper: transform of every row of x [rows, n, 4], n = 2^logn."""
-    if not on_cuda(F, x, tw):
+    """K4 wrapper: transform of every row of x [rows, n, *F.elt_shape],
+    n = 2^logn."""
+    name = route("fp_ntt", F, x, tw)
+    if name is None:
         return ntt_plain(F, x, tw)
-    rows, n = x.shape[0], x.shape[1]
+    rows, n, E = x.shape[0], x.shape[1], tuple(F.elt_shape)
     logn = n.bit_length() - 1
-    if x.dtype != torch.int32 or tuple(x.shape[2:]) != (NLIMB,) or \
-            n != 1 << logn or tw.shape[0] != n - 1:
-        raise ValueError("fp_ntt takes int32 [rows, 2^k, 4] and 2^k - 1 "
-                         "twiddles, got %s" % (tuple(x.shape),))
+    if x.dtype != torch.int32 or tuple(x.shape[2:]) != E or \
+            n != 1 << logn or tuple(tw.shape) != (n - 1,) + E:
+        raise ValueError("fp_ntt takes int32 [rows, 2^k, %s] and 2^k - 1 "
+                         "twiddles, got %s" % (E, tuple(x.shape)))
     x = x.contiguous()
     tw = tw.contiguous()
     y = torch.empty_like(x)
-    kernels.launch("fp_ntt", logn, y.data_ptr(), x.data_ptr(), tw.data_ptr(),
+    kernels.launch(name, logn, y.data_ptr(), x.data_ptr(), tw.data_ptr(),
                    rows, logn)
     return y
 
 
 class NTT:
-    """Radix-2 NTT for a prime field with host-int scalars."""
+    """Radix-2 NTT for a field with host scalars (PrimeField or Fp2)."""
 
     def __init__(self, F, omega, omega_order: int, device=None):
         self.F = F
@@ -111,14 +125,15 @@ class NTT:
         return self._tw[key]
 
     def _transform(self, x: torch.Tensor, inverse: bool) -> torch.Tensor:
-        """Transform along the element axis of x [..., n, 4]."""
-        n = x.shape[-2]
+        """Transform along the element axis of x [..., n, *E]."""
+        E = tuple(self.F.elt_shape)
+        ax = x.dim() - len(E) - 1
+        n = x.shape[ax]
         if n == 1:
             return x
         assert n & (n - 1) == 0, "length must be a power of 2"
-        head = x.shape[:-2]
-        y = fp_ntt(self.F, x.reshape(-1, n, NLIMB), self.twiddles(n, inverse))
-        return y.reshape(head + (n, NLIMB))
+        y = fp_ntt(self.F, x.reshape((-1, n) + E), self.twiddles(n, inverse))
+        return y.reshape(x.shape)
 
     def fftb(self, x: torch.Tensor) -> torch.Tensor:
         """Backward FFT: T[j] = sum_k F[k] W^{jk} (fft.h:185)."""
@@ -188,12 +203,14 @@ class FFTConvolution:
                                 self.device)
 
     def convolution(self, x: torch.Tensor) -> torch.Tensor:
-        """x: [..., n, 4] -> z: [..., m, 4]."""
-        assert x.shape[-2] == self.n
-        pad = x.new_zeros(x.shape[:-2] + (self.padding - self.n, NLIMB))
-        xhat = self.ntt.fftf(torch.cat([x, pad], dim=-2))
+        """x: [..., n, *E] -> z: [..., m, *E]."""
+        E = tuple(self.F.elt_shape)
+        ax = x.dim() - len(E) - 1
+        assert x.shape[ax] == self.n
+        pad = x.new_zeros(x.shape[:ax] + (self.padding - self.n,) + E)
+        xhat = self.ntt.fftf(torch.cat([x, pad], dim=ax))
         z = self.ntt.fftb(self.F.mul(xhat, self._yhat))
-        return z[..., : self.m, :]
+        return z.narrow(ax, 0, self.m)
 
 
 class ReedSolomon:
@@ -236,7 +253,7 @@ class ReedSolomon:
         self._lead_tail = F.to_limbs(lead[n - d : m - d], self.device)
 
     def interpolate(self, y: torch.Tensor) -> torch.Tensor:
-        """y: [..., n, 4] -> [..., m, 4]."""
+        """y: [..., n, N] -> [..., m, N]."""
         F = self.F
         T = self.conv.convolution(F.mul(y, self._binom))
         tail = F.mul(T[..., self.n :, :].contiguous(), self._lead_tail)
@@ -253,5 +270,34 @@ def make_fft_convolution_factory(F, omega, omega_order: int, device=None):
 
     def factory(n, m, y):
         return FFTConvolution(n, m, F, omega, omega_order, y, dev)
+
+    return factory
+
+
+class FFTExtConvolution:
+    """Convolution of base-field data via the Fp2 extension
+    (reference convolution.h:128-191), as the JAX package computes it:
+    lift into Fp2 with im = 0, convolve there, take the real part."""
+
+    def __init__(self, n: int, m: int, Fbase, F2, omega2, omega_order: int,
+                 y: Sequence, device=None):
+        self.Fb = Fbase
+        self.F2 = F2
+        self.inner = FFTConvolution(n, m, F2, omega2, omega_order,
+                                    [(v, 0) for v in y], device)
+
+    def convolution(self, x: torch.Tensor) -> torch.Tensor:
+        """x: [..., n, N] base field -> [..., m, N] base field."""
+        x2 = torch.stack([x, torch.zeros_like(x)], dim=-2)
+        return self.inner.convolution(x2)[..., 0, :].contiguous()
+
+
+def make_fft_ext_convolution_factory(Fbase, F2, omega2, omega_order: int,
+                                     device=None):
+    dev = resolve_device(device)
+
+    def factory(n, m, y):
+        return FFTExtConvolution(n, m, Fbase, F2, omega2, omega_order, y,
+                                 dev)
 
     return factory

@@ -1,22 +1,29 @@
 """ZK harness constants and the RS factory (counterpart of the JAX
-package's zk/testing.py; prime fields with a native root of unity only).
+package's zk/testing.py; prime fields only, no LCH14).
 """
 
 from __future__ import annotations
 
 from ..device import resolve_device
-from ..transforms.ntt import ReedSolomon, make_fft_convolution_factory
+from ..transforms.ntt import (ReedSolomon, make_fft_convolution_factory,
+                              make_fft_ext_convolution_factory)
 
 K_LIGERO_RATE = 4
 K_LIGERO_NREQ = 128
 K_VERSION = 7
 
 
-def rs_factory_for(F, omega, omega_order: int, device=None):
-    """factory(n, m) -> a cached ReedSolomon(n, m) encoder on `device`,
-    by NTT convolution over F's root of unity omega."""
+def rs_factory_for(F, omega=None, omega_order: int = None, F2=None,
+                   omega2=None, device=None):
+    """factory(n, m) -> a cached ReedSolomon(n, m) encoder on `device`:
+    by NTT convolution over F's root of unity omega, or, given F2 (an Fp2
+    over F) and its root omega2, by convolution in Fp2."""
     dev = resolve_device(device)
-    conv = make_fft_convolution_factory(F, omega, omega_order, dev)
+    if F2 is not None:
+        conv = make_fft_ext_convolution_factory(F, F2, omega2, omega_order,
+                                                dev)
+    else:
+        conv = make_fft_convolution_factory(F, omega, omega_order, dev)
     cache = {}
 
     def factory(n, m):

@@ -24,11 +24,20 @@ bad = sorted(m for m in sys.modules
 assert not bad, bad
 import torch
 assert not torch.cuda.is_available()
-from longfellow_zk_tpu_torch.fields.fp_instances import fp128, P128_OMEGA, P128_OMEGA_ORDER
+for mod in ("fields.fp2", "ec.curves", "circuits.ecdsa.verify"):
+    assert pkg.__name__ + "." + mod in names, mod
+from longfellow_zk_tpu_torch.fields.fp_instances import (
+    fp128, p256_base, P128_OMEGA, P128_OMEGA_ORDER, P256_FP2_ROOT_X,
+    P256_FP2_ROOT_Y, P256_FP2_ROOT_ORDER)
+from longfellow_zk_tpu_torch.fields.fp2 import Fp2
 from longfellow_zk_tpu_torch.sumcheck.prover import SumcheckProver
 from longfellow_zk_tpu_torch.zk.testing import rs_factory_for
 for make in (lambda: SumcheckProver(fp128()),
-             lambda: rs_factory_for(fp128(), P128_OMEGA, P128_OMEGA_ORDER)):
+             lambda: rs_factory_for(fp128(), P128_OMEGA, P128_OMEGA_ORDER),
+             lambda: SumcheckProver(p256_base()),
+             lambda: rs_factory_for(p256_base(), F2=Fp2(p256_base()),
+                                    omega2=(P256_FP2_ROOT_X, P256_FP2_ROOT_Y),
+                                    omega_order=P256_FP2_ROOT_ORDER)):
     try:
         make()
     except RuntimeError as e:

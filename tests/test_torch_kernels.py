@@ -1,5 +1,6 @@
-"""The port's CUDA kernels (K1-K4) against their plain PyTorch versions,
-on the card.  Field arithmetic is exact: equality, tolerance 0.
+"""The port's CUDA kernels (K1-K5, every field instance) against their
+plain PyTorch versions, on the card.  Field arithmetic is exact:
+equality, tolerance 0.
 
 These tests need an NVIDIA GPU and nvcc; without a card they skip.  On a
 machine with one (and no JAX, which tests/conftest.py imports):
@@ -13,8 +14,11 @@ import torch
 
 from longfellow_zk_tpu_torch import kernels
 from longfellow_zk_tpu_torch.fields import fp as fpm
+from longfellow_zk_tpu_torch.fields.fp2 import (
+    MUL_BASE, Fp2, fp2_elementwise, fp2_elementwise_plain)
 from longfellow_zk_tpu_torch.fields.fp_instances import (
-    P128_OMEGA, P128_OMEGA_ORDER, fp128)
+    P128_OMEGA, P128_OMEGA_ORDER, P256_FP2_ROOT_ORDER, P256_FP2_ROOT_X,
+    P256_FP2_ROOT_Y, fp128, p256_base)
 from longfellow_zk_tpu_torch.transforms.ntt import NTT, fp_ntt, ntt_plain
 
 pytestmark = pytest.mark.cuda
@@ -28,11 +32,21 @@ def dev():
     return torch.device("cuda")
 
 
+FIELDS = {"fp128": fp128, "fp256": p256_base}
+
+
 def _elts(F, rng, n, dev):
     """n field elements from a numpy seed, with 0, 1 and p - 1 first."""
     vals = [0, 1, F.p - 1] + [
-        int.from_bytes(rng.bytes(16), "little") % F.p for _ in range(n)]
+        int.from_bytes(rng.bytes(4 * F.nlimb), "little") % F.p
+        for _ in range(n)]
     return F.to_limbs(vals[:n], dev)
+
+
+def _elts2(F2, rng, n, dev):
+    """n Fp2 elements [n, 2, N] from a numpy seed."""
+    return torch.stack([_elts(F2.f, rng, n, dev),
+                        _elts(F2.f, rng, n, dev).flip(0)], dim=-2)
 
 
 def _same(a, b):
@@ -40,26 +54,29 @@ def _same(a, b):
     assert torch.equal(a.cpu(), b.cpu())
 
 
+@pytest.mark.parametrize("field", list(FIELDS))
 @pytest.mark.parametrize("mode", [fpm.MUL, fpm.ADD, fpm.SUB])
-def test_k1_arith(dev, mode):
-    F, rng = fp128(), np.random.default_rng(1)
+def test_k1_arith(dev, mode, field):
+    F, rng = FIELDS[field](), np.random.default_rng(1)
+    N = F.nlimb
     a = _elts(F, rng, 5000, dev)
     b = _elts(F, rng, 5000, dev).flip(0).contiguous()
     _same(fpm.fp_elementwise(F, mode, a, b),
           fpm.elementwise_plain(F, mode, a, b))
     # broadcast: a column [rows, 1] and a row [n] over [rows, n]
-    m = a[:4000].reshape(40, 100, 4)
-    col, row = b[:40].reshape(40, 1, 4), b[:100]
+    m = a[:4000].reshape(40, 100, N)
+    col, row = b[:40].reshape(40, 1, N), b[:100]
     # (rows, 1, 2) over (rows, 5, 2) is not one block of dims: b is
     # materialised
-    m3, b3 = a[:400].reshape(40, 5, 2, 4), b[:80].reshape(40, 1, 2, 4)
+    m3, b3 = a[:400].reshape(40, 5, 2, N), b[:80].reshape(40, 1, 2, N)
     for x, y in ((m, col), (m, row), (m, b[0]), (row, m), (m3, b3)):
         _same(fpm.fp_elementwise(F, mode, x, y),
               fpm.elementwise_plain(F, mode, x, y))
 
 
-def test_k1_bind_hv(dev):
-    F, rng = fp128(), np.random.default_rng(2)
+@pytest.mark.parametrize("field", list(FIELDS))
+def test_k1_bind_hv(dev, field):
+    F, rng = FIELDS[field](), np.random.default_rng(2)
     x = _elts(F, rng, 4096, dev)
     r = _elts(F, rng, 7, dev)[5]
     _same(F.bind(x, r), fpm.elementwise_plain(F, fpm.BIND, x, r))
@@ -78,16 +95,18 @@ def _segments(rng, nseg, T, dev):
     return (torch.as_tensor(s, device=dev), torch.as_tensor(e, device=dev))
 
 
-def test_k2_segment_sum(dev):
-    F, rng = fp128(), np.random.default_rng(3)
+@pytest.mark.parametrize("field", list(FIELDS))
+def test_k2_segment_sum(dev, field):
+    F, rng = FIELDS[field](), np.random.default_rng(3)
     x = _elts(F, rng, 20000, dev)
     s, e = _segments(rng, 3000, 20000, dev)   # some segments are empty
     _same(F.lazy_segment_sum(x, s, e), fpm.segment_sum_plain(F, x, s, e))
 
 
+@pytest.mark.parametrize("field", list(FIELDS))
 @pytest.mark.parametrize("bad", [False, True])
-def test_k2_eval_layer(dev, bad):
-    F, rng = fp128(), np.random.default_rng(4)
+def test_k2_eval_layer(dev, bad, field):
+    F, rng = FIELDS[field](), np.random.default_rng(4)
     T, nw, nseg = 20000, 1 << 12, 1 << 11
     W = _elts(F, rng, nw, dev)
     W[7] = 0  # beta-masked terms read a zero product
@@ -105,8 +124,9 @@ def test_k2_eval_layer(dev, bad):
     assert bool(ok) == bool(ok2) == (not bad)
 
 
-def test_k3_wire_and_sums(dev):
-    F, rng = fp128(), np.random.default_rng(5)
+@pytest.mark.parametrize("field", list(FIELDS))
+def test_k3_wire_and_sums(dev, field):
+    F, rng = FIELDS[field](), np.random.default_rng(5)
     T, N = 70000, 1 << 14
     hv = _elts(F, rng, T, dev)
     Wh = _elts(F, rng, N, dev)
@@ -115,7 +135,7 @@ def test_k3_wire_and_sums(dev):
     ho = torch.as_tensor(rng.integers(0, N, T, dtype=np.int32), device=dev)
     _same(fpm.fp_wire_sums(F, hv, Wh, Wo, h, ho),
           fpm.wire_sums_plain(F, hv, Wh, Wo, h, ho))
-    x = hv[:68100].reshape(10, 15, 454, 4)
+    x = hv[:68100].reshape(10, 15, 454, F.nlimb)
     for dim in (0, 1, 2):
         _same(F.lazy_sum(x, dim), fpm.axis_sum_plain(F, x, dim))
     _same(F.lazy_sum(hv, 0), fpm.axis_sum_plain(F, hv, 0))
@@ -128,3 +148,34 @@ def test_k4_ntt(dev, n):
     for inverse in (False, True):
         tw = NTT(F, P128_OMEGA, P128_OMEGA_ORDER, dev).twiddles(n, inverse)
         _same(fp_ntt(F, x, tw), ntt_plain(F, x, tw))
+
+
+@pytest.mark.parametrize("n", [2, 64, 2048])
+def test_k4_ntt_fp2(dev, n):
+    F2, rng = Fp2(p256_base()), np.random.default_rng(7)
+    x = _elts2(F2, rng, 14 * n, dev).reshape(14, n, 2, F2.nlimb)
+    ntt = NTT(F2, (P256_FP2_ROOT_X, P256_FP2_ROOT_Y), P256_FP2_ROOT_ORDER,
+              dev)
+    for inverse in (False, True):
+        tw = ntt.twiddles(n, inverse)
+        _same(fp_ntt(F2, x, tw), ntt_plain(F2, x, tw))
+
+
+@pytest.mark.parametrize("mode", [fpm.MUL, fpm.ADD, fpm.SUB, MUL_BASE])
+def test_k5_fp2(dev, mode):
+    F2, rng = Fp2(p256_base()), np.random.default_rng(8)
+    N = F2.nlimb
+    a = _elts2(F2, rng, 3000, dev)
+    if mode == MUL_BASE:
+        b = _elts(F2.f, rng, 3000, dev)
+        row, col = b[:100], b[:30].reshape(30, 1, N)
+    else:
+        b = _elts2(F2, rng, 3000, dev).flip(0).contiguous()
+        row, col = b[:100], b[:30].reshape(30, 1, 2, N)
+    _same(fp2_elementwise(F2, mode, a, b),
+          fp2_elementwise_plain(F2, mode, a, b))
+    # broadcast over [rows, n], as the yhat table and the RS lead vector
+    m = a.reshape(30, 100, 2, N)
+    for y in (row, col):
+        _same(fp2_elementwise(F2, mode, m, y),
+              fp2_elementwise_plain(F2, mode, m, y))

@@ -41,7 +41,7 @@ def test_reed_solomon_matches_jax(n, m):
     J, F = jax_fp128(), fp128()
     jx, px = _rows(2, n, 100 + n)
     want = jax_rs_factory(J, P128_OMEGA, P128_OMEGA_ORDER)(n, m).interpolate(jx)
-    got = rs_factory_for(F, P128_OMEGA, P128_OMEGA_ORDER, "cpu")(n, m)
+    got = rs_factory_for(F, P128_OMEGA, P128_OMEGA_ORDER, device="cpu")(n, m)
     assert np.array_equal(limbs_to_jax(got.interpolate(px)), np.asarray(want))
 
 

@@ -40,7 +40,7 @@ def _port_toy_proof(W=None):
     W = toy_inputs(F.p) if W is None else W
     zkp = ZkProof(rate=TOY_RATE, nreq=TOY_NREQ)
     prover = ZkProver(circ, F, rs_factory_for(F, P128_OMEGA, P128_OMEGA_ORDER,
-                                              "cpu"),
+                                              device="cpu"),
                       rate=TOY_RATE, nreq=TOY_NREQ, block_enc=TOY_BLOCK_ENC,
                       device="cpu")
     ts = Transcript(TOY_LABEL)
@@ -84,7 +84,7 @@ def test_entry_points_need_a_device():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         rs_factory_for(F, P128_OMEGA, P128_OMEGA_ORDER)
     circ = port_circuit(_zk_circuit(jax_fp128()))
-    factory = rs_factory_for(F, P128_OMEGA, P128_OMEGA_ORDER, "cpu")
+    factory = rs_factory_for(F, P128_OMEGA, P128_OMEGA_ORDER, device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ZkProver(circ, F, factory, rate=TOY_RATE, nreq=TOY_NREQ)
 
