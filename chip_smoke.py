@@ -4,20 +4,26 @@
     python3 chip_smoke.py
 
 1. Prints the card (name, count, power limit).
-2. Builds the kernels K1-K5 from longfellow_zk_tpu_torch/csrc with nvcc.
-3. Runs each kernel instance at the shapes of the two proofs below, holds
+2. Builds the kernels K1-K6 from longfellow_zk_tpu_torch/csrc with nvcc.
+3. Runs each kernel instance at the shapes of the proofs below, holds
    it against its plain PyTorch version on the same inputs (field
    arithmetic is exact: tolerance 0) and times both (device time from
    the profiler; the kernel's call time, back to back, by CUDA events):
-   the Fp128 instances of K1-K4 at the SHA-256 proof's shapes, the P-256
-   instances of K1-K3, K4 over Fp2 and K5 at the ECDSA proof's shapes.
-4. Drives the port's two paths, each through ZkProver.commit /
-   ZkProver.prove under DeterministicEngine(), whose serialized bytes
-   must equal the golden proof in longfellow_zk_tpu_torch/testdata:
+   a. the Fp128 instances of K1-K4 at the SHA-256 proof's shapes;
+   b. the P-256 instances of K1-K3, K4 over Fp2 and K5 at the ECDSA
+      proof's shapes;
+   c. the GF(2^128) instances of K1-K3 and K6 at the mdoc hash proof's
+      shapes (K1 at 266 x 3,230, K2 and K3 on its 3,578,789-term layer,
+      K6 on the 266-row tableau at (461, 4151) and (921, 4151)).
+4. Drives the port's three paths, each with the launch counts set to
+   zero just before it and read just after (every kernel instance of the
+   path must have launched), its bytes under DeterministicEngine held
+   against the golden proof in longfellow_zk_tpu_torch/testdata:
    a. the Fp128 SHA-256 one-block proof (the JAX package's bytes);
-   b. the P-256 ECDSA signature proof (the JAX package's bytes).
-   Each path runs with the launch counts set to zero just before it and
-   read just after; every kernel instance of the path must have launched.
+   b. the P-256 ECDSA signature proof (the JAX package's bytes);
+   c. the mdoc presentation through circuits/mdoc/api.run_mdoc_prover
+      (the GF(2^128) hash proof and the P-256 signature proof; the bytes
+      of the port's CPU path, which the JAX verifier accepts).
    Then 5 more proofs under SecureRandomEngine() are timed (median), one
    is profiled on the host (cProfile) and one on the card (busy share).
 5. Prints the kernels line, the card line and, last, the result line.
@@ -47,8 +53,12 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA's data sheet
 # as 2)
 INT32_OPS_PER_S = 67e12 / 4
 # 32x32->64 products per field product: 2 N^2 for N 32-bit words, three
-# base products for an Fp2 product
-MUL_OPS = {"fp128": 32, "fp256": 128, "fp256x2": 3 * 128}
+# base products for an Fp2 product.  A GF(2^128) product counts none: no
+# instruction of the card computes a carry-less product, so its bound is
+# the bytes bound (the kernels' shift-and-XOR spends about 2,000 32-bit
+# operations a product, GF2_OPS_PER_MUL, printed beside it).
+MUL_OPS = {"fp128": 32, "fp256": 128, "fp256x2": 3 * 128, "gf2_128": 0}
+GF2_OPS_PER_MUL = 128 * 16
 
 
 def bound_ms(nbytes, ops):
@@ -120,35 +130,41 @@ class Rows:
 
 
 def elts_of(F, rng, dev):
-    """elts(n): n random elements of prime field F on the card."""
+    """elts(n): n random elements of field F on the card."""
     def elts(n):
+        if F.kCharacteristicTwo:
+            return torch.as_tensor(
+                rng.integers(-2**31, 2**31, (n, 4), dtype=np.int32),
+                device=dev)
         return F.to_limbs([int.from_bytes(rng.bytes(4 * F.nlimb), "little")
                            % F.p for _ in range(n)], dev)
     return elts
 
 
-def check_fp_kernels(rows, F, circ, dev, tag, k1_n, k1_table, rng):
-    """K1-K3 of prime field F (instance `tag`) against their plain
-    versions at the shapes of circuit `circ`: K1 at k1_n elements (a wire
-    round) and at the tableau k1_table = (rows, n); K2 and K3 at the
-    largest layer."""
+def check_fp_kernels(rows, F, circ, dev, tag, k1_n, k1_table, rng,
+                     dblock=681):
+    """K1-K3 of field F (instance `tag`) against their plain versions at
+    the shapes of circuit `circ`: K1 at k1_n elements (a wire round) and
+    at the tableau k1_table = (rows, n); K2 and K3 at the largest layer;
+    the Ligero row sums at (rows, dblock)."""
     from longfellow_zk_tpu_torch.fields import fp as fpm
     from longfellow_zk_tpu_torch.sumcheck.prover import SumcheckProver
 
+    pm = fpm.plain_of(F)
     mops, eb = MUL_OPS[tag], 4 * F.nlimb
     elts = elts_of(F, rng, dev)
     err = 0
-    for n in (k1_n, k1_table[0] * k1_table[1]):
+    for n in sorted({k1_n, k1_table[0] * k1_table[1]}):
         a, b, r = elts(n), elts(n), elts(1)[0]
         h = torch.as_tensor(rng.integers(0, 1 << 15, n, dtype=np.int32),
                             device=dev)
         for mode in (fpm.MUL, fpm.ADD, fpm.SUB):
             err = max(err, max_err(fpm.fp_elementwise(F, mode, a, b),
-                                   fpm.elementwise_plain(F, mode, a, b)))
+                                   pm.elementwise_plain(F, mode, a, b)))
         err = max(err, max_err(F.bind(a, r),
-                               fpm.elementwise_plain(F, fpm.BIND, a, r)))
+                               pm.elementwise_plain(F, fpm.BIND, a, r)))
         err = max(err, max_err(F.hv_update(a, h, r),
-                               fpm.elementwise_plain(F, fpm.HV, a, r, h)))
+                               pm.elementwise_plain(F, fpm.HV, a, r, h)))
     nt = k1_table[0] * k1_table[1]
     b_tab = elts(nt).reshape(k1_table + (F.nlimb,))
     print("K1[%s] mul at %d x %d: device %.5f ms, bound %.5f ms" % (
@@ -160,7 +176,7 @@ def check_fp_kernels(rows, F, circ, dev, tag, k1_n, k1_table, rng):
                 "longfellow_zk_tpu_torch/csrc/fp_ops.cu",
                 "longfellow_zk_tpu/fields/fp.py:277", err,
                 lambda: F.mul(a, b),
-                lambda: fpm.elementwise_plain(F, fpm.MUL, a, b),
+                lambda: pm.elementwise_plain(F, fpm.MUL, a, b),
                 3 * eb * k1_n, mops * k1_n)
 
     ly = max(range(circ.nl), key=lambda i: circ.layers[i].nterms)
@@ -175,19 +191,19 @@ def check_fp_kernels(rows, F, circ, dev, tag, k1_n, k1_table, rng):
           % (tag, ly, T, layer.nw, layer.logw))
     V, ok = fpm.fp_eval_layer(F, W, qd["h0"], qd["h1"], qd["v"], qd["bmask"],
                               starts, ends)
-    V2, ok2 = fpm.eval_layer_plain(F, W, qd["h0"], qd["h1"], qd["v"],
+    V2, ok2 = pm.eval_layer_plain(F, W, qd["h0"], qd["h1"], qd["v"],
                                    qd["bmask"], starts, ends)
     err = max_err(V, V2) + int(bool(ok) != bool(ok2))
     x = elts(T)
     err = max(err, max_err(F.lazy_segment_sum(x, starts, ends),
-                           fpm.segment_sum_plain(F, x, starts, ends)))
+                           pm.segment_sum_plain(F, x, starts, ends)))
     rows.record("fp_segment_sum[%s]" % tag,
                 "longfellow_zk_tpu_torch/csrc/segsum.cu",
                 "longfellow_zk_tpu/sumcheck/prover_device.py:372", err,
                 lambda: fpm.fp_eval_layer(
                     F, W, qd["h0"], qd["h1"], qd["v"], qd["bmask"], starts,
                     ends),
-                lambda: fpm.eval_layer_plain(
+                lambda: pm.eval_layer_plain(
                     F, W, qd["h0"], qd["h1"], qd["v"], qd["bmask"], starts,
                     ends),
                 T * (eb + 4 + 4 + 1) + eb * layer.nw + nv * (eb + 8) + 4,
@@ -197,18 +213,18 @@ def check_fp_kernels(rows, F, circ, dev, tag, k1_n, k1_table, rng):
     hv, Wh, Wo = elts(T), elts(N), elts(N)
     h0, h1 = qd["h0"], qd["h1"]
     err = max_err(fpm.fp_wire_sums(F, hv, Wh, Wo, h0, h1),
-                  fpm.wire_sums_plain(F, hv, Wh, Wo, h0, h1))
-    err = max(err, max_err(F.lazy_sum(hv, 0), fpm.axis_sum_plain(F, hv, 0)))
+                  pm.wire_sums_plain(F, hv, Wh, Wo, h0, h1))
+    err = max(err, max_err(F.lazy_sum(hv, 0), pm.axis_sum_plain(F, hv, 0)))
     # the Ligero row sums: the tableau's rows over the dblock width
-    rws = elts(k1_table[0] * 681).reshape(k1_table[0], 681, F.nlimb)
+    rws = elts(k1_table[0] * dblock).reshape(k1_table[0], dblock, F.nlimb)
     err = max(err, max_err(F.lazy_sum(rws, 0),
-                           fpm.axis_sum_plain(F, rws, 0)))
+                           pm.axis_sum_plain(F, rws, 0)))
     n_even = int((h0 & 1).eq(0).sum())
     rows.record("fp_wire_round[%s]" % tag,
                 "longfellow_zk_tpu_torch/csrc/wire_round.cu",
                 "longfellow_zk_tpu/sumcheck/prover_device.py:571", err,
                 lambda: fpm.fp_wire_sums(F, hv, Wh, Wo, h0, h1),
-                lambda: fpm.wire_sums_plain(F, hv, Wh, Wo, h0, h1),
+                lambda: pm.wire_sums_plain(F, hv, Wh, Wo, h0, h1),
                 T * (eb + 4 + 4) + 2 * eb * N + 2 * eb,
                 mops * (2 * T + n_even))
 
@@ -232,14 +248,50 @@ def check_ntt(rows, F, ntt, tag, nrows, n, elts):
                 MUL_OPS[tag] * nrows * (n // 2) * (logn - 1))
 
 
+def check_lch14(rows, F, dev, nrows, m, rng):
+    """K6 at the hash tableau: nrows rows extended from 461 (block) and
+    921 (dblock) values to m (block_enc), against its plain version."""
+    from longfellow_zk_tpu_torch.transforms import lch14
+
+    elts = elts_of(F, rng, dev)
+    err, cases = 0, []
+    for n in (461, 921):
+        rs = lch14.LCH14ReedSolomon(n, m, F, dev)
+        y = elts(nrows * n).reshape(nrows, n, 4)
+        err = max(err, max_err(rs.interpolate(y), lch14.lch14_plain(
+            F, lch14.EXTEND, y, rs.sched, m)))
+        cases.append((n, rs, y))
+    for n, rs, y in cases:
+        sched = rs.sched
+        nbf = sched.bf.shape[0]
+        nbytes = 16 * nrows * (n + m) + sched.bf.numel() * 4 + \
+            sched.tw.numel() * 4 + sched.passes.numel() * 4
+        print("K6[gf2_128] (%d, %d) x %d rows: %d butterflies a row in %d "
+              "passes (%d ops a row at %d a product), device %.5f ms, "
+              "bound %.5f ms (bytes)" % (
+                  n, m, nrows, nbf, sched.passes.shape[0],
+                  nbf * GF2_OPS_PER_MUL, GF2_OPS_PER_MUL,
+                  device_ms(lambda: rs.interpolate(y), 20),
+                  bound_ms(nbytes, 0)[0]))
+        if n == 461:
+            rows.record("gf2_lch14[gf2_128]",
+                        "longfellow_zk_tpu_torch/csrc/lch14.cu",
+                        "longfellow_zk_tpu/transforms/lch14.py:298", err,
+                        lambda: rs.interpolate(y),
+                        lambda: lch14.lch14_plain(F, lch14.EXTEND, y,
+                                                  rs.sched, m),
+                        nbytes, 0)
+
+
 def run_path(label, metric, prove, golden, golden_what, kernels, rows,
-             expect, smi):
-    """Drives one path: the first proof (DeterministicEngine) with the
-    launch counts set to zero just before it and read just after, its
-    bytes held against `golden`; then 5 timed proofs, a host profile and
-    a device profile.  `prove(engine, phases)` returns the proof bytes
-    and appends its (commit ms, prove ms) to phases.  Returns False on a
-    failure."""
+             expect, smi, first_engine=None,
+             phase_names=("commit", "prove")):
+    """Drives one path: the first proof (`first_engine`, by default
+    DeterministicEngine()) with the launch counts set to zero just before
+    it and read just after, its bytes held against `golden`; then 5 timed
+    proofs, a host profile and a device profile.  `prove(engine, phases)`
+    returns the proof bytes and appends its phase times (ms, in the order
+    of phase_names) to phases.  Returns False on a failure."""
     from longfellow_zk_tpu_torch.random_oracle.engine import (
         DeterministicEngine, SecureRandomEngine)
 
@@ -247,7 +299,7 @@ def run_path(label, metric, prove, golden, golden_what, kernels, rows,
     phases = []
     kernels.reset_launches()
     t = time.perf_counter()
-    proof = prove(DeterministicEngine(), phases)
+    proof = prove(first_engine or DeterministicEngine(), phases)
     first_ms = (time.perf_counter() - t) * 1e3
     launches = {k: v for k, v in kernels.LAUNCHES.items() if k in expect}
     others = {k: v for k, v in kernels.LAUNCHES.items()
@@ -278,9 +330,9 @@ def run_path(label, metric, prove, golden, golden_what, kernels, rows,
     print("%s: %.3f (median of 5; min %.3f, max %.3f: %s) on %s"
           % (metric, statistics.median(times), min(times), max(times),
              ", ".join("%.1f" % x for x in times), smi))
-    print("  commit %.1f ms, prove %.1f ms (medians)" % (
-        statistics.median(c for c, _ in phases),
-        statistics.median(p for _, p in phases)))
+    print("  " + ", ".join(
+        "%s %.1f ms" % (nm, statistics.median(ph[i] for ph in phases))
+        for i, nm in enumerate(phase_names)) + " (medians)")
 
     import cProfile
     import pstats
@@ -326,6 +378,11 @@ def main() -> int:
         return 2
     from longfellow_zk_tpu_torch import kernels
     from longfellow_zk_tpu_torch.circuits.ecdsa.verify import compute_witness
+    from longfellow_zk_tpu_torch.circuits.mdoc import api as mdoc_api
+    from longfellow_zk_tpu_torch.circuits.mdoc.witness import (
+        RequestedAttribute)
+    from longfellow_zk_tpu_torch.circuits.mdoc.zk_spec import (
+        find_zk_spec_by_version)
     from longfellow_zk_tpu_torch.circuits.sha.sha256 import (
         SHA256_INIT, pack_block_witness, sha256_pad, transform_block_witness)
     from longfellow_zk_tpu_torch.ec.curves import ecdsa_sign, p256_curve
@@ -333,8 +390,11 @@ def main() -> int:
     from longfellow_zk_tpu_torch.fields.fp_instances import (
         P128_OMEGA, P128_OMEGA_ORDER, P256_FP2_ROOT_ORDER, P256_FP2_ROOT_X,
         P256_FP2_ROOT_Y, fp128, p256_base)
+    from longfellow_zk_tpu_torch.fields.gf2 import gf2_128
     from longfellow_zk_tpu_torch.proto.lfc1 import (
         FP128_ID, P256_ID, read_circuit)
+    from longfellow_zk_tpu_torch.random_oracle.engine import (
+        DeterministicEngine)
     from longfellow_zk_tpu_torch.random_oracle.transcript import Transcript
     from longfellow_zk_tpu_torch.transforms.ntt import NTT
     from longfellow_zk_tpu_torch.zk.proof import ZkProof
@@ -409,6 +469,15 @@ def main() -> int:
                 lambda: F2.mul(x2, y2),
                 lambda: fp2m.fp2_elementwise_plain(F2, fp2m.MUL, x2, y2),
                 64 * (2 * nt + 2048), MUL_OPS["fp256x2"] * nt)
+
+    # -- 3c. the GF(2^128) instances at the mdoc hash proof's shapes ---------
+    GF = gf2_128()
+    circuit_bytes = open(os.path.join(REPO, "artifacts", "mdoc_v7_1attr.zst"),
+                         "rb").read()
+    _, c_hash = mdoc_api.load_circuits(circuit_bytes)
+    check_fp_kernels(rows, GF, c_hash, dev, "gf2_128", 266 * 3230,
+                     (266, 3230), rng, dblock=921)
+    check_lch14(rows, GF, dev, 266, 4151, rng)
     if rows.failures:
         print("FAIL: kernels disagree with their plain versions:",
               rows.failures)
@@ -469,6 +538,38 @@ def main() -> int:
                     "the golden JAX proof", kernels,
                     rows, [k for k in kernels.KERNELS
                            if k.endswith(("[fp256]", "[fp256x2]"))], smi):
+        return 1
+
+    # -- 4c. the mdoc presentation, through run_mdoc_prover ------------------
+    mmeta = json.load(open(os.path.join(TESTDATA,
+                                        "mdoc_v7_1attr.proof.json")))
+    mgolden = open(os.path.join(TESTDATA, "mdoc_v7_1attr.proof.bin"),
+                   "rb").read()
+    ex = json.load(open(os.path.join(REPO, mmeta["examples"])))[
+        mmeta["example"]]
+    attrs = [RequestedAttribute(id=a["id"].encode(),
+                                cbor_value=bytes.fromhex(a["cbor_value"]))
+             for a in mmeta["attributes"]]
+    spec = find_zk_spec_by_version(mmeta["version"], len(attrs))
+
+    def mdoc_prove(engine, phases):
+        ph = []
+        out = mdoc_api.run_mdoc_prover(
+            circuit_bytes, bytes.fromhex(ex["mdoc"]), int(ex["pkx"], 16),
+            int(ex["pky"], 16), bytes.fromhex(ex["transcript"]), attrs,
+            ex["now"].encode(), spec, rng=engine, device=dev, phases=ph)
+        phases.append(tuple(ph))
+        return out
+
+    if not run_path("the mdoc presentation (run_mdoc_prover)",
+                    "mdoc_prover_ms", mdoc_prove, mgolden,
+                    "the golden mdoc proof", kernels, rows,
+                    [k for k in kernels.KERNELS
+                     if k.endswith(("[gf2_128]", "[fp256]", "[fp256x2]"))],
+                    smi, first_engine=DeterministicEngine(
+                        mmeta["engine_seed"].encode()),
+                    phase_names=("hash commit", "sig commit", "hash prove",
+                                 "sig prove")):
         return 1
 
     # -- 5. results ---------------------------------------------------------

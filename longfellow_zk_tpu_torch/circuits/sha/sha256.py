@@ -2,15 +2,17 @@
 lib/circuits/sha/flatsha256_witness): the padded message, each round's
 message-schedule word w, working values e and a, and the chained digest
 h1, packed four bits to a field element by the bit plucker encoder
-(reference bit_plucker_encoder.h).  Copied from the JAX package's
-circuits/sha/sha256.py and compiler/components.py; the circuit itself is
-read from its LFC1 file (artifacts/sha256_1block_fp128.lfc1.gz).
+(reference bit_plucker_encoder.h, compiler/components.py).  Copied from
+the JAX package's circuits/sha/sha256.py; the circuit itself is read
+from its LFC1 file (artifacts/sha256_1block_fp128.lfc1.gz).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import List, Sequence
+
+from ...compiler.components import BitPluckerEncoder
 
 K_SHA256_ROUND = [
     0x428A2F98, 0x71374491, 0xB5C0FBCF, 0xE9B5DBA5, 0x3956C25B, 0x59F111F1,
@@ -28,34 +30,6 @@ K_SHA256_ROUND = [
 
 SHA256_INIT = [0x6A09E667, 0xBB67AE85, 0x3C6EF372, 0xA54FF53A,
                0x510E527F, 0x9B05688C, 0x1F83D9AB, 0x5BE0CD19]
-
-
-def bit_plucker_point(F, n: int, bits: int):
-    """F.of_scalar(2*bits) - F.of_scalar(n-1) (bit_plucker_constants.h)."""
-    if F.kCharacteristicTwo:
-        return F.sub_i(F.of_scalar(2 * bits), F.of_scalar(n - 1))
-    return F.sub_i(F.of_scalar((2 * bits) % F.char),
-                   F.of_scalar((n - 1) % F.char))
-
-
-class BitPluckerEncoder:
-    """Host-side packing matching BitPlucker (bit_plucker_encoder.h)."""
-
-    def __init__(self, F, logn: int):
-        self.F = F
-        self.logn = logn
-        self.kN = 1 << logn
-        self.kNv32Elts = (32 + logn - 1) // logn
-
-    def encode(self, i: int):
-        return bit_plucker_point(self.F, self.kN, i)
-
-    def mkpacked_v32(self, j: int) -> List:
-        r = []
-        for _ in range(self.kNv32Elts):
-            r.append(self.encode(j & (self.kN - 1)))
-            j >>= self.logn
-        return r
 
 
 def _rotr(x, n):

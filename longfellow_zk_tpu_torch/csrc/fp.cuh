@@ -18,7 +18,9 @@
 //
 // Sums are exact: each 32-bit limb is added into a 64-bit accumulator
 // (fewer than 2^31 addends, so no accumulator overflows) and the N
-// accumulators are reduced once at the end (fp_reduce_acc).
+// accumulators are reduced once at the end (fp_reduce_acc); acc_add
+// combines two accumulators.  gf2.cuh puts GF(2^128) behind the same
+// interface (Fp<G128>, sums by XOR).
 //
 // Fp2<C> = Fp<C>[i] / (i^2 + 1) is a pair (re, im) of Fp<C>, stored re
 // first (2 N limbs); it is what the Reed-Solomon NTT over P-256 runs on.
@@ -248,13 +250,20 @@ __device__ __forceinline__ Fp<C> fp_reduce_acc(const u64* acc) {
   return fp_add(low, fp_mul(top, fp_r2<C>()));
 }
 
-template <int N>
+// Combines two accumulators of fp_acc: a sum for a prime field (XOR for
+// GF(2^128), gf2.cuh).
+template <class C>
+__device__ __forceinline__ u64 acc_add(u64 a, u64 b) {
+  return a + b;
+}
+
+template <class C>
 __device__ __forceinline__ void warp_sum(u64* acc) {
 #pragma unroll
-  for (int j = 0; j < N; j++) {
+  for (int j = 0; j < C::N; j++) {
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
-      acc[j] += __shfl_down_sync(0xFFFFFFFFu, acc[j], off);
+      acc[j] = acc_add<C>(acc[j], __shfl_down_sync(0xFFFFFFFFu, acc[j], off));
   }
 }
 

@@ -1,11 +1,14 @@
-// K1 fp_elementwise: prime-field elementwise ops, one element per thread,
-// with an instance for Fp128 and one for the P-256 base field.
+// K1 fp_elementwise: field elementwise ops, one element per thread, with
+// an instance for Fp128, one for the P-256 base field and one for
+// GF(2^128) (gf2.cuh: add = sub = XOR, 1 - r = 1 ^ r).
 //
 // Replaces the JAX package's limb-unrolled field ops inside its jitted
 // programs: PrimeField.add / sub / _mont_mul_limbs / from_mont_device
 // (longfellow_zk_tpu/fields/fp.py:245, :255, :277, :187), the wire-round
 // bind _bind_fixed (sumcheck/prover_device.py:139) and the hv update of
-// _wire_scan.one_hand (prover_device.py:595).
+// _wire_scan.one_hand (prover_device.py:595); for GF(2^128) the JAX
+// package's GF2_128.add / sub / mul (fields/gf2.py:281, :351) in the
+// same places.
 //
 // Bound on the H100: bytes.  A multiply is 32 (Fp128) or 128 (P-256)
 // 32-bit multiplies on 48 or 96 bytes of traffic, below the card's
@@ -13,7 +16,9 @@
 // traffic minimal: uint4 loads and stores (one or two per element),
 // neighbouring threads on neighbouring elements.  The second operand may
 // be broadcast by index arithmetic (i / bdiv) % bmod instead of being
-// materialised.
+// materialised.  The GF(2^128) product of gf2.cuh spends about 2,000
+// 32-bit operations on 48 bytes, so that instance is bound by its own
+// operations: no instruction of the card computes a carry-less product.
 //
 // Modes:
 //   0 mul   out[i] = a[i] * b[(i / bdiv) % bmod]
@@ -22,7 +27,7 @@
 //   3 bind  rows of length `row`: out[j] = lo + (hi - lo) * r for the pair
 //           (a[2j], a[2j+1]) and j < row / 2, zero for the tail; r = b[0]
 //   4 hv    out[i] = a[i] * (h[i] odd ? r : 1 - r), r = b[0]
-#include "fp.cuh"
+#include "gf2.cuh"
 
 template <class C>
 __global__ void k_fp_elementwise(int mode, uint4* __restrict__ out,
@@ -89,4 +94,7 @@ extern "C" int fp_elementwise_fp128(LFZK_ARGS) {
 }
 extern "C" int fp_elementwise_fp256(LFZK_ARGS) {
   return fp_elementwise<P256>(mode, out, a, b, h, n, row, bdiv, bmod, stream);
+}
+extern "C" int fp_elementwise_gf2_128(LFZK_ARGS) {
+  return fp_elementwise<G128>(mode, out, a, b, h, n, row, bdiv, bmod, stream);
 }

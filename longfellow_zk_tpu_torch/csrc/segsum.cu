@@ -1,5 +1,6 @@
-// K2 fp_segment_sum: prime-field sums over contiguous term ranges, with an
-// instance for Fp128 and one for the P-256 base field.
+// K2 fp_segment_sum: field sums over contiguous term ranges, with an
+// instance for Fp128, one for the P-256 base field and one for GF(2^128)
+// (sums by XOR, gf2.cuh).
 //
 // out[s] = sum over t in [starts[s], ends[s]) of term(t), where term(t) is
 //   mode 0: x[t]                      (_contig_fold, lazy_segment_sum)
@@ -10,7 +11,9 @@
 //
 // Replaces sumcheck/prover_device.py:157 _contig_fold and :372
 // _eval_layer (prime branch), and fields/fp.py:561 lazy_segment_sum
-// (byte-split columns + segment_sum + renormalise) of the JAX package.
+// (byte-split columns + segment_sum + renormalise) of the JAX package;
+// for GF(2^128) its char-2 branches (prover_device.py:167-178, :383-402,
+// bitplane cumsums) and fields/gf2.py:429 lazy_segment_sum.
 //
 // Bound on the H100: bytes of the gathers.  Mode 1 reads per term two
 // random rows of W, v and three indices; the layer's W (at most 2^15
@@ -18,8 +21,10 @@
 // stride over the segment's terms with coalesced reads of the term
 // arrays, keep N 64-bit limb accumulators (exact, no carries), reduce
 // them by shuffles and lane 0 reduces the sum modulo p once.  The terms
-// are g-sorted, so a warp's segment is contiguous.
-#include "fp.cuh"
+// are g-sorted, so a warp's segment is contiguous.  GF(2^128) runs the
+// same body with XOR accumulators; its two shift-and-XOR products a term
+// (gf2.cuh) make that instance bound by operations.
+#include "gf2.cuh"
 
 template <class C>
 __global__ void k_fp_segment_sum(int mode, uint4* __restrict__ out,
@@ -52,7 +57,7 @@ __global__ void k_fp_segment_sum(int mode, uint4* __restrict__ out,
       }
     }
   }
-  warp_sum<C::N>(acc);
+  warp_sum<C>(acc);
   if (lane == 0) fp_reduce_acc<C>(acc).store(out, seg);
 }
 
@@ -82,5 +87,9 @@ extern "C" int fp_segment_sum_fp128(LFZK_ARGS) {
 }
 extern "C" int fp_segment_sum_fp256(LFZK_ARGS) {
   return fp_segment_sum<P256>(mode, out, bad, x, W, h0, h1, v, bmask, starts,
+                              ends, nseg, stream);
+}
+extern "C" int fp_segment_sum_gf2_128(LFZK_ARGS) {
+  return fp_segment_sum<G128>(mode, out, bad, x, W, h0, h1, v, bmask, starts,
                               ends, nseg, stream);
 }

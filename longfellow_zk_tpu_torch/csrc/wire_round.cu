@@ -1,6 +1,6 @@
 // K3 fp_wire_round: the sums of one sumcheck wire round, and field sums
-// along an axis, with an instance for Fp128 and one for the P-256 base
-// field.
+// along an axis, with an instance for Fp128, one for the P-256 base field
+// and one for GF(2^128) (sums by XOR, -1 = 1; gf2.cuh).
 //
 // mode 0 (wire): for one hand, with z = hv[t] * Wo[ho[t]],
 //   out[0] = a0 = sum over t with h[t] even of z * Wh[h[t]]
@@ -10,7 +10,9 @@
 // Replaces the JAX package's _wire_scan.one_hand round sums
 // (sumcheck/prover_device.py:571-584) and PrimeField.lazy_sum
 // (fields/fp.py:555, byte-split columns + _renormalize), which also
-// computes bound_quad (prover_device.py:692) and the Ligero row sums.
+// computes bound_quad (prover_device.py:692) and the Ligero row sums;
+// for GF(2^128) the same functions over it and fields/gf2.py:424
+// lazy_sum.
 //
 // Bound on the H100: bytes (per term three indices' worth of gathers and
 // one hv read), at sizes where launch latency dominates.  Blocks run in
@@ -20,15 +22,16 @@
 // them to scratch; one block per output then sums the partials and
 // reduces modulo p once.  No atomics, so the result does not depend on
 // the order in which blocks run.
-#include "fp.cuh"
+#include "gf2.cuh"
 
 #define NT 256
 
 // Sums acc over the block into dst[0..N) (thread 0 writes).
-template <int N>
+template <class C>
 __device__ __forceinline__ void block_sum(u64* acc, u64* dst) {
+  constexpr int N = C::N;
   __shared__ u64 sm[NT / 32][N];
-  warp_sum<N>(acc);
+  warp_sum<C>(acc);
   int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
   if (lane == 0) {
 #pragma unroll
@@ -39,7 +42,7 @@ __device__ __forceinline__ void block_sum(u64* acc, u64* dst) {
 #pragma unroll
     for (int j = 0; j < N; j++) {
       u64 s = 0;
-      for (int k = 0; k < NT / 32; k++) s += sm[k][j];
+      for (int k = 0; k < NT / 32; k++) s = acc_add<C>(s, sm[k][j]);
       dst[j] = s;
     }
   }
@@ -72,8 +75,8 @@ __global__ void k_wire_partial(const uint4* __restrict__ hv,
       fp_acc(a2, fp_neg(zd));
     }
   }
-  block_sum<N>(a0, partial + N * (long long)blockIdx.x);
-  block_sum<N>(a2, partial + N * ((long long)gridDim.x + blockIdx.x));
+  block_sum<C>(a0, partial + N * (long long)blockIdx.x);
+  block_sum<C>(a2, partial + N * ((long long)gridDim.x + blockIdx.x));
 }
 
 // grid (A * B, nblk): output o = a * B + b, block y takes a slice of R.
@@ -90,7 +93,7 @@ __global__ void k_sum_partial(const uint4* __restrict__ x, long long R,
   for (long long r = (long long)blockIdx.y * NT + threadIdx.x; r < R;
        r += (long long)gridDim.y * NT)
     fp_acc(acc, E::load(x, (a * R + r) * B + b));
-  block_sum<N>(acc, partial + N * (o * gridDim.y + blockIdx.y));
+  block_sum<C>(acc, partial + N * (o * gridDim.y + blockIdx.y));
 }
 
 // One block per output: sums its nblk partials and reduces modulo p.
@@ -104,10 +107,11 @@ __global__ void k_finish(const u64* __restrict__ partial, int nblk,
   for (int j = 0; j < N; j++) acc[j] = 0;
   for (int k = threadIdx.x; k < nblk; k += NT) {
 #pragma unroll
-    for (int j = 0; j < N; j++) acc[j] += partial[N * (o * nblk + k) + j];
+    for (int j = 0; j < N; j++)
+      acc[j] = acc_add<C>(acc[j], partial[N * (o * nblk + k) + j]);
   }
   __shared__ u64 tot[N];
-  block_sum<N>(acc, tot);
+  block_sum<C>(acc, tot);
   if (threadIdx.x == 0) fp_reduce_acc<C>(tot).store(out, o);
 }
 
@@ -147,5 +151,9 @@ extern "C" int fp_wire_round_fp128(LFZK_ARGS) {
 }
 extern "C" int fp_wire_round_fp256(LFZK_ARGS) {
   return fp_wire_round<P256>(mode, out, scratch, hv, Wh, Wo, h, ho, T, A, R,
+                             B, nblk, stream);
+}
+extern "C" int fp_wire_round_gf2_128(LFZK_ARGS) {
+  return fp_wire_round<G128>(mode, out, scratch, hv, Wh, Wo, h, ho, T, A, R,
                              B, nblk, stream);
 }

@@ -5,7 +5,9 @@ limbs on the leading axis (eight for Fp128, sixteen for P-256).  This
 package holds it as int32[..., N]: N 32-bit limbs on the trailing axis.
 An Fp2 tensor is planar there, uint32[2, 2N, ...] (re, im leading), and
 int32[..., 2, N] here.  Both packages use Montgomery form with
-R = 2^(32N), so the conversion moves bits and changes no value.
+R = 2^(32N), so the conversion moves bits and changes no value.  A
+GF(2^128) tensor holds polynomial-basis bits on both sides: uint32[8, ...]
+halfwords there, int32[..., 4] words here.
 """
 
 from __future__ import annotations
@@ -37,6 +39,18 @@ def limbs_to_jax(t: torch.Tensor) -> np.ndarray:
     out = np.stack([lo, hi], axis=-1).reshape(w.shape[:-1] +
                                               (2 * w.shape[-1],))
     return np.ascontiguousarray(np.moveaxis(out, -1, 0))
+
+
+def gf2_from_jax(arr: np.ndarray) -> torch.Tensor:
+    """GF(2^128) uint32[8, ...] halfwords -> int32[..., 4] words (CPU)."""
+    assert np.shape(arr)[0] == 8, np.shape(arr)
+    return limbs_from_jax(arr)
+
+
+def gf2_to_jax(t: torch.Tensor) -> np.ndarray:
+    """GF(2^128) int32[..., 4] words -> uint32[8, ...] halfwords."""
+    assert t.shape[-1] == 4, tuple(t.shape)
+    return limbs_to_jax(t)
 
 
 def fp2_from_jax(arr: np.ndarray) -> torch.Tensor:

@@ -15,12 +15,14 @@ CPU tensor it runs the kernel's plain PyTorch version, which lives in
 this module too (`*_plain`) and computes in int64 over 16-bit limbs
 (CPU PyTorch has no uint32 `+`, `<<` or `>>`).  The kernels have an
 instance for each field of `fp_instances.KERNEL_TAGS` (Fp128 and the
-P-256 base field); a CUDA tensor of another field raises.  The plain
-versions take any odd p < 2^256.
+P-256 base field) and one for GF(2^128) (fields/gf2.py, whose plain
+versions the wrappers take for it); a CUDA tensor of another field
+raises.  The plain versions here take any odd p < 2^256.
 """
 
 from __future__ import annotations
 
+import sys
 from typing import Optional, Sequence, Union
 
 import numpy as np
@@ -375,6 +377,15 @@ def wire_sums_plain(F: PrimeField, hv, Wh, Wo, h, ho) -> torch.Tensor:
 # wrappers: the kernel for a CUDA tensor, the plain version for a CPU one
 # ----------------------------------------------------------------------
 
+def plain_of(F):
+    """The module of F's plain versions: this one for a prime field,
+    fields/gf2.py for GF(2^128) (same function names)."""
+    if F.kCharacteristicTwo:
+        from . import gf2
+        return gf2
+    return sys.modules[__name__]
+
+
 def route(kernel: str, F, *ts) -> Optional[str]:
     """None if the tensors lie on the CPU (then the plain version runs);
     the name of `kernel`'s instance for F's tag if they lie on the card.
@@ -448,7 +459,7 @@ def fp_elementwise(F: PrimeField, mode: int, a: torch.Tensor, b: torch.Tensor,
     bind and hv take a single element b (the challenge r)."""
     name = route("fp_elementwise", F, a, b)
     if name is None:
-        return elementwise_plain(F, mode, a, b, h)
+        return plain_of(F).elementwise_plain(F, mode, a, b, h)
     if mode in (BIND, HV):
         check_elts(a, "a", F.elt_shape)
         if b.numel() != F.nlimb:
@@ -487,7 +498,7 @@ def fp_segment_sum(F: PrimeField, x: torch.Tensor, starts: torch.Tensor,
     """K2 wrapper, mode 0: out[s] = sum of x[starts[s]:ends[s]]."""
     name = route("fp_segment_sum", F, x, starts, ends)
     if name is None:
-        return segment_sum_plain(F, x, starts, ends)
+        return plain_of(F).segment_sum_plain(F, x, starts, ends)
     check_elts(x, "x", F.elt_shape)
     _i32(starts, "starts")
     _i32(ends, "ends")
@@ -505,7 +516,8 @@ def fp_eval_layer(F: PrimeField, W: torch.Tensor, h0: torch.Tensor,
     0-dim bool tensor on W's device (no host sync)."""
     name = route("fp_segment_sum", F, W, h0, h1, v, bmask, starts, ends)
     if name is None:
-        return eval_layer_plain(F, W, h0, h1, v, bmask, starts, ends)
+        return plain_of(F).eval_layer_plain(F, W, h0, h1, v, bmask, starts,
+                                          ends)
     for t, tname in ((W, "W"), (v, "v")):
         check_elts(t, tname, F.elt_shape)
     for t, tname in ((h0, "h0"), (h1, "h1"), (starts, "starts"),
@@ -530,7 +542,7 @@ def fp_axis_sum(F: PrimeField, x: torch.Tensor, dim: int) -> torch.Tensor:
     """K3 wrapper, mode 1: field sum along element axis `dim`."""
     name = route("fp_wire_round", F, x)
     if name is None:
-        return axis_sum_plain(F, x, dim)
+        return plain_of(F).axis_sum_plain(F, x, dim)
     check_elts(x, "x", F.elt_shape)
     eshape = x.shape[:-1]
     dim = dim % len(eshape)
@@ -553,7 +565,7 @@ def fp_wire_sums(F: PrimeField, hv: torch.Tensor, Wh: torch.Tensor,
     """K3 wrapper, mode 0: [a0, a2] ([2, N]) of one hand's wire round."""
     name = route("fp_wire_round", F, hv, Wh, Wo, h, ho)
     if name is None:
-        return wire_sums_plain(F, hv, Wh, Wo, h, ho)
+        return plain_of(F).wire_sums_plain(F, hv, Wh, Wo, h, ho)
     for t, tname in ((hv, "hv"), (Wh, "Wh"), (Wo, "Wo")):
         check_elts(t, tname, F.elt_shape)
     _i32(h, "h")

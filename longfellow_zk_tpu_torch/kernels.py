@@ -7,16 +7,18 @@ are loaded with ctypes.  Nothing here runs when the package is imported.
 The sources share the field arithmetic of `csrc/fp.cuh`, templated on the
 field; each kernel has one instance (and one C entry point) per field:
 
-    K1 fp_elementwise   csrc/fp_ops.cu      [fp128] [fp256]     fields/fp.py
-    K2 fp_segment_sum   csrc/segsum.cu      [fp128] [fp256]     fields/fp.py
-    K3 fp_wire_round    csrc/wire_round.cu  [fp128] [fp256]     fields/fp.py
-    K4 fp_ntt           csrc/ntt.cu         [fp128] [fp256x2]   transforms/ntt.py
-    K5 fp2_elementwise  csrc/fp2_ops.cu     [fp256x2]           fields/fp2.py
+    K1 fp_elementwise  fp_ops.cu      fp128 fp256 gf2_128  fields/fp.py
+    K2 fp_segment_sum  segsum.cu      fp128 fp256 gf2_128  fields/fp.py
+    K3 fp_wire_round   wire_round.cu  fp128 fp256 gf2_128  fields/fp.py
+    K4 fp_ntt          ntt.cu         fp128 fp256x2        transforms/ntt.py
+    K5 fp2_elementwise fp2_ops.cu     fp256x2              fields/fp2.py
+    K6 gf2_lch14       lch14.cu       gf2_128              transforms/lch14.py
 
 (fp128: p = 2^128 - 2^108 + 1; fp256: the P-256 base field; fp256x2: Fp2
-over it.)  A kernel's name here is "kernel[instance]".  `LAUNCHES` counts,
-per instance, the CUDA launches its wrapper made; a run sets the counts to
-zero with `reset_launches()` and reads them after.
+over it; gf2_128: GF(2^128), csrc/gf2.cuh.)  A kernel's name here is
+"kernel[instance]".  `LAUNCHES` counts, per instance, the CUDA launches
+its wrapper made; a run sets the counts to zero with `reset_launches()`
+and reads them after.
 """
 
 from __future__ import annotations
@@ -44,15 +46,18 @@ _LL = ctypes.c_longlong
 # instance is "<kernel>_<instance>"
 _SOURCES = {
     "fp_elementwise": ("fp_ops.cu", [_I, _P, _P, _P, _P, _LL, _LL, _LL, _LL,
-                                     _P], ("fp128", "fp256")),
+                                     _P], ("fp128", "fp256", "gf2_128")),
     "fp_segment_sum": ("segsum.cu", [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                     _P, _I, _P], ("fp128", "fp256")),
+                                     _P, _I, _P],
+                       ("fp128", "fp256", "gf2_128")),
     "fp_wire_round": ("wire_round.cu", [_I, _P, _P, _P, _P, _P, _P, _P, _LL,
                                         _LL, _LL, _LL, _I, _P],
-                      ("fp128", "fp256")),
+                      ("fp128", "fp256", "gf2_128")),
     "fp_ntt": ("ntt.cu", [_P, _P, _P, _LL, _I, _P], ("fp128", "fp256x2")),
     "fp2_elementwise": ("fp2_ops.cu", [_I, _P, _P, _P, _LL, _LL, _LL, _P],
                         ("fp256x2",)),
+    "gf2_lch14": ("lch14.cu", [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                               _I, _I, _P], ("gf2_128",)),
 }
 
 # "kernel[instance]" -> (source, C entry point, argtypes)

@@ -18,9 +18,10 @@ tensors, through the kernels:
     a host schedule from _wire_merge_plan): K2 (contiguous folds);
   - bound_quad, the sum of the fully bound hv: K3.
 
-Arrays keep their padded power-of-two length with a zero tail, as in
-the JAX package.  Only circuits with one copy (logc = 0) are supported:
-copy rounds are not ported yet.
+The W arrays start at their padded power-of-two length, as in the JAX
+package, and each bind keeps only the bound half (the JAX package keeps
+the fixed shape, zero-filled, for its scan).  Only circuits with one
+copy (logc = 0) are supported: copy rounds are not ported yet.
 
 Proof bytes equal the JAX package's (tests/test_torch_sumcheck.py).
 """
@@ -318,7 +319,9 @@ class SumcheckProver:
                     g_ch[hand].append(r)
                     claim = eval_lagrange(F, raw, r)
                     r_t = F.to_limbs(r, dev)
-                    WH[hand] = F.bind(WH[hand], r_t)
+                    # the bound half: the hands' indices are shifted
+                    # right each round, so the zero tail is never read
+                    WH[hand] = F.bind(WH[hand], r_t)[: WH[hand].shape[0] // 2]
                     hv = F.hv_update(hv, h[hand], r_t)
                     h[hand] = h[hand] >> 1
                 rnd += 1

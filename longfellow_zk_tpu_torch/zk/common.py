@@ -22,8 +22,9 @@ from typing import List, Tuple
 
 from ..ligero.param import LigeroLinearConstraint, LigeroQuadraticConstraint
 from ..sumcheck.circuit import Circuit, Proof
-from ..sumcheck.eqs import eq_array_host, eq_eval_host
+from ..sumcheck.eqs import eq_eval_host
 from ..sumcheck.poly import eval_newton, newton_of_lagrange
+from ..sumcheck.prover import _raw_eq2_dev
 from ..sumcheck.transcript_sumcheck import TranscriptSumcheck
 from ..sumcheck.verifier import bind_quad_host
 
@@ -121,12 +122,14 @@ class Expression:
 
 
 def verifier_constraints(circ: Circuit, pub: List, proof: Proof, aux, ts, pi: int,
-                         F) -> Tuple[List[LigeroLinearConstraint], List, int]:
+                         F, device) -> Tuple[List[LigeroLinearConstraint],
+                                             List, int]:
     """Symbolic replay of the sumcheck verifier (zk_common.h:49-136).
 
     Returns (a, b, num_constraints).  `ts` is the raw Transcript (the
     caller has already absorbed commitment + public inputs); it advances
-    exactly like the real sumcheck transcript.
+    exactly like the real sumcheck transcript.  The input-binding EQ
+    array (one element per circuit input) is built on `device`.
     """
     tss = TranscriptSumcheck(ts, F)
     q, g = tss.begin_circuit()
@@ -205,11 +208,12 @@ def verifier_constraints(circ: Circuit, pub: List, proof: Proof, aux, ts, pi: in
     got = F.add_i(plr.wc[0], F.mul_i(alpha, plr.wc[1]))
 
     ninp, npub = circ.ninputs, circ.npub_in
-    eq0 = eq_array_host(F, cla_logv, ninp, cla_g[0][:cla_logv])
-    eq1 = eq_array_host(F, cla_logv, ninp, cla_g[1][:cla_logv])
+    # b_i = EQ(G0, i) + alpha * EQ(G1, i), on `device` (K1)
+    bs = F.from_limbs(_raw_eq2_dev(F, cla_logv, ninp, cla_g[0][:cla_logv],
+                                   cla_g[1][:cla_logv], alpha, device))
     pub_binding = F.of_scalar(0)
     for i in range(ninp):
-        b_i = F.add_i(eq0[i], F.mul_i(alpha, eq1[i]))
+        b_i = int(bs[i])
         if i < npub:
             pub_binding = F.add_i(pub_binding, F.mul_i(b_i, pub[i]))
         else:

@@ -73,7 +73,7 @@ class ZkProver:
         zkp.proof = proof
 
         a, b, ci = verifier_constraints(c, W_host, proof, aux, ts,
-                                        self.n_witness, F)
+                                        self.n_witness, F, self.device)
         zkp.com_proof = self.lp.prove(ts, ci, a, HASH_OF_A, self.lqc)
         return True
 

@@ -1,10 +1,11 @@
 """ZK harness constants and the RS factory (counterpart of the JAX
-package's zk/testing.py; prime fields only, no LCH14).
+package's zk/testing.py).
 """
 
 from __future__ import annotations
 
 from ..device import resolve_device
+from ..transforms.lch14 import LCH14ReedSolomon
 from ..transforms.ntt import (ReedSolomon, make_fft_convolution_factory,
                               make_fft_ext_convolution_factory)
 
@@ -15,20 +16,26 @@ K_VERSION = 7
 
 def rs_factory_for(F, omega=None, omega_order: int = None, F2=None,
                    omega2=None, device=None):
-    """factory(n, m) -> a cached ReedSolomon(n, m) encoder on `device`:
-    by NTT convolution over F's root of unity omega, or, given F2 (an Fp2
-    over F) and its root omega2, by convolution in Fp2."""
+    """factory(n, m) -> a cached Reed-Solomon (n, m) encoder on `device`:
+    LCH14 for GF(2^128); by NTT convolution over F's root of unity omega;
+    or, given F2 (an Fp2 over F) and its root omega2, by convolution in
+    Fp2."""
     dev = resolve_device(device)
-    if F2 is not None:
-        conv = make_fft_ext_convolution_factory(F, F2, omega2, omega_order,
-                                                dev)
+    if F.kCharacteristicTwo:
+        def make(n, m):
+            return LCH14ReedSolomon(n, m, F, dev)
     else:
-        conv = make_fft_convolution_factory(F, omega, omega_order, dev)
+        conv = make_fft_ext_convolution_factory(
+            F, F2, omega2, omega_order, dev) if F2 is not None else \
+            make_fft_convolution_factory(F, omega, omega_order, dev)
+
+        def make(n, m):
+            return ReedSolomon(n, m, F, conv, dev)
     cache = {}
 
     def factory(n, m):
         if (n, m) not in cache:
-            cache[(n, m)] = ReedSolomon(n, m, F, conv, dev)
+            cache[(n, m)] = make(n, m)
         return cache[(n, m)]
 
     factory.device = dev

@@ -1,5 +1,5 @@
-"""Full-size golden proofs: the Fp128 SHA-256 one-block ZK proof and the
-P-256 ECDSA signature ZK proof.
+"""Full-size golden proofs: the Fp128 SHA-256 one-block ZK proof, the
+P-256 ECDSA signature ZK proof and the mdoc presentation proof.
 
 `longfellow_zk_tpu_torch/testdata/sha256_1block_fp128.proof.bin` holds the
 JAX package's `write_zk_proof` bytes for the inputs recorded in the JSON
@@ -22,13 +22,24 @@ inputs of `toy_inputs()`, over Fp128 and over the P-256 base field (with
 the Fp2 Reed-Solomon code); tests/test_torch_zk.py and
 tests/test_torch_fp256.py hold the port against them (the JAX prover
 takes minutes to compile even at that size on a CPU).
+`zk_toy_gf2128.proof.bin` holds the JAX package's proof of that circuit
+over GF(2^128) with more private inputs, all in the subfield
+(`gf2_toy_circuit`); tests/test_torch_gf2.py holds the port against it.
+
+`mdoc_v7_1attr.proof.bin` holds the bytes of the port's own
+`run_mdoc_prover` on the CPU (plain versions) for the inputs in the JSON
+file beside it (the wallet example 0 of artifacts/mdoc_examples.json,
+age_over_18, the v7 one-attribute ZkSpec, DeterministicEngine(b"mdoc")):
+the JAX package cannot prove mdoc on a CPU in useful time, so its
+`run_mdoc_verifier` holds these bytes instead (a slow test), and
+`chip_smoke.py` holds the card's mdoc proof against them.
 
 The tests here are slow (the JAX prover compiles for about ten minutes
 at SHA size; the JAX ECDSA proof takes 12-16 minutes and 14 GB) and
 never run in the default (not slow) test run.  Regenerate the files with
 
     JAX_PLATFORMS=cpu python tests/test_torch_golden.py \
-        [--toy] [--toy-p256] [--ecdsa]
+        [--toy] [--toy-p256] [--ecdsa] [--toy-gf2] [--mdoc]
 
 (no flag: all of them; a flag: only that file.)
 """
@@ -106,6 +117,25 @@ def jax_golden_proof():
     return write_zk_proof(zkp, circ, prover.param, F), circ, prover, W
 
 
+def write_golden() -> int:
+    from longfellow_zk_tpu.zk.testing import K_VERSION
+
+    data = jax_golden_proof()[0]
+    os.makedirs(TESTDATA, exist_ok=True)
+    with open(GOLDEN_BIN, "wb") as f:
+        f.write(data)
+    meta = {"circuit": "artifacts/sha256_1block_fp128.lfc1.gz",
+            "message": MESSAGE.decode(), "engine": "DeterministicEngine()",
+            "engine_seed": "bogorng", "transcript_label": LABEL.decode(),
+            "version": K_VERSION, "rate": RATE, "nreq": NREQ,
+            "proof_bytes": len(data),
+            "made_by": "tests/test_torch_golden.py (JAX package, CPU)"}
+    with open(GOLDEN_JSON, "w") as f:
+        json.dump(meta, f, indent=1)
+        f.write("\n")
+    return len(data)
+
+
 TOY_RATE, TOY_NREQ, TOY_BLOCK_ENC = 4, 6, 128
 TOY_LABEL = b"zk_test"
 
@@ -144,6 +174,138 @@ def jax_toy_proof():
     prover.commit(zkp, W, ts, DeterministicEngine())
     assert prover.prove(zkp, W, ts)
     return write_zk_proof(zkp, circ, prover.param, F), circ, prover
+
+
+MDOC_BIN = os.path.join(TESTDATA, "mdoc_v7_1attr.proof.bin")
+MDOC_JSON = os.path.join(TESTDATA, "mdoc_v7_1attr.proof.json")
+MDOC_CIRCUIT = os.path.join(REPO, "artifacts", "mdoc_v7_1attr.zst")
+MDOC_EXAMPLES = os.path.join(REPO, "artifacts", "mdoc_examples.json")
+MDOC_META = {"circuit": "artifacts/mdoc_v7_1attr.zst",
+             "examples": "artifacts/mdoc_examples.json", "example": 0,
+             "attributes": [{"id": "age_over_18", "cbor_value": "f5"}],
+             "version": 7, "engine": "DeterministicEngine(b'mdoc')",
+             "engine_seed": "mdoc"}
+
+
+def mdoc_inputs(RequestedAttribute):
+    """(mdoc, pkx, pky, transcript, attrs, now, doc_type) of MDOC_META,
+    the attributes built by the given package's RequestedAttribute."""
+    ex = json.load(open(MDOC_EXAMPLES))[MDOC_META["example"]]
+    attrs = [RequestedAttribute(id=a["id"].encode(),
+                                cbor_value=bytes.fromhex(a["cbor_value"]))
+             for a in MDOC_META["attributes"]]
+    return (bytes.fromhex(ex["mdoc"]), int(ex["pkx"], 16),
+            int(ex["pky"], 16), bytes.fromhex(ex["transcript"]), attrs,
+            ex["now"].encode(), ex["doc_type"].encode())
+
+
+def port_mdoc_proof() -> bytes:
+    """The port's run_mdoc_prover on the CPU (plain versions) under
+    DeterministicEngine(b"mdoc"), on the inputs of MDOC_META."""
+    from longfellow_zk_tpu_torch.circuits.mdoc import api
+    from longfellow_zk_tpu_torch.circuits.mdoc.witness import (
+        RequestedAttribute)
+    from longfellow_zk_tpu_torch.circuits.mdoc.zk_spec import (
+        find_zk_spec_by_version)
+    from longfellow_zk_tpu_torch.random_oracle.engine import (
+        DeterministicEngine)
+
+    mdoc, pkx, pky, tr, attrs, now, _ = mdoc_inputs(RequestedAttribute)
+    return api.run_mdoc_prover(
+        open(MDOC_CIRCUIT, "rb").read(), mdoc, pkx, pky, tr, attrs, now,
+        find_zk_spec_by_version(MDOC_META["version"], len(attrs)),
+        rng=DeterministicEngine(MDOC_META["engine_seed"].encode()),
+        device="cpu")
+
+
+def write_mdoc_golden() -> int:
+    import hashlib
+
+    data = port_mdoc_proof()
+    os.makedirs(TESTDATA, exist_ok=True)
+    with open(MDOC_BIN, "wb") as f:
+        f.write(data)
+    meta = dict(MDOC_META, proof_bytes=len(data),
+                sha256=hashlib.sha256(data).hexdigest(),
+                made_by="tests/test_torch_golden.py --mdoc (the port's "
+                        "run_mdoc_prover on the CPU, plain versions)")
+    with open(MDOC_JSON, "w") as f:
+        json.dump(meta, f, indent=1)
+        f.write("\n")
+    return len(data)
+
+
+TOY_GF2_BIN = os.path.join(TESTDATA, "zk_toy_gf2128.proof.bin")
+TOY_GF2_EXTRA = 30
+
+
+def gf2_toy_circuit(F):
+    """The two-layer toy circuit of tests/test_zk.py over GF(2^128), with
+    TOY_GF2_EXTRA more private inputs that no term reads and every input
+    in the subfield (subfield_boundary = ninputs): the first two witness
+    rows of the tableau are then subfield rows (subfield blinds) and
+    their openings subfield runs of the serialization."""
+    from longfellow_zk_tpu.sumcheck.circuit import Circuit, Layer
+    from test_zk import _zk_circuit
+
+    c = _zk_circuit(F)
+    n = 4 + TOY_GF2_EXTRA
+    return Circuit(nv=c.nv, logv=c.logv, nc=1, logc=0, nl=2, ninputs=n,
+                   npub_in=2, subfield_boundary=n,
+                   layers=[c.layers[0],
+                           Layer(nw=n, logw=(n - 1).bit_length(),
+                                 quad=c.layers[1].quad)],
+                   id=c.id)
+
+
+def gf2_toy_inputs(F):
+    """[c, 1, a, b, x...] with c = a * b, every value of_scalar(u) of a
+    16-bit u from a numpy seed (the subfield is closed under products)."""
+    import numpy as np
+
+    rng = np.random.default_rng(22)
+    a, b, *xs = (F.of_scalar(int(u)) for u in
+                 rng.integers(1, 1 << 16, 2 + TOY_GF2_EXTRA))
+    return [F.mul_i(a, b), F.of_scalar(1), a, b] + xs
+
+
+def jax_toy_gf2_proof():
+    """(proof bytes, circuit, prover) of the JAX package on
+    gf2_toy_circuit, with its LCH14 Reed-Solomon code."""
+    from longfellow_zk_tpu.fields.gf2 import gf2_128
+    from longfellow_zk_tpu.random_oracle.engine import DeterministicEngine
+    from longfellow_zk_tpu.random_oracle.transcript import Transcript
+    from longfellow_zk_tpu.zk.proof import ZkProof
+    from longfellow_zk_tpu.zk.prover import ZkProver
+    from longfellow_zk_tpu.zk.serialization import write_zk_proof
+    from longfellow_zk_tpu.zk.testing import rs_factory_for
+
+    F = gf2_128()
+    circ = gf2_toy_circuit(F)
+    W = gf2_toy_inputs(F)
+    zkp = ZkProof(rate=TOY_RATE, nreq=TOY_NREQ)
+    prover = ZkProver(circ, F, rs_factory_for(F), rate=TOY_RATE,
+                      nreq=TOY_NREQ, block_enc=TOY_BLOCK_ENC)
+    ts = Transcript(TOY_LABEL)
+    prover.commit(zkp, W, ts, DeterministicEngine())
+    assert prover.prove(zkp, W, ts)
+    return write_zk_proof(zkp, circ, prover.param, F), circ, prover
+
+
+def write_toy_gf2_golden() -> int:
+    data = jax_toy_gf2_proof()[0]
+    os.makedirs(TESTDATA, exist_ok=True)
+    with open(TOY_GF2_BIN, "wb") as f:
+        f.write(data)
+    return len(data)
+
+
+def write_toy_golden() -> int:
+    data = jax_toy_proof()[0]
+    os.makedirs(TESTDATA, exist_ok=True)
+    with open(TOY_BIN, "wb") as f:
+        f.write(data)
+    return len(data)
 
 
 def ecdsa_witness(F, ec, compute_witness, ecdsa_sign):
@@ -390,6 +552,42 @@ def test_jax_reproduces_toy_p256_golden():
         assert jax_toy_p256_proof()[0] == f.read()
 
 
+@pytest.mark.slow
+def test_jax_reproduces_toy_gf2_golden():
+    with open(TOY_GF2_BIN, "rb") as f:
+        assert jax_toy_gf2_proof()[0] == f.read()
+
+
+@pytest.mark.slow
+def test_port_cpu_path_reproduces_mdoc_golden():
+    with open(MDOC_BIN, "rb") as f:
+        assert port_mdoc_proof() == f.read()
+
+
+@pytest.mark.slow
+def test_jax_mdoc_verifier_accepts_mdoc_golden():
+    """The JAX package's run_mdoc_verifier accepts the golden mdoc proof
+    and refuses a copy with one bit flipped (in the hash proof's
+    sumcheck part)."""
+    from longfellow_zk_tpu.circuits.mdoc import api
+    from longfellow_zk_tpu.circuits.mdoc.witness import RequestedAttribute
+    from longfellow_zk_tpu.circuits.mdoc.zk_spec import (
+        find_zk_spec_by_version)
+
+    mdoc, pkx, pky, tr, attrs, now, doc_type = mdoc_inputs(
+        RequestedAttribute)
+    spec = find_zk_spec_by_version(MDOC_META["version"], len(attrs))
+    circuit = open(MDOC_CIRCUIT, "rb").read()
+    with open(MDOC_BIN, "rb") as f:
+        data = f.read()
+    assert api.run_mdoc_verifier(circuit, pkx, pky, tr, attrs, now, data,
+                                 doc_type, spec)
+    bad = bytearray(data)
+    bad[6 * 16 + 32 + 5] ^= 0x10
+    assert not api.run_mdoc_verifier(circuit, pkx, pky, tr, attrs, now,
+                                     bytes(bad), doc_type, spec)
+
+
 if __name__ == "__main__":
     os.environ["JAX_PLATFORMS"] = "cpu"
     sys.path.insert(0, REPO)
@@ -403,3 +601,7 @@ if __name__ == "__main__":
         print(write_toy_p256_golden(), "bytes written to", TOY_P256_BIN)
     if not only or "--ecdsa" in only:
         print(write_ecdsa_golden(), "bytes written to", ECDSA_BIN)
+    if not only or "--toy-gf2" in only:
+        print(write_toy_gf2_golden(), "bytes written to", TOY_GF2_BIN)
+    if not only or "--mdoc" in only:
+        print(write_mdoc_golden(), "bytes written to", MDOC_BIN)

@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (K1-K5, every field instance) against their
+"""The port's CUDA kernels (K1-K6, every field instance) against their
 plain PyTorch versions, on the card.  Field arithmetic is exact:
 equality, tolerance 0.
 
@@ -19,6 +19,8 @@ from longfellow_zk_tpu_torch.fields.fp2 import (
 from longfellow_zk_tpu_torch.fields.fp_instances import (
     P128_OMEGA, P128_OMEGA_ORDER, P256_FP2_ROOT_ORDER, P256_FP2_ROOT_X,
     P256_FP2_ROOT_Y, fp128, p256_base)
+from longfellow_zk_tpu_torch.fields.gf2 import gf2_128
+from longfellow_zk_tpu_torch.transforms import lch14
 from longfellow_zk_tpu_torch.transforms.ntt import NTT, fp_ntt, ntt_plain
 
 pytestmark = pytest.mark.cuda
@@ -32,14 +34,19 @@ def dev():
     return torch.device("cuda")
 
 
-FIELDS = {"fp128": fp128, "fp256": p256_base}
+FIELDS = {"fp128": fp128, "fp256": p256_base, "gf2_128": gf2_128}
 
 
 def _elts(F, rng, n, dev):
-    """n field elements from a numpy seed, with 0, 1 and p - 1 first."""
-    vals = [0, 1, F.p - 1] + [
-        int.from_bytes(rng.bytes(4 * F.nlimb), "little") % F.p
-        for _ in range(n)]
+    """n field elements from a numpy seed, with 0, 1 and p - 1 (for
+    GF(2^128) all ones) first."""
+    if F.kCharacteristicTwo:
+        vals = [0, 1, (1 << 128) - 1] + [
+            int.from_bytes(rng.bytes(16), "little") for _ in range(n)]
+    else:
+        vals = [0, 1, F.p - 1] + [
+            int.from_bytes(rng.bytes(4 * F.nlimb), "little") % F.p
+            for _ in range(n)]
     return F.to_limbs(vals[:n], dev)
 
 
@@ -58,11 +65,12 @@ def _same(a, b):
 @pytest.mark.parametrize("mode", [fpm.MUL, fpm.ADD, fpm.SUB])
 def test_k1_arith(dev, mode, field):
     F, rng = FIELDS[field](), np.random.default_rng(1)
+    P = fpm.plain_of(F)
     N = F.nlimb
     a = _elts(F, rng, 5000, dev)
     b = _elts(F, rng, 5000, dev).flip(0).contiguous()
     _same(fpm.fp_elementwise(F, mode, a, b),
-          fpm.elementwise_plain(F, mode, a, b))
+          P.elementwise_plain(F, mode, a, b))
     # broadcast: a column [rows, 1] and a row [n] over [rows, n]
     m = a[:4000].reshape(40, 100, N)
     col, row = b[:40].reshape(40, 1, N), b[:100]
@@ -71,19 +79,20 @@ def test_k1_arith(dev, mode, field):
     m3, b3 = a[:400].reshape(40, 5, 2, N), b[:80].reshape(40, 1, 2, N)
     for x, y in ((m, col), (m, row), (m, b[0]), (row, m), (m3, b3)):
         _same(fpm.fp_elementwise(F, mode, x, y),
-              fpm.elementwise_plain(F, mode, x, y))
+              P.elementwise_plain(F, mode, x, y))
 
 
 @pytest.mark.parametrize("field", list(FIELDS))
 def test_k1_bind_hv(dev, field):
     F, rng = FIELDS[field](), np.random.default_rng(2)
+    P = fpm.plain_of(F)
     x = _elts(F, rng, 4096, dev)
     r = _elts(F, rng, 7, dev)[5]
-    _same(F.bind(x, r), fpm.elementwise_plain(F, fpm.BIND, x, r))
+    _same(F.bind(x, r), P.elementwise_plain(F, fpm.BIND, x, r))
     h = torch.as_tensor(rng.integers(0, 1 << 15, 3000, dtype=np.int32),
                         device=dev)
     hv = _elts(F, rng, 3000, dev)
-    _same(F.hv_update(hv, h, r), fpm.elementwise_plain(F, fpm.HV, hv, r, h))
+    _same(F.hv_update(hv, h, r), P.elementwise_plain(F, fpm.HV, hv, r, h))
 
 
 def _segments(rng, nseg, T, dev):
@@ -98,15 +107,17 @@ def _segments(rng, nseg, T, dev):
 @pytest.mark.parametrize("field", list(FIELDS))
 def test_k2_segment_sum(dev, field):
     F, rng = FIELDS[field](), np.random.default_rng(3)
+    P = fpm.plain_of(F)
     x = _elts(F, rng, 20000, dev)
     s, e = _segments(rng, 3000, 20000, dev)   # some segments are empty
-    _same(F.lazy_segment_sum(x, s, e), fpm.segment_sum_plain(F, x, s, e))
+    _same(F.lazy_segment_sum(x, s, e), P.segment_sum_plain(F, x, s, e))
 
 
 @pytest.mark.parametrize("field", list(FIELDS))
 @pytest.mark.parametrize("bad", [False, True])
 def test_k2_eval_layer(dev, bad, field):
     F, rng = FIELDS[field](), np.random.default_rng(4)
+    P = fpm.plain_of(F)
     T, nw, nseg = 20000, 1 << 12, 1 << 11
     W = _elts(F, rng, nw, dev)
     W[7] = 0  # beta-masked terms read a zero product
@@ -119,7 +130,7 @@ def test_k2_eval_layer(dev, bad, field):
     v = _elts(F, rng, T, dev)
     s, e = _segments(rng, nseg, T, dev)
     V, ok = fpm.fp_eval_layer(F, W, h0, h1, v, bm, s, e)
-    V2, ok2 = fpm.eval_layer_plain(F, W, h0, h1, v, bm, s, e)
+    V2, ok2 = P.eval_layer_plain(F, W, h0, h1, v, bm, s, e)
     _same(V, V2)
     assert bool(ok) == bool(ok2) == (not bad)
 
@@ -127,6 +138,7 @@ def test_k2_eval_layer(dev, bad, field):
 @pytest.mark.parametrize("field", list(FIELDS))
 def test_k3_wire_and_sums(dev, field):
     F, rng = FIELDS[field](), np.random.default_rng(5)
+    P = fpm.plain_of(F)
     T, N = 70000, 1 << 14
     hv = _elts(F, rng, T, dev)
     Wh = _elts(F, rng, N, dev)
@@ -134,11 +146,11 @@ def test_k3_wire_and_sums(dev, field):
     h = torch.as_tensor(rng.integers(0, N, T, dtype=np.int32), device=dev)
     ho = torch.as_tensor(rng.integers(0, N, T, dtype=np.int32), device=dev)
     _same(fpm.fp_wire_sums(F, hv, Wh, Wo, h, ho),
-          fpm.wire_sums_plain(F, hv, Wh, Wo, h, ho))
+          P.wire_sums_plain(F, hv, Wh, Wo, h, ho))
     x = hv[:68100].reshape(10, 15, 454, F.nlimb)
     for dim in (0, 1, 2):
-        _same(F.lazy_sum(x, dim), fpm.axis_sum_plain(F, x, dim))
-    _same(F.lazy_sum(hv, 0), fpm.axis_sum_plain(F, hv, 0))
+        _same(F.lazy_sum(x, dim), P.axis_sum_plain(F, x, dim))
+    _same(F.lazy_sum(hv, 0), P.axis_sum_plain(F, hv, 0))
 
 
 @pytest.mark.parametrize("n", [2, 64, 2048])
@@ -179,3 +191,20 @@ def test_k5_fp2(dev, mode):
     for y in (row, col):
         _same(fp2_elementwise(F2, mode, m, y),
               fp2_elementwise_plain(F2, mode, m, y))
+
+
+@pytest.mark.parametrize("n,m,rows", [(5, 13, 3), (29, 64, 7),
+                                      (461, 4151, 5), (921, 4151, 3)])
+def test_k6_lch14(dev, n, m, rows):
+    F, rng = gf2_128(), np.random.default_rng(9)
+    y = _elts(F, rng, rows * n, dev).reshape(rows, n, 4)
+    rs = lch14.LCH14ReedSolomon(n, m, F, dev)
+    _same(rs.interpolate(y),
+          lch14.lch14_plain(F, lch14.EXTEND, y, rs.sched, m))
+    x = _elts(F, rng, rows * 64, dev).reshape(rows, 64, 4)
+    L = lch14.LCH14(F)
+    for passes in (L._stages(0, 6, 128, True), L._stages(0, 6, 64, False),
+                   L._bidir(0, 6, 0, 29)):
+        sched = lch14.Schedule(F, 64, passes, len(passes), 0, dev)
+        _same(lch14.gf2_lch14(F, lch14.TRANSFORM, x, sched, 64),
+              lch14.lch14_plain(F, lch14.TRANSFORM, x, sched, 64))
