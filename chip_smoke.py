@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 1. Prints the card (name, count, power limit).
-2. Builds the kernels K1-K6 from longfellow_zk_tpu_torch/csrc with nvcc.
+2. Builds the kernels K1-K7 from longfellow_zk_tpu_torch/csrc with nvcc.
 3. Runs each kernel instance at the shapes of the proofs below, holds
    it against its plain PyTorch version on the same inputs (field
    arithmetic is exact: tolerance 0) and times both (device time from
@@ -14,11 +14,14 @@
       proof's shapes;
    c. the GF(2^128) instances of K1-K3 and K6 at the mdoc hash proof's
       shapes (K1 at 266 x 3,230, K2 and K3 on its 3,578,789-term layer,
-      K6 on the 266-row tableau at (461, 4151) and (921, 4151)).
-4. Drives the port's three paths, each with the launch counts set to
-   zero just before it and read just after (every kernel instance of the
-   path must have launched), its bytes under DeterministicEngine held
-   against the golden proof in longfellow_zk_tpu_torch/testdata:
+      K6 on the 266-row tableau at (461, 4151) and (921, 4151));
+   d. K7 at the largest layer of the SHA-256 circuit (Fp128), of the
+      mdoc signature circuit (P-256) and of the mdoc hash circuit
+      (GF(2^128), 3,578,789 terms).
+4. Drives the port's three prover paths, each with the launch counts set
+   to zero just before it and read just after (every kernel instance of
+   the path must have launched), its bytes under DeterministicEngine
+   held against the golden proof in longfellow_zk_tpu_torch/testdata:
    a. the Fp128 SHA-256 one-block proof (the JAX package's bytes);
    b. the P-256 ECDSA signature proof (the JAX package's bytes);
    c. the mdoc presentation through circuits/mdoc/api.run_mdoc_prover
@@ -26,7 +29,14 @@
       of the port's CPU path, which the JAX verifier accepts).
    Then 5 more proofs under SecureRandomEngine() are timed (median), one
    is profiled on the host (cProfile) and one on the card (busy share).
-5. Prints the kernels line, the card line and, last, the result line.
+5. Drives the port's three verifier paths on those golden proofs, each
+   with the launch counts set to zero just before the first verification
+   and read just after (it must accept, and K7 and the path's other
+   kernels must have launched), then on a copy with one bit flipped (it
+   must refuse); then times 5 verifications and profiles them as above:
+   a. ZkVerifier on the SHA-256 proof; b. ZkVerifier on the ECDSA proof;
+   c. circuits/mdoc/api.run_mdoc_verifier on the mdoc proof.
+6. Prints the kernels line, the card line and, last, the result line.
 
 Any failure exits non-zero before the result line.  Imports no JAX.
 """
@@ -148,7 +158,8 @@ def check_fp_kernels(rows, F, circ, dev, tag, k1_n, k1_table, rng,
     at the tableau k1_table = (rows, n); K2 and K3 at the largest layer;
     the Ligero row sums at (rows, dblock)."""
     from longfellow_zk_tpu_torch.fields import fp as fpm
-    from longfellow_zk_tpu_torch.sumcheck.prover import SumcheckProver
+    from longfellow_zk_tpu_torch.sumcheck.prover import (
+        SumcheckProver, quad_tensors)
 
     pm = fpm.plain_of(F)
     mops, eb = MUL_OPS[tag], 4 * F.nlimb
@@ -182,7 +193,7 @@ def check_fp_kernels(rows, F, circ, dev, tag, k1_n, k1_table, rng,
     ly = max(range(circ.nl), key=lambda i: circ.layers[i].nterms)
     layer = circ.layers[ly]
     sp = SumcheckProver(F, dev)
-    qd = sp._quad_dev(layer.quad)
+    qd = quad_tensors(F, layer.quad, dev)
     nv = circ.layers[ly - 1].nw if ly > 0 else circ.nv
     starts, ends = sp._segments(layer.quad, nv)
     T = layer.nterms
@@ -283,49 +294,78 @@ def check_lch14(rows, F, dev, nrows, m, rng):
                         nbytes, 0)
 
 
-def run_path(label, metric, prove, golden, golden_what, kernels, rows,
-             expect, smi, first_engine=None,
-             phase_names=("commit", "prove")):
-    """Drives one path: the first proof (`first_engine`, by default
-    DeterministicEngine()) with the launch counts set to zero just before
-    it and read just after, its bytes held against `golden`; then 5 timed
-    proofs, a host profile and a device profile.  `prove(engine, phases)`
-    returns the proof bytes and appends its phase times (ms, in the order
-    of phase_names) to phases.  Returns False on a failure."""
-    from longfellow_zk_tpu_torch.random_oracle.engine import (
-        DeterministicEngine, SecureRandomEngine)
+def check_quad_bind(rows, F, circ, dev, tag, rng):
+    """K7 instance `tag` against its plain version at the largest layer of
+    `circ`: its uploaded terms, random EQ tables of the layer's widths
+    and a random beta."""
+    from longfellow_zk_tpu_torch.sumcheck import verifier as vm
+    from longfellow_zk_tpu_torch.sumcheck.prover import quad_tensors
 
-    print("== %s" % label)
-    phases = []
-    kernels.reset_launches()
-    t = time.perf_counter()
-    proof = prove(first_engine or DeterministicEngine(), phases)
-    first_ms = (time.perf_counter() - t) * 1e3
-    launches = {k: v for k, v in kernels.LAUNCHES.items() if k in expect}
-    others = {k: v for k, v in kernels.LAUNCHES.items()
-              if k not in expect and v}
-    print("first proof: %.1f ms (uploads the circuit), %d bytes"
-          % (first_ms, len(proof)))
-    print("launches in one proof:", json.dumps(launches))
-    if others:
-        print("FAIL: kernels of another field launched:", others)
-        return False
-    if proof != golden:
-        print("FAIL: proof bytes differ from %s" % golden_what)
-        return False
-    print("proof bytes equal %s (%d bytes)" % (golden_what, len(golden)))
-    missing = [k for k in expect if launches.get(k, 0) == 0]
-    if missing:
-        print("FAIL: kernels not launched on the main path:", missing)
-        return False
-    for k, v in launches.items():
-        rows.rows[k]["launches"] = v
+    ly = max(range(circ.nl), key=lambda i: circ.layers[i].nterms)
+    layer = circ.layers[ly]
+    logv = circ.layers[ly - 1].logw if ly > 0 else circ.logv
+    nv, nw, T = 1 << logv, 1 << layer.logw, layer.nterms
+    qd = quad_tensors(F, layer.quad, dev)
+    elts = elts_of(F, rng, dev)
+    args = (qd["g"], qd["h0"], qd["h1"], qd["v"], qd["bmask"], elts(nv),
+            elts(nw), elts(nw), elts(1)[0])
+    err = max_err(vm.fp_quad_bind(F, *args), vm.quad_bind_plain(F, *args))
+    print("K7[%s] at layer %d: %d terms (%d beta-masked), logv %d, logw %d"
+          % (tag, ly, T, int(qd["bmask"].sum()), logv, layer.logw))
+    eb = 4 * F.nlimb
+    rows.record("fp_quad_bind[%s]" % tag,
+                "longfellow_zk_tpu_torch/csrc/quad_bind.cu",
+                "longfellow_zk_tpu/sumcheck/verifier.py:55", err,
+                lambda: vm.fp_quad_bind(F, *args),
+                lambda: vm.quad_bind_plain(F, *args),
+                T * (8 + 4 + 4 + 1 + eb) + (nv + 2 * nw + 2) * eb,
+                3 * MUL_OPS[tag] * T)
 
-    times = []
-    del phases[:]
+
+def zk_verify_fn(F, circ, rs, pub, meta, dev):
+    """verify(data, phases): a ZkVerifier's recv_commitment + verify on the
+    proof bytes data on `dev` (phases gets the ms of (construction and
+    read_zk_proof, recv_commitment + verify)); False if data is not a
+    proof."""
+    from longfellow_zk_tpu_torch.random_oracle.transcript import Transcript
+    from longfellow_zk_tpu_torch.zk.serialization import read_zk_proof
+    from longfellow_zk_tpu_torch.zk.verifier import ZkVerifier
+
+    def verify(data, phases):
+        t0 = time.perf_counter()
+        v = ZkVerifier(circ, F, rs, rate=meta["rate"], nreq=meta["nreq"],
+                       device=dev)
+        zkp = read_zk_proof(data, circ, v.param, F, meta["rate"],
+                            meta["nreq"])
+        if zkp is None:
+            return False
+        t1 = time.perf_counter()
+        ts = Transcript(meta["transcript_label"].encode(),
+                        version=meta["version"])
+        v.recv_commitment(zkp, ts)
+        ok, _ = v.verify(zkp, pub, ts)
+        torch.cuda.synchronize()
+        phases.append(((t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3))
+        return ok
+    return verify
+
+
+def flipped(data, i, bit):
+    """data with bit `bit` of byte i flipped."""
+    bad = bytearray(data)
+    bad[i] ^= bit
+    return bytes(bad)
+
+
+def measure(metric, run, smi, phase_names):
+    """Times 5 calls of run(phases) (median, min, max; the phase times,
+    ms in the order of phase_names, that run appends to phases), then
+    profiles one on the host (cProfile) and one on the card (busy share,
+    top device operations)."""
+    times, phases = [], []
     for _ in range(5):
         t = time.perf_counter()
-        prove(SecureRandomEngine(), phases)
+        run(phases)
         times.append((time.perf_counter() - t) * 1e3)
     print("%s: %.3f (median of 5; min %.3f, max %.3f: %s) on %s"
           % (metric, statistics.median(times), min(times), max(times),
@@ -338,11 +378,11 @@ def run_path(label, metric, prove, golden, golden_what, kernels, rows,
     import pstats
     cp = cProfile.Profile()
     cp.enable()
-    prove(SecureRandomEngine(), phases)
+    run(phases)
     cp.disable()
     st = pstats.Stats(cp).stats
     total = sum(v[2] for v in st.values())
-    print("host profile of one proof (cProfile, %.1f ms of own time in "
+    print("host profile of one call (cProfile, %.1f ms of own time in "
           "all), by own time:" % (total * 1e3))
     for (fname, line, func), v in sorted(st.items(),
                                          key=lambda kv: -kv[1][2])[:14]:
@@ -353,7 +393,7 @@ def run_path(label, metric, prove, golden, golden_what, kernels, rows,
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        prove(SecureRandomEngine(), phases)
+        run(phases)
         wall_ms = (time.perf_counter() - t) * 1e3
     cuda = torch.autograd.DeviceType.CUDA
     by_name = {}
@@ -362,13 +402,95 @@ def run_path(label, metric, prove, golden, golden_what, kernels, rows,
             by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time / 1e3
     busy_ms = sum(by_name.values())
     if busy_ms > 0:
-        print("profiled proof: %.1f ms wall, %.3f ms device busy "
+        print("profiled call: %.1f ms wall, %.3f ms device busy "
               "(busy share %.4f)" % (wall_ms, busy_ms, busy_ms / wall_ms))
         for kname, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
             print("  device %9.3f ms  %s" % (ms, kname[:90]))
     else:
-        print("profiled proof: %.1f ms wall, device busy share not "
+        print("profiled call: %.1f ms wall, device busy share not "
               "measured (the profiler recorded no device time)" % wall_ms)
+
+
+def first_run(kernels, expect, fn):
+    """fn() with the launch counts set to zero just before it and read
+    just after: (its result, ms, launches of `expect`, failure or None).
+    Fails if a kernel outside `expect` launched or one of it did not."""
+    kernels.reset_launches()
+    t = time.perf_counter()
+    out = fn()
+    ms = (time.perf_counter() - t) * 1e3
+    launches = {k: v for k, v in kernels.LAUNCHES.items() if k in expect}
+    others = {k: v for k, v in kernels.LAUNCHES.items()
+              if k not in expect and v}
+    missing = [k for k in expect if launches.get(k, 0) == 0]
+    why = None
+    if others:
+        why = "kernels of another field launched: %s" % others
+    elif missing:
+        why = "kernels not launched on the main path: %s" % missing
+    return out, ms, launches, why
+
+
+def run_path(label, metric, prove, golden, golden_what, kernels, rows,
+             expect, smi, first_engine=None,
+             phase_names=("commit", "prove")):
+    """Drives one prover path: the first proof (`first_engine`, by
+    default DeterministicEngine()) with the launch counts set to zero
+    just before it and read just after, its bytes held against `golden`;
+    then `measure` under SecureRandomEngine().  `prove(engine, phases)`
+    returns the proof bytes and appends its phase times (ms, in the order
+    of phase_names) to phases.  Returns False on a failure."""
+    from longfellow_zk_tpu_torch.random_oracle.engine import (
+        DeterministicEngine, SecureRandomEngine)
+
+    print("== %s" % label)
+    proof, first_ms, launches, why = first_run(
+        kernels, expect,
+        lambda: prove(first_engine or DeterministicEngine(), []))
+    print("first proof: %.1f ms (uploads the circuit), %d bytes"
+          % (first_ms, len(proof)))
+    print("launches in one proof:", json.dumps(launches))
+    if proof != golden:
+        print("FAIL: proof bytes differ from %s" % golden_what)
+        return False
+    print("proof bytes equal %s (%d bytes)" % (golden_what, len(golden)))
+    if why:
+        print("FAIL:", why)
+        return False
+    for k, v in launches.items():
+        rows.rows[k]["launches"] = v
+    measure(metric, lambda ph: prove(SecureRandomEngine(), ph), smi,
+            phase_names)
+    return True
+
+
+def run_verifier_path(label, metric, verify, golden, bad, kernels, rows,
+                      expect, smi, phase_names):
+    """Drives one verifier path: `verify(data, phases)` on the golden
+    proof with the launch counts set to zero just before it and read just
+    after (it must accept, and every kernel of `expect` launch; the
+    counts go to the K7 rows), then on `bad`, a copy with one bit flipped
+    (it must refuse); then `measure` on the golden.  Returns False on a
+    failure."""
+    print("== %s" % label)
+    ok, first_ms, launches, why = first_run(
+        kernels, expect, lambda: verify(golden, []))
+    print("first verification: %.1f ms, accepted: %s" % (first_ms, ok))
+    print("launches in one verification:", json.dumps(launches))
+    if ok is not True:
+        print("FAIL: the golden proof is refused")
+        return False
+    if why:
+        print("FAIL:", why)
+        return False
+    for k, v in launches.items():
+        if k.startswith("fp_quad_bind["):
+            rows.rows[k]["launches"] = v
+    if verify(bad, []) is not False:
+        print("FAIL: a copy with one bit flipped is accepted")
+        return False
+    print("a copy with one bit flipped is refused")
+    measure(metric, lambda ph: verify(golden, ph), smi, phase_names)
     return True
 
 
@@ -474,14 +596,25 @@ def main() -> int:
     GF = gf2_128()
     circuit_bytes = open(os.path.join(REPO, "artifacts", "mdoc_v7_1attr.zst"),
                          "rb").read()
-    _, c_hash = mdoc_api.load_circuits(circuit_bytes)
+    c_sig, c_hash = mdoc_api.load_circuits(circuit_bytes)
     check_fp_kernels(rows, GF, c_hash, dev, "gf2_128", 266 * 3230,
                      (266, 3230), rng, dblock=921)
     check_lch14(rows, GF, dev, 266, 4151, rng)
+
+    # -- 3d. K7 at the largest layer each verifier binds ------------------
+    check_quad_bind(rows, F, circ, dev, "fp128", rng)
+    check_quad_bind(rows, FB, c_sig, dev, "fp256", rng)
+    check_quad_bind(rows, GF, c_hash, dev, "gf2_128", rng)
     if rows.failures:
         print("FAIL: kernels disagree with their plain versions:",
               rows.failures)
         return 1
+
+    def prover_kernels(*instances):
+        """The prover's kernels of those instances: all but K7, which
+        only the verifier runs."""
+        return [k for k in kernels.KERNELS if k.endswith(instances)
+                and not k.startswith("fp_quad_bind[")]
 
     def proof_fn(F, circ, rs, W, meta):
         def prove(engine, phases):
@@ -515,8 +648,7 @@ def main() -> int:
                     "zk_sha256_1block_prove_ms",
                     proof_fn(F, circ, rs, Wit, meta), golden,
                     "the golden JAX proof", kernels, rows,
-                    [k for k in kernels.KERNELS if k.endswith("[fp128]")],
-                    smi):
+                    prover_kernels("[fp128]"), smi):
         return 1
 
     # -- 4b. the P-256 ECDSA proof (the witness of bench.py's phase_ecdsa) -----
@@ -536,8 +668,7 @@ def main() -> int:
     if not run_path("the P-256 ECDSA proof", "ecdsa_zk_prover_ms",
                     proof_fn(FB, ecirc, ers, EW, emeta), egolden,
                     "the golden JAX proof", kernels,
-                    rows, [k for k in kernels.KERNELS
-                           if k.endswith(("[fp256]", "[fp256x2]"))], smi):
+                    rows, prover_kernels("[fp256]", "[fp256x2]"), smi):
         return 1
 
     # -- 4c. the mdoc presentation, through run_mdoc_prover ------------------
@@ -564,15 +695,56 @@ def main() -> int:
     if not run_path("the mdoc presentation (run_mdoc_prover)",
                     "mdoc_prover_ms", mdoc_prove, mgolden,
                     "the golden mdoc proof", kernels, rows,
-                    [k for k in kernels.KERNELS
-                     if k.endswith(("[gf2_128]", "[fp256]", "[fp256x2]"))],
+                    prover_kernels("[gf2_128]", "[fp256]", "[fp256x2]"),
                     smi, first_engine=DeterministicEngine(
                         mmeta["engine_seed"].encode()),
                     phase_names=("hash commit", "sig commit", "hash prove",
                                  "sig prove")):
         return 1
 
-    # -- 5. results ---------------------------------------------------------
+    # -- 5. the verifiers on the golden proofs ------------------------------
+    # the first sumcheck element of a ZK proof starts after the 32-byte root
+    if not run_verifier_path(
+            "the Fp128 SHA-256 one-block verifier",
+            "zk_sha256_1block_verify_ms",
+            zk_verify_fn(F, circ, rs, Wit[: circ.npub_in], meta, dev), golden,
+            flipped(golden, 32, 1), kernels, rows,
+            ["fp_elementwise[fp128]", "fp_quad_bind[fp128]",
+             "fp_ntt[fp128]"], smi, ("read", "recv_commitment + verify")):
+        return 1
+    if not run_verifier_path(
+            "the P-256 ECDSA verifier", "ecdsa_zk_verifier_ms",
+            zk_verify_fn(FB, ecirc, ers, EW[: ecirc.npub_in], emeta,
+                         dev),
+            egolden, flipped(egolden, 32, 1), kernels, rows,
+            ["fp_elementwise[fp256]", "fp_quad_bind[fp256]",
+             "fp_ntt[fp256x2]", "fp2_elementwise[fp256x2]"], smi,
+            ("read", "recv_commitment + verify")):
+        return 1
+
+    def mdoc_verify(data, phases):
+        ph = []
+        ok = mdoc_api.run_mdoc_verifier(
+            circuit_bytes, int(ex["pkx"], 16), int(ex["pky"], 16),
+            bytes.fromhex(ex["transcript"]), attrs, ex["now"].encode(), data,
+            ex["doc_type"].encode(), spec, device=dev, phases=ph)
+        phases.append(tuple(ph))
+        return ok
+
+    # the bit that tests/test_torch_golden.py flips: the hash proof's
+    # sumcheck part, after the 6 MACs and the root
+    if not run_verifier_path(
+            "the mdoc presentation verifier (run_mdoc_verifier)",
+            "mdoc_verifier_ms", mdoc_verify, mgolden,
+            flipped(mgolden, 6 * 16 + 32 + 5, 0x10), kernels, rows,
+            ["fp_elementwise[gf2_128]", "fp_quad_bind[gf2_128]",
+             "gf2_lch14[gf2_128]", "fp_elementwise[fp256]",
+             "fp_quad_bind[fp256]", "fp_ntt[fp256x2]",
+             "fp2_elementwise[fp256x2]"], smi,
+            ("read", "hash verify", "sig verify")):
+        return 1
+
+    # -- 6. results ---------------------------------------------------------
     print(json.dumps({"kernels": list(rows.rows.values())}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

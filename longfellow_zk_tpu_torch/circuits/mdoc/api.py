@@ -1,12 +1,13 @@
-"""The mdoc prover API: load_circuits, circuit_id, run_mdoc_prover.
+"""The mdoc API: load_circuits, circuit_id, run_mdoc_prover,
+run_mdoc_verifier.
 
-Port of the JAX package's circuits/mdoc/api.py:38-263 (semantic twin of
-the reference lib/circuits/mdoc/mdoc_zk.cc:150-546): the anonymous
+Port of the JAX package's circuits/mdoc/api.py:38-311 (semantic twin of
+the reference lib/circuits/mdoc/mdoc_zk.cc:150-712): the anonymous
 credential proof is a pair of ZK proofs over one transcript, a GF(2^128)
 hash/parse circuit and a P-256 signature circuit, linked through
-Fiat-Shamir-keyed MACs on (e, dpkx, dpky).  Both ZkProvers run on the
-card unless the caller asks for the CPU (`device="cpu"`).  The verifier
-is not ported yet.
+Fiat-Shamir-keyed MACs on (e, dpkx, dpky).  The ZkProvers and
+ZkVerifiers run on the card unless the caller asks for the CPU
+(`device="cpu"`).
 """
 
 from __future__ import annotations
@@ -30,11 +31,13 @@ from ...utils.serialization import ReadBuffer
 from ...utils.zstd import decompress
 from ...zk.proof import ZkProof
 from ...zk.prover import ZkProver
-from ...zk.serialization import write_zk_proof
+from ...zk.serialization import read_zk_proof, write_zk_proof
 from ...zk.testing import rs_factory_for
+from ...zk.verifier import ZkVerifier
 from ..mac.mac import MACReference, fill_gf2k_bits
 from .witness import (
-    MdocError, MdocHashWitness, MdocSignatureWitness, RequestedAttribute)
+    MdocError, MdocHashWitness, MdocSignatureWitness, RequestedAttribute,
+    compute_transcript_hash)
 from .zk_spec import ZkSpec
 
 GF = gf2_128()
@@ -173,6 +176,11 @@ def mdoc_witnesses(c_sig, c_hash, mdoc: bytes, pkx: int, pky: int,
     return W_hash, W_sig, hw
 
 
+def _rate_nreq(version: int) -> Tuple[int, int]:
+    """The Ligero rate and column count of a ZkSpec version."""
+    return (4, 128) if version < 7 else (7, 132)
+
+
 def run_mdoc_prover(circuit_bytes: bytes, mdoc: bytes, pkx: int, pky: int,
                     transcript: bytes, attrs: List[RequestedAttribute],
                     now: bytes, zk_spec: ZkSpec, rng=None, device=None,
@@ -192,8 +200,7 @@ def run_mdoc_prover(circuit_bytes: bytes, mdoc: bytes, pkx: int, pky: int,
                                        transcript, attrs, now, version, ap)
 
     # ---- two linked ZK proofs over one transcript ----
-    rate = 4 if version < 7 else 7
-    nreq = 128 if version < 7 else 132
+    rate, nreq = _rate_nreq(version)
     tp = Transcript(transcript, version=version)
     h_zk = ZkProof(rate=rate, nreq=nreq)
     s_zk = ZkProof(rate=rate, nreq=nreq)
@@ -266,3 +273,72 @@ def _update_macs(W_sig: List, W_hash: List, num_attrs: int, version: int,
             si += 1
         W_hash[hi] = m
         hi += 1
+
+
+# ---------------------------------------------------------------------------
+# verifier (mdoc_zk.cc:549-712)
+# ---------------------------------------------------------------------------
+
+def run_mdoc_verifier(circuit_bytes: bytes, pkx: int, pky: int,
+                      transcript: bytes, attrs: List[RequestedAttribute],
+                      now: bytes, proof: bytes, doc_type: bytes,
+                      zk_spec: ZkSpec, device=None, phases: List = None
+                      ) -> bool:
+    """True if `proof` (run_mdoc_prover's bytes) proves the presentation
+    of `attrs` for the issuer key (pkx, pky) and session `transcript`; a
+    malformed or short proof is refused.  `device` as resolve_device;
+    `phases`, if a list, receives the host-clock ms of (read, hash
+    verify, sig verify), each ended by a device synchronisation."""
+    dev = resolve_device(device)
+    c_sig, c_hash = load_circuits(circuit_bytes)
+    version = zk_spec.version
+    rate, nreq = _rate_nreq(version)
+    t0 = [time.perf_counter()]
+
+    def lap():
+        if phases is not None:
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            t = time.perf_counter()
+            phases.append((t - t0[0]) * 1e3)
+            t0[0] = t
+
+    nmac = 6 * GF.kBytes
+    if len(proof) < nmac:
+        return False
+    macs = [GF.of_bytes(proof[i : i + GF.kBytes])
+            for i in range(0, nmac, GF.kBytes)]
+
+    hash_v = ZkVerifier(c_hash, GF, _rs_factory(GF, dev), rate=rate,
+                        nreq=nreq, block_enc=zk_spec.block_enc_hash,
+                        device=dev)
+    sig_v = ZkVerifier(c_sig, FB, _rs_factory(FB, dev), rate=rate,
+                       nreq=nreq, block_enc=zk_spec.block_enc_sig,
+                       device=dev)
+
+    rest = proof[nmac:]
+    h_zk, used = read_zk_proof(rest, c_hash, hash_v.param, GF, rate, nreq,
+                               return_used=True)
+    if h_zk is None:
+        return False
+    s_zk = read_zk_proof(rest[used:], c_sig, sig_v.param, FB, rate, nreq)
+    if s_zk is None:
+        return False
+
+    tv = Transcript(transcript, version=version)
+    hash_v.recv_commitment(h_zk, tv)
+    sig_v.recv_commitment(s_zk, tv)
+    av = generate_mac_key(tv)
+
+    e2 = compute_transcript_hash(transcript, doc_type)
+    pub_hash = fill_hash_public(attrs, now, macs, av, version)
+    pub_sig = fill_sig_public(pkx, pky, e2, macs, av)
+    if len(pub_hash) != c_hash.npub_in or len(pub_sig) != c_sig.npub_in:
+        return False
+    lap()
+
+    ok1, _ = hash_v.verify(h_zk, pub_hash, tv)
+    lap()
+    ok2, _ = sig_v.verify(s_zk, pub_sig, tv)
+    lap()
+    return ok1 and ok2

@@ -15,39 +15,10 @@
 // lazy_sum.
 //
 // Bound on the H100: bytes (per term three indices' worth of gathers and
-// one hv read), at sizes where launch latency dominates.  Blocks run in
-// no order, so the reduction has two passes: each block folds a
-// grid-stride slice of the terms into N 64-bit limb accumulators per
-// output (exact; a warp-shuffle then shared-memory block sum) and writes
-// them to scratch; one block per output then sums the partials and
-// reduces modulo p once.  No atomics, so the result does not depend on
-// the order in which blocks run.
-#include "gf2.cuh"
-
-#define NT 256
-
-// Sums acc over the block into dst[0..N) (thread 0 writes).
-template <class C>
-__device__ __forceinline__ void block_sum(u64* acc, u64* dst) {
-  constexpr int N = C::N;
-  __shared__ u64 sm[NT / 32][N];
-  warp_sum<C>(acc);
-  int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  if (lane == 0) {
-#pragma unroll
-    for (int j = 0; j < N; j++) sm[w][j] = acc[j];
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-#pragma unroll
-    for (int j = 0; j < N; j++) {
-      u64 s = 0;
-      for (int k = 0; k < NT / 32; k++) s = acc_add<C>(s, sm[k][j]);
-      dst[j] = s;
-    }
-  }
-  __syncthreads();  // sm is reused by the next call
-}
+// one hv read), at sizes where launch latency dominates.  The reduction
+// is the two-pass one of reduce.cuh (per-block partials, then k_finish):
+// exact and without atomics.
+#include "reduce.cuh"
 
 template <class C>
 __global__ void k_wire_partial(const uint4* __restrict__ hv,
@@ -94,25 +65,6 @@ __global__ void k_sum_partial(const uint4* __restrict__ x, long long R,
        r += (long long)gridDim.y * NT)
     fp_acc(acc, E::load(x, (a * R + r) * B + b));
   block_sum<C>(acc, partial + N * (o * gridDim.y + blockIdx.y));
-}
-
-// One block per output: sums its nblk partials and reduces modulo p.
-template <class C>
-__global__ void k_finish(const u64* __restrict__ partial, int nblk,
-                         uint4* __restrict__ out) {
-  constexpr int N = C::N;
-  long long o = blockIdx.x;
-  u64 acc[N];
-#pragma unroll
-  for (int j = 0; j < N; j++) acc[j] = 0;
-  for (int k = threadIdx.x; k < nblk; k += NT) {
-#pragma unroll
-    for (int j = 0; j < N; j++)
-      acc[j] = acc_add<C>(acc[j], partial[N * (o * nblk + k) + j]);
-  }
-  __shared__ u64 tot[N];
-  block_sum<C>(acc, tot);
-  if (threadIdx.x == 0) fp_reduce_acc<C>(tot).store(out, o);
 }
 
 // scratch: at least N * nout * nblk 64-bit words; nout = 2 (wire) or A * B.

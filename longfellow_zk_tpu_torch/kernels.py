@@ -5,7 +5,8 @@ together) into a shared library with a plain C interface, in the
 package's ignored build directory `_build/`, at first use; the libraries
 are loaded with ctypes.  Nothing here runs when the package is imported.
 The sources share the field arithmetic of `csrc/fp.cuh`, templated on the
-field; each kernel has one instance (and one C entry point) per field:
+field (K3 and K7 also the two-pass sum of `csrc/reduce.cuh`); each kernel
+has one instance (and one C entry point) per field:
 
     K1 fp_elementwise  fp_ops.cu      fp128 fp256 gf2_128  fields/fp.py
     K2 fp_segment_sum  segsum.cu      fp128 fp256 gf2_128  fields/fp.py
@@ -13,6 +14,7 @@ field; each kernel has one instance (and one C entry point) per field:
     K4 fp_ntt          ntt.cu         fp128 fp256x2        transforms/ntt.py
     K5 fp2_elementwise fp2_ops.cu     fp256x2              fields/fp2.py
     K6 gf2_lch14       lch14.cu       gf2_128              transforms/lch14.py
+    K7 fp_quad_bind    quad_bind.cu   fp128 fp256 gf2_128  sumcheck/verifier.py
 
 (fp128: p = 2^128 - 2^108 + 1; fp256: the P-256 base field; fp256x2: Fp2
 over it; gf2_128: GF(2^128), csrc/gf2.cuh.)  A kernel's name here is
@@ -58,6 +60,9 @@ _SOURCES = {
                         ("fp256x2",)),
     "gf2_lch14": ("lch14.cu", [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                _I, _I, _P], ("gf2_128",)),
+    "fp_quad_bind": ("quad_bind.cu", [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                      _P, _LL, _I, _P],
+                     ("fp128", "fp256", "gf2_128")),
 }
 
 # "kernel[instance]" -> (source, C entry point, argtypes)

@@ -10,7 +10,9 @@ the reference's index arithmetic does.
 
 The Ligero prover hashes the leaves (nonce || column) on the host and
 hands this module the 32-byte digests; the tree is built on the host
-too.  A device SHA-256 for the columns is later work.
+too, and the verifiers (MerkleTreeVerifier, MerkleCommitmentVerifier,
+merkle.py:88-170 of the JAX package) recompute the root from the opened
+leaves on the host.  A device SHA-256 for the columns is later work.
 """
 
 from __future__ import annotations
@@ -83,6 +85,45 @@ class MerkleTree:
         return proof
 
 
+class MerkleTreeVerifier:
+    def __init__(self, n: int, root: bytes):
+        self.n = n
+        self.root = root
+
+    def verify_compressed_proof(self, proof: List[bytes],
+                                leaves: Sequence[bytes],
+                                pos: Sequence[int]) -> bool:
+        n = self.n
+        layers = [b""] * (2 * n)
+        defined = [False] * (2 * n)
+        try:
+            tree = _proof_tree(n, pos)
+        except AssertionError:
+            return False
+        sz = 0
+        for i in range(n - 1, 0, -1):
+            if tree[i]:
+                child = 2 * i
+                if tree[child]:
+                    child = 2 * i + 1
+                if not tree[child]:
+                    if sz >= len(proof):
+                        return False
+                    layers[child] = proof[sz]
+                    sz += 1
+                    defined[child] = True
+        if sz != len(proof):
+            return False
+        for p, leaf in zip(pos, leaves):
+            layers[p + n] = leaf
+            defined[p + n] = True
+        for i in range(n - 1, 0, -1):
+            if defined[2 * i] and defined[2 * i + 1]:
+                layers[i] = hash2(layers[2 * i], layers[2 * i + 1])
+                defined[i] = True
+        return defined[1] and layers[1] == self.root
+
+
 # ---------------------------------------------------------------------------
 # Nonce-blinded commitment (merkle_commitment.h)
 # ---------------------------------------------------------------------------
@@ -117,3 +158,13 @@ class MerkleCommitment:
         proof = self.tree.generate_compressed_proof(pos)
         nonces = [self.nonces[p] for p in pos]
         return proof, nonces
+
+
+class MerkleCommitmentVerifier:
+    def __init__(self, n: int, root: bytes):
+        self.inner = MerkleTreeVerifier(n, root)
+
+    def verify(self, proof: List[bytes], columns: Sequence[bytes],
+               nonces: Sequence[bytes], pos: Sequence[int]) -> bool:
+        leaves = [leaf_hash(c, nc) for c, nc in zip(columns, nonces)]
+        return self.inner.verify_compressed_proof(proof, leaves, pos)

@@ -120,6 +120,39 @@ def _wire_merge_plan(h0: np.ndarray, h1: np.ndarray, logw: int):
     return perm, stages
 
 
+def quad_tensors(F, quad, device) -> dict:
+    """The tensors of a layer's quad on `device`, uploaded once per device
+    (cached on the quad) and shared by the prover and the verifier: the
+    terms in g order, g (int64), h0 and h1 (int32), v [T, N] with zeros
+    stored as 1, and bmask (bool) marking the terms whose coefficient is
+    the layer's beta; and their host copies g_np, h0_np, h1_np."""
+    cache = quad.__dict__.setdefault("_torch_cache", {})
+    key = ("quad", str(device))
+    if key not in cache:
+        g = np.asarray(quad.g, dtype=np.int64)
+        h0 = np.asarray(quad.h0, dtype=np.int64)
+        h1 = np.asarray(quad.h1, dtype=np.int64)
+        bmask = np.asarray(quad.beta_mask())
+        if quad.kidx is not None:
+            tbl = F.to_limbs([1 if x == 0 else x for x in quad.ktable],
+                             device)
+            kidx = np.asarray(quad.kidx, dtype=np.int64)
+        else:
+            tbl = F.to_limbs([1 if x == 0 else x for x in quad.v], device)
+            kidx = np.arange(len(g), dtype=np.int64)
+        order = np.argsort(g, kind="stable")
+        g, h0, h1, bmask, kidx = (g[order], h0[order], h1[order],
+                                  bmask[order], kidx[order])
+        cache[key] = dict(
+            g=torch.as_tensor(g, device=device),
+            h0=torch.as_tensor(h0.astype(np.int32), device=device),
+            h1=torch.as_tensor(h1.astype(np.int32), device=device),
+            v=tbl[torch.as_tensor(kidx, device=device)].contiguous(),
+            bmask=torch.as_tensor(bmask, device=device),
+            g_np=g, h0_np=h0, h1_np=h1)
+    return cache[key]
+
+
 class SumcheckProver:
     """Sumcheck prover over one-copy circuits; tensors on `device`."""
 
@@ -130,44 +163,12 @@ class SumcheckProver:
         self.F = F
         self.device = resolve_device(device)
 
-    # ------------------------------------------------------------------
-    # per-quad tensors, uploaded once per device
-    # ------------------------------------------------------------------
-
-    def _quad_dev(self, quad) -> dict:
-        cache = quad.__dict__.setdefault("_torch_cache", {})
-        key = ("quad", str(self.device))
-        if key not in cache:
-            F, dev = self.F, self.device
-            g = np.asarray(quad.g, dtype=np.int64)
-            h0 = np.asarray(quad.h0, dtype=np.int64)
-            h1 = np.asarray(quad.h1, dtype=np.int64)
-            bmask = np.asarray(quad.beta_mask())
-            if quad.kidx is not None:
-                tbl = F.to_limbs([1 if x == 0 else x for x in quad.ktable],
-                                 dev)
-                kidx = np.asarray(quad.kidx, dtype=np.int64)
-            else:
-                tbl = F.to_limbs([1 if x == 0 else x for x in quad.v], dev)
-                kidx = np.arange(len(g), dtype=np.int64)
-            order = np.argsort(g, kind="stable")
-            g, h0, h1, bmask, kidx = (g[order], h0[order], h1[order],
-                                      bmask[order], kidx[order])
-            cache[key] = dict(
-                g=torch.as_tensor(g, device=dev),
-                h0=torch.as_tensor(h0.astype(np.int32), device=dev),
-                h1=torch.as_tensor(h1.astype(np.int32), device=dev),
-                v=tbl[torch.as_tensor(kidx, device=dev)].contiguous(),
-                bmask=torch.as_tensor(bmask, device=dev),
-                g_np=g, h0_np=h0, h1_np=h1)
-        return cache[key]
-
     def _segments(self, quad, nv: int):
         """(starts, ends) int32 [nv]: output wire g's terms in g order."""
         cache = quad.__dict__.setdefault("_torch_cache", {})
         key = ("seg", str(self.device), nv)
         if key not in cache:
-            g = self._quad_dev(quad)["g_np"]
+            g = quad_tensors(self.F, quad, self.device)["g_np"]
             wires = np.arange(nv)
             cache[key] = tuple(
                 torch.as_tensor(np.searchsorted(g, wires, side=side)
@@ -181,7 +182,7 @@ class SumcheckProver:
         cache = quad.__dict__.setdefault("_torch_cache", {})
         key = ("wm", str(self.device), logw, self.K_MERGE_MIN_TERMS)
         if key not in cache:
-            qd = self._quad_dev(quad)
+            qd = quad_tensors(self.F, quad, self.device)
             if len(qd["h0_np"]) < self.K_MERGE_MIN_TERMS:
                 cache[key] = None
             else:
@@ -214,7 +215,7 @@ class SumcheckProver:
         oks = []
         for l in range(nl - 1, -1, -1):
             nv = circ.layers[l - 1].nw if l > 0 else circ.nv
-            qd = self._quad_dev(circ.layers[l].quad)
+            qd = quad_tensors(self.F, circ.layers[l].quad, self.device)
             starts, ends = self._segments(circ.layers[l].quad, nv)
             W, ok = fp_eval_layer(F, W, qd["h0"], qd["h1"], qd["v"],
                                   qd["bmask"], starts, ends)
@@ -277,7 +278,7 @@ class SumcheckProver:
         F, dev = self.F, self.device
         alpha, beta = ts.begin_layer()
         claim = F.add_i(WC[0], F.mul_i(alpha, WC[1]))
-        qd = self._quad_dev(layer.quad)
+        qd = quad_tensors(self.F, layer.quad, self.device)
         dot = _raw_eq2_dev(F, logv, 1 << logv, bnd_g[0][:logv],
                            bnd_g[1][:logv], alpha, dev)
         vq = torch.where(qd["bmask"][:, None], F.to_limbs(beta, dev),

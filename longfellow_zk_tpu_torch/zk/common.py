@@ -26,7 +26,7 @@ from ..sumcheck.eqs import eq_eval_host
 from ..sumcheck.poly import eval_newton, newton_of_lagrange
 from ..sumcheck.prover import _raw_eq2_dev
 from ..sumcheck.transcript_sumcheck import TranscriptSumcheck
-from ..sumcheck.verifier import bind_quad_host
+from ..sumcheck.verifier import bind_quad
 
 HASH_OF_A = bytes([0xDE, 0xAD, 0xBE, 0xEF] + [0] * 28)
 
@@ -128,8 +128,10 @@ def verifier_constraints(circ: Circuit, pub: List, proof: Proof, aux, ts, pi: in
 
     Returns (a, b, num_constraints).  `ts` is the raw Transcript (the
     caller has already absorbed commitment + public inputs); it advances
-    exactly like the real sumcheck transcript.  The input-binding EQ
-    array (one element per circuit input) is built on `device`.
+    exactly like the real sumcheck transcript.  `aux` holds the prover's
+    bound quads; without it (the verifier) each layer's quad is bound on
+    `device` (K7).  The input-binding EQ array (one element per circuit
+    input) is built on `device`.
     """
     tss = TranscriptSumcheck(ts, F)
     q, g = tss.begin_circuit()
@@ -173,9 +175,9 @@ def verifier_constraints(circ: Circuit, pub: List, proof: Proof, aux, ts, pi: in
         if aux is not None:
             quad = aux.bound_quad[ly]
         else:
-            quad = bind_quad_host(F, layer.quad, cla_logv,
-                                  cla_g[0][:cla_logv], cla_g[1][:cla_logv],
-                                  alpha, beta, layer.logw, hb[0], hb[1])
+            quad = bind_quad(F, layer.quad, cla_logv, cla_g[0][:cla_logv],
+                             cla_g[1][:cla_logv], alpha, beta, layer.logw,
+                             hb[0], hb[1], device)
         eqv = eq_eval_host(F, circ.logc, circ.nc, cla_q, [])
         eqq = F.mul_i(eqv, quad)
 

@@ -43,7 +43,8 @@ from longfellow_zk_tpu_torch.fields.fp_instances import (
 from longfellow_zk_tpu_torch.proto.lfc1 import P256_ID, read_circuit
 from longfellow_zk_tpu_torch.random_oracle.engine import DeterministicEngine
 from longfellow_zk_tpu_torch.random_oracle.transcript import Transcript
-from longfellow_zk_tpu_torch.sumcheck.prover import SumcheckProver
+from longfellow_zk_tpu_torch.sumcheck.prover import (
+    SumcheckProver, quad_tensors)
 from longfellow_zk_tpu_torch.transforms.ntt import NTT
 from longfellow_zk_tpu_torch.zk.proof import ZkProof
 from longfellow_zk_tpu_torch.zk.prover import ZkProver
@@ -158,7 +159,7 @@ def test_fp256_eval_layer_matches_jax():
     W0 = jnp.asarray(J.to_limbs(W)).reshape(16, 4, 1)
     V_j, ok_j = dp._eval_layer(qd, W0, jc.layers[0].nw)
     sp = SumcheckProver(F, device="cpu")
-    pq = sp._quad_dev(pc.layers[1].quad)
+    pq = quad_tensors(F, pc.layers[1].quad, sp.device)
     s, e = sp._segments(pc.layers[1].quad, pc.layers[0].nw)
     V_p, ok_p = fpm.fp_eval_layer(F, limbs_from_jax(np.asarray(W0)[:, :, 0]),
                                   pq["h0"], pq["h1"], pq["v"], pq["bmask"],

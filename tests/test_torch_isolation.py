@@ -26,14 +26,19 @@ import torch
 assert not torch.cuda.is_available()
 for mod in ("fields.fp2", "ec.curves", "circuits.ecdsa.verify",
             "fields.gf2", "transforms.lch14", "circuits.mdoc.api",
-            "circuits.mdoc.witness", "utils.zstd"):
+            "circuits.mdoc.witness", "utils.zstd", "sumcheck.verifier",
+            "ligero.verifier", "zk.verifier", "zk.serialization"):
     assert pkg.__name__ + "." + mod in names, mod
 from longfellow_zk_tpu_torch.fields.fp_instances import (
     fp128, p256_base, P128_OMEGA, P128_OMEGA_ORDER, P256_FP2_ROOT_X,
     P256_FP2_ROOT_Y, P256_FP2_ROOT_ORDER)
 from longfellow_zk_tpu_torch.fields.fp2 import Fp2
 from longfellow_zk_tpu_torch.fields.gf2 import gf2_128
-from longfellow_zk_tpu_torch.circuits.mdoc.api import run_mdoc_prover
+from longfellow_zk_tpu_torch.circuits.mdoc.api import (
+    run_mdoc_prover, run_mdoc_verifier)
+from longfellow_zk_tpu_torch.sumcheck.circuit import Circuit
+from longfellow_zk_tpu_torch.sumcheck.verifier import SumcheckVerifier
+from longfellow_zk_tpu_torch.zk.verifier import ZkVerifier
 from longfellow_zk_tpu_torch.sumcheck.prover import SumcheckProver
 from longfellow_zk_tpu_torch.transforms.lch14 import LCH14ReedSolomon
 from longfellow_zk_tpu_torch.zk.testing import rs_factory_for
@@ -42,6 +47,13 @@ for make in (lambda: SumcheckProver(fp128()),
              lambda: rs_factory_for(gf2_128()),
              lambda: LCH14ReedSolomon(5, 13, gf2_128()),
              lambda: run_mdoc_prover(b"", b"", 0, 0, b"", [], b"", None),
+             lambda: run_mdoc_verifier(b"", 0, 0, b"", [], b"", b"", b"",
+                                       None),
+             lambda: ZkVerifier(Circuit(nv=1, logv=0, nc=1, logc=0, nl=0,
+                                        ninputs=2, npub_in=1,
+                                        subfield_boundary=0), fp128(), None,
+                                rate=4, nreq=6),
+             lambda: SumcheckVerifier(fp128()),
              lambda: rs_factory_for(fp128(), P128_OMEGA, P128_OMEGA_ORDER),
              lambda: SumcheckProver(p256_base()),
              lambda: rs_factory_for(p256_base(), F2=Fp2(p256_base()),

@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (K1-K6, every field instance) against their
+"""The port's CUDA kernels (K1-K7, every field instance) against their
 plain PyTorch versions, on the card.  Field arithmetic is exact:
 equality, tolerance 0.
 
@@ -20,6 +20,7 @@ from longfellow_zk_tpu_torch.fields.fp_instances import (
     P128_OMEGA, P128_OMEGA_ORDER, P256_FP2_ROOT_ORDER, P256_FP2_ROOT_X,
     P256_FP2_ROOT_Y, fp128, p256_base)
 from longfellow_zk_tpu_torch.fields.gf2 import gf2_128
+from longfellow_zk_tpu_torch.sumcheck import verifier
 from longfellow_zk_tpu_torch.transforms import lch14
 from longfellow_zk_tpu_torch.transforms.ntt import NTT, fp_ntt, ntt_plain
 
@@ -151,6 +152,22 @@ def test_k3_wire_and_sums(dev, field):
     for dim in (0, 1, 2):
         _same(F.lazy_sum(x, dim), P.axis_sum_plain(F, x, dim))
     _same(F.lazy_sum(hv, 0), P.axis_sum_plain(F, hv, 0))
+
+
+@pytest.mark.parametrize("field", list(FIELDS))
+@pytest.mark.parametrize("T", [0, 1, 70000])
+def test_k7_quad_bind(dev, field, T):
+    F, rng = FIELDS[field](), np.random.default_rng(10)
+    nv, nw = 1 << 9, 1 << 12
+    g = torch.as_tensor(np.sort(rng.integers(0, nv, T)), device=dev)
+    h0, h1 = (torch.as_tensor(rng.integers(0, nw, T, dtype=np.int32),
+                              device=dev) for _ in range(2))
+    v = _elts(F, rng, T, dev)
+    bmask = torch.as_tensor(rng.random(T) < 0.1, device=dev)
+    dot, eqh0, eqh1 = (_elts(F, rng, n, dev) for n in (nv, nw, nw))
+    beta = _elts(F, rng, 5, dev)[4]
+    args = (g, h0, h1, v, bmask, dot, eqh0, eqh1, beta)
+    _same(verifier.fp_quad_bind(F, *args), verifier.quad_bind_plain(F, *args))
 
 
 @pytest.mark.parametrize("n", [2, 64, 2048])

@@ -33,7 +33,8 @@ from longfellow_zk_tpu_torch.fields.fp_instances import fp128
 from longfellow_zk_tpu_torch.proto.lfc1 import read_circuit
 from longfellow_zk_tpu_torch.random_oracle.transcript import Transcript
 from longfellow_zk_tpu_torch.sumcheck.circuit import LayerProof, Proof
-from longfellow_zk_tpu_torch.sumcheck.prover import SumcheckProver
+from longfellow_zk_tpu_torch.sumcheck.prover import (
+    SumcheckProver, quad_tensors)
 from longfellow_zk_tpu_torch.sumcheck.transcript_sumcheck import (
     TranscriptSumcheck)
 
@@ -175,7 +176,7 @@ def test_eval_layer_matches_jax():
     V_j, ok_j = dp._eval_layer(qd, W0, jc.layers[0].nw)
     pc = port_circuit(jc)
     sp = SumcheckProver(F, device="cpu")
-    pq = sp._quad_dev(pc.layers[1].quad)
+    pq = quad_tensors(F, pc.layers[1].quad, sp.device)
     s, e = sp._segments(pc.layers[1].quad, pc.layers[0].nw)
     V_p, ok_p = fp_eval_layer(F, limbs_from_jax(np.asarray(W0)[:, :, 0]),
                               pq["h0"], pq["h1"], pq["v"], pq["bmask"], s, e)
