@@ -4,11 +4,12 @@
     python3 chip_smoke.py
 
 1. Prints the card (name, count, power limit).
-2. Builds the kernels K1-K7 from longfellow_zk_tpu_torch/csrc with nvcc.
+2. Builds the kernels K1-K10 from longfellow_zk_tpu_torch/csrc with nvcc.
 3. Runs each kernel instance at the shapes of the proofs below, holds
    it against its plain PyTorch version on the same inputs (field
-   arithmetic is exact: tolerance 0) and times both (device time from
-   the profiler; the kernel's call time, back to back, by CUDA events):
+   arithmetic, hashing and the transcript states are exact: tolerance 0)
+   and times both (device time from the profiler; the kernel's call
+   time, back to back, by CUDA events):
    a. the Fp128 instances of K1-K4 at the SHA-256 proof's shapes;
    b. the P-256 instances of K1-K3, K4 over Fp2 and K5 at the ECDSA
       proof's shapes;
@@ -17,18 +18,30 @@
       K6 on the 266-row tableau at (461, 4151) and (921, 4151));
    d. K7 at the largest layer of the SHA-256 circuit (Fp128), of the
       mdoc signature circuit (P-256) and of the mdoc hash circuit
-      (GF(2^128), 3,578,789 terms).
+      (GF(2^128), 3,578,789 terms);
+   e. K8 (SHA-256) on the leaf messages of the SHA-256 proof's commit,
+      of the mdoc hash commit (4,288 bytes each) and on one 64-byte
+      level of its Merkle tree;
+   f. K9 (the Fiat-Shamir oracle) of each field, from random transcript
+      states, every mode, at absorb lengths that cross the 55/56/64-byte
+      boundaries; K10 (the hand-round tail) of each field on random
+      rounds.  Their bound is the chain of dependent instructions of
+      their one thread (a model, `chain_ms`).
 4. Drives the port's three prover paths, each with the launch counts set
    to zero just before it and read just after (every kernel instance of
-   the path must have launched), its bytes under DeterministicEngine
-   held against the golden proof in longfellow_zk_tpu_torch/testdata:
+   the path must have launched, K8-K10 included), its bytes under
+   DeterministicEngine held against the golden proof in
+   longfellow_zk_tpu_torch/testdata, and its sumcheck, from the first
+   round to the one fetch, under torch.cuda.set_sync_debug_mode("error")
+   (any host synchronisation there fails the run):
    a. the Fp128 SHA-256 one-block proof (the JAX package's bytes);
    b. the P-256 ECDSA signature proof (the JAX package's bytes);
    c. the mdoc presentation through circuits/mdoc/api.run_mdoc_prover
       (the GF(2^128) hash proof and the P-256 signature proof; the bytes
       of the port's CPU path, which the JAX verifier accepts).
    Then 5 more proofs under SecureRandomEngine() are timed (median), one
-   is profiled on the host (cProfile) and one on the card (busy share).
+   is profiled on the host (cProfile) and one on the card (busy share,
+   device-to-host and host-to-device copies).
 5. Drives the port's three verifier paths on those golden proofs, each
    with the launch counts set to zero just before the first verification
    and read just after (it must accept, and K7 and the path's other
@@ -69,11 +82,31 @@ INT32_OPS_PER_S = 67e12 / 4
 # operations a product, GF2_OPS_PER_MUL, printed beside it).
 MUL_OPS = {"fp128": 32, "fp256": 128, "fp256x2": 3 * 128, "gf2_128": 0}
 GF2_OPS_PER_MUL = 128 * 16
+# 32-bit operations of one SHA-256 compression (K8): 64 rounds of about
+# 17 (three funnel-shift rotations and a LOP3 for each sigma, the
+# choice, the majority, 7 adds) and 48 schedule words of about 11
+SHA_OPS_PER_BLOCK = 64 * 17 + 48 * 11
+# K9 and K10 run one thread: the least time is the chain of dependent
+# instructions, DEP_CYCLES cycles each at the card's top SM clock (a
+# model that charges no memory latency): a SHA-256 compression 6 a
+# round, the AES-256 key schedule 2 a word (52 words), an AES block 4 a
+# round (14 rounds; the other counter blocks do not depend on it), a
+# field product 2 N^2 dependent multiply-adds (GF(2^128): 3 a bit)
+DEP_CYCLES = 4
+SHA_CHAIN = 64 * 6
+AES_KEY_CHAIN = 52 * 2
+AES_BLOCK_CHAIN = 14 * 4
+PROD_CHAIN = {"fp128": 32, "fp256": 128, "gf2_128": 3 * 128}
 
 
 def bound_ms(nbytes, ops):
     tb, to = nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
     return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
+
+
+def chain_ms(steps, clock_mhz):
+    """The time of `steps` dependent instructions of one thread."""
+    return steps * DEP_CYCLES / (clock_mhz * 1e6) * 1e3
 
 
 def call_ms(fn, iters):
@@ -94,7 +127,10 @@ def call_ms(fn, iters):
 
 def device_ms(fn, iters):
     """Device time of one call: the sum of the device activity that the
-    profiler records over `iters` calls, divided by `iters`."""
+    profiler records over `iters` calls, divided by `iters`.  Where the
+    profiler records none (it has dropped the records of some one-thread
+    kernels), the time of one call between CUDA events, each call
+    synchronised, and a note that says so."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
@@ -107,7 +143,20 @@ def device_ms(fn, iters):
     cuda = torch.autograd.DeviceType.CUDA
     total_us = sum(e.device_time for e in prof.events()
                    if e.device_type == cuda)
-    return total_us / 1e3 / iters
+    if total_us > 0:
+        return total_us / 1e3 / iters
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    ms = []
+    for _ in range(iters):
+        t0.record()
+        fn()
+        t1.record()
+        t1.synchronize()
+        ms.append(t0.elapsed_time(t1))
+    print("  (the profiler recorded no device time: CUDA events, %d calls)"
+          % iters)
+    return statistics.median(ms)
 
 
 def max_err(a, b):
@@ -123,8 +172,10 @@ class Rows:
         self.failures = []
 
     def record(self, kname, source, replaces, err, fn, plain_fn, nbytes,
-               ops):
-        b, by = bound_ms(nbytes, ops)
+               ops, bound=None):
+        """bound: (ms, "operations") where the bound is not the bytes or
+        operations over the card's rates (a one-thread chain)."""
+        b, by = bound or bound_ms(nbytes, ops)
         ms, plain_ms = device_ms(fn, 50), device_ms(plain_fn, 3)
         self.rows[kname] = dict(name=kname, route="cuda", source=source,
                                 replaces=replaces, launches=0,
@@ -322,6 +373,168 @@ def check_quad_bind(rows, F, circ, dev, tag, rng):
                 3 * MUL_OPS[tag] * T)
 
 
+def check_sha256(rows, dev, rng, shapes):
+    """K8 against its plain version on each (label, n, mlen) of shapes
+    and on the Merkle heap of the first; the row is timed on the first
+    (the mdoc hash commit's leaves)."""
+    from longfellow_zk_tpu_torch.merkle.merkle_dev import merkle_heap
+    from longfellow_zk_tpu_torch.merkle.sha256_dev import (
+        padded_len, sha256_msgs, sha256_msgs_plain)
+
+    err, cases = 0, []
+    for label, n, mlen in shapes:
+        m = torch.as_tensor(rng.integers(0, 256, (n, mlen), dtype=np.uint8),
+                            device=dev)
+        err = max(err, max_err(sha256_msgs(m), sha256_msgs_plain(m)))
+        cases.append((label, m))
+    leaves = sha256_msgs(cases[0][1])
+    heap = merkle_heap(leaves)
+    # the heap against the plain version, level by level
+    heap2 = heap.clone()
+    n, hi = leaves.shape[0], leaves.shape[0]
+    while hi > 1:
+        lo = (hi + 1) // 2
+        heap2[lo:hi] = sha256_msgs_plain(heap2[2 * lo : 2 * hi].reshape(
+            hi - lo, 64))
+        hi = lo
+    err = max(err, max_err(heap, heap2))
+    print("K8 heap of %d leaves: %d levels, device %.5f ms" % (
+        n, (n - 1).bit_length(),
+        device_ms(lambda: merkle_heap(leaves), 20)))
+    for label, m in cases:
+        n, mlen = m.shape
+        blocks = n * (padded_len(mlen) // 64)
+        b, by = bound_ms(n * (mlen + 32), SHA_OPS_PER_BLOCK * blocks)
+        print("K8 %s: %d x %d bytes (%d blocks), device %.5f ms, bound "
+              "%.5f ms (%s)" % (label, n, mlen, blocks,
+                                device_ms(lambda: sha256_msgs(m), 20), b,
+                                by))
+    m = cases[0][1]
+    n, mlen = m.shape
+    rows.record("sha256_msgs[bytes]", "longfellow_zk_tpu_torch/csrc/sha256.cu",
+                "longfellow_zk_tpu/merkle/sha256_jax.py:41", err,
+                lambda: sha256_msgs(m), lambda: sha256_msgs_plain(m),
+                n * (mlen + 32),
+                SHA_OPS_PER_BLOCK * n * (padded_len(mlen) // 64))
+
+
+def _fs_states(F, rng, dev):
+    """A random host transcript state on the card, twice."""
+    from longfellow_zk_tpu_torch.random_oracle import device_fs as dfs
+    from longfellow_zk_tpu_torch.random_oracle.transcript import Transcript
+
+    ts = Transcript(rng.bytes(5))
+    ts.write_bytes(rng.bytes(int(rng.integers(0, 200))))
+    fs = dfs.fs_init_from_host(ts, dev)
+    return fs, fs.clone()
+
+
+def _fs_off(fs):
+    return int.from_bytes(bytes(fs[32:40].cpu().tolist()), "little") % 64
+
+
+def check_fs_oracle(rows, F, dev, tag, rng, clock_mhz):
+    """K9 instance `tag`, every mode, against the plain versions from
+    random states (whole states compared), at absorb lengths that cross
+    the 55/56/64-byte boundaries; the row is timed on a layer's alpha
+    and beta (a squeeze and two samples)."""
+    from longfellow_zk_tpu_torch.random_oracle import device_fs as dfs
+
+    elts = elts_of(F, rng, dev)
+    err = 0
+    same = max_err
+    for n in (1, 7, 55, 56, 57, 63, 64, 65, 130):
+        fs, fs2 = _fs_states(F, rng, dev)
+        data = torch.as_tensor(rng.integers(0, 256, n, dtype=np.uint8),
+                               device=dev)
+        dfs.fs_absorb(F, fs, data)
+        dfs.fs_absorb_plain(F, fs2, data)
+        err = max(err, same(fs, fs2),
+                  same(dfs.fs_getkey(F, fs), dfs.fs_getkey_plain(F, fs2)))
+        xs = elts(n % 9 + 1)
+        dfs.fs_write_elts(F, fs, xs)
+        dfs.fs_write_elts_plain(F, fs2, xs)
+        dfs.write_tagged_elts(F, fs, xs)
+        dfs.write_tagged_elts_plain(F, fs2, xs)
+        prf, prf2 = dfs.new_prf(dev), dfs.new_prf(dev)
+        dfs.fs_squeeze(F, fs, prf)
+        dfs.fs_squeeze_plain(F, fs2, prf2)
+        err = max(err, same(fs, fs2), same(prf, prf2),
+                  same(dfs.prf_bytes(F, prf, n),
+                       dfs.prf_bytes_plain(F, prf2, n)),
+                  same(dfs.dev_sample_elts(F, prf, 40),
+                       dfs.dev_sample_elts_plain(F, prf2, 40)))
+        out = dfs.dev_sample_elts(F, prf, 3, fs=fs)
+        dfs.fs_squeeze_plain(F, fs2, prf2)
+        err = max(err, same(out, dfs.dev_sample_elts_plain(F, prf2, 3)),
+                  same(prf, prf2))
+        key = dfs.fs_getkey(F, fs)
+        dfs.prf_fresh(F, prf, key)
+        dfs.prf_fresh_plain(F, prf2, key)
+        err = max(err, same(prf, prf2))
+
+    fs, fs2 = _fs_states(F, rng, dev)
+    prf, prf2 = dfs.new_prf(dev), dfs.new_prf(dev)
+    def begin():
+        return dfs.dev_sample_elts(F, prf, 80, fs=fs)
+
+    print("K9[%s] begin_circuit (a squeeze and 80 samples): device %.5f ms "
+          "(call %.5f ms)" % (tag, device_ms(begin, 20), call_ms(begin, 50)))
+
+    def plain():
+        dfs.fs_squeeze_plain(F, fs2, prf2)
+        return dfs.dev_sample_elts_plain(F, prf2, 2)
+
+    def kernel():
+        return dfs.dev_sample_elts(F, prf, 2, fs=fs)
+
+    kernel()
+    nblocks = int.from_bytes(bytes(prf[256:264].cpu().tolist()), "little")
+    steps = (1 + (_fs_off(fs) >= 56)) * SHA_CHAIN + AES_KEY_CHAIN + \
+        AES_BLOCK_CHAIN + (0 if F.kCharacteristicTwo else PROD_CHAIN[tag])
+    print("K9[%s] chain of a squeeze and 2 samples: %d steps (%d AES "
+          "blocks in all)" % (tag, steps, nblocks))
+    rows.record("fs_oracle[%s]" % tag, "longfellow_zk_tpu_torch/csrc/fs.cu",
+                "longfellow_zk_tpu/random_oracle/device_fs.py:339", err,
+                kernel, plain, 0, 0,
+                bound=(chain_ms(steps, clock_mhz), "operations"))
+
+
+def check_round_tail(rows, F, dev, tag, rng, clock_mhz):
+    """K10 instance `tag` against its plain version on random rounds
+    (fs, the claim and the row compared)."""
+    from longfellow_zk_tpu_torch.fields.fp import round_consts
+    from longfellow_zk_tpu_torch.random_oracle import device_fs as dfs
+
+    elts = elts_of(F, rng, dev)
+    consts = round_consts(F, dev)
+    err = 0
+    for _ in range(8):
+        fs, fs2 = _fs_states(F, rng, dev)
+        x = elts(7)
+        claim, claim2 = x[0].clone(), x[0].clone()
+        a, eq0, pad = x[1:3], x[3], x[4:7]
+        row = torch.empty((4, F.nlimb), dtype=torch.int32, device=dev)
+        row2 = torch.empty_like(row)
+        dfs.round_tail(F, fs, claim, row, a, eq0, pad, consts)
+        dfs.round_tail_plain(F, fs2, claim2, row2, a, eq0, pad, consts)
+        err = max(err, max_err(fs, fs2), max_err(claim, claim2),
+                  max_err(row, row2))
+    off = _fs_off(fs)
+    absorbed = 2 * (1 + F.kBytes)
+    steps = ((off + absorbed) // 64 + 1 + ((off + absorbed) % 64 >= 56)) * \
+        SHA_CHAIN + AES_KEY_CHAIN + AES_BLOCK_CHAIN + 7 * PROD_CHAIN[tag]
+    print("K10[%s] chain of a round: %d steps" % (tag, steps))
+    rows.record("sumcheck_round_tail[%s]" % tag,
+                "longfellow_zk_tpu_torch/csrc/round_tail.cu",
+                "longfellow_zk_tpu/sumcheck/prover_device.py:571", err,
+                lambda: dfs.round_tail(F, fs, claim, row, a, eq0, pad,
+                                       consts),
+                lambda: dfs.round_tail_plain(F, fs2, claim2, row2, a, eq0,
+                                             pad, consts), 0, 0,
+                bound=(chain_ms(steps, clock_mhz), "operations"))
+
+
 def zk_verify_fn(F, circ, rs, pub, meta, dev):
     """verify(data, phases): a ZkVerifier's recv_commitment + verify on the
     proof bytes data on `dev` (phases gets the ms of (construction and
@@ -400,6 +613,10 @@ def measure(metric, run, smi, phase_names):
     for e in prof.events():
         if e.device_type == cuda:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time / 1e3
+    copies = {d: sum(1 for e in prof.events() if e.device_type == cuda
+                     and "Memcpy %s" % d in e.name) for d in ("DtoH", "HtoD")}
+    print("copies in the profiled call: %d device-to-host, %d "
+          "host-to-device" % (copies["DtoH"], copies["HtoD"]))
     busy_ms = sum(by_name.values())
     if busy_ms > 0:
         print("profiled call: %.1f ms wall, %.3f ms device busy "
@@ -409,6 +626,25 @@ def measure(metric, run, smi, phase_names):
     else:
         print("profiled call: %.1f ms wall, device busy share not "
               "measured (the profiler recorded no device time)" % wall_ms)
+
+
+def check_sumcheck_syncs():
+    """From here on, every prover's sumcheck, from begin_circuit to the
+    last layer's write (SumcheckProver._rounds, which its one fetch
+    follows), runs under torch.cuda.set_sync_debug_mode("error"): a host
+    synchronisation there raises and fails the path."""
+    from longfellow_zk_tpu_torch.sumcheck.prover import SumcheckProver
+
+    rounds = SumcheckProver._rounds
+
+    def checked(self, *args, **kwargs):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return rounds(self, *args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    SumcheckProver._rounds = checked
 
 
 def first_run(kernels, expect, fn):
@@ -605,16 +841,49 @@ def main() -> int:
     check_quad_bind(rows, F, circ, dev, "fp128", rng)
     check_quad_bind(rows, FB, c_sig, dev, "fp256", rng)
     check_quad_bind(rows, GF, c_hash, dev, "gf2_128", rng)
+
+    # -- 3e. K8 at the commits' shapes ---------------------------------------
+    mmeta = json.load(open(os.path.join(TESTDATA,
+                                        "mdoc_v7_1attr.proof.json")))
+    spec = find_zk_spec_by_version(mmeta["version"],
+                                   len(mmeta["attributes"]))
+    meta = json.load(open(os.path.join(TESTDATA,
+                                       "sha256_1block_fp128.proof.json")))
+    lp_sha = ZkProver(circ, F, None, rate=meta["rate"], nreq=meta["nreq"],
+                      device=dev).param
+    rate, nreq = mdoc_api._rate_nreq(spec.version)
+    lp_hash = ZkProver(c_hash, GF, None, rate=rate, nreq=nreq,
+                       block_enc=spec.block_enc_hash, device=dev).param
+    check_sha256(rows, dev, rng, [
+        ("mdoc hash commit leaves", lp_hash.block_ext,
+         32 + lp_hash.nrow * GF.kBytes),
+        ("SHA-256 commit leaves", lp_sha.block_ext,
+         32 + lp_sha.nrow * F.kBytes),
+        ("a Merkle level", lp_hash.block_ext // 2, 64)])
+
+    # -- 3f. K9 and K10 of each field -----------------------------------------
+    clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    clock_mhz = float(clock)
+    print("top SM clock %.0f MHz (the one-thread chain bounds)" % clock_mhz)
+    for Fx, tag in ((F, "fp128"), (FB, "fp256"), (GF, "gf2_128")):
+        check_fs_oracle(rows, Fx, dev, tag, rng, clock_mhz)
+        check_round_tail(rows, Fx, dev, tag, rng, clock_mhz)
     if rows.failures:
         print("FAIL: kernels disagree with their plain versions:",
               rows.failures)
         return 1
 
     def prover_kernels(*instances):
-        """The prover's kernels of those instances: all but K7, which
-        only the verifier runs."""
+        """The prover's kernels of those instances, all but K7, which
+        only the verifier runs, and K8, which knows no field."""
         return [k for k in kernels.KERNELS if k.endswith(instances)
-                and not k.startswith("fp_quad_bind[")]
+                and not k.startswith("fp_quad_bind[")] + \
+            ["sha256_msgs[bytes]"]
+
+    check_sumcheck_syncs()
 
     def proof_fn(F, circ, rs, W, meta):
         def prove(engine, phases):
@@ -634,8 +903,6 @@ def main() -> int:
         return prove
 
     # -- 4a. the SHA-256 one-block proof ---------------------------------------
-    meta = json.load(open(os.path.join(TESTDATA,
-                                       "sha256_1block_fp128.proof.json")))
     golden = open(os.path.join(TESTDATA, "sha256_1block_fp128.proof.bin"),
                   "rb").read()
     padded = sha256_pad(meta["message"].encode())
@@ -672,8 +939,6 @@ def main() -> int:
         return 1
 
     # -- 4c. the mdoc presentation, through run_mdoc_prover ------------------
-    mmeta = json.load(open(os.path.join(TESTDATA,
-                                        "mdoc_v7_1attr.proof.json")))
     mgolden = open(os.path.join(TESTDATA, "mdoc_v7_1attr.proof.bin"),
                    "rb").read()
     ex = json.load(open(os.path.join(REPO, mmeta["examples"])))[
@@ -681,7 +946,6 @@ def main() -> int:
     attrs = [RequestedAttribute(id=a["id"].encode(),
                                 cbor_value=bytes.fromhex(a["cbor_value"]))
              for a in mmeta["attributes"]]
-    spec = find_zk_spec_by_version(mmeta["version"], len(attrs))
 
     def mdoc_prove(engine, phases):
         ph = []

@@ -1,0 +1,107 @@
+// K9 fs_oracle: the Fiat-Shamir oracle's steps on the card (fs.cuh), one
+// launch a step, with an instance for Fp128, one for the P-256 base field
+// and one for GF(2^128).  The states fs (104 bytes) and prf (272 bytes)
+// live in device memory and are updated in place.
+//
+//   mode 0 ABSORB          fs absorbs the n bytes of in
+//   mode 1 GETKEY          out[32] = the key of fs (fork and finalize)
+//   mode 2 PRF_FRESH       prf = a fresh stream keyed by in[32]
+//   mode 3 SQUEEZE         prf = a fresh stream keyed by fs
+//   mode 4 PRF_BYTES       out[n] = the next n bytes of prf
+//   mode 5 WRITE_ARRAY     fs absorbs the n elements of in as one tagged
+//                          array (Transcript.write_elts)
+//   mode 6 WRITE_TAGGED    fs absorbs the n elements of in, each tagged
+//                          (n calls of Transcript.write_elt)
+//   mode 7 SAMPLE          out[n] = n elements sampled from prf
+//   mode 8 SQUEEZE_SAMPLE  mode 3, then mode 7
+//
+// Replaces the JAX package's random_oracle/device_fs.py:82-357 and
+// sumcheck/prover_device.py:248, which its device sumcheck runs at
+// begin_circuit (:713, 2 x 40 samples), at each layer's alpha and beta
+// (:642-662) and at the layer's closing wc write (:698).
+//
+// Bound on the H100: the chain of dependent instructions of one thread.
+// A SHA-256 compression is 64 rounds of about 30 dependent 32-bit
+// operations; an AES-256 block 14 rounds of S-box loads from constant
+// memory and XORs; a Montgomery product 2 N^2 dependent 64-bit
+// multiply-adds.  Nothing is parallel across threads: the oracle is one
+// hash chain.  One thread, the states in local memory, one launch a step.
+#include "fs.cuh"
+
+template <class C>
+__global__ void k_fs_oracle(int mode, FsState* __restrict__ fs,
+                            PrfState* __restrict__ prf,
+                            const uint8_t* __restrict__ in,
+                            uint8_t* __restrict__ out, long long n) {
+  typedef Fp<C> E;
+  FsState s;
+  PrfState p;
+  const bool read_fs = mode == 0 || mode == 1 || mode == 3 || mode == 5 ||
+                       mode == 6 || mode == 8;
+  const bool write_fs = mode == 0 || mode == 5 || mode == 6;
+  const bool read_prf = mode == 4 || mode == 7;
+  const bool write_prf = mode >= 2 && mode != 5 && mode != 6;
+  if (read_fs) s = *fs;
+  if (read_prf) p = *prf;
+  const uint4* elts = (const uint4*)in;
+  switch (mode) {
+    case 0:
+      for (long long i = 0; i < n; i++) fs_absorb_byte(s, in[i]);
+      break;
+    case 1:
+      fs_getkey(s, out);
+      break;
+    case 2:
+      prf_fresh(p, in);
+      break;
+    case 3:
+      fs_squeeze(s, p);
+      break;
+    case 4:
+      for (long long i = 0; i < n; i++) out[i] = prf_byte(p);
+      break;
+    case 5:
+      fs_absorb_byte(s, TAG_ARRAY);
+      fs_absorb_le8(s, (u64)n);
+      for (long long i = 0; i < n; i++) fs_absorb_elt(s, E::load(elts, i));
+      break;
+    case 6:
+      for (long long i = 0; i < n; i++) {
+        fs_absorb_byte(s, TAG_FIELD_ELEM);
+        fs_absorb_elt(s, E::load(elts, i));
+      }
+      break;
+    case 8:
+      fs_squeeze(s, p);
+      // fall through
+    case 7:
+      for (long long i = 0; i < n; i++)
+        prf_sample<C>(p).store((uint4*)out, i);
+      break;
+  }
+  if (write_fs) *fs = s;
+  if (write_prf) *prf = p;
+}
+
+template <class C>
+static int fs_oracle(int mode, void* fs, void* prf, const void* in,
+                     void* out, long long n, void* stream) {
+  if (mode < 0 || mode > 8) return (int)cudaErrorInvalidValue;
+  k_fs_oracle<C><<<1, 1, 0, (cudaStream_t)stream>>>(
+      mode, (FsState*)fs, (PrfState*)prf, (const uint8_t*)in, (uint8_t*)out,
+      n);
+  return (int)cudaGetLastError();
+}
+
+#define LFZK_ARGS                                                     \
+  int mode, void *fs, void *prf, const void *in, void *out, long long n, \
+      void *stream
+extern "C" int fs_oracle_fp128(LFZK_ARGS) {
+  return fs_oracle<P128>(mode, fs, prf, in, out, n, stream);
+}
+extern "C" int fs_oracle_fp256(LFZK_ARGS) {
+  return fs_oracle<P256>(mode, fs, prf, in, out, n, stream);
+}
+extern "C" int fs_oracle_gf2_128(LFZK_ARGS) {
+  return fs_oracle<G128>(mode, fs, prf, in, out, n, stream);
+}

@@ -216,6 +216,26 @@ class PrimeField:
         return fp_segment_sum(self, x, starts, ends)
 
 
+def round_consts(F, device) -> torch.Tensor:
+    """The constants of K10 (random_oracle/device_fs.round_tail) for field
+    F (prime or GF(2^128)), int32 [6, N] on `device` in the kernels' form,
+    uploaded once per device: a hand-round polynomial's evaluation points
+    x0, x1, x2 (0, 1, 2 for a prime field; 0, 1, g for GF(2^128)) and its
+    Newton denominators 1/(x1 - x0), 1/(x2 - x1), 1/(x2 - x0), from the
+    host field's poly_evaluation_point and newton_denominator (the JAX
+    package's _pts_dev and _newton_denoms_dev, prover_device.py:44-58).
+    The rest of what K9 and K10 need of a field, p, R^2, exact_bits and
+    kBytes, is compiled into each instance (csrc/fp.cuh, csrc/fs.cuh)."""
+    cache = F.__dict__.setdefault("_round_consts", {})
+    key = str(device)
+    if key not in cache:
+        cache[key] = F.to_limbs(
+            [F.poly_evaluation_point(k) for k in range(3)] +
+            [F.newton_denominator(1, 1), F.newton_denominator(2, 1),
+             F.newton_denominator(2, 2)], device)
+    return cache[key]
+
+
 # ----------------------------------------------------------------------
 # plain versions: int64 over 16-bit limbs
 # ----------------------------------------------------------------------

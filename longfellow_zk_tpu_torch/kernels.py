@@ -5,8 +5,10 @@ together) into a shared library with a plain C interface, in the
 package's ignored build directory `_build/`, at first use; the libraries
 are loaded with ctypes.  Nothing here runs when the package is imported.
 The sources share the field arithmetic of `csrc/fp.cuh`, templated on the
-field (K3 and K7 also the two-pass sum of `csrc/reduce.cuh`); each kernel
-has one instance (and one C entry point) per field:
+field (K3 and K7 also the two-pass sum of `csrc/reduce.cuh`, K8-K10 the
+SHA-256 compression of `csrc/sha256.cuh`, K9 and K10 the Fiat-Shamir
+oracle of `csrc/fs.cuh`); each kernel has one instance (and one C entry
+point) per field:
 
     K1 fp_elementwise  fp_ops.cu      fp128 fp256 gf2_128  fields/fp.py
     K2 fp_segment_sum  segsum.cu      fp128 fp256 gf2_128  fields/fp.py
@@ -15,9 +17,14 @@ has one instance (and one C entry point) per field:
     K5 fp2_elementwise fp2_ops.cu     fp256x2              fields/fp2.py
     K6 gf2_lch14       lch14.cu       gf2_128              transforms/lch14.py
     K7 fp_quad_bind    quad_bind.cu   fp128 fp256 gf2_128  sumcheck/verifier.py
+    K8 sha256_msgs     sha256.cu      bytes                merkle/sha256_dev.py
+    K9 fs_oracle       fs.cu          fp128 fp256 gf2_128  random_oracle/device_fs.py
+    K10 sumcheck_round_tail
+                       round_tail.cu  fp128 fp256 gf2_128  random_oracle/device_fs.py
 
 (fp128: p = 2^128 - 2^108 + 1; fp256: the P-256 base field; fp256x2: Fp2
-over it; gf2_128: GF(2^128), csrc/gf2.cuh.)  A kernel's name here is
+over it; gf2_128: GF(2^128), csrc/gf2.cuh; bytes: K8 hashes bytes and
+knows no field.)  A kernel's name here is
 "kernel[instance]".  `LAUNCHES` counts, per instance, the CUDA launches
 its wrapper made; a run sets the counts to zero with `reset_launches()`
 and reads them after.
@@ -63,6 +70,11 @@ _SOURCES = {
     "fp_quad_bind": ("quad_bind.cu", [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                       _P, _LL, _I, _P],
                      ("fp128", "fp256", "gf2_128")),
+    "sha256_msgs": ("sha256.cu", [_P, _P, _LL, _I, _P], ("bytes",)),
+    "fs_oracle": ("fs.cu", [_I, _P, _P, _P, _P, _LL, _P],
+                  ("fp128", "fp256", "gf2_128")),
+    "sumcheck_round_tail": ("round_tail.cu", [_P, _P, _P, _P, _P, _P, _P, _P],
+                            ("fp128", "fp256", "gf2_128")),
 }
 
 # "kernel[instance]" -> (source, C entry point, argtypes)

@@ -4,9 +4,13 @@ prove (low-degree / linear / quadratic tests + column openings).
 Port of the JAX package's ligero/prover.py, semantic twin of reference
 lib/ligero/ligero_prover.h:34-356.  Every tableau row group with the same
 input width is encoded in one batched RS call (K4 NTTs and K1 scalings);
-the tableau stays on the device.  The columns are hashed on the host
-(native SHA-256), which gives the root of the JAX package's device route.
-The responses (y_ldt / y_dot / y_quad) are row combinations in K1 and
+the tableau stays on the device.  The commit serializes the extension
+columns on the device (K1 from Montgomery, then the first kBytes of each
+element, the transpose to columns and the nonces in front), hashes each
+column with K8 and builds the Merkle heap level by level (merkle_dev);
+only the heap crosses to the host, for the column openings (the JAX
+package's _commit_full_fn, ligero/prover.py:268, with one flow for every
+size).  The responses (y_ldt / y_dot / y_quad) are row combinations in K1 and
 column sums in K3; the column openings are a gather.
 """
 
@@ -19,7 +23,8 @@ import torch
 
 from ..device import resolve_device
 from ..merkle.merkle import MerkleCommitment, NONCE_LEN
-from ..utils.crypto import sha256
+from ..merkle.merkle_dev import merkle_heap
+from ..merkle.sha256_dev import sha256_msgs
 from .param import (
     LigeroCommitment,
     LigeroParam,
@@ -131,16 +136,16 @@ class LigeroProver:
         enc_d = self.rs_factory(p.dblock, p.block_enc).interpolate(arr_d)
         # row order [ildt, idot, iquad, iw.., iq..]
         self.tableau = torch.cat([enc_b[:1], enc_d, enc_b[1:]])
-        # natural-form little-endian bytes of the extension columns
+        # the leaves: H(nonce || natural little-endian bytes of the
+        # column), each element kBytes of its [4 N] bytes
         nat = F.from_mont(self.tableau[:, p.dblock :].contiguous())
-        # [nrow, block_ext, 4 N] bytes, of which an element is kBytes
-        raw = nat.cpu().numpy().view(np.uint8)
-        cols = np.ascontiguousarray(
-            raw[:, :, : F.kBytes].transpose(1, 0, 2)).reshape(
-                p.block_ext, -1)
-        leaves = [sha256(nonces[j] + cols[j].tobytes())
-                  for j in range(p.block_ext)]
-        root = self.mc.commit_leaves(leaves, nonces)
+        cols = nat.view(torch.uint8)[:, :, : F.kBytes].transpose(0, 1)
+        nonce_t = torch.frombuffer(bytearray(b"".join(nonces)),
+                                   dtype=torch.uint8).to(dev)
+        msgs = torch.cat([nonce_t.reshape(p.block_ext, NONCE_LEN),
+                          cols.reshape(p.block_ext, -1)], dim=1)
+        heap = merkle_heap(sha256_msgs(msgs))
+        root = self.mc.commit_heap(heap.cpu().numpy(), nonces)
         commitment = LigeroCommitment(root=root)
         write_commitment(commitment, ts)
         return commitment

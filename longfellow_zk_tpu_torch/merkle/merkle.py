@@ -8,17 +8,21 @@ index 1; compressed proofs include only the siblings that cannot be
 recomputed.  Works for any n >= 1 (not just powers of two) exactly as
 the reference's index arithmetic does.
 
-The Ligero prover hashes the leaves (nonce || column) on the host and
-hands this module the 32-byte digests; the tree is built on the host
-too, and the verifiers (MerkleTreeVerifier, MerkleCommitmentVerifier,
+The Ligero prover hashes the leaves (nonce || column) and builds the
+heap on the device (merkle_dev.merkle_heap) and hands this module the
+whole heap (`MerkleCommitment.commit_heap`), which opens columns from it
+with no hashing; `commit_leaves` builds the tree from leaf digests on
+the host.  The verifiers (MerkleTreeVerifier, MerkleCommitmentVerifier,
 merkle.py:88-170 of the JAX package) recompute the root from the opened
-leaves on the host.  A device SHA-256 for the columns is later work.
+leaves on the host.
 """
 
 from __future__ import annotations
 
 import hashlib
 from typing import List, Sequence
+
+import numpy as np
 
 DIGEST_LEN = 32
 
@@ -153,6 +157,15 @@ class MerkleCommitment:
         self.nonces = list(nonces)
         self.tree.set_leaves(leaf_digests)
         return self.tree.build_tree()
+
+    def commit_heap(self, heap, nonces: Sequence[bytes]) -> bytes:
+        """Takes a heap built elsewhere (uint8 [2n, 32], as a numpy array:
+        node 1 the root, leaves at [n, 2n)) and returns its root."""
+        heap = np.asarray(heap, dtype=np.uint8)
+        assert heap.shape == (2 * self.n, DIGEST_LEN)
+        self.nonces = list(nonces)
+        self.tree.layers = [row.tobytes() for row in heap]
+        return self.tree.layers[1]
 
     def open(self, pos: Sequence[int]):
         proof = self.tree.generate_compressed_proof(pos)

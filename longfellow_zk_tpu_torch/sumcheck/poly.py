@@ -1,8 +1,11 @@
 """Host-side dense polynomials in Lagrange basis over the standard
 evaluation points (reference lib/algebra/poly.h:29-150).
 
-Values are host field scalars (ints for Fp/GF2, tuples for Fp2); these
-are tiny per-round objects on the Fiat-Shamir control path.
+Values are host field scalars (ints for Fp/GF2, tuples for Fp2).  The
+verifier and its constraint replay (zk/common.py) interpolate round
+polynomials with them; the prover's rounds run the same algebra on the
+card (K10, random_oracle/device_fs.round_tail), which the tests hold to
+these functions.
 """
 
 from __future__ import annotations
@@ -44,11 +47,3 @@ def evals_of_coefs(F, coefs: List) -> List:
     """Evaluate the monomial-basis poly at the standard points."""
     return [eval_monomial(F, coefs, F.poly_evaluation_point(k))
             for k in range(len(coefs))]
-
-
-def poly_sub(F, a: List, b: List) -> List:
-    return [F.sub_i(x, y) for x, y in zip(a, b)]
-
-
-def poly_add(F, a: List, b: List) -> List:
-    return [F.add_i(x, y) for x, y in zip(a, b)]

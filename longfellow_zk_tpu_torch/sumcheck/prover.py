@@ -1,22 +1,35 @@
-"""Layered sumcheck prover (GKR wire rounds), rounds on the card.
+"""Layered sumcheck prover (GKR wire rounds), every round on the card,
+its Fiat-Shamir transcript too.
 
-Port of the JAX package's sumcheck/prover_device.py, semantic twin of the
-reference ProverLayers (lib/sumcheck/prover_layers.h:37-497).  The
-control flow and the host transcript follow the JAX host prover
-(sumcheck/prover.py:128-270): one `TranscriptSumcheck.round` per
-hand-round, on the host.  The round math follows prover_device.py, on
-tensors, through the kernels:
+Port of the JAX package's sumcheck/prover_device.py (semantic twin of the
+reference ProverLayers, lib/sumcheck/prover_layers.h:37-497): its
+`prove_with_witness` (:1050) and `_prove_core` / `_layer_fn` /
+`_wire_scan` (:564-765).  The host transcript's state moves onto the card
+once (random_oracle/device_fs.fs_init_from_host) and comes back once, in
+the one fetch after the last layer (fs_state_to_host), as the JAX
+package's does (:1062, :1138).  Between the two nothing waits for the
+card: no round reads a value back.
 
   - circuit evaluation, V[g] = sum v * W[h1] * W[h0] with the beta-mask
-    zero check: K2 (fp_eval_layer);
-  - the layer prologue (EQ tables, hv = vq * dot[g]): K1;
+    zero check: K2 (fp_eval_layer); its ok flag is the one read before
+    the rounds;
+  - begin_circuit (2 x 40 challenges) and each layer's alpha and beta:
+    K9 (device_fs.dev_sample_elts; layer 0 continues begin_circuit's
+    PRF stream);
+  - the layer prologue (EQ tables from the challenge tensors,
+    hv = vq * dot[g]): K1;
   - per hand-round, with z_t = hv_t * W_o[ho_t],
         a0 = sum_{t: h_t even} z_t * W_h[h_t]
         a2 = sum_t (-1)^(h_t+1) * z_t * (W_h[h_t|1] - W_h[h_t & ~1])
-    in K3 (fp_wire_sums); then the bind of W_h and the hv update in K1;
+    in K3 (fp_wire_sums); then K10 (device_fs.round_tail): the round
+    polynomial, the pad, its absorb, the challenge r and the new claim,
+    into the layer's row tensor; then the bind of W_h and the hv update
+    in K1, reading r from that row;
   - wire-round term merging (terms with equal (h0, h1) summed into one,
     a host schedule from _wire_merge_plan): K2 (contiguous folds);
-  - bound_quad, the sum of the fully bound hv: K3.
+  - bound_quad, the sum of the fully bound hv: K3; the closing check
+    claim = eq0 * bound_quad * wc0 * wc1 as a device flag; the wc write:
+    K9.
 
 The W arrays start at their padded power-of-two length, as in the JAX
 package, and each bind keeps only the bound half (the JAX package keeps
@@ -34,35 +47,36 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..fields.fp import fp_eval_layer, fp_wire_sums
-from .circuit import Circuit, LayerProof, Proof, ProofAux
-from .poly import eval_lagrange, evals_of_coefs, poly_sub
+from ..fields.fp import fp_eval_layer, fp_wire_sums, round_consts
+from ..random_oracle import device_fs as dfs
+from .circuit import KMAX_BINDINGS, Circuit, LayerProof, Proof, ProofAux
 
 
-def _eq_dev(F, logn: int, n: int, q: List, device) -> torch.Tensor:
-    """EQ[Q, i] for 0 <= i < n as a tensor [n, N], from host challenges
-    q (>= logn of them), by logn interleave steps (eqs.h:104-134)."""
-    eq = F.to_limbs([F.of_scalar(1)], device)
+def _eq_dev(F, logn: int, n: int, q: torch.Tensor,
+            one: torch.Tensor) -> torch.Tensor:
+    """EQ[Q, i] for 0 <= i < n as a tensor [n, N], from the challenges
+    q [>= logn, N] on the card, by logn interleave steps
+    (eqs.h:104-134); one is the field's 1 [N]."""
+    eq = one[None]
     if logn == 0:
         return eq[:n]
-    qd = F.to_limbs(list(q[:logn]), device)
     sizes = [n]
     for _ in range(logn):
         sizes.append((sizes[-1] + 1) // 2)
     for l in range(logn - 1, -1, -1):
-        hi = F.mul(eq, qd[l])
+        hi = F.mul(eq, q[l])
         lo = F.sub(eq, hi)
         eq = torch.stack([lo, hi], dim=-2).reshape(-1, lo.shape[-1])
         eq = eq[: sizes[l]]
     return eq
 
 
-def _raw_eq2_dev(F, logn: int, n: int, g0: List, g1: List, alpha,
-                 device) -> torch.Tensor:
+def _raw_eq2_dev(F, logn: int, n: int, g0: torch.Tensor, g1: torch.Tensor,
+                 alpha: torch.Tensor, one: torch.Tensor) -> torch.Tensor:
     """EQ(G0, i) + alpha * EQ(G1, i) (eqs.h:46-53)."""
-    e0 = _eq_dev(F, logn, n, g0, device)
-    e1 = _eq_dev(F, logn, n, g1, device)
-    return F.add(e0, F.mul(e1, F.to_limbs(alpha, device)))
+    e0 = _eq_dev(F, logn, n, g0, one)
+    e1 = _eq_dev(F, logn, n, g1, one)
+    return F.add(e0, F.mul(e1, alpha))
 
 
 def _wire_merge_plan(h0: np.ndarray, h1: np.ndarray, logw: int):
@@ -239,53 +253,99 @@ class SumcheckProver:
     def prove_with_witness(self, circ: Circuit, W0: torch.Tensor, ts,
                            pad: Optional[Proof] = None,
                            with_aux: bool = False):
-        """Circuit evaluation + sumcheck.  Returns (proof, aux, bindings),
+        """Circuit evaluation + sumcheck (prover_layers.h:114-166) with
+        the transcript on the card.  ts is a TranscriptSumcheck; its host
+        transcript ends where the host prover's would.  Returns (proof,
+        aux, bindings) with bindings = dict(q=[], g=[g0, g1], logv=...),
         or (None, None, None) if the witness does not satisfy the circuit
         (then the transcript is left untouched)."""
+        F, dev = self.F, self.device
         inputs, V, ok = self._eval(circ, W0)
         if not bool((ok & (V == 0).all()).item()):
             return None, None, None
-        return self.prove(circ, inputs, ts, pad=pad, with_aux=with_aux)
+        # every upload before the rounds: the merge plans (the quads went
+        # up with the evaluation), the transcript, the pads, the constants
+        for layer in circ.layers:
+            self._wm_for(layer.quad, layer.logw)
+        fs = dfs.fs_init_from_host(ts.ts, dev)
+        pads = self._pads_dev(circ, pad)
+        consts = dict(one=F.to_limbs(1, dev), rc=round_consts(F, dev))
+        outs = self._rounds(circ, inputs, fs, pads, consts)
+        # the one fetch: every layer's rows, wc, bound quad and flag, and
+        # the transcript's state
+        parts = []
+        for o in outs:
+            parts += [o["rows"].reshape(-1), o["wc"].reshape(-1),
+                      o["bq"].reshape(-1), o["ok"].to(torch.int32)[None]]
+        host = torch.cat(parts + [fs.view(torch.int32)]).cpu().numpy()
+        return self._assemble(circ, pad, with_aux, host, ts.ts)
 
-    def prove(self, circ: Circuit, inputs: List, ts,
-              pad: Optional[Proof] = None, with_aux: bool = False):
-        """The sumcheck proof (prover_layers.h:114-166).  ts is a
-        TranscriptSumcheck.  Returns (proof, aux, bindings) with bindings
-        = dict(q=[], g=[g0, g1], logv=...) for the caller."""
+    def _pads_dev(self, circ: Circuit, pad: Optional[Proof]):
+        """Each layer's pad on the card, uploaded at once (the JAX
+        package's _pads_dev, :1150): (hp [logw, 2, 3, N], wc [2, N]);
+        zeros without a pad."""
+        F, dev = self.F, self.device
+        shapes = [((layer.logw, 2, 3), (2,)) for layer in circ.layers]
+        if pad is None:
+            return [(F.zeros(hs, dev), F.zeros(ws, dev)) for hs, ws in shapes]
+        vals = []
+        for lp, layer in zip(pad.layers, circ.layers):
+            for rnd in range(layer.logw):
+                for hand in range(2):
+                    vals += list(lp.hp[hand][rnd])
+            vals += list(lp.wc)
+        flat = F.to_limbs(vals, dev)
+        out, off = [], 0
+        for hs, ws in shapes:
+            nh = int(np.prod(hs))
+            out.append((flat[off : off + nh].reshape(hs + F.elt_shape),
+                        flat[off + nh : off + nh + 2]))
+            off += nh + 2
+        return out
+
+    def _rounds(self, circ: Circuit, inputs: List, fs: torch.Tensor, pads,
+                consts) -> List[dict]:
+        """The sumcheck from begin_circuit to the last layer's wc write,
+        every step on the card, nothing read back; fs is updated in
+        place.  Returns each layer's outputs (device tensors)."""
+        F, dev = self.F, self.device
         if circ.logc > 0:
             raise NotImplementedError("copy rounds (logc > 0) are not ported")
-        F = self.F
-        _q, g_full = ts.begin_circuit()
-        bnd_g = [g_full, list(g_full)]
+        prf = dfs.new_prf(dev)
+        # begin_circuit: q, then g, from one stream (q is for copies)
+        g_full = dfs.dev_sample_elts(F, prf, 2 * KMAX_BINDINGS,
+                                     fs=fs)[KMAX_BINDINGS:]
+        bnd_g = [g_full, g_full]
+        WC = F.zeros((2,), dev)
         logv = circ.logv
-        WC = [F.of_scalar(0), F.of_scalar(0)]
-        proof = Proof()
-        aux = ProofAux() if with_aux else None
+        outs = []
         for ly, layer in enumerate(circ.layers):
-            lp, bnd_g, WC = self._layer(
-                ts, pad.layers[ly] if pad else None, layer, logv, bnd_g,
-                inputs[ly], WC)
-            proof.layers.append(lp)
-            if with_aux:
-                aux.bound_quad.append(lp._bound_quad)
+            o = self._layer(fs, prf, ly > 0, layer, logv, bnd_g,
+                            inputs[ly], WC, pads[ly], consts)
+            outs.append(o)
+            bnd_g, WC = o["g"], o["wc"]
             logv = layer.logw
-        return proof, aux, dict(q=[], g=bnd_g, logv=logv)
+        return outs
 
-    def _layer(self, ts, pad_lp, layer, logv: int, bnd_g, W, WC):
-        """One layer (prover_layers.h:185-271): the prologue, logw wire
-        rounds of two hands each, and the final claims.
-        Returns (LayerProof, [g0, g1] challenges, [wc0, wc1])."""
+    def _layer(self, fs, prf, fresh: bool, layer, logv: int, bnd_g, W, WC,
+               pad, consts) -> dict:
+        """One layer (prover_layers.h:185-271; the JAX package's
+        _layer_fn): alpha and beta (a fresh squeeze unless this is layer
+        0, which continues begin_circuit's stream), the prologue, logw
+        wire rounds of two hands each, the closing check and wc write."""
         F, dev = self.F, self.device
-        alpha, beta = ts.begin_layer()
-        claim = F.add_i(WC[0], F.mul_i(alpha, WC[1]))
+        one, rc = consts["one"], consts["rc"]
+        hp_pad, wc_pad = pad
+        ab = dfs.dev_sample_elts(F, prf, 2, fs=fs if fresh else None)
+        alpha, beta = ab[0], ab[1]
+        claim = F.add(WC[0], F.mul(alpha, WC[1]))
         qd = quad_tensors(self.F, layer.quad, self.device)
-        dot = _raw_eq2_dev(F, logv, 1 << logv, bnd_g[0][:logv],
-                           bnd_g[1][:logv], alpha, dev)
-        vq = torch.where(qd["bmask"][:, None], F.to_limbs(beta, dev),
-                         qd["v"])
+        dot = _raw_eq2_dev(F, logv, 1 << logv, bnd_g[0], bnd_g[1], alpha,
+                           one)
+        vq = torch.where(qd["bmask"][:, None], beta, qd["v"])
         hv = F.mul(vq, dot[qd["g"]])
         # one copy: the copy EQ array is [1]
-        eq0 = F.of_scalar(1)
+        eq0 = one
 
         N = 1 << layer.logw
         Wh = torch.cat([W, F.zeros((N - W.shape[0],), dev)])
@@ -297,8 +357,9 @@ class SumcheckProver:
             hv = hv[plan["perm"]]
             stages = plan["stages"]
 
-        lp = LayerProof(cp=[], hp=[[], []], wc=[None, None])
-        g_ch: List[List] = [[], []]
+        # row [rnd, hand] = [ev0, ev1, ev2, r] (evaluations minus the pad)
+        rows = torch.empty((layer.logw, 2, 4) + F.elt_shape,
+                           dtype=torch.int32, device=dev)
         rnd = 0
         for nr, starts, ends, h0, h1 in stages:
             if starts is not None:
@@ -308,18 +369,10 @@ class SumcheckProver:
                 for hand in range(2):
                     a = fp_wire_sums(F, hv, WH[hand], WH[1 - hand], h[hand],
                                      h[1 - hand])
-                    a0, a2 = F.from_limbs(a)
-                    c0 = F.mul_i(eq0, a0)
-                    c2 = F.mul_i(eq0, a2)
-                    c1 = F.sub_i(F.sub_i(F.sub_i(claim, c0), c0), c2)
-                    raw = evals_of_coefs(F, [c0, c1, c2])
-                    evals = raw if pad_lp is None else \
-                        poly_sub(F, raw, pad_lp.hp[hand][rnd])
-                    lp.hp[hand].append(evals)
-                    r = ts.round(evals)
-                    g_ch[hand].append(r)
-                    claim = eval_lagrange(F, raw, r)
-                    r_t = F.to_limbs(r, dev)
+                    row = rows[rnd, hand]
+                    dfs.round_tail(F, fs, claim, row, a, eq0,
+                                   hp_pad[rnd, hand], rc)
+                    r_t = row[3]
                     # the bound half: the hands' indices are shifted
                     # right each round, so the zero tail is never read
                     WH[hand] = F.bind(WH[hand], r_t)[: WH[hand].shape[0] // 2]
@@ -328,13 +381,43 @@ class SumcheckProver:
                 rnd += 1
 
         bq = F.lazy_sum(hv, 0)
-        wc0, wc1, bq = F.from_limbs(torch.stack([WH[0][0], WH[1][0], bq]))
-        expected = F.mul_i(eq0, F.mul_i(bq, F.mul_i(wc0, wc1)))
-        assert claim == expected, "sum != eq0*quad*wl*wr"
-        tt = [wc0, wc1]
-        if pad_lp is not None:
-            tt = [F.sub_i(wc0, pad_lp.wc[0]), F.sub_i(wc1, pad_lp.wc[1])]
-        lp.wc = tt
-        lp._bound_quad = bq
-        ts.write_elts(tt)
-        return lp, g_ch, [wc0, wc1]
+        wc = torch.stack([WH[0][0], WH[1][0]])
+        expected = F.mul(eq0, F.mul(bq, F.mul(wc[0], wc[1])))
+        dfs.fs_write_elts(F, fs, F.sub(wc, wc_pad))
+        return dict(rows=rows, wc=wc, bq=bq, ok=(claim == expected).all(),
+                    g=[rows[:, 0, 3], rows[:, 1, 3]])
+
+    def _assemble(self, circ: Circuit, pad: Optional[Proof], with_aux: bool,
+                  host: np.ndarray, host_ts):
+        """The Proof, aux and bindings from the fetched words (the JAX
+        package's _assemble, :1099); the host transcript takes the device
+        state."""
+        F = self.F
+        N = F.nlimb
+        proof = Proof()
+        aux = ProofAux() if with_aux else None
+        off = 0
+        for ly, layer in enumerate(circ.layers):
+            n = layer.logw * 2 * 4 * N
+            vals = F.from_limbs(torch.from_numpy(
+                host[off : off + n + 3 * N].reshape(-1, N)))
+            ok = host[off + n + 3 * N]
+            off += n + 3 * N + 1
+            assert ok, "sum != eq0*quad*wl*wr"
+            rows = vals[: n // N].reshape(layer.logw, 2, 4)
+            wc0, wc1, bq = vals[n // N :]
+            lp = LayerProof(cp=[], hp=[[], []], wc=[wc0, wc1])
+            for rnd in range(layer.logw):
+                for hand in range(2):
+                    lp.hp[hand].append(list(rows[rnd, hand, :3]))
+            if pad is not None:
+                lp.wc = [F.sub_i(wc0, pad.layers[ly].wc[0]),
+                         F.sub_i(wc1, pad.layers[ly].wc[1])]
+            lp._bound_quad = bq
+            proof.layers.append(lp)
+            if with_aux:
+                aux.bound_quad.append(bq)
+        dfs.fs_state_to_host(host_ts, host[off:].astype("<i4").view(np.uint8))
+        last = circ.layers[-1]
+        g = [list(rows[:, hand, 3]) for hand in range(2)]
+        return proof, aux, dict(q=[], g=g, logv=last.logw)

@@ -1,5 +1,12 @@
-"""Sumcheck-specific Fiat-Shamir framing
-(reference lib/sumcheck/transcript_sumcheck.h:31-85)."""
+"""Sumcheck-specific Fiat-Shamir framing on the host transcript
+(reference lib/sumcheck/transcript_sumcheck.h:31-85).
+
+The verifier (sumcheck/verifier.py) and the prover's replay of its
+constraints (zk/common.py) run every step here.  The prover's sumcheck
+runs the same steps on the card (random_oracle/device_fs: K9 for
+begin_circuit, begin_layer and write_elts, K10 for round) and takes only
+the host transcript `ts` from this wrapper, which it advances once, at
+the end."""
 
 from __future__ import annotations
 

@@ -122,9 +122,12 @@ def bind_quad(F, quad, logv: int, g0, g1, alpha, beta, logw: int, h0_ch,
     host element."""
     qd = quad_tensors(F, quad, device)
     nv, nw = 1 << logv, 1 << logw
-    dot = _raw_eq2_dev(F, logv, nv, g0[:logv], g1[:logv], alpha, device)
-    eqh0 = _eq_dev(F, logw, nw, h0_ch, device)
-    eqh1 = _eq_dev(F, logw, nw, h1_ch, device)
+    one = F.to_limbs(1, device)
+    dot = _raw_eq2_dev(F, logv, nv, F.to_limbs(list(g0[:logv]), device),
+                       F.to_limbs(list(g1[:logv]), device),
+                       F.to_limbs(alpha, device), one)
+    eqh0 = _eq_dev(F, logw, nw, F.to_limbs(list(h0_ch), device), one)
+    eqh1 = _eq_dev(F, logw, nw, F.to_limbs(list(h1_ch), device), one)
     return F.from_limbs(fp_quad_bind(
         F, qd["g"], qd["h0"], qd["h1"], qd["v"], qd["bmask"], dot, eqh0,
         eqh1, F.to_limbs(beta, device)))

@@ -211,8 +211,10 @@ def verifier_constraints(circ: Circuit, pub: List, proof: Proof, aux, ts, pi: in
 
     ninp, npub = circ.ninputs, circ.npub_in
     # b_i = EQ(G0, i) + alpha * EQ(G1, i), on `device` (K1)
-    bs = F.from_limbs(_raw_eq2_dev(F, cla_logv, ninp, cla_g[0][:cla_logv],
-                                   cla_g[1][:cla_logv], alpha, device))
+    bs = F.from_limbs(_raw_eq2_dev(
+        F, cla_logv, ninp, F.to_limbs(list(cla_g[0][:cla_logv]), device),
+        F.to_limbs(list(cla_g[1][:cla_logv]), device),
+        F.to_limbs(alpha, device), F.to_limbs(1, device)))
     pub_binding = F.of_scalar(0)
     for i in range(ninp):
         b_i = int(bs[i])

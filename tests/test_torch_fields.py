@@ -13,6 +13,17 @@ from longfellow_zk_tpu_torch.fields.bridge import limbs_from_jax, limbs_to_jax
 from longfellow_zk_tpu_torch.fields.fp_instances import fp128
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The plain versions make many small torch ops; with the test
+    workers on every core, a thread pool per op waits on descheduled
+    threads.  One thread for this module, restored after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _vals(p, rng, n):
     """n canonical field elements with the edge values 0, 1, p - 1 first."""
     v = [0, 1, p - 1] + [int.from_bytes(rng.bytes(16), "little") % p

@@ -56,6 +56,18 @@ from test_torch_golden import (
     ecdsa_witness, toy_inputs)
 from test_zk import _zk_circuit
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The plain versions make many small torch ops; with the test
+    workers on every core, a thread pool per op waits on descheduled
+    threads.  One thread for this module, restored after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OMEGA2 = (P256_FP2_ROOT_X, P256_FP2_ROOT_Y)
 

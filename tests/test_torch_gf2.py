@@ -51,6 +51,18 @@ from test_torch_golden import (
     TOY_BLOCK_ENC, TOY_GF2_BIN, TOY_LABEL, TOY_NREQ, TOY_RATE,
     gf2_toy_circuit, gf2_toy_inputs)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The plain versions make many small torch ops; with the test
+    workers on every core, a thread pool per op waits on descheduled
+    threads.  One thread for this module, restored after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MDOC = os.path.join(REPO, "artifacts", "mdoc_v7_1attr.zst")
 EXAMPLES = os.path.join(REPO, "artifacts", "mdoc_examples.json")

@@ -7,6 +7,21 @@ import os
 import subprocess
 import sys
 
+import pytest
+import torch
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The plain versions make many small torch ops; with the test
+    workers on every core, a thread pool per op waits on descheduled
+    threads.  One thread for this module, restored after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _CHECK = r"""
@@ -27,7 +42,9 @@ assert not torch.cuda.is_available()
 for mod in ("fields.fp2", "ec.curves", "circuits.ecdsa.verify",
             "fields.gf2", "transforms.lch14", "circuits.mdoc.api",
             "circuits.mdoc.witness", "utils.zstd", "sumcheck.verifier",
-            "ligero.verifier", "zk.verifier", "zk.serialization"):
+            "ligero.verifier", "zk.verifier", "zk.serialization",
+            "merkle.sha256_dev", "merkle.merkle_dev",
+            "random_oracle.device_fs"):
     assert pkg.__name__ + "." + mod in names, mod
 from longfellow_zk_tpu_torch.fields.fp_instances import (
     fp128, p256_base, P128_OMEGA, P128_OMEGA_ORDER, P256_FP2_ROOT_X,

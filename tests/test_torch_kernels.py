@@ -1,6 +1,6 @@
-"""The port's CUDA kernels (K1-K7, every field instance) against their
-plain PyTorch versions, on the card.  Field arithmetic is exact:
-equality, tolerance 0.
+"""The port's CUDA kernels (K1-K10, every instance) against their plain
+PyTorch versions, on the card.  Field arithmetic, hashing and the
+Fiat-Shamir states are exact: equality, tolerance 0.
 
 These tests need an NVIDIA GPU and nvcc; without a card they skip.  On a
 machine with one (and no JAX, which tests/conftest.py imports):
@@ -20,9 +20,26 @@ from longfellow_zk_tpu_torch.fields.fp_instances import (
     P128_OMEGA, P128_OMEGA_ORDER, P256_FP2_ROOT_ORDER, P256_FP2_ROOT_X,
     P256_FP2_ROOT_Y, fp128, p256_base)
 from longfellow_zk_tpu_torch.fields.gf2 import gf2_128
+from longfellow_zk_tpu_torch.merkle.merkle_dev import merkle_heap
+from longfellow_zk_tpu_torch.merkle.sha256_dev import (
+    sha256_msgs, sha256_msgs_plain)
+from longfellow_zk_tpu_torch.random_oracle import device_fs as dfs
+from longfellow_zk_tpu_torch.random_oracle.transcript import Transcript
 from longfellow_zk_tpu_torch.sumcheck import verifier
 from longfellow_zk_tpu_torch.transforms import lch14
 from longfellow_zk_tpu_torch.transforms.ntt import NTT, fp_ntt, ntt_plain
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The plain versions make many small torch ops; with the test
+    workers on every core, a thread pool per op waits on descheduled
+    threads.  One thread for this module, restored after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 pytestmark = pytest.mark.cuda
 
@@ -225,3 +242,79 @@ def test_k6_lch14(dev, n, m, rows):
         sched = lch14.Schedule(F, 64, passes, len(passes), 0, dev)
         _same(lch14.gf2_lch14(F, lch14.TRANSFORM, x, sched, 64),
               lch14.lch14_plain(F, lch14.TRANSFORM, x, sched, 64))
+
+
+@pytest.mark.parametrize("mlen", [0, 1, 55, 56, 64, 119, 320, 4288])
+def test_k8_sha256(dev, mlen):
+    rng = np.random.default_rng(10)
+    m = torch.as_tensor(rng.integers(0, 256, (300, mlen), dtype=np.uint8),
+                        device=dev)
+    _same(sha256_msgs(m), sha256_msgs_plain(m))
+    leaves = torch.as_tensor(rng.integers(0, 256, (77, 32), dtype=np.uint8))
+    _same(merkle_heap(leaves.to(dev)), merkle_heap(leaves))
+
+
+def _fs_pair(rng, dev):
+    """The same random transcript state twice on the card."""
+    ts = Transcript(rng.bytes(5))
+    ts.write_bytes(rng.bytes(int(rng.integers(0, 200))))
+    fs = dfs.fs_init_from_host(ts, dev)
+    return fs, fs.clone()
+
+
+@pytest.mark.parametrize("field", list(FIELDS))
+def test_k9_fs_oracle(dev, field):
+    """Every mode of K9 against the plain version, from random states, at
+    absorb lengths that cross the 55/56/64-byte boundaries."""
+    F, rng = FIELDS[field](), np.random.default_rng(11)
+    for n in (1, 7, 55, 56, 63, 64, 65, 130):
+        fs, fs2 = _fs_pair(rng, dev)
+        data = torch.as_tensor(rng.integers(0, 256, n, dtype=np.uint8),
+                               device=dev)
+        dfs.fs_absorb(F, fs, data)
+        dfs.fs_absorb_plain(F, fs2, data)
+        _same(fs, fs2)
+        _same(dfs.fs_getkey(F, fs), dfs.fs_getkey_plain(F, fs2))
+        xs = _elts(F, rng, n % 9 + 4, dev)
+        dfs.fs_write_elts(F, fs, xs)
+        dfs.fs_write_elts_plain(F, fs2, xs)
+        _same(fs, fs2)
+        dfs.write_tagged_elts(F, fs, xs)
+        dfs.write_tagged_elts_plain(F, fs2, xs)
+        _same(fs, fs2)
+        prf, prf2 = dfs.new_prf(dev), dfs.new_prf(dev)
+        dfs.fs_squeeze(F, fs, prf)
+        dfs.fs_squeeze_plain(F, fs2, prf2)
+        _same(prf, prf2)
+        _same(dfs.prf_bytes(F, prf, n), dfs.prf_bytes_plain(F, prf2, n))
+        _same(prf, prf2)
+        _same(dfs.dev_sample_elts(F, prf, 40),
+              dfs.dev_sample_elts_plain(F, prf2, 40))
+        _same(prf, prf2)
+        out = dfs.dev_sample_elts(F, prf, 3, fs=fs)
+        dfs.fs_squeeze_plain(F, fs2, prf2)
+        _same(out, dfs.dev_sample_elts_plain(F, prf2, 3))
+        _same(prf, prf2)
+        key = dfs.fs_getkey(F, fs)
+        dfs.prf_fresh(F, prf, key)
+        dfs.prf_fresh_plain(F, prf2, key)
+        _same(prf, prf2)
+
+
+@pytest.mark.parametrize("field", list(FIELDS))
+def test_k10_round_tail(dev, field):
+    F, rng = FIELDS[field](), np.random.default_rng(12)
+    consts = fpm.round_consts(F, dev)
+    for _ in range(6):
+        fs, fs2 = _fs_pair(rng, dev)
+        x = _elts(F, rng, 10, dev)[3:]   # random elements
+        claim, eq0 = x[0].clone(), x[1]
+        claim2 = claim.clone()
+        a, pad = x[2:4], x[4:7]
+        row = torch.empty((4, F.nlimb), dtype=torch.int32, device=dev)
+        row2 = torch.empty_like(row)
+        dfs.round_tail(F, fs, claim, row, a, eq0, pad, consts)
+        dfs.round_tail_plain(F, fs2, claim2, row2, a, eq0, pad, consts)
+        _same(fs, fs2)
+        _same(claim, claim2)
+        _same(row, row2)

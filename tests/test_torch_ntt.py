@@ -17,6 +17,17 @@ from longfellow_zk_tpu_torch.transforms.ntt import NTT
 from longfellow_zk_tpu_torch.zk.testing import rs_factory_for
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The plain versions make many small torch ops; with the test
+    workers on every core, a thread pool per op waits on descheduled
+    threads.  One thread for this module, restored after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _rows(rows, n, seed):
     J, F = jax_fp128(), fp128()
     rng = np.random.default_rng(seed)

@@ -42,6 +42,17 @@ from test_lfc1 import SGONAL_HEX
 from test_sumcheck import _mul_check_circuit
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The plain versions make many small torch ops; with the test
+    workers on every core, a thread pool per op waits on descheduled
+    threads.  One thread for this module, restored after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def port_circuit(jc):
     """The port's copy of a JAX-package circuit, built through the bridge
     from numpy arrays."""

@@ -34,6 +34,17 @@ from test_torch_sumcheck import port_circuit
 from test_zk import _zk_circuit
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The plain versions make many small torch ops; with the test
+    workers on every core, a thread pool per op waits on descheduled
+    threads.  One thread for this module, restored after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _port_toy_proof(W=None):
     F = fp128()
     circ = port_circuit(_zk_circuit(jax_fp128()))
