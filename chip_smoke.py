@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 1. Prints the card (name, count, power limit).
-2. Builds the kernels K1-K10 from longfellow_zk_tpu_torch/csrc with nvcc.
+2. Builds the kernels K1-K12 from longfellow_zk_tpu_torch/csrc with nvcc.
 3. Runs each kernel instance at the shapes of the proofs below, holds
    it against its plain PyTorch version on the same inputs (field
    arithmetic, hashing and the transcript states are exact: tolerance 0)
@@ -26,13 +26,20 @@
       states, every mode, at absorb lengths that cross the 55/56/64-byte
       boundaries; K10 (the hand-round tail) of each field on random
       rounds.  Their bound is the chain of dependent instructions of
-      their one thread (a model, `chain_ms`).
+      their one thread (a model, `chain_ms`);
+   g. K11 (the constraint build), K12 (the vector A) and K9 mode 9 (the
+      column choice) of each field, at the shapes of the SHA-256 proof
+      (Fp128), of the ECDSA proof (P-256) and of the mdoc hash proof
+      (GF(2^128)); K11 and K9 mode 9 against their chain.
 4. Drives the port's three prover paths, each with the launch counts set
    to zero just before it and read just after (every kernel instance of
-   the path must have launched, K8-K10 included), its bytes under
+   the path must have launched, K8-K12 included), its bytes under
    DeterministicEngine held against the golden proof in
-   longfellow_zk_tpu_torch/testdata, and its sumcheck, from the first
-   round to the one fetch, under torch.cuda.set_sync_debug_mode("error")
+   longfellow_zk_tpu_torch/testdata, the host transcript's state after
+   each ZkProver.prove held against testdata/transcript_states.json, and
+   its device chain, from the
+   sumcheck's first round to the one fetch (the rounds, the constraints,
+   the Ligero finish), under torch.cuda.set_sync_debug_mode("error")
    (any host synchronisation there fails the run):
    a. the Fp128 SHA-256 one-block proof (the JAX package's bytes);
    b. the P-256 ECDSA signature proof (the JAX package's bytes);
@@ -40,12 +47,15 @@
       (the GF(2^128) hash proof and the P-256 signature proof; the bytes
       of the port's CPU path, which the JAX verifier accepts).
    Then 5 more proofs under SecureRandomEngine() are timed (median), one
-   is profiled on the host (cProfile) and one on the card (busy share,
-   device-to-host and host-to-device copies).
+   is profiled on the host (cProfile, with its count of host field
+   products) and one on the card (busy share, device-to-host and
+   host-to-device copies).
 5. Drives the port's three verifier paths on those golden proofs, each
    with the launch counts set to zero just before the first verification
-   and read just after (it must accept, and K7 and the path's other
-   kernels must have launched), then on a copy with one bit flipped (it
+   and read just after (it must accept, K7 and the path's other kernels
+   must have launched, and the transcript's state after each
+   ZkVerifier.verify must be the committed one), then on a copy with one
+   bit flipped (it
    must refuse); then times 5 verifications and profiles them as above:
    a. ZkVerifier on the SHA-256 proof; b. ZkVerifier on the ECDSA proof;
    c. circuits/mdoc/api.run_mdoc_verifier on the mdoc proof.
@@ -535,6 +545,94 @@ def check_round_tail(rows, F, dev, tag, rng, clock_mhz):
                 bound=(chain_ms(steps, clock_mhz), "operations"))
 
 
+def check_fused(rows, F, circ, param, lqc, n_witness, dev, tag, rng,
+                clock_mhz):
+    """K11, K12 and K9 mode 9 of instance `tag` against their plain
+    versions at the shapes of circuit `circ` with Ligero parameters
+    `param`: K11 over every layer on random rows, claims and pads; K12
+    on a random k and random challenges; the column choice of
+    block_enc - dblock columns, nreq of them, from random states."""
+    from longfellow_zk_tpu_torch.random_oracle import device_fs as dfs
+    from longfellow_zk_tpu_torch.zk import fused
+
+    stat = fused.fused_static(circ, param, lqc, n_witness)
+    tabs = fused.prepare(F, stat, dev)
+    elts = elts_of(F, rng, dev)
+    N, eb, p = F.nlimb, 4 * F.nlimb, param
+    nl = circ.nl
+    R = int(stat.lay[:, 0].sum())
+    rws = elts(R * 8).reshape(R, 2, 4, N)
+    scal = elts(4 * nl).reshape(nl, 4, N)
+    wcpad = elts(2 * nl).reshape(nl, 2, N)
+    args = (rws, scal, wcpad)
+    err = max_err(fused.zk_constraints(F, tabs, *args),
+                  fused.constraints_plain(F, stat.lay, *args, tabs.lag))
+    maxlogw = int(stat.lay[:, 0].max())
+    # the coefficient at p0 carries the chain: each hand-round a
+    # difference, the scaling by L1(r) and a sum, one product; the
+    # L_k(r) depend on r alone, all rounds' apart from the chain, so it
+    # waits for one of them only (a difference and two products)
+    steps = 2 * maxlogw * (PROD_CHAIN[tag] + 2) + 2 * PROD_CHAIN[tag] + 1
+    print("K11[%s]: %d layers, %d rounds, max logw %d, %d coefficients "
+          "(%d threads a block); chain of %d steps" % (
+              tag, nl, 2 * R, maxlogw, stat.nk_layers, stat.nthreads,
+              steps))
+    rows.record("zk_constraints[%s]" % tag,
+                "longfellow_zk_tpu_torch/csrc/constraints.cu",
+                "longfellow_zk_tpu/zk/fused.py:139", err,
+                lambda: fused.zk_constraints(F, tabs, *args),
+                lambda: fused.constraints_plain(F, stat.lay, *args,
+                                                tabs.lag), 0, 0,
+                bound=(max(chain_ms(steps, clock_mhz),
+                           bound_ms(eb * (R + 6 * nl + 6 + stat.nk_layers)
+                                    + 16 * nl, 0)[0]), "operations"))
+
+    k = elts(len(stat.ws))
+    alphal, alphaq = elts(stat.nl_constraints), elts(3 * p.nq)
+    A = fused.ligero_inner_product(F, tabs, k, alphal, alphaq)
+    err = max_err(A, fused.inner_product_plain(
+        F, tabs.ptr, tabs.ent, k, alphal, alphaq, p.nwqrow, p.r, p.w))
+    nent = tabs.ent.shape[0]
+    print("K12[%s]: A of %d x %d (%d linear terms, %d quadratic entries)"
+          % (tag, p.nwqrow, p.block, len(stat.ws), 6 * p.nq))
+    rows.record("ligero_inner_product[%s]" % tag,
+                "longfellow_zk_tpu_torch/csrc/ligero_a.cu",
+                "longfellow_zk_tpu/zk/fused.py:198", err,
+                lambda: fused.ligero_inner_product(F, tabs, k, alphal,
+                                                   alphaq),
+                lambda: fused.inner_product_plain(
+                    F, tabs.ptr, tabs.ent, k, alphal, alphaq,
+                    p.nwqrow, p.r, p.w),
+                eb * (p.nwqrow * p.block + len(stat.ws) +
+                      stat.nl_constraints + 3 * p.nq) +
+                4 * (p.nwqrow * p.w + 1) + 8 * nent,
+                MUL_OPS[tag] * len(stat.ws))
+
+    n, nreq = p.block_enc - p.dblock, p.nreq
+    err = 0
+    for _ in range(3):
+        fs, fs2 = _fs_states(F, rng, dev)
+        prf, prf2 = dfs.new_prf(dev), dfs.new_prf(dev)
+        idx = dfs.dev_choose(F, fs, prf, n, nreq)
+        err = max(err, max_err(idx, dfs.dev_choose_plain(F, fs2, prf2, n,
+                                                         nreq)),
+                  max_err(prf, prf2), max_err(fs, fs2))
+    nblocks = int.from_bytes(bytes(prf[256:264].cpu().tolist()), "little")
+    # the squeeze, the key schedule and one AES block (the counter blocks
+    # do not depend on each other, nor on the walk), then per step the
+    # draw's bytes, the mask and compare, two dependent accesses of the
+    # walk's array: about 8 instructions
+    steps = (1 + (_fs_off(fs) >= 56)) * SHA_CHAIN + AES_KEY_CHAIN + \
+        AES_BLOCK_CHAIN + 8 * nreq
+    print("K9[%s] CHOOSE: %d of %d columns, %d AES blocks; chain of %d "
+          "steps" % (tag, nreq, n, nblocks, steps))
+    rows.record("fs_choose[%s]" % tag, "longfellow_zk_tpu_torch/csrc/fs.cu",
+                "longfellow_zk_tpu/random_oracle/device_fs.py:399", err,
+                lambda: dfs.dev_choose(F, fs, prf, n, nreq),
+                lambda: dfs.dev_choose_plain(F, fs2, prf2, n, nreq), 0, 0,
+                bound=(chain_ms(steps, clock_mhz), "operations"))
+
+
 def zk_verify_fn(F, circ, rs, pub, meta, dev):
     """verify(data, phases): a ZkVerifier's recv_commitment + verify on the
     proof bytes data on `dev` (phases gets the ms of (construction and
@@ -601,6 +699,10 @@ def measure(metric, run, smi, phase_names):
                                          key=lambda kv: -kv[1][2])[:14]:
         print("  %8.2f ms %7d calls  %s (%s:%d)" % (
             v[2] * 1e3, v[1], func, os.path.basename(fname), line))
+    nprod = {f: sum(v[1] for (_, _, func), v in st.items() if func == f)
+             for f in ("gf_mul_int", "mul_i")}
+    print("host field products in the profiled call: %d gf_mul_int, %d "
+          "mul_i calls" % (nprod["gf_mul_int"], nprod["mul_i"]))
 
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -628,23 +730,58 @@ def measure(metric, run, smi, phase_names):
               "measured (the profiler recorded no device time)" % wall_ms)
 
 
-def check_sumcheck_syncs():
-    """From here on, every prover's sumcheck, from begin_circuit to the
-    last layer's write (SumcheckProver._rounds, which its one fetch
-    follows), runs under torch.cuda.set_sync_debug_mode("error"): a host
-    synchronisation there raises and fails the path."""
-    from longfellow_zk_tpu_torch.sumcheck.prover import SumcheckProver
+def check_prove_syncs():
+    """From here on, every prover's device chain, from the sumcheck's
+    first round to its one fetch (ZkProver._prove_dev: the rounds, the
+    constraints, the Ligero finish), runs under
+    torch.cuda.set_sync_debug_mode("error"): a host synchronisation there
+    raises and fails the path."""
+    from longfellow_zk_tpu_torch.zk.prover import ZkProver
 
-    rounds = SumcheckProver._rounds
+    chain = ZkProver._prove_dev
 
     def checked(self, *args, **kwargs):
         torch.cuda.set_sync_debug_mode("error")
         try:
-            return rounds(self, *args, **kwargs)
+            return chain(self, *args, **kwargs)
         finally:
             torch.cuda.set_sync_debug_mode("default")
 
-    SumcheckProver._rounds = checked
+    ZkProver._prove_dev = checked
+
+
+# the host transcript's exported state (hex) after each ZkProver.prove and
+# ZkVerifier.verify since it was last emptied (record_states)
+STATES = []
+
+
+def record_states():
+    """From here on, each ZkProver.prove and ZkVerifier.verify appends
+    the exported state of its transcript to STATES when it returns."""
+    from longfellow_zk_tpu_torch.zk.prover import ZkProver
+    from longfellow_zk_tpu_torch.zk.verifier import ZkVerifier
+
+    def recording(fn):
+        def call(self, zkp, W, ts):
+            out = fn(self, zkp, W, ts)
+            STATES.append(ts.export_state().hex())
+            return out
+        return call
+
+    ZkProver.prove = recording(ZkProver.prove)
+    ZkVerifier.verify = recording(ZkVerifier.verify)
+
+
+def states_differ(states, what):
+    """Whether STATES differs from `states`, the committed states of the
+    golden proof (testdata/transcript_states.json); prints which."""
+    if STATES != states:
+        print("FAIL: the transcript states after each %s differ from "
+              "testdata/transcript_states.json: %s" % (what, STATES))
+        return True
+    print("transcript states after each %s (%d) equal "
+          "testdata/transcript_states.json" % (what, len(states)))
+    return False
 
 
 def first_run(kernels, expect, fn):
@@ -667,19 +804,21 @@ def first_run(kernels, expect, fn):
     return out, ms, launches, why
 
 
-def run_path(label, metric, prove, golden, golden_what, kernels, rows,
-             expect, smi, first_engine=None,
+def run_path(label, metric, prove, golden, golden_what, states, kernels,
+             rows, expect, smi, first_engine=None,
              phase_names=("commit", "prove")):
     """Drives one prover path: the first proof (`first_engine`, by
     default DeterministicEngine()) with the launch counts set to zero
-    just before it and read just after, its bytes held against `golden`;
-    then `measure` under SecureRandomEngine().  `prove(engine, phases)`
+    just before it and read just after, its bytes held against `golden`
+    and its transcript states against `states`; then `measure` under
+    SecureRandomEngine().  `prove(engine, phases)`
     returns the proof bytes and appends its phase times (ms, in the order
     of phase_names) to phases.  Returns False on a failure."""
     from longfellow_zk_tpu_torch.random_oracle.engine import (
         DeterministicEngine, SecureRandomEngine)
 
     print("== %s" % label)
+    STATES.clear()
     proof, first_ms, launches, why = first_run(
         kernels, expect,
         lambda: prove(first_engine or DeterministicEngine(), []))
@@ -690,6 +829,8 @@ def run_path(label, metric, prove, golden, golden_what, kernels, rows,
         print("FAIL: proof bytes differ from %s" % golden_what)
         return False
     print("proof bytes equal %s (%d bytes)" % (golden_what, len(golden)))
+    if states_differ(states, "prove"):
+        return False
     if why:
         print("FAIL:", why)
         return False
@@ -700,21 +841,25 @@ def run_path(label, metric, prove, golden, golden_what, kernels, rows,
     return True
 
 
-def run_verifier_path(label, metric, verify, golden, bad, kernels, rows,
-                      expect, smi, phase_names):
+def run_verifier_path(label, metric, verify, golden, states, bad, kernels,
+                      rows, expect, smi, phase_names):
     """Drives one verifier path: `verify(data, phases)` on the golden
     proof with the launch counts set to zero just before it and read just
-    after (it must accept, and every kernel of `expect` launch; the
-    counts go to the K7 rows), then on `bad`, a copy with one bit flipped
+    after (it must accept, end each ZkVerifier.verify in the state of
+    `states`, and every kernel of `expect` launch; the counts go to the
+    K7 rows), then on `bad`, a copy with one bit flipped
     (it must refuse); then `measure` on the golden.  Returns False on a
     failure."""
     print("== %s" % label)
+    STATES.clear()
     ok, first_ms, launches, why = first_run(
         kernels, expect, lambda: verify(golden, []))
     print("first verification: %.1f ms, accepted: %s" % (first_ms, ok))
     print("launches in one verification:", json.dumps(launches))
     if ok is not True:
         print("FAIL: the golden proof is refused")
+        return False
+    if states_differ(states, "verify"):
         return False
     if why:
         print("FAIL:", why)
@@ -849,11 +994,12 @@ def main() -> int:
                                    len(mmeta["attributes"]))
     meta = json.load(open(os.path.join(TESTDATA,
                                        "sha256_1block_fp128.proof.json")))
-    lp_sha = ZkProver(circ, F, None, rate=meta["rate"], nreq=meta["nreq"],
-                      device=dev).param
+    zp_sha = ZkProver(circ, F, None, rate=meta["rate"], nreq=meta["nreq"],
+                      device=dev)
     rate, nreq = mdoc_api._rate_nreq(spec.version)
-    lp_hash = ZkProver(c_hash, GF, None, rate=rate, nreq=nreq,
-                       block_enc=spec.block_enc_hash, device=dev).param
+    zp_hash = ZkProver(c_hash, GF, None, rate=rate, nreq=nreq,
+                       block_enc=spec.block_enc_hash, device=dev)
+    lp_sha, lp_hash = zp_sha.param, zp_hash.param
     check_sha256(rows, dev, rng, [
         ("mdoc hash commit leaves", lp_hash.block_ext,
          32 + lp_hash.nrow * GF.kBytes),
@@ -871,6 +1017,16 @@ def main() -> int:
     for Fx, tag in ((F, "fp128"), (FB, "fp256"), (GF, "gf2_128")):
         check_fs_oracle(rows, Fx, dev, tag, rng, clock_mhz)
         check_round_tail(rows, Fx, dev, tag, rng, clock_mhz)
+
+    # -- 3g. K11, K12 and K9 mode 9 at the SHA-256, ECDSA and mdoc hash
+    #        proofs' shapes ------------------------------------------------
+    emeta = json.load(open(os.path.join(TESTDATA, "ecdsa_p256.proof.json")))
+    zp_ecdsa = ZkProver(ecirc, FB, None, rate=emeta["rate"],
+                        nreq=emeta["nreq"], device=dev)
+    for zp, tag in ((zp_sha, "fp128"), (zp_ecdsa, "fp256"),
+                    (zp_hash, "gf2_128")):
+        check_fused(rows, zp.F, zp.circ, zp.param, zp.lqc, zp.n_witness,
+                    dev, tag, rng, clock_mhz)
     if rows.failures:
         print("FAIL: kernels disagree with their plain versions:",
               rows.failures)
@@ -883,7 +1039,10 @@ def main() -> int:
                 and not k.startswith("fp_quad_bind[")] + \
             ["sha256_msgs[bytes]"]
 
-    check_sumcheck_syncs()
+    check_prove_syncs()
+    record_states()
+    states = json.load(open(os.path.join(TESTDATA,
+                                         "transcript_states.json")))
 
     def proof_fn(F, circ, rs, W, meta):
         def prove(engine, phases):
@@ -914,12 +1073,12 @@ def main() -> int:
     if not run_path("the Fp128 SHA-256 one-block proof",
                     "zk_sha256_1block_prove_ms",
                     proof_fn(F, circ, rs, Wit, meta), golden,
-                    "the golden JAX proof", kernels, rows,
+                    "the golden JAX proof", states["sha256_1block_fp128"],
+                    kernels, rows,
                     prover_kernels("[fp128]"), smi):
         return 1
 
     # -- 4b. the P-256 ECDSA proof (the witness of bench.py's phase_ecdsa) -----
-    emeta = json.load(open(os.path.join(TESTDATA, "ecdsa_p256.proof.json")))
     egolden = open(os.path.join(TESTDATA, "ecdsa_p256.proof.bin"),
                    "rb").read()
     ec = p256_curve()
@@ -934,7 +1093,7 @@ def main() -> int:
                          omega_order=P256_FP2_ROOT_ORDER, device=dev)
     if not run_path("the P-256 ECDSA proof", "ecdsa_zk_prover_ms",
                     proof_fn(FB, ecirc, ers, EW, emeta), egolden,
-                    "the golden JAX proof", kernels,
+                    "the golden JAX proof", states["ecdsa_p256"], kernels,
                     rows, prover_kernels("[fp256]", "[fp256x2]"), smi):
         return 1
 
@@ -958,7 +1117,8 @@ def main() -> int:
 
     if not run_path("the mdoc presentation (run_mdoc_prover)",
                     "mdoc_prover_ms", mdoc_prove, mgolden,
-                    "the golden mdoc proof", kernels, rows,
+                    "the golden mdoc proof", states["mdoc_v7_1attr"],
+                    kernels, rows,
                     prover_kernels("[gf2_128]", "[fp256]", "[fp256x2]"),
                     smi, first_engine=DeterministicEngine(
                         mmeta["engine_seed"].encode()),
@@ -972,7 +1132,8 @@ def main() -> int:
             "the Fp128 SHA-256 one-block verifier",
             "zk_sha256_1block_verify_ms",
             zk_verify_fn(F, circ, rs, Wit[: circ.npub_in], meta, dev), golden,
-            flipped(golden, 32, 1), kernels, rows,
+            states["sha256_1block_fp128"], flipped(golden, 32, 1), kernels,
+            rows,
             ["fp_elementwise[fp128]", "fp_quad_bind[fp128]",
              "fp_ntt[fp128]"], smi, ("read", "recv_commitment + verify")):
         return 1
@@ -980,7 +1141,8 @@ def main() -> int:
             "the P-256 ECDSA verifier", "ecdsa_zk_verifier_ms",
             zk_verify_fn(FB, ecirc, ers, EW[: ecirc.npub_in], emeta,
                          dev),
-            egolden, flipped(egolden, 32, 1), kernels, rows,
+            egolden, states["ecdsa_p256"], flipped(egolden, 32, 1), kernels,
+            rows,
             ["fp_elementwise[fp256]", "fp_quad_bind[fp256]",
              "fp_ntt[fp256x2]", "fp2_elementwise[fp256x2]"], smi,
             ("read", "recv_commitment + verify")):
@@ -1000,7 +1162,8 @@ def main() -> int:
     if not run_verifier_path(
             "the mdoc presentation verifier (run_mdoc_verifier)",
             "mdoc_verifier_ms", mdoc_verify, mgolden,
-            flipped(mgolden, 6 * 16 + 32 + 5, 0x10), kernels, rows,
+            states["mdoc_v7_1attr"], flipped(mgolden, 6 * 16 + 32 + 5, 0x10),
+            kernels, rows,
             ["fp_elementwise[gf2_128]", "fp_quad_bind[gf2_128]",
              "gf2_lch14[gf2_128]", "fp_elementwise[fp256]",
              "fp_quad_bind[fp256]", "fp_ntt[fp256x2]",

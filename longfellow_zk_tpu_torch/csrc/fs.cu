@@ -14,8 +14,13 @@
 //                          (n calls of Transcript.write_elt)
 //   mode 7 SAMPLE          out[n] = n elements sampled from prf
 //   mode 8 SQUEEZE_SAMPLE  mode 3, then mode 7
+//   mode 9 CHOOSE          mode 3, then out[k] = k distinct naturals
+//                          below n from prf (Transcript.choose); its own
+//                          entry point, fs_choose_<field>
 //
-// Replaces the JAX package's random_oracle/device_fs.py:82-357 and
+// Replaces the JAX package's random_oracle/device_fs.py:82-411 (mode 9:
+// :369 dev_nat, :399 dev_choose, which zk/fused.py:234 runs for the
+// Ligero column openings) and
 // sumcheck/prover_device.py:248, which its device sumcheck runs at
 // begin_circuit (:713, 2 x 40 samples), at each layer's alpha and beta
 // (:642-662) and at the layer's closing wc write (:698).
@@ -83,6 +88,61 @@ __global__ void k_fs_oracle(int mode, FsState* __restrict__ fs,
   if (write_prf) *prf = p;
 }
 
+// Mode 9 CHOOSE: a fresh squeeze of fs into prf, then the partial
+// Fisher-Yates walk of Transcript.choose (reference random.h:57-105),
+// which leaves prf where the walk's last draw ended.  Step i draws
+// r < m = n - i by rejection: l bytes of the stream, the least l with
+// m < 256^l (recomputed each step: it shrinks when m crosses a power of
+// 256), little-endian, masked to the bits of m; then swaps A[i] and
+// A[i + r] and outputs the new A[i].  The block's threads fill A = 0..n-1
+// (in shared memory when it fits, else in out[k..k+n)); thread 0 walks,
+// every step depending on the last.  The chain: the squeeze, the key
+// schedule, one AES block (the counter blocks do not depend on each
+// other), then a few instructions and two dependent accesses of A a step.
+constexpr long long CHOOSE_SMEM_MAX = 12288;  // 48 KB of int
+
+template <class C>
+__global__ void k_fs_choose(const FsState* __restrict__ fs,
+                            PrfState* __restrict__ prf, int* __restrict__ out,
+                            long long k, long long n) {
+  extern __shared__ int smem[];
+  int* A = n <= CHOOSE_SMEM_MAX ? smem : out + k;
+  for (long long j = threadIdx.x; j < n; j += blockDim.x) A[j] = (int)j;
+  __syncthreads();
+  if (threadIdx.x != 0) return;
+  FsState s = *fs;
+  PrfState p;
+  fs_squeeze(s, p);
+  for (long long i = 0; i < k; i++) {
+    const uint32_t m = (uint32_t)(n - i);
+    const int bits = 32 - __clz(m);
+    const int l = (bits + 7) / 8;
+    const uint32_t msk = bits == 32 ? 0xFFFFFFFFu : (1u << bits) - 1u;
+    uint32_t r;
+    do {
+      r = 0u;
+      for (int b = 0; b < l; b++) r |= (uint32_t)prf_byte(p) << (8 * b);
+      r &= msk;
+    } while (r >= m);
+    const long long j = i + r;
+    const int ai = A[i], aj = A[j];
+    A[i] = aj;
+    A[j] = ai;
+    out[i] = aj;
+  }
+  *prf = p;
+}
+
+template <class C>
+static int fs_choose(void* fs, void* prf, void* out, long long k,
+                     long long n, void* stream) {
+  if (k <= 0 || k > n || n >= (1ll << 31)) return (int)cudaErrorInvalidValue;
+  const size_t smem = n <= CHOOSE_SMEM_MAX ? (size_t)n * sizeof(int) : 0;
+  k_fs_choose<C><<<1, 256, smem, (cudaStream_t)stream>>>(
+      (const FsState*)fs, (PrfState*)prf, (int*)out, k, n);
+  return (int)cudaGetLastError();
+}
+
 template <class C>
 static int fs_oracle(int mode, void* fs, void* prf, const void* in,
                      void* out, long long n, void* stream) {
@@ -104,4 +164,16 @@ extern "C" int fs_oracle_fp256(LFZK_ARGS) {
 }
 extern "C" int fs_oracle_gf2_128(LFZK_ARGS) {
   return fs_oracle<G128>(mode, fs, prf, in, out, n, stream);
+}
+
+#define LFZK_CHOOSE_ARGS \
+  void *fs, void *prf, void *out, long long k, long long n, void *stream
+extern "C" int fs_choose_fp128(LFZK_CHOOSE_ARGS) {
+  return fs_choose<P128>(fs, prf, out, k, n, stream);
+}
+extern "C" int fs_choose_fp256(LFZK_CHOOSE_ARGS) {
+  return fs_choose<P256>(fs, prf, out, k, n, stream);
+}
+extern "C" int fs_choose_gf2_128(LFZK_CHOOSE_ARGS) {
+  return fs_choose<G128>(fs, prf, out, k, n, stream);
 }

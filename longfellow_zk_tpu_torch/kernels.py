@@ -8,7 +8,8 @@ The sources share the field arithmetic of `csrc/fp.cuh`, templated on the
 field (K3 and K7 also the two-pass sum of `csrc/reduce.cuh`, K8-K10 the
 SHA-256 compression of `csrc/sha256.cuh`, K9 and K10 the Fiat-Shamir
 oracle of `csrc/fs.cuh`); each kernel has one instance (and one C entry
-point) per field:
+point) per field.  K9's mode 9 (CHOOSE) has entry points of its own,
+`fs_choose`, so that its launches are counted apart:
 
     K1 fp_elementwise  fp_ops.cu      fp128 fp256 gf2_128  fields/fp.py
     K2 fp_segment_sum  segsum.cu      fp128 fp256 gf2_128  fields/fp.py
@@ -19,8 +20,13 @@ point) per field:
     K7 fp_quad_bind    quad_bind.cu   fp128 fp256 gf2_128  sumcheck/verifier.py
     K8 sha256_msgs     sha256.cu      bytes                merkle/sha256_dev.py
     K9 fs_oracle       fs.cu          fp128 fp256 gf2_128  random_oracle/device_fs.py
+    K9 mode 9 fs_choose
+                       fs.cu          fp128 fp256 gf2_128  random_oracle/device_fs.py
     K10 sumcheck_round_tail
                        round_tail.cu  fp128 fp256 gf2_128  random_oracle/device_fs.py
+    K11 zk_constraints constraints.cu fp128 fp256 gf2_128  zk/fused.py
+    K12 ligero_inner_product
+                       ligero_a.cu    fp128 fp256 gf2_128  zk/fused.py
 
 (fp128: p = 2^128 - 2^108 + 1; fp256: the P-256 base field; fp256x2: Fp2
 over it; gf2_128: GF(2^128), csrc/gf2.cuh; bytes: K8 hashes bytes and
@@ -73,8 +79,15 @@ _SOURCES = {
     "sha256_msgs": ("sha256.cu", [_P, _P, _LL, _I, _P], ("bytes",)),
     "fs_oracle": ("fs.cu", [_I, _P, _P, _P, _P, _LL, _P],
                   ("fp128", "fp256", "gf2_128")),
+    "fs_choose": ("fs.cu", [_P, _P, _P, _LL, _LL, _P],
+                  ("fp128", "fp256", "gf2_128")),
     "sumcheck_round_tail": ("round_tail.cu", [_P, _P, _P, _P, _P, _P, _P, _P],
                             ("fp128", "fp256", "gf2_128")),
+    "zk_constraints": ("constraints.cu", [_P, _I, _I, _P, _P, _P, _P, _P, _P],
+                       ("fp128", "fp256", "gf2_128")),
+    "ligero_inner_product": ("ligero_a.cu", [_P, _P, _P, _P, _P, _P, _LL, _I,
+                                             _I, _I, _P],
+                             ("fp128", "fp256", "gf2_128")),
 }
 
 # "kernel[instance]" -> (source, C entry point, argtypes)

@@ -11,35 +11,25 @@ column with K8 and builds the Merkle heap level by level (merkle_dev);
 only the heap crosses to the host, for the column openings (the JAX
 package's _commit_full_fn, ligero/prover.py:268, with one flow for every
 size).  The responses (y_ldt / y_dot / y_quad) are row combinations in K1 and
-column sums in K3; the column openings are a gather.
+column sums in K3 (`_responses`); the rest of the proof, its challenges,
+the vector A (K12), the transcript writes and the column choice (K9), runs
+on the card in zk/fused.ligero_finish_dev, and `assemble` fills the proof
+from the prover's one fetch.  The host draws (ligero/transcript.py) and
+inner_product_vector (ligero/param.py) stay for the verifier.
 """
 
 from __future__ import annotations
 
 from typing import Callable, Sequence
 
-import numpy as np
 import torch
 
 from ..device import resolve_device
 from ..merkle.merkle import MerkleCommitment, NONCE_LEN
 from ..merkle.merkle_dev import merkle_heap
 from ..merkle.sha256_dev import sha256_msgs
-from .param import (
-    LigeroCommitment,
-    LigeroParam,
-    LigeroProof,
-    inner_product_vector,
-    layout_Aext,
-)
-from .transcript import (
-    gen_alphal,
-    gen_alphaq,
-    gen_idx,
-    gen_uldt,
-    gen_uquad,
-    write_commitment,
-)
+from .param import LigeroCommitment, LigeroParam, LigeroProof
+from .transcript import write_commitment
 
 
 class LigeroProver:
@@ -52,6 +42,7 @@ class LigeroProver:
         self.device = resolve_device(device)
         self.mc = MerkleCommitment(p.block_ext)
         self.tableau = None  # [nrow, block_enc, N] Montgomery limbs
+        self.aext_rs = None  # the dot test's (block, dblock) encoder
 
     # ------------------------------------------------------------------
 
@@ -134,6 +125,8 @@ class LigeroProver:
                            dev).reshape(2, p.dblock, -1)
         enc_b = self.rs_factory(p.block, p.block_enc).interpolate(arr_b)
         enc_d = self.rs_factory(p.dblock, p.block_enc).interpolate(arr_d)
+        # made here, with its uploads, so that the responses upload nothing
+        self.aext_rs = self.rs_factory(p.block, p.dblock)
         # row order [ildt, idot, iquad, iw.., iq..]
         self.tableau = torch.cat([enc_b[:1], enc_d, enc_b[1:]])
         # the leaves: H(nonce || natural little-endian bytes of the
@@ -161,7 +154,7 @@ class LigeroProver:
         t0 = F.mul(wrows[:, : p.block].contiguous(), u_ldt[:, None])
         y_ldt = F.add(T[p.ildt, : p.block].contiguous(), F.lazy_sum(t0, 0))
         # dot test: idot + sum_i Aext_i o w_i over [0, dblock)
-        aext = self.rs_factory(p.block, p.dblock).interpolate(A_rows)
+        aext = self.aext_rs.interpolate(A_rows)
         t1 = F.mul(aext, wrows[:, : p.dblock].contiguous())
         y_dot = F.add(T[p.idot, : p.dblock].contiguous(), F.lazy_sum(t1, 0))
         # quadratic test: iquad + sum_i u_i * (z_i - x_i o y_i)
@@ -174,50 +167,20 @@ class LigeroProver:
                        F.lazy_sum(t2, 0))
         return y_ldt, y_dot, y_quad
 
-    def prove(self, ts, nl: int, llterm, hash_of_llterm: bytes, lqc
-              ) -> LigeroProof:
-        """(ligero_prover.h:84-146)."""
-        p, F, dev = self.p, self.F, self.device
+    def assemble(self, y_ldt, y_dot, y_quad, idx, cols) -> LigeroProof:
+        """The LigeroProof from the fetched responses and openings (host
+        arrays of the device finish, zk/fused.ligero_finish_dev: y_ldt
+        [block, N], y_dot and y_quad [dblock, N], idx [nreq], cols [nrow,
+        nreq, N]), with the Merkle openings of the chosen columns."""
+        p, F = self.p, self.F
         proof = LigeroProof()
-
-        ts.write_bytes(hash_of_llterm)
-
-        # All response challenges come from one squeeze phase (no writes
-        # between them, ligero_transcript.h).
-        u_ldt = gen_uldt(p, ts, F)
-        alphal = gen_alphal(nl, ts, F)
-        alphaq = gen_alphaq(p, ts, F)
-        A = inner_product_vector(F, p, nl, llterm, alphal, lqc, alphaq)
-        u_quad = gen_uquad(p, ts, F)
-
-        A_rows = F.to_limbs([v for i in range(p.nwqrow)
-                             for v in layout_Aext(F, p, i, A)],
-                            dev).reshape(p.nwqrow, p.block, -1)
-        y_ldt, y_dot, y_quad = self._responses(
-            F.to_limbs(u_ldt, dev), A_rows, F.to_limbs(u_quad, dev))
-        got = F.from_limbs(torch.cat([y_ldt, y_dot, y_quad]))
-        yq = got[p.block + p.dblock :]
-        assert all(v == 0 for v in yq[p.r : p.r + p.w]), \
-            "W part of y_quad is nonzero"
-
-        proof.y_ldt = list(got[: p.block])
-        proof.y_dot = list(got[p.block : p.block + p.dblock])
+        proof.y_ldt = list(F.from_limbs(torch.from_numpy(y_ldt)))
+        proof.y_dot = list(F.from_limbs(torch.from_numpy(y_dot)))
+        yq = F.from_limbs(torch.from_numpy(y_quad))
         proof.y_quad_0 = list(yq[: p.r])
         proof.y_quad_2 = list(yq[p.block : p.dblock])
-
-        # P -> V responses
-        ts.write_elts(proof.y_ldt, F)
-        ts.write_elts(proof.y_dot, F)
-        ts.write_elts(proof.y_quad_0, F)
-        ts.write_elts(proof.y_quad_2, F)
-
-        # column openings: a gather, one fetch
-        idx = gen_idx(p, ts, F)
-        idx_d = torch.as_tensor(np.asarray(idx, np.int64) + p.dblock,
-                                device=dev)
-        colv = F.from_limbs(self.tableau[:, idx_d])  # [nrow, nreq] ints
+        colv = F.from_limbs(torch.from_numpy(cols))  # [nrow, nreq] ints
         proof.req = [list(colv[i]) for i in range(p.nrow)]
-        path, nonces = self.mc.open(idx)
-        proof.merkle_path = path
-        proof.merkle_nonce = nonces
+        proof.merkle_path, proof.merkle_nonce = self.mc.open(
+            [int(i) for i in idx])
         return proof

@@ -1,7 +1,7 @@
 """The Fiat-Shamir transcript on the card: K9 (fs_oracle) and K10
 (sumcheck_round_tail), with their plain PyTorch versions.
 
-Port of the JAX package's random_oracle/device_fs.py:53-357 and of the
+Port of the JAX package's random_oracle/device_fs.py:53-399 and of the
 oracle part of its device sumcheck (sumcheck/prover_device.py:248
 `_write_tagged_elts`, :571-597 `_wire_scan.one_hand`).  Byte-exact twin
 of the host `Transcript` / `FSPRF` (random_oracle/transcript.py), so the
@@ -24,6 +24,11 @@ The state is two small uint8 tensors, updated in place by every step
 Field elements are tensors in the kernels' form (fields/fp.py,
 fields/gf2.py); they are absorbed as their natural little-endian kBytes,
 and samples come back in that form (Montgomery for a prime field).
+
+The Ligero column choice (`dev_choose`, the JAX package's dev_nat and
+dev_choose, :369-411) is K9 mode 9 CHOOSE: a partial Fisher-Yates walk of
+rejection-sampled naturals, with an entry point of its own
+(`fs_choose[F.tag]`) so that its launches are counted apart.
 
 Each function takes the field F first: it picks the kernel instance
 (`fs_oracle[F.tag]`), and the field-free steps (absorb, getkey, the PRF
@@ -54,7 +59,8 @@ TAG_BSTR = 0
 TAG_FIELD_ELEM = 1
 TAG_ARRAY = 2
 
-# K9 modes (csrc/fs.cu)
+# K9 modes (csrc/fs.cu); mode 9, CHOOSE, has an entry point of its own
+# (fs_choose, dev_choose)
 (ABSORB, GETKEY, PRF_FRESH, SQUEEZE, PRF_BYTES, WRITE_ARRAY, WRITE_TAGGED,
  SAMPLE, SQUEEZE_SAMPLE) = range(9)
 
@@ -330,6 +336,32 @@ def round_tail_plain(F, fs, claim, row, a, eq0, pad, consts) -> None:
     claim.copy_(nc)
 
 
+def dev_choose_plain(F, fs: torch.Tensor, prf: torch.Tensor, n: int,
+                     k: int) -> torch.Tensor:
+    """Plain version of K9 mode 9: a fresh squeeze of fs into prf, then k
+    distinct indices in [0, n) (int32 [k]) as Transcript.choose, which
+    leave prf where the walk's last draw ended; each draw's bytes are
+    read from the stream in turn and compared on the host."""
+    fs_squeeze_plain(F, fs, prf)
+    A = torch.arange(n, dtype=torch.int64)
+    out = torch.empty(k, dtype=torch.int64)
+    for i in range(k):
+        # Transcript.nat(n - i): l bytes, the least l with n - i < 256^l,
+        # masked to the bits of n - i
+        bits = (n - i).bit_length()
+        l, msk = (bits + 7) // 8, (1 << bits) - 1
+        while True:
+            b = prf_bytes_plain(F, prf, l).to(torch.int64).cpu()
+            r = int((b << (8 * torch.arange(l))).sum()) & msk
+            if r < n - i:
+                break
+        j = i + r
+        ai, aj = int(A[i]), int(A[j])
+        A[i], A[j] = aj, ai
+        out[i] = aj
+    return out.to(torch.int32).to(prf.device)
+
+
 # ----------------------------------------------------------------------
 # wrappers: the kernel for a CUDA tensor, the plain version for a CPU one
 # ----------------------------------------------------------------------
@@ -407,6 +439,15 @@ def prf_bytes(F, prf: torch.Tensor, k: int) -> torch.Tensor:
     return out
 
 
+def bstr_tensor(data: bytes, device) -> torch.Tensor:
+    """The bytes Transcript.write_bytes(data) absorbs, [TAG_BSTR, le8(len),
+    data], as a uint8 tensor on `device` for fs_absorb (the JAX package's
+    fs_write_bytes_const, device_fs.py:240): a caller that must not wait
+    on the card inside its window uploads them before it."""
+    blob = bytes([TAG_BSTR]) + len(data).to_bytes(8, "little") + data
+    return torch.frombuffer(bytearray(blob), dtype=torch.uint8).to(device)
+
+
 def fs_write_elts(F, fs: torch.Tensor, xs: torch.Tensor) -> None:
     """fs absorbs xs ([k, N]) as one tagged array (Transcript.write_elts)."""
     _state(fs, FS_BYTES, "fs")
@@ -445,6 +486,28 @@ def dev_sample_elts(F, prf: torch.Tensor, n: int,
     _k9(name, SAMPLE if fs is None else SQUEEZE_SAMPLE, fs, prf, None, out,
         n)
     return out
+
+
+def dev_choose(F, fs: torch.Tensor, prf: torch.Tensor, n: int,
+               k: int) -> torch.Tensor:
+    """K9 mode 9, one launch: a fresh squeeze of fs into prf, then k
+    distinct indices in [0, n) (int32 [k]) by the partial Fisher-Yates
+    walk of Transcript.choose, each step a rejection sample of
+    Transcript.nat(n - i); prf is left where the walk ended."""
+    _state(fs, FS_BYTES, "fs")
+    _state(prf, PRF_STATE_BYTES, "prf")
+    if not 0 < k <= n < 2**31:
+        raise ValueError("choose needs 0 < k <= n < 2^31, got %d, %d"
+                         % (k, n))
+    name = route("fs_choose", F, fs, prf)
+    if name is None:
+        return dev_choose_plain(F, fs, prf, n, k)
+    # the k indices, then the walk's array of n (when it does not fit in
+    # shared memory)
+    out = torch.empty(k + n, dtype=torch.int32, device=prf.device)
+    kernels.launch(name, 1, fs.data_ptr(), prf.data_ptr(), out.data_ptr(),
+                   k, n)
+    return out[:k]
 
 
 def dev_sample_elt(F, prf: torch.Tensor) -> torch.Tensor:

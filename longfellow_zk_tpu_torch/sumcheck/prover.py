@@ -8,7 +8,13 @@ reference ProverLayers, lib/sumcheck/prover_layers.h:37-497): its
 once (random_oracle/device_fs.fs_init_from_host) and comes back once, in
 the one fetch after the last layer (fs_state_to_host), as the JAX
 package's does (:1062, :1138).  Between the two nothing waits for the
-card: no round reads a value back.
+card: no round reads a value back.  `prove_with_witness` is that whole
+flow, the sumcheck alone as the JAX package's (the comparison tests hold
+it to that); the ZK prover (zk/prover.py) does not call it but takes its
+steps apart: `evaluate` (the one read-back), `prepare` (the uploads),
+`_rounds` (the device step, which leaves every layer's outputs and the
+transcript on the card for the constraint build), `words` and
+`_assemble` after its own fetch.
 
   - circuit evaluation, V[g] = sum v * W[h1] * W[h0] with the beta-mask
     zero check: K2 (fp_eval_layer); its ok flag is the one read before
@@ -246,39 +252,58 @@ class SumcheckProver:
             return None, None
         return inputs, V
 
+    def evaluate(self, circ: Circuit, W0: torch.Tensor) -> Optional[List]:
+        """The circuit's inputs per layer, or None if the witness does not
+        satisfy it (every output zero, no assert-zero term failing): the
+        one value read back before the rounds."""
+        inputs, V, ok = self._eval(circ, W0)
+        if not bool((ok & (V == 0).all()).item()):
+            return None
+        return inputs
+
     # ------------------------------------------------------------------
     # proving
     # ------------------------------------------------------------------
 
+    def prepare(self, circ: Circuit, pad: Optional[Proof]):
+        """Every upload the rounds need, made before them (the merge
+        plans, the pads, the constants; the quads went up with the
+        evaluation): (pads, consts) for _rounds."""
+        F, dev = self.F, self.device
+        for layer in circ.layers:
+            self._wm_for(layer.quad, layer.logw)
+        pads = self._pads_dev(circ, pad)
+        return pads, dict(one=F.to_limbs(1, dev), rc=round_consts(F, dev))
+
     def prove_with_witness(self, circ: Circuit, W0: torch.Tensor, ts,
-                           pad: Optional[Proof] = None,
-                           with_aux: bool = False):
+                           pad: Optional[Proof] = None):
         """Circuit evaluation + sumcheck (prover_layers.h:114-166) with
         the transcript on the card.  ts is a TranscriptSumcheck; its host
         transcript ends where the host prover's would.  Returns (proof,
         aux, bindings) with bindings = dict(q=[], g=[g0, g1], logv=...),
         or (None, None, None) if the witness does not satisfy the circuit
         (then the transcript is left untouched)."""
-        F, dev = self.F, self.device
-        inputs, V, ok = self._eval(circ, W0)
-        if not bool((ok & (V == 0).all()).item()):
+        inputs = self.evaluate(circ, W0)
+        if inputs is None:
             return None, None, None
-        # every upload before the rounds: the merge plans (the quads went
-        # up with the evaluation), the transcript, the pads, the constants
-        for layer in circ.layers:
-            self._wm_for(layer.quad, layer.logw)
-        fs = dfs.fs_init_from_host(ts.ts, dev)
-        pads = self._pads_dev(circ, pad)
-        consts = dict(one=F.to_limbs(1, dev), rc=round_consts(F, dev))
-        outs = self._rounds(circ, inputs, fs, pads, consts)
+        pads, consts = self.prepare(circ, pad)
+        fs = dfs.fs_init_from_host(ts.ts, self.device)
+        outs, _ = self._rounds(circ, inputs, fs, pads, consts)
         # the one fetch: every layer's rows, wc, bound quad and flag, and
         # the transcript's state
+        host = torch.cat(self.words(outs) + [fs.view(torch.int32)]) \
+            .cpu().numpy()
+        return self._assemble(circ, pad, host, ts.ts)
+
+    @staticmethod
+    def words(outs: List[dict]) -> List[torch.Tensor]:
+        """The layers' outputs as the flat int32 words _assemble reads:
+        per layer its rows, wc, bound quad and closing flag."""
         parts = []
         for o in outs:
             parts += [o["rows"].reshape(-1), o["wc"].reshape(-1),
                       o["bq"].reshape(-1), o["ok"].to(torch.int32)[None]]
-        host = torch.cat(parts + [fs.view(torch.int32)]).cpu().numpy()
-        return self._assemble(circ, pad, with_aux, host, ts.ts)
+        return parts
 
     def _pads_dev(self, circ: Circuit, pad: Optional[Proof]):
         """Each layer's pad on the card, uploaded at once (the JAX
@@ -304,10 +329,12 @@ class SumcheckProver:
         return out
 
     def _rounds(self, circ: Circuit, inputs: List, fs: torch.Tensor, pads,
-                consts) -> List[dict]:
+                consts):
         """The sumcheck from begin_circuit to the last layer's wc write,
         every step on the card, nothing read back; fs is updated in
-        place.  Returns each layer's outputs (device tensors)."""
+        place.  Returns (each layer's outputs, as device tensors; the
+        rows of all layers, [sum logw, 2, 4, N], of which each layer's
+        "rows" is a view)."""
         F, dev = self.F, self.device
         if circ.logc > 0:
             raise NotImplementedError("copy rounds (logc > 0) are not ported")
@@ -318,21 +345,27 @@ class SumcheckProver:
         bnd_g = [g_full, g_full]
         WC = F.zeros((2,), dev)
         logv = circ.logv
-        outs = []
+        rows = torch.empty((sum(layer.logw for layer in circ.layers), 2, 4)
+                           + F.elt_shape, dtype=torch.int32, device=dev)
+        outs, off = [], 0
         for ly, layer in enumerate(circ.layers):
             o = self._layer(fs, prf, ly > 0, layer, logv, bnd_g,
-                            inputs[ly], WC, pads[ly], consts)
+                            inputs[ly], WC, pads[ly], consts,
+                            rows[off : off + layer.logw])
             outs.append(o)
             bnd_g, WC = o["g"], o["wc"]
             logv = layer.logw
-        return outs
+            off += layer.logw
+        return outs, rows
 
     def _layer(self, fs, prf, fresh: bool, layer, logv: int, bnd_g, W, WC,
-               pad, consts) -> dict:
+               pad, consts, rows) -> dict:
         """One layer (prover_layers.h:185-271; the JAX package's
         _layer_fn): alpha and beta (a fresh squeeze unless this is layer
         0, which continues begin_circuit's stream), the prologue, logw
-        wire rounds of two hands each, the closing check and wc write."""
+        wire rounds of two hands each, the closing check and wc write.
+        rows [logw, 2, 4, N] receives row [rnd, hand] = [ev0, ev1, ev2,
+        r] (the evaluations minus the pad)."""
         F, dev = self.F, self.device
         one, rc = consts["one"], consts["rc"]
         hp_pad, wc_pad = pad
@@ -357,9 +390,6 @@ class SumcheckProver:
             hv = hv[plan["perm"]]
             stages = plan["stages"]
 
-        # row [rnd, hand] = [ev0, ev1, ev2, r] (evaluations minus the pad)
-        rows = torch.empty((layer.logw, 2, 4) + F.elt_shape,
-                           dtype=torch.int32, device=dev)
         rnd = 0
         for nr, starts, ends, h0, h1 in stages:
             if starts is not None:
@@ -385,9 +415,9 @@ class SumcheckProver:
         expected = F.mul(eq0, F.mul(bq, F.mul(wc[0], wc[1])))
         dfs.fs_write_elts(F, fs, F.sub(wc, wc_pad))
         return dict(rows=rows, wc=wc, bq=bq, ok=(claim == expected).all(),
-                    g=[rows[:, 0, 3], rows[:, 1, 3]])
+                    g=[rows[:, 0, 3], rows[:, 1, 3]], alpha=alpha)
 
-    def _assemble(self, circ: Circuit, pad: Optional[Proof], with_aux: bool,
+    def _assemble(self, circ: Circuit, pad: Optional[Proof],
                   host: np.ndarray, host_ts):
         """The Proof, aux and bindings from the fetched words (the JAX
         package's _assemble, :1099); the host transcript takes the device
@@ -395,7 +425,7 @@ class SumcheckProver:
         F = self.F
         N = F.nlimb
         proof = Proof()
-        aux = ProofAux() if with_aux else None
+        aux = ProofAux()
         off = 0
         for ly, layer in enumerate(circ.layers):
             n = layer.logw * 2 * 4 * N
@@ -415,8 +445,7 @@ class SumcheckProver:
                          F.sub_i(wc1, pad.layers[ly].wc[1])]
             lp._bound_quad = bq
             proof.layers.append(lp)
-            if with_aux:
-                aux.bound_quad.append(bq)
+            aux.bound_quad.append(bq)
         dfs.fs_state_to_host(host_ts, host[off:].astype("<i4").view(np.uint8))
         last = circ.layers[-1]
         g = [list(rows[:, hand, 3]) for hand in range(2)]

@@ -201,6 +201,11 @@ class FFTConvolution:
         inv_pad = F.inv_i(F.of_scalar(self.padding))
         self._yhat = F.to_limbs([F.mul_i(v, inv_pad) for v in yhat],
                                 self.device)
+        # the twiddles too: every upload at construction, so that an
+        # encode waits on nothing (the ZK prover's dot test runs between
+        # its first round and its one fetch)
+        for inverse in (False, True):
+            self.ntt.twiddles(self.padding, inverse)
 
     def convolution(self, x: torch.Tensor) -> torch.Tensor:
         """x: [..., n, *E] -> z: [..., m, *E]."""

@@ -12,8 +12,9 @@ where a poly pad is (dP(0), dP(2)) — the p(1) value is implied by
 claim_{r-1} - p(0) — and a claim pad is (dWC0, dWC1, dWC0*dWC1); the
 product entry makes the per-layer quadratic constraint (zk_common.h:149).
 
-All of this is host-side scalar algebra over O(layers * logw) values —
-strictly Fiat-Shamir control-plane work.
+All of this is host-side scalar algebra over O(layers * logw) values,
+which the verifier runs; the prover builds the same system on the card
+(zk/fused.py), from the same positions.
 """
 
 from __future__ import annotations
@@ -121,17 +122,17 @@ class Expression:
         self.symbolic[var] = F.sub_i(self.symbolic[var], k)
 
 
-def verifier_constraints(circ: Circuit, pub: List, proof: Proof, aux, ts, pi: int,
+def verifier_constraints(circ: Circuit, pub: List, proof: Proof, ts, pi: int,
                          F, device) -> Tuple[List[LigeroLinearConstraint],
                                              List, int]:
     """Symbolic replay of the sumcheck verifier (zk_common.h:49-136).
 
     Returns (a, b, num_constraints).  `ts` is the raw Transcript (the
     caller has already absorbed commitment + public inputs); it advances
-    exactly like the real sumcheck transcript.  `aux` holds the prover's
-    bound quads; without it (the verifier) each layer's quad is bound on
-    `device` (K7).  The input-binding EQ array (one element per circuit
-    input) is built on `device`.
+    exactly like the real sumcheck transcript.  Each layer's quad is
+    bound on `device` (K7).  The input-binding EQ array (one element per
+    circuit input) is built on `device`.  The verifier's step: the
+    prover builds the same constraints on the card (zk/fused.py).
     """
     tss = TranscriptSumcheck(ts, F)
     q, g = tss.begin_circuit()
@@ -172,12 +173,9 @@ def verifier_constraints(circ: Circuit, pub: List, proof: Proof, aux, ts, pi: in
                 expr.axpy(pl.ovp_poly_pad(r, 0), hp[0], lag[0])
                 expr.axpy(pl.ovp_poly_pad(r, 2), hp[2], lag[2])
 
-        if aux is not None:
-            quad = aux.bound_quad[ly]
-        else:
-            quad = bind_quad(F, layer.quad, cla_logv, cla_g[0][:cla_logv],
-                             cla_g[1][:cla_logv], alpha, beta, layer.logw,
-                             hb[0], hb[1], device)
+        quad = bind_quad(F, layer.quad, cla_logv, cla_g[0][:cla_logv],
+                         cla_g[1][:cla_logv], alpha, beta, layer.logw,
+                         hb[0], hb[1], device)
         eqv = eq_eval_host(F, circ.logc, circ.nc, cla_q, [])
         eqq = F.mul_i(eqv, quad)
 

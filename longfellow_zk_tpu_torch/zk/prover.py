@@ -6,25 +6,31 @@ Commit to [private witness | random pad], run the sumcheck prover with
 the pad subtracted from every transcript message (the encrypted
 transcript), then prove via Ligero that the committed pad+witness
 decrypt the transcript into something the sumcheck verifier accepts.
+
+After the commit, `prove` reads one value back (the evaluation check),
+uploads every table its steps need, then runs on the card, with the
+transcript there too, nothing read back between them: the sumcheck
+(sumcheck/prover.py), the linear constraints (K11, zk/fused.py), the
+Ligero finish (K12, the responses, K9's draws, writes and column choice,
+zk/fused.py); then one fetch, from which the host assembles the proof
+and its transcript takes the final state.
 """
 
 from __future__ import annotations
 
 from typing import List, Optional
 
+import numpy as np
+import torch
+
 from ..device import resolve_device
 from ..ligero.param import LigeroParam
 from ..ligero.prover import LigeroProver
+from ..random_oracle import device_fs as dfs
 from ..sumcheck.circuit import Circuit, LayerProof, Proof
 from ..sumcheck.prover import SumcheckProver
-from ..sumcheck.transcript_sumcheck import TranscriptSumcheck
-from .common import (
-    HASH_OF_A,
-    initialize_sumcheck_fiat_shamir,
-    pad_size,
-    setup_lqc,
-    verifier_constraints,
-)
+from .common import initialize_sumcheck_fiat_shamir, pad_size, setup_lqc
+from .fused import constraints_dev, fused_static, ligero_finish_dev, prepare
 from .proof import ZkProof
 
 
@@ -59,23 +65,49 @@ class ZkProver:
                                  self.lqc, rng)
 
     def prove(self, zkp: ZkProof, W_host: List, ts) -> bool:
-        """(zk_prover.h:102-149): sumcheck on a clone of the transcript,
-        the verifier-constraint replay, then the Ligero proof."""
-        c, F = self.circ, self.F
+        """(zk_prover.h:102-149): the evaluation check, the uploads, the
+        device chain (_prove_dev), one fetch; ts ends where the host
+        prover's transcript would (its PRF aside)."""
+        c, F, p, dev = self.circ, self.F, self.param, self.device
         assert self.lp is not None, "must run commit before prove"
         initialize_sumcheck_fiat_shamir(ts, c, W_host, F)
-        tst = ts.clone()
-        W0 = F.to_limbs(W_host[: c.ninputs], self.device)
-        proof, aux, _bnd = self.sumcheck.prove_with_witness(
-            c, W0, TranscriptSumcheck(tst, F), pad=self.pad, with_aux=True)
-        if proof is None:
+        W0 = F.to_limbs(W_host[: c.ninputs], dev)
+        inputs = self.sumcheck.evaluate(c, W0)
+        if inputs is None:
             return False
-        zkp.proof = proof
-
-        a, b, ci = verifier_constraints(c, W_host, proof, aux, ts,
-                                        self.n_witness, F, self.device)
-        zkp.com_proof = self.lp.prove(ts, ci, a, HASH_OF_A, self.lqc)
+        # every upload before the first round (the responses' encoder
+        # went up with the commit)
+        pads, consts = self.sumcheck.prepare(c, self.pad)
+        tabs = prepare(F, fused_static(c, p, self.lqc, self.n_witness), dev)
+        fs = dfs.fs_init_from_host(ts, dev)
+        host = self._prove_dev(inputs, fs, pads, consts, tabs).cpu().numpy()
+        # [okq | y_ldt | y_dot | y_quad | idx | cols | sumcheck | fs]
+        N = F.nlimb
+        sizes = [1, p.block * N, p.dblock * N, p.dblock * N, p.nreq,
+                 p.nrow * p.nreq * N]
+        okq, y_ldt, y_dot, y_quad, idx, cols, rest = np.split(
+            host, np.cumsum(sizes))
+        assert okq[0], "W part of y_quad is nonzero"
+        zkp.proof, _, _ = self.sumcheck._assemble(c, self.pad, rest, ts)
+        zkp.com_proof = self.lp.assemble(
+            y_ldt.reshape(-1, N), y_dot.reshape(-1, N),
+            y_quad.reshape(-1, N), idx, cols.reshape(p.nrow, p.nreq, N))
         return True
+
+    def _prove_dev(self, inputs, fs, pads, consts, tabs) -> torch.Tensor:
+        """Everything between the first round and the one fetch, on the
+        card, nothing read back: the sumcheck on fs, the constraints, the
+        Ligero finish.  Returns the words to fetch (int32)."""
+        F = self.F
+        outs, rows = self.sumcheck._rounds(self.circ, inputs, fs, pads,
+                                           consts)
+        k = constraints_dev(F, tabs, outs, rows, pads, fs, consts["one"])
+        lig = ligero_finish_dev(F, self.lp, tabs, fs, k)
+        return torch.cat(
+            [lig["okq"].to(torch.int32)[None]] +
+            [lig[n].reshape(-1) for n in ("y_ldt", "y_dot", "y_quad", "idx",
+                                          "cols")] +
+            self.sumcheck.words(outs) + [fs.view(torch.int32)])
 
     def _fill_pad(self, rng) -> None:
         """Random pad; the P(1) entries are zero (zk_prover.h:152-188)."""

@@ -48,7 +48,7 @@ class ZkVerifier:
         """(ok, why) for the proof and the public inputs pub[:npub_in]."""
         c, F = self.circ, self.F
         initialize_sumcheck_fiat_shamir(ts, c, pub, F)
-        a, b, ci = verifier_constraints(c, pub, zkp.proof, None, ts,
+        a, b, ci = verifier_constraints(c, pub, zkp.proof, ts,
                                         self.n_witness, F, self.device)
         return self.lv.verify(zkp.com, zkp.com_proof, ts, ci, a, HASH_OF_A,
                               b, self.lqc)

@@ -236,3 +236,76 @@ def test_round_tail_matches_host_round(field):
         assert list(F.from_limbs(row)) == ev + [r]
         assert F.from_limbs(claim_t) == new_claim
         assert _blob(fs) == ts.export_state()
+
+
+# (n, k) of the column choices: the toy proofs' n = block_enc - dblock =
+# 128 - 41, the SHA-256 golden's 2048 - 681 and the mdoc hash proof's
+# 4151 - 921, each with its nreq; and the byte count's edges: one byte
+# below 256, two from 256 on, a walk that crosses n - i = 256 (300 -> 201)
+CHOOSE_CASES = [(2, 2), (255, 40), (256, 40), (257, 40), (300, 100),
+                (87, 6), (1367, 128), (3230, 132)]
+
+
+@pytest.mark.parametrize("n,k", CHOOSE_CASES)
+def test_choose_matches_host(n, k):
+    """K9 mode 9's plain version (a squeeze, then the walk) against the
+    port's and the JAX package's host Transcript.choose; the stream
+    goes on where the host's does."""
+    rng = np.random.default_rng(n)
+    F = gf2_128() if n % 2 else fp128()
+    ts = _ts(rng, 17 + n % 50)
+    jts = JaxTranscript(b"")
+    jts.import_state(ts.export_state())
+    fs = dfs.fs_init_from_host(ts, "cpu")
+    prf = dfs.new_prf("cpu")
+    idx = dfs.dev_choose(F, fs, prf, n, k)
+    assert idx.dtype == torch.int32
+    assert idx.tolist() == ts.choose(n, k) == jts.choose(n, k)
+    assert _blob(fs) == ts.export_state()
+    assert _blob(dfs.prf_bytes(F, prf, 21)) == ts.bytes(21)
+    # after a write, a fresh squeeze
+    x = F.to_limbs([n], "cpu")
+    dfs.fs_write_elts(F, fs, x)
+    ts.write_elts([n], F)
+    more = dfs.dev_choose(F, fs, prf, n, min(k, 5))
+    assert more.tolist() == ts.choose(n, min(k, 5))
+
+
+def test_write_bytes_const_matches_host():
+    """The HASH_OF_A write, fs_absorb of its bstr_tensor: [TAG_BSTR,
+    le8(len), data] as Transcript.write_bytes."""
+    from longfellow_zk_tpu_torch.zk.common import HASH_OF_A
+
+    rng = np.random.default_rng(6)
+    F = p256_base()
+    for prefix in (0, 22, 23, 60):
+        ts = _ts(rng, prefix)
+        fs = dfs.fs_init_from_host(ts, "cpu")
+        dfs.fs_absorb(F, fs, dfs.bstr_tensor(HASH_OF_A, "cpu"))
+        ts.write_bytes(HASH_OF_A)
+        assert _blob(fs) == ts.export_state()
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("n,k,first", [(87, 6, None), (200, 40, 10),
+                                       (300, 100, 53)])
+def test_jax_dev_choose_against_host(n, k, first):
+    """The JAX package's dev_choose (eager on the CPU, its while loops
+    compile per call) against the host Transcript.choose from one state:
+    equal on the toy proofs' choice, 6 of 87; from draw `first` on it
+    departs, where its prf_bytes repeats a block after a one-byte read
+    that ends an AES block (ROADMAP C).  The port's choice (K9 mode 9's
+    plain version) keeps to the host on every case."""
+    ts = Transcript(b"dfs-choose")
+    ts._write_untyped(bytes(range(33)))
+    jts = JaxTranscript(b"")
+    jts.import_state(ts.export_state())
+    jidx, _ = jfs.dev_choose(jfs.fs_squeeze(jfs.fs_init_from_host(jts)),
+                             n, k)
+    got = [int(i) for i in np.asarray(jidx)]
+    fs = dfs.fs_init_from_host(ts, "cpu")
+    port = dfs.dev_choose(fp128(), fs, dfs.new_prf("cpu"), n, k)
+    want = ts.choose(n, k)
+    assert port.tolist() == want
+    diff = next((i for i in range(k) if got[i] != want[i]), None)
+    assert diff == first

@@ -241,8 +241,7 @@ def test_sumcheck_matches_jax(merge_min, jax_gf2_sumcheck):
     sp = SumcheckProver(F, device="cpu")
     sp.K_MERGE_MIN_TERMS = merge_min
     p2, aux2, b2 = sp.prove_with_witness(port_gf2_circuit(jc),
-                                         F.to_limbs(W, "cpu"), tss, pad=pad,
-                                         with_aux=True)
+                                         F.to_limbs(W, "cpu"), tss, pad=pad)
     for l1, l2 in zip(p1.layers, p2.layers):
         assert l1.hp == l2.hp and l1.wc == l2.wc
     assert aux1.bound_quad == aux2.bound_quad

@@ -44,7 +44,7 @@ for mod in ("fields.fp2", "ec.curves", "circuits.ecdsa.verify",
             "circuits.mdoc.witness", "utils.zstd", "sumcheck.verifier",
             "ligero.verifier", "zk.verifier", "zk.serialization",
             "merkle.sha256_dev", "merkle.merkle_dev",
-            "random_oracle.device_fs"):
+            "random_oracle.device_fs", "zk.fused"):
     assert pkg.__name__ + "." + mod in names, mod
 from longfellow_zk_tpu_torch.fields.fp_instances import (
     fp128, p256_base, P128_OMEGA, P128_OMEGA_ORDER, P256_FP2_ROOT_X,

@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (K1-K10, every instance) against their plain
+"""The port's CUDA kernels (K1-K12, every instance) against their plain
 PyTorch versions, on the card.  Field arithmetic, hashing and the
 Fiat-Shamir states are exact: equality, tolerance 0.
 
@@ -28,6 +28,7 @@ from longfellow_zk_tpu_torch.random_oracle.transcript import Transcript
 from longfellow_zk_tpu_torch.sumcheck import verifier
 from longfellow_zk_tpu_torch.transforms import lch14
 from longfellow_zk_tpu_torch.transforms.ntt import NTT, fp_ntt, ntt_plain
+from longfellow_zk_tpu_torch.zk import fused
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -318,3 +319,63 @@ def test_k10_round_tail(dev, field):
         _same(fs, fs2)
         _same(claim, claim2)
         _same(row, row2)
+
+
+@pytest.mark.parametrize("field", list(FIELDS))
+def test_k9_choose(dev, field):
+    """K9 mode 9 against its plain version from random states: the
+    indices, the stream state after the walk, fs untouched, twice in a
+    row; n up to the mdoc hash proof's 3,230 and one whose walk array
+    does not fit in shared memory."""
+    F, rng = FIELDS[field](), np.random.default_rng(13)
+    for n, k in ((2, 2), (255, 40), (300, 100), (3230, 132), (20000, 64)):
+        fs, fs2 = _fs_pair(rng, dev)
+        prf, prf2 = dfs.new_prf(dev), dfs.new_prf(dev)
+        _same(dfs.dev_choose(F, fs, prf, n, k),
+              dfs.dev_choose_plain(F, fs2, prf2, n, k))
+        _same(prf, prf2)
+        _same(fs, fs2)
+        _same(dfs.dev_choose(F, fs, prf, n, min(n, 3)),
+              dfs.dev_choose_plain(F, fs2, prf2, n, min(n, 3)))
+        _same(prf, prf2)
+
+
+def _fused_stat(logws, ninputs, npub):
+    """A FusedStatic of a circuit with layers of these logw (no terms:
+    K11 and K12 read only the geometry)."""
+    from longfellow_zk_tpu_torch.ligero.param import LigeroParam
+    from longfellow_zk_tpu_torch.sumcheck.circuit import Circuit, Layer
+    from longfellow_zk_tpu_torch.zk.common import pad_size, setup_lqc
+
+    circ = Circuit(nv=1, logv=0, nc=1, logc=0, nl=len(logws),
+                   ninputs=ninputs, npub_in=npub, subfield_boundary=0,
+                   layers=[Layer(nw=1 << lw, logw=lw, quad=None)
+                           for lw in logws])
+    nw = ninputs - npub
+    p = LigeroParam(nw=nw + pad_size(circ), nq=circ.nl, rateinv=4,
+                    nreq=16)
+    return fused.FusedStatic(circ, p, setup_lqc(circ, nw), nw)
+
+
+@pytest.mark.parametrize("field", list(FIELDS))
+def test_k11_k12_constraints_and_inner_product(dev, field):
+    """K11 and K12 against their plain versions on random rows, claims,
+    pads and challenges, with layers of logw 19 (96 threads a block), 3,
+    1 and 10."""
+    F, rng = FIELDS[field](), np.random.default_rng(14)
+    N = F.nlimb
+    stat = _fused_stat([19, 3, 1, 10], 5000, 7)
+    R, nl = int(stat.lay[:, 0].sum()), stat.lay.shape[0]
+    rows = _elts(F, rng, R * 8, dev).reshape(R, 2, 4, N)
+    scal = _elts(F, rng, 4 * nl, dev).flip(0).reshape(nl, 4, N)
+    wcpad = _elts(F, rng, 2 * nl, dev).reshape(nl, 2, N)
+    tabs = fused.prepare(F, stat, dev)
+    _same(fused.zk_constraints(F, tabs, rows, scal, wcpad),
+          fused.constraints_plain(F, stat.lay, rows, scal, wcpad, tabs.lag))
+    p = stat.p
+    k = _elts(F, rng, len(stat.ws), dev).flip(0).contiguous()
+    alphal = _elts(F, rng, stat.nl_constraints, dev)
+    alphaq = _elts(F, rng, 3 * p.nq + 3, dev)[3:]
+    _same(fused.ligero_inner_product(F, tabs, k, alphal, alphaq),
+          fused.inner_product_plain(F, tabs.ptr, tabs.ent, k, alphal,
+                                    alphaq, p.nwqrow, p.r, p.w))

@@ -114,8 +114,7 @@ def _port_prove(pc, W, label, pad=None, merge_min=None):
     prover = SumcheckProver(F, device="cpu")
     if merge_min is not None:
         prover.K_MERGE_MIN_TERMS = merge_min
-    out = prover.prove_with_witness(pc, F.to_limbs(W, "cpu"), tss, pad=pad,
-                                    with_aux=True)
+    out = prover.prove_with_witness(pc, F.to_limbs(W, "cpu"), tss, pad=pad)
     return out, ts
 
 
