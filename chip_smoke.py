@@ -30,7 +30,11 @@
    g. K11 (the constraint build), K12 (the vector A) and K9 mode 9 (the
       column choice) of each field, at the shapes of the SHA-256 proof
       (Fp128), of the ECDSA proof (P-256) and of the mdoc hash proof
-      (GF(2^128)); K11 and K9 mode 9 against their chain.
+      (GF(2^128)); K11 and K9 mode 9 against their chain;
+   h. the lane axis of the batch prover (8 proofs in one launch): K1's
+      bind and hv, K3, K9, K10, K11, K12 and K9 mode 9 [fp128] at the
+      SHA-256 proof's shapes, 8 lanes (one of whose samples rejects), a
+      row "<kernel> lanes=8" each.
 4. Drives the port's three prover paths, each with the launch counts set
    to zero just before it and read just after (every kernel instance of
    the path must have launched, K8-K12 included), its bytes under
@@ -42,8 +46,19 @@
    the Ligero finish), under torch.cuda.set_sync_debug_mode("error")
    (any host synchronisation there fails the run):
    a. the Fp128 SHA-256 one-block proof (the JAX package's bytes);
-   b. the P-256 ECDSA signature proof (the JAX package's bytes);
-   c. the mdoc presentation through circuits/mdoc/api.run_mdoc_prover
+   b. the batched SHA-256 proofs (B = 8, zk/batch.py BatchZkProver, as
+      bench.py's phase_sha_batch): lane 0 the golden's witness and tag,
+      lanes 1-7 the messages msg0001..msg0007 under the tags
+      bench1..bench7; lane 0 held to the golden, every lane to the scalar
+      proof with its tag and the continued stream and to its final
+      transcript state, the batch's launches to one scalar proof's, every
+      lane verified; then 5 batches timed in turns with 5 runs of 8 scalar
+      proofs (zk_sha256_batch8_per_proof_ms, ..._proofs_per_s, the
+      phases), one profiled (3 device-to-host copies);
+   c. the P-256 ECDSA signature proof (the JAX package's bytes);
+   d. a batch of 2 ECDSA proofs, lane 0 the golden's (K4 [fp256x2] and K5
+      on stacked lanes), held as in b, not timed;
+   e. the mdoc presentation through circuits/mdoc/api.run_mdoc_prover
       (the GF(2^128) hash proof and the P-256 signature proof; the bytes
       of the port's CPU path, which the JAX verifier accepts).
    Then 5 more proofs under SecureRandomEngine() are timed (median), one
@@ -81,6 +96,7 @@ sys.path.insert(0, REPO)
 TESTDATA = os.path.join(REPO, "longfellow_zk_tpu_torch", "testdata")
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA's data sheet
+T0 = time.perf_counter()       # the script's start, for the "at" stamps
 # 32-bit integer multiplies: 64 INT32 lanes per SM (half the 128 FP32
 # lanes behind the data sheet's 67 TFLOP/s float32, which counts an FMA
 # as 2)
@@ -135,15 +151,15 @@ def call_ms(fn, iters):
     return t0.elapsed_time(t1) / iters
 
 
-def device_ms(fn, iters):
+def device_ms(fn, iters, warmup=3):
     """Device time of one call: the sum of the device activity that the
-    profiler records over `iters` calls, divided by `iters`.  Where the
-    profiler records none (it has dropped the records of some one-thread
-    kernels), the time of one call between CUDA events, each call
-    synchronised, and a note that says so."""
+    profiler records over `iters` calls (after `warmup` calls), divided
+    by `iters`.  Where the profiler records none (it has dropped the
+    records of some one-thread kernels), the time of one call between
+    CUDA events, each call synchronised, and a note that says so."""
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -186,16 +202,19 @@ class Rows:
         """bound: (ms, "operations") where the bound is not the bytes or
         operations over the card's rates (a one-thread chain)."""
         b, by = bound or bound_ms(nbytes, ops)
-        ms, plain_ms = device_ms(fn, 50), device_ms(plain_fn, 3)
+        # the plain versions run thousands of small ops (one lane after
+        # another for K9 and K10), which the profiler is slow to record:
+        # one warm-up and one timed call
+        ms, plain_ms = device_ms(fn, 50), device_ms(plain_fn, 1, warmup=1)
         self.rows[kname] = dict(name=kname, route="cuda", source=source,
                                 replaces=replaces, launches=0,
                                 max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                 bound_ms=b, bound_by=by, library_ms=None,
                                 call_ms=call_ms(fn, 200))
         print("kernel %-24s max_abs_err %d (tolerance 0)  device %.5f ms "
-              "(call %.5f ms)  plain %.4f ms  bound %.5f ms (%s)" % (
-                  kname, err, ms, self.rows[kname]["call_ms"], plain_ms, b,
-                  by))
+              "(call %.5f ms)  plain %.4f ms  bound %.5f ms (%s)  [at %.0f s]"
+              % (kname, err, ms, self.rows[kname]["call_ms"], plain_ms, b,
+                 by, time.perf_counter() - T0))
         if err != 0:
             self.failures.append(kname)
 
@@ -633,6 +652,194 @@ def check_fused(rows, F, circ, param, lqc, n_witness, dev, tag, rng,
                 bound=(chain_ms(steps, clock_mhz), "operations"))
 
 
+LANES = 8
+# a label whose transcript's first Fp128 draw is >= p, so that lane 1 of
+# the lane rows rejects (tests/test_torch_device_fs.py REJECT_LABEL)
+REJECT_LABEL = b"reject-1044179"
+
+
+def check_lanes(rows, F, circ, param, lqc, n_witness, dev, rng, clock_mhz):
+    """The lane axis (LANES proofs of a batch in one launch) of K1's bind
+    and hv, K3, K9, K10, K11, K12 and K9 mode 9 [fp128] at the SHA-256
+    proof's shapes, against the plain versions on the same inputs, one
+    lane after another for K9 and K10 (their one-lane code); each a row
+    "<kernel> lanes=8" whose bound counts the work of every lane (the
+    chains run side by side: one lane's)."""
+    from longfellow_zk_tpu_torch.fields import fp as fpm
+    from longfellow_zk_tpu_torch.fields.fp import round_consts
+    from longfellow_zk_tpu_torch.random_oracle import device_fs as dfs
+    from longfellow_zk_tpu_torch.random_oracle.transcript import Transcript
+    from longfellow_zk_tpu_torch.sumcheck.prover import quad_tensors
+    from longfellow_zk_tpu_torch.zk import fused
+
+    B, N, eb, tag = LANES, F.nlimb, 4 * F.nlimb, "fp128"
+    mops = MUL_OPS[tag]
+    elts = elts_of(F, rng, dev)
+    sfx = " lanes=%d" % B
+    src = "longfellow_zk_tpu_torch/csrc/"
+    ly = max(range(circ.nl), key=lambda i: circ.layers[i].nterms)
+    layer = circ.layers[ly]
+    qd = quad_tensors(F, layer.quad, dev)
+    T, nw = layer.nterms, 1 << layer.logw
+    h0, h1 = qd["h0"], qd["h1"]
+    # challenges as the sumcheck passes them: a strided view of the rows
+    rws = elts(B * 4 * 8).reshape(B, 4, 2, 4, N)
+    r = rws[:, 2, 1, 3]
+    hv, Wh, Wo = (elts(B * n).reshape(B, n, N) for n in (T, nw, nw))
+    pm = fpm.plain_of(F)
+    err = max(max_err(F.bind(Wh, r), pm.elementwise_plain(F, fpm.BIND, Wh, r)),
+              max_err(F.hv_update(hv, h0, r),
+                      pm.elementwise_plain(F, fpm.HV, hv, r, h0)))
+    print("lanes: K1/K3[%s] x %d at layer %d: %d terms, logw %d"
+          % (tag, B, ly, T, layer.logw))
+    rows.record("fp_elementwise[%s]%s" % (tag, sfx), src + "fp_ops.cu",
+                "longfellow_zk_tpu/zk/batch.py:301", err,
+                lambda: F.hv_update(hv, h0, r),
+                lambda: pm.elementwise_plain(F, fpm.HV, hv, r, h0),
+                2 * eb * B * T + 4 * T + eb * B, mops * B * T)
+    err = max_err(fpm.fp_wire_sums(F, hv, Wh, Wo, h0, h1),
+                  pm.wire_sums_plain(F, hv, Wh, Wo, h0, h1))
+    n_even = int((h0 & 1).eq(0).sum())
+    rows.record("fp_wire_round[%s]%s" % (tag, sfx), src + "wire_round.cu",
+                "longfellow_zk_tpu/zk/batch.py:301", err,
+                lambda: fpm.fp_wire_sums(F, hv, Wh, Wo, h0, h1),
+                lambda: pm.wire_sums_plain(F, hv, Wh, Wo, h0, h1),
+                8 * T + B * (eb * T + 2 * eb * nw + 2 * eb),
+                mops * B * (2 * T + n_even))
+
+    def states():
+        """B random states [B, 104], lane 1 rejecting, and a copy."""
+        out = []
+        for b in range(B):
+            ts = Transcript(REJECT_LABEL if b == 1 else rng.bytes(5))
+            if b != 1:
+                ts.write_bytes(rng.bytes(int(rng.integers(0, 200))))
+            out.append(dfs.fs_init_from_host(ts, dev))
+        fs = torch.stack(out)
+        return fs, fs.clone()
+
+    # K9: a squeeze and samples, absorbs, writes, bytes, the key
+    fs, fs2 = states()
+    prf, prf2 = dfs.new_prf(dev, B), dfs.new_prf(dev, B)
+
+    def k9_plain(n):
+        return torch.stack([(dfs.fs_squeeze_plain(F, fs2[b], prf2[b]),
+                             dfs.dev_sample_elts_plain(F, prf2[b], n))[1]
+                            for b in range(B)])
+
+    err = max(max_err(dfs.dev_sample_elts(F, prf, 80, fs=fs), k9_plain(80)),
+              max_err(prf, prf2))
+    xs = elts(B * 5).reshape(B, 5, N)
+    dfs.fs_write_elts(F, fs, xs)
+    dfs.write_tagged_elts(F, fs, xs)
+    for b in range(B):
+        dfs.fs_write_elts_plain(F, fs2[b], xs[b])
+        dfs.write_tagged_elts_plain(F, fs2[b], xs[b])
+    dfs.fs_squeeze(F, fs, prf)
+    err = max(err, max_err(fs, fs2), max_err(
+        dfs.prf_bytes(F, prf, 33),
+        torch.stack([(dfs.fs_squeeze_plain(F, fs2[b], prf2[b]),
+                      dfs.prf_bytes_plain(F, prf2[b], 33))[1]
+                     for b in range(B)])), max_err(prf, prf2))
+    def squeezes(fs):
+        """The compressions of a squeeze on the chain, the longest lane's."""
+        return max(1 + (_fs_off(fs[b]) >= 56) for b in range(B))
+
+    steps = squeezes(fs) * SHA_CHAIN + AES_KEY_CHAIN + AES_BLOCK_CHAIN + \
+        PROD_CHAIN[tag]
+    rows.record("fs_oracle[%s]%s" % (tag, sfx), src + "fs.cu",
+                "longfellow_zk_tpu/zk/batch.py:301", err,
+                lambda: dfs.dev_sample_elts(F, prf, 2, fs=fs),
+                lambda: k9_plain(2), 0, 0,
+                bound=(chain_ms(steps, clock_mhz), "operations"))
+
+    # K10: a hand-round of every lane, rows and pads as strided views
+    consts = round_consts(F, dev)
+    fs, fs2 = states()
+    x = elts(B * 3).reshape(B, 3, N)
+    claim, claim2 = x[:, 0].contiguous(), x[:, 0].contiguous()
+    a = x[:, 1:].contiguous()
+    rrow = torch.zeros((B, 4, 2, 4, N), dtype=torch.int32, device=dev)
+    rrow2 = rrow.clone()
+    pads = elts(B * 24).reshape(B, 4, 2, 3, N)
+    eq0 = x[0, 0].contiguous()
+
+    def k10_plain():
+        for b in range(B):
+            dfs.round_tail_plain(F, fs2[b], claim2[b], rrow2[b, 1, 0], a[b],
+                                 eq0, pads[b, 1, 0], consts)
+
+    offs = [_fs_off(fs[b]) + 2 * (1 + F.kBytes) for b in range(B)]
+    dfs.round_tail(F, fs, claim, rrow[:, 1, 0], a, eq0, pads[:, 1, 0],
+                   consts)
+    k10_plain()
+    err = max(max_err(fs, fs2), max_err(claim, claim2),
+              max_err(rrow, rrow2))
+    steps = max(o // 64 + 1 + (o % 64 >= 56) for o in offs) * SHA_CHAIN + \
+        AES_KEY_CHAIN + AES_BLOCK_CHAIN + 7 * PROD_CHAIN[tag]
+    rows.record("sumcheck_round_tail[%s]%s" % (tag, sfx),
+                src + "round_tail.cu", "longfellow_zk_tpu/zk/batch.py:301",
+                err, lambda: dfs.round_tail(F, fs, claim, rrow[:, 1, 0], a,
+                                            eq0, pads[:, 1, 0], consts),
+                k10_plain, 0, 0,
+                bound=(chain_ms(steps, clock_mhz), "operations"))
+
+    # K11 and K12 at the SHA geometry
+    stat = fused.fused_static(circ, param, lqc, n_witness)
+    tabs = fused.prepare(F, stat, dev)
+    p, nl = param, circ.nl
+    R = int(stat.lay[:, 0].sum())
+    args = (elts(B * R * 8).reshape(B, R, 2, 4, N),
+            elts(B * 4 * nl).reshape(B, nl, 4, N),
+            elts(B * 2 * nl).reshape(B, nl, 2, N))
+    err = max_err(fused.zk_constraints(F, tabs, *args),
+                  fused.constraints_plain(F, stat.lay, *args, tabs.lag))
+    maxlogw = int(stat.lay[:, 0].max())
+    steps = 2 * maxlogw * (PROD_CHAIN[tag] + 2) + 2 * PROD_CHAIN[tag] + 1
+    rows.record("zk_constraints[%s]%s" % (tag, sfx), src + "constraints.cu",
+                "longfellow_zk_tpu/zk/batch.py:301", err,
+                lambda: fused.zk_constraints(F, tabs, *args),
+                lambda: fused.constraints_plain(F, stat.lay, *args,
+                                                tabs.lag), 0, 0,
+                bound=(max(chain_ms(steps, clock_mhz),
+                           bound_ms(B * eb * (R + 6 * nl + stat.nk_layers)
+                                    + eb * 6 + 16 * nl, 0)[0]),
+                       "operations"))
+    k = elts(B * len(stat.ws)).reshape(B, -1, N)
+    al = elts(B * stat.nl_constraints).reshape(B, -1, N)
+    aq = elts(B * 3 * p.nq).reshape(B, -1, N)
+    err = max_err(fused.ligero_inner_product(F, tabs, k, al, aq),
+                  fused.inner_product_plain(F, tabs.ptr, tabs.ent, k, al, aq,
+                                            p.nwqrow, p.r, p.w))
+    rows.record("ligero_inner_product[%s]%s" % (tag, sfx),
+                src + "ligero_a.cu", "longfellow_zk_tpu/zk/batch.py:344",
+                err, lambda: fused.ligero_inner_product(F, tabs, k, al, aq),
+                lambda: fused.inner_product_plain(
+                    F, tabs.ptr, tabs.ent, k, al, aq, p.nwqrow, p.r, p.w),
+                B * eb * (p.nwqrow * p.block + len(stat.ws) +
+                          stat.nl_constraints + 3 * p.nq) +
+                4 * (p.nwqrow * p.w + 1) + 8 * tabs.ent.shape[0],
+                mops * B * len(stat.ws))
+
+    # K9 mode 9: the column choice of every lane
+    n, nreq = p.block_enc - p.dblock, p.nreq
+    fs, fs2 = states()
+    prf, prf2 = dfs.new_prf(dev, B), dfs.new_prf(dev, B)
+
+    def choose_plain():
+        return torch.stack([dfs.dev_choose_plain(F, fs2[b], prf2[b], n, nreq)
+                            for b in range(B)])
+
+    err = max(max_err(dfs.dev_choose(F, fs, prf, n, nreq), choose_plain()),
+              max_err(prf, prf2), max_err(fs, fs2))
+    steps = squeezes(fs) * SHA_CHAIN + AES_KEY_CHAIN + AES_BLOCK_CHAIN + \
+        8 * nreq
+    rows.record("fs_choose[%s]%s" % (tag, sfx), src + "fs.cu",
+                "longfellow_zk_tpu/zk/batch.py:375", err,
+                lambda: dfs.dev_choose(F, fs, prf, n, nreq), choose_plain,
+                0, 0, bound=(chain_ms(steps, clock_mhz), "operations"))
+
+
 def zk_verify_fn(F, circ, rs, pub, meta, dev):
     """verify(data, phases): a ZkVerifier's recv_commitment + verify on the
     proof bytes data on `dev` (phases gets the ms of (construction and
@@ -684,7 +891,15 @@ def measure(metric, run, smi, phase_names):
     print("  " + ", ".join(
         "%s %.1f ms" % (nm, statistics.median(ph[i] for ph in phases))
         for i, nm in enumerate(phase_names)) + " (medians)")
+    profile_one(run)
+    return times
 
+
+def profile_one(run):
+    """Profiles one call of run(phases) on the host (cProfile) and one on
+    the card (busy share, copies, top device operations).  Returns the
+    copies of the card's call, {"DtoH": n, "HtoD": n}."""
+    phases = []
     import cProfile
     import pstats
     cp = cProfile.Profile()
@@ -728,6 +943,7 @@ def measure(metric, run, smi, phase_names):
     else:
         print("profiled call: %.1f ms wall, device busy share not "
               "measured (the profiler recorded no device time)" % wall_ms)
+    return copies
 
 
 def check_prove_syncs():
@@ -813,11 +1029,12 @@ def run_path(label, metric, prove, golden, golden_what, states, kernels,
     and its transcript states against `states`; then `measure` under
     SecureRandomEngine().  `prove(engine, phases)`
     returns the proof bytes and appends its phase times (ms, in the order
-    of phase_names) to phases.  Returns False on a failure."""
+    of phase_names) to phases.  Returns the first proof's launches, None
+    on a failure."""
     from longfellow_zk_tpu_torch.random_oracle.engine import (
         DeterministicEngine, SecureRandomEngine)
 
-    print("== %s" % label)
+    print("== %s [at %.0f s]" % (label, time.perf_counter() - T0))
     STATES.clear()
     proof, first_ms, launches, why = first_run(
         kernels, expect,
@@ -827,17 +1044,200 @@ def run_path(label, metric, prove, golden, golden_what, states, kernels,
     print("launches in one proof:", json.dumps(launches))
     if proof != golden:
         print("FAIL: proof bytes differ from %s" % golden_what)
-        return False
+        return None
     print("proof bytes equal %s (%d bytes)" % (golden_what, len(golden)))
     if states_differ(states, "prove"):
-        return False
+        return None
     if why:
         print("FAIL:", why)
-        return False
+        return None
     for k, v in launches.items():
         rows.rows[k]["launches"] = v
     measure(metric, lambda ph: prove(SecureRandomEngine(), ph), smi,
             phase_names)
+    return launches
+
+
+class BatchPhases:
+    """While installed, the host clock of a batch's phases (ms): commit
+    prep (each lane's pad and tableau rows on the host), device commit
+    (LigeroProver.commit: the encode, hashes and heaps, one copy back),
+    prove (ZkProver.prove_lanes but the assembly: the evaluation check,
+    the uploads, the device chain, the one fetch) and assembly (each
+    lane's proof from the fetch, its Merkle openings, write_zk_proof)."""
+
+    def __init__(self):
+        from longfellow_zk_tpu_torch.ligero.prover import LigeroProver
+        from longfellow_zk_tpu_torch.sumcheck.prover import SumcheckProver
+        from longfellow_zk_tpu_torch.zk import batch
+        from longfellow_zk_tpu_torch.zk.prover import ZkProver
+
+        self.ms = {}
+        self.spots = [(ZkProver, "commit_lanes", "commit"),
+                      (LigeroProver, "commit", "device commit"),
+                      (ZkProver, "prove_lanes", "prove"),
+                      (SumcheckProver, "_assemble", "assemble"),
+                      (LigeroProver, "assemble", "assemble"),
+                      (batch, "write_zk_proof", "write")]
+        self.saved = [getattr(o, n) for o, n, _ in self.spots]
+
+    def __enter__(self):
+        for (o, n, key), fn in zip(self.spots, self.saved):
+            setattr(o, n, self._timed(fn, key))
+        return self
+
+    def __exit__(self, *exc):
+        for (o, n, _), fn in zip(self.spots, self.saved):
+            setattr(o, n, fn)
+
+    def _timed(self, fn, key):
+        def call(*args, **kwargs):
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                self.ms[key] = self.ms.get(key, 0.0) + \
+                    (time.perf_counter() - t) * 1e3
+        return call
+
+    def take(self):
+        """(commit prep, device commit, prove, assembly) since the last
+        take."""
+        m, self.ms = self.ms, {}
+
+        def g(k):
+            return m.get(k, 0.0)
+        return (g("commit") - g("device commit"), g("device commit"),
+                g("prove") - g("assemble"), g("assemble") + g("write"))
+
+
+def run_batch_path(label, metric, F, circ, rs, Ws, tags, meta, golden, dev,
+                   kernels, rows, expect, scalar_launches, smi, timed):
+    """Drives the batch prover (zk/batch.py BatchZkProver) on the lanes
+    Ws, lane i under transcript tag tags[i], from a fresh
+    DeterministicEngine(), with the launch counts set to zero just before
+    the batch and read just after: lane 0 (the golden's witness and tag)
+    must equal `golden`, every lane the scalar ZkProver's proof with the
+    same tag from one continued engine, every lane's final transcript
+    state its scalar twin's, the launches of every kernel one scalar
+    proof's (`scalar_launches`), and the port's ZkVerifier must accept
+    every lane.  With `timed`, then times 5 batches under
+    SecureRandomEngine() beside 5 runs of len(Ws) scalar proofs, in turns,
+    and profiles one batch (its device-to-host copies must be one scalar
+    proof's 3).  Returns False on a failure."""
+    from longfellow_zk_tpu_torch.random_oracle.engine import (
+        DeterministicEngine, SecureRandomEngine)
+    from longfellow_zk_tpu_torch.random_oracle.transcript import Transcript
+    from longfellow_zk_tpu_torch.zk.batch import BatchZkProver
+    from longfellow_zk_tpu_torch.zk.proof import ZkProof
+    from longfellow_zk_tpu_torch.zk.prover import ZkProver
+    from longfellow_zk_tpu_torch.zk.serialization import write_zk_proof
+
+    print("== %s [at %.0f s]" % (label, time.perf_counter() - T0))
+    B, rate, nreq = len(Ws), meta["rate"], meta["nreq"]
+
+    def transcripts():
+        return [Transcript(t, version=meta["version"]) for t in tags]
+
+    bp = BatchZkProver(circ, F, rs, rate=rate, nreq=nreq, device=dev)
+
+    def batch(engine, tss=None):
+        out = bp.prove_batch(Ws, tss or transcripts(), engine)
+        torch.cuda.synchronize()
+        return out
+
+    tss = transcripts()
+    got, first_ms, launches, why = first_run(
+        kernels, expect, lambda: batch(DeterministicEngine(), tss))
+    print("first batch of %d: %.1f ms (uploads the lanes' tables), %s bytes"
+          % (B, first_ms, ", ".join(str(len(g)) for g in got)))
+    print("launches in one batch:", json.dumps(launches))
+    if got[0] != golden:
+        print("FAIL: lane 0 differs from the golden proof")
+        return False
+    print("lane 0 equals the golden proof (%d bytes)" % len(golden))
+
+    def scalar(engine, i, W):
+        zkp = ZkProof(rate=rate, nreq=nreq)
+        prover = ZkProver(circ, F, rs, rate=rate, nreq=nreq, device=dev)
+        ts = Transcript(tags[i], version=meta["version"])
+        prover.commit(zkp, W, ts, engine)
+        assert prover.prove(zkp, W, ts)
+        return write_zk_proof(zkp, circ, prover.param, F), ts.export_state()
+
+    eng = DeterministicEngine()
+    twins = [scalar(eng, i, W) for i, W in enumerate(Ws)]
+    bad = [i for i, (g, (w, _)) in enumerate(zip(got, twins)) if g != w]
+    if bad:
+        print("FAIL: lanes %s differ from their scalar proofs" % bad)
+        return False
+    if [ts.export_state() for ts in tss] != [st for _, st in twins]:
+        print("FAIL: a lane's final transcript state differs from its "
+              "scalar twin's")
+        return False
+    print("every lane equals the scalar proof with its tag and the "
+          "continued stream, and ends its transcript in its twin's state")
+    if why:
+        print("FAIL:", why)
+        return False
+    if launches != scalar_launches:
+        print("FAIL: the launches of a batch of %d differ from one scalar "
+              "proof's %s" % (B, json.dumps(scalar_launches)))
+        return False
+    print("launches of the batch of %d equal one scalar proof's" % B)
+    for i, (data, W) in enumerate(zip(got, Ws)):
+        lane_meta = dict(meta, transcript_label=tags[i].decode())
+        if zk_verify_fn(F, circ, rs, W[: circ.npub_in], lane_meta,
+                        dev)(data, []) is not True:
+            print("FAIL: the verifier refuses lane %d" % i)
+            return False
+    print("the port's ZkVerifier accepts all %d lanes on the card" % B)
+    for k, v in launches.items():
+        key = "%s lanes=%d" % (k, B)
+        if key in rows.rows:
+            rows.rows[key]["launches"] = v
+    if not timed:
+        return True
+
+    bms, sms, phases = [], [], []
+    with BatchPhases() as bph:
+        for _ in range(5):
+            t = time.perf_counter()
+            batch(SecureRandomEngine())
+            bms.append((time.perf_counter() - t) * 1e3)
+            phases.append(bph.take())
+            t = time.perf_counter()
+            eng = SecureRandomEngine()
+            for i, W in enumerate(Ws):
+                scalar(eng, i, W)
+            torch.cuda.synchronize()
+            sms.append((time.perf_counter() - t) * 1e3)
+            bph.take()
+    per = [t / B for t in bms]
+    rate_ = [B * 1e3 / t for t in bms]
+    print("%s_per_proof_ms: %.3f (median of 5 batches of %d; min %.3f, max "
+          "%.3f: %s) on %s" % (metric, statistics.median(per), B, min(per),
+                               max(per), ", ".join("%.1f" % x for x in per),
+                               smi))
+    print("%s_proofs_per_s: %.3f (median of 5; min %.3f, max %.3f) on %s"
+          % (metric, statistics.median(rate_), min(rate_), max(rate_), smi))
+    print("  batch of %d: %.1f ms (median; min %.1f, max %.1f); " % (
+        B, statistics.median(bms), min(bms), max(bms)) + ", ".join(
+        "%s %.1f ms" % (nm, statistics.median(ph[i] for ph in phases))
+        for i, nm in enumerate(("commit prep", "device commit", "prove",
+                                "assembly"))) + " (medians)")
+    sper = [t / B for t in sms]
+    print("%d scalar proofs in turns with the batches: %.1f ms (median of "
+          "5; min %.1f, max %.1f), %.3f ms a proof, %.3f proofs/s; the "
+          "batch's proofs/s are %.2fx theirs" % (
+              B, statistics.median(sms), min(sms), max(sms),
+              statistics.median(sper), 1e3 / statistics.median(sper),
+              statistics.median(sms) / statistics.median(bms)))
+    copies = profile_one(lambda ph: batch(SecureRandomEngine()))
+    if copies["DtoH"] != 3:
+        print("FAIL: %d device-to-host copies in a batch, not 3"
+              % copies["DtoH"])
+        return False
     return True
 
 
@@ -850,7 +1250,7 @@ def run_verifier_path(label, metric, verify, golden, states, bad, kernels,
     K7 rows), then on `bad`, a copy with one bit flipped
     (it must refuse); then `measure` on the golden.  Returns False on a
     failure."""
-    print("== %s" % label)
+    print("== %s [at %.0f s]" % (label, time.perf_counter() - T0))
     STATES.clear()
     ok, first_ms, launches, why = first_run(
         kernels, expect, lambda: verify(golden, []))
@@ -1027,6 +1427,10 @@ def main() -> int:
                     (zp_hash, "gf2_128")):
         check_fused(rows, zp.F, zp.circ, zp.param, zp.lqc, zp.n_witness,
                     dev, tag, rng, clock_mhz)
+
+    # -- 3h. the lane axis (the batch prover's) at the SHA-256 shapes -------
+    check_lanes(rows, F, circ, zp_sha.param, zp_sha.lqc, zp_sha.n_witness,
+                dev, rng, clock_mhz)
     if rows.failures:
         print("FAIL: kernels disagree with their plain versions:",
               rows.failures)
@@ -1064,40 +1468,74 @@ def main() -> int:
     # -- 4a. the SHA-256 one-block proof ---------------------------------------
     golden = open(os.path.join(TESTDATA, "sha256_1block_fp128.proof.bin"),
                   "rb").read()
-    padded = sha256_pad(meta["message"].encode())
-    Wit = [F.of_scalar(1)] + [F.of_scalar((byte >> i) & 1)
-                              for byte in padded for i in range(8)]
-    Wit.extend(pack_block_witness(
-        F, 4, [transform_block_witness(SHA256_INIT, padded)]))
+
+    def sha_witness(message):
+        padded = sha256_pad(message)
+        W = [F.of_scalar(1)] + [F.of_scalar((byte >> i) & 1)
+                                for byte in padded for i in range(8)]
+        W.extend(pack_block_witness(
+            F, 4, [transform_block_witness(SHA256_INIT, padded)]))
+        return W
+
+    Wit = sha_witness(meta["message"].encode())
     rs = rs_factory_for(F, P128_OMEGA, P128_OMEGA_ORDER, device=dev)
-    if not run_path("the Fp128 SHA-256 one-block proof",
-                    "zk_sha256_1block_prove_ms",
-                    proof_fn(F, circ, rs, Wit, meta), golden,
-                    "the golden JAX proof", states["sha256_1block_fp128"],
-                    kernels, rows,
-                    prover_kernels("[fp128]"), smi):
+    sha_launches = run_path("the Fp128 SHA-256 one-block proof",
+                            "zk_sha256_1block_prove_ms",
+                            proof_fn(F, circ, rs, Wit, meta), golden,
+                            "the golden JAX proof",
+                            states["sha256_1block_fp128"], kernels, rows,
+                            prover_kernels("[fp128]"), smi)
+    if sha_launches is None:
         return 1
 
-    # -- 4b. the P-256 ECDSA proof (the witness of bench.py's phase_ecdsa) -----
+    # -- 4b. the batched SHA-256 proofs (B = 8), as bench.py's phase_sha_batch:
+    #        lane 0 the golden's, lanes 1-7 the messages msg0001..msg0007 --
+    if not run_batch_path(
+            "the batched SHA-256 proofs (B = %d)" % LANES,
+            "zk_sha256_batch%d" % LANES, F, circ, rs,
+            [Wit] + [sha_witness(b"msg%04d" % i) for i in range(1, LANES)],
+            [meta["transcript_label"].encode()] +
+            [b"bench%d" % i for i in range(1, LANES)], meta, golden, dev,
+            kernels, rows, prover_kernels("[fp128]"), sha_launches, smi,
+            timed=True):
+        return 1
+
+    # -- 4c. the P-256 ECDSA proof (the witness of bench.py's phase_ecdsa) -----
     egolden = open(os.path.join(TESTDATA, "ecdsa_p256.proof.bin"),
                    "rb").read()
     ec = p256_curve()
-    er = random.Random(emeta["seed"])
-    d = er.randrange(1, ec.order)
-    pk = ec.normalize(ec.scalar_mult(ec.generator(), d))
-    e = er.randrange(1, ec.order)
-    r, s = ecdsa_sign(ec, d, e, er.randrange(1, ec.order))
-    EW = [FB.of_scalar(1), pk.x, pk.y, e % FB.p]
-    EW.extend(compute_witness(ec, pk.x, pk.y, e, r, s).fill())
+
+    def ecdsa_witness(seed):
+        er = random.Random(seed)
+        d = er.randrange(1, ec.order)
+        pk = ec.normalize(ec.scalar_mult(ec.generator(), d))
+        e = er.randrange(1, ec.order)
+        r, s = ecdsa_sign(ec, d, e, er.randrange(1, ec.order))
+        W = [FB.of_scalar(1), pk.x, pk.y, e % FB.p]
+        W.extend(compute_witness(ec, pk.x, pk.y, e, r, s).fill())
+        return W
+
+    EW = ecdsa_witness(emeta["seed"])
     ers = rs_factory_for(FB, F2=F2, omega2=omega2,
                          omega_order=P256_FP2_ROOT_ORDER, device=dev)
-    if not run_path("the P-256 ECDSA proof", "ecdsa_zk_prover_ms",
-                    proof_fn(FB, ecirc, ers, EW, emeta), egolden,
-                    "the golden JAX proof", states["ecdsa_p256"], kernels,
-                    rows, prover_kernels("[fp256]", "[fp256x2]"), smi):
+    ecdsa_kernels = prover_kernels("[fp256]", "[fp256x2]")
+    ecdsa_launches = run_path("the P-256 ECDSA proof", "ecdsa_zk_prover_ms",
+                              proof_fn(FB, ecirc, ers, EW, emeta), egolden,
+                              "the golden JAX proof", states["ecdsa_p256"],
+                              kernels, rows, ecdsa_kernels, smi)
+    if ecdsa_launches is None:
         return 1
 
-    # -- 4c. the mdoc presentation, through run_mdoc_prover ------------------
+    # -- 4d. a batch of 2 ECDSA proofs: K4 [fp256x2] and K5 on stacked lanes
+    if not run_batch_path(
+            "the batched P-256 ECDSA proofs (B = 2)", "ecdsa_zk_batch2",
+            FB, ecirc, ers, [EW, ecdsa_witness(emeta["seed"] + 1)],
+            [emeta["transcript_label"].encode(), b"bench1"], emeta, egolden,
+            dev, kernels, rows, ecdsa_kernels, ecdsa_launches, smi,
+            timed=False):
+        return 1
+
+    # -- 4e. the mdoc presentation, through run_mdoc_prover ------------------
     mgolden = open(os.path.join(TESTDATA, "mdoc_v7_1attr.proof.bin"),
                    "rb").read()
     ex = json.load(open(os.path.join(REPO, mmeta["examples"])))[
@@ -1172,6 +1610,7 @@ def main() -> int:
         return 1
 
     # -- 6. results ---------------------------------------------------------
+    print("every phase passed in %.0f s" % (time.perf_counter() - T0))
     print(json.dumps({"kernels": list(rows.rows.values())}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

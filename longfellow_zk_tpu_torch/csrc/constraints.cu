@@ -29,6 +29,13 @@
 // binding that follows it there runs in K9 (alpha_b) and K1 (the EQ
 // arrays), zk/fused.py.
 //
+// Lanes: the grid is (nl, nlanes), block (ly, b) builds layer ly of
+// proof b of a batch from its own rows, scal, wcpad into its own k (lane
+// strides: nrounds 2 x 4 elements of rows, 4 nl of scal, 2 nl of wcpad,
+// nk of k), with the table lay and the constants shared; with lanes it
+// replaces the jax.vmap of the batch prover over constraints_dev
+// (zk/batch.py:301).
+//
 // Design: one block a layer, one thread a coefficient.  Every update of
 // sym is elementwise, so the threads never exchange a value: each reads
 // r, computes the three L_k itself (6 products, the same in every
@@ -47,9 +54,11 @@ __global__ void k_constraints(const int* __restrict__ lay,
                               const uint4* __restrict__ scal,
                               const uint4* __restrict__ wcpad,
                               const uint4* __restrict__ lag,
-                              uint4* __restrict__ k) {
+                              uint4* __restrict__ k, long long nrounds,
+                              long long nk) {
   typedef Fp<C> E;
   const int ly = blockIdx.x;
+  const long long lane = blockIdx.y, nl = gridDim.x;
   const int logw = lay[4 * ly], i0 = lay[4 * ly + 1];
   const long long roff = lay[4 * ly + 2], koff = lay[4 * ly + 3];
   const int nvar = 4 * logw + 6;
@@ -59,10 +68,11 @@ __global__ void k_constraints(const int* __restrict__ lay,
   const E x0 = E::load(lag, 0), x1 = E::load(lag, 1), x2 = E::load(lag, 2);
   const E d0 = E::load(lag, 3), d1 = E::load(lag, 4), d2 = E::load(lag, 5);
   // scal[ly] = (alpha, bq, wc0, wc1)
-  E sym = t == 0 ? one : (t == 1 ? E::load(scal, 4 * ly) : fp_zero<C>());
+  const long long sc = 4 * (lane * nl + ly), rw = lane * nrounds * 8;
+  E sym = t == 0 ? one : (t == 1 ? E::load(scal, sc) : fp_zero<C>());
   for (int rnd = 0; rnd < 2 * logw; rnd++) {
     // round rnd is hand rnd % 2 of sumcheck round rnd / 2
-    const E r = E::load(rows, (roff * 2 + rnd) * 4 + 3);
+    const E r = E::load(rows, rw + (roff * 2 + rnd) * 4 + 3);
     const E a = fp_sub(r, x0), b = fp_sub(r, x1), c = fp_sub(r, x2);
     const int p0 = 3 + 2 * rnd;
     if (t == p0) sym = fp_sub(sym, one);
@@ -72,46 +82,49 @@ __global__ void k_constraints(const int* __restrict__ lay,
   }
   const int c0 = 3 + 4 * logw;
   if (t >= c0) {
-    const E bq = E::load(scal, 4 * ly + 1);
+    const E bq = E::load(scal, sc + 1);
     if (t == c0 + 2) {
       sym = fp_sub(sym, bq);
     } else {
       // t = c0 takes wc1, t = c0 + 1 takes wc0
       const int h = c0 + 1 - t;
-      const E tt = fp_sub(E::load(scal, 4 * ly + 2 + h),
-                          E::load(wcpad, 2 * ly + h));
+      const E tt = fp_sub(E::load(scal, sc + 2 + h),
+                          E::load(wcpad, 2 * (lane * nl + ly) + h));
       sym = fp_sub(sym, fp_mul(bq, tt));
     }
   }
-  if (t >= i0) sym.store(k, koff + t - i0);
+  if (t >= i0) sym.store(k, lane * nk + koff + t - i0);
 }
 
 template <class C>
 static int zk_constraints(const void* lay, int nl, int nthreads,
                           const void* rows, const void* scal,
                           const void* wcpad, const void* lag, void* k,
+                          int nlanes, long long nrounds, long long nk,
                           void* stream) {
-  if (nl <= 0 || nthreads <= 0 || nthreads > 1024)
+  if (nl <= 0 || nthreads <= 0 || nthreads > 1024 || nlanes <= 0 ||
+      nlanes > 65535)
     return (int)cudaErrorInvalidValue;
-  k_constraints<C><<<nl, nthreads, 0, (cudaStream_t)stream>>>(
+  dim3 grid((unsigned)nl, (unsigned)nlanes);
+  k_constraints<C><<<grid, nthreads, 0, (cudaStream_t)stream>>>(
       (const int*)lay, (const uint4*)rows, (const uint4*)scal,
-      (const uint4*)wcpad, (const uint4*)lag, (uint4*)k);
+      (const uint4*)wcpad, (const uint4*)lag, (uint4*)k, nrounds, nk);
   return (int)cudaGetLastError();
 }
 
 #define LFZK_ARGS                                                        \
   const void *lay, int nl, int nthreads, const void *rows,              \
       const void *scal, const void *wcpad, const void *lag, void *k,    \
-      void *stream
+      int nlanes, long long nrounds, long long nk, void *stream
+#define LFZK_PASS                                                    \
+  lay, nl, nthreads, rows, scal, wcpad, lag, k, nlanes, nrounds, nk, \
+      stream
 extern "C" int zk_constraints_fp128(LFZK_ARGS) {
-  return zk_constraints<P128>(lay, nl, nthreads, rows, scal, wcpad, lag, k,
-                              stream);
+  return zk_constraints<P128>(LFZK_PASS);
 }
 extern "C" int zk_constraints_fp256(LFZK_ARGS) {
-  return zk_constraints<P256>(lay, nl, nthreads, rows, scal, wcpad, lag, k,
-                              stream);
+  return zk_constraints<P256>(LFZK_PASS);
 }
 extern "C" int zk_constraints_gf2_128(LFZK_ARGS) {
-  return zk_constraints<G128>(lay, nl, nthreads, rows, scal, wcpad, lag, k,
-                              stream);
+  return zk_constraints<G128>(LFZK_PASS);
 }

@@ -8,7 +8,8 @@
 // bind _bind_fixed (sumcheck/prover_device.py:139) and the hv update of
 // _wire_scan.one_hand (prover_device.py:595); for GF(2^128) the JAX
 // package's GF2_128.add / sub / mul (fields/gf2.py:281, :351) in the
-// same places.
+// same places; with lanes, those inside the jax.vmap of the batch prover
+// (zk/batch.py:301, :344).
 //
 // Bound on the H100: bytes.  A multiply is 32 (Fp128) or 128 (P-256)
 // 32-bit multiplies on 48 or 96 bytes of traffic, below the card's
@@ -24,9 +25,15 @@
 //   0 mul   out[i] = a[i] * b[(i / bdiv) % bmod]
 //   1 add   out[i] = a[i] + b[...]
 //   2 sub   out[i] = a[i] - b[...]
-//   3 bind  rows of length `row`: out[j] = lo + (hi - lo) * r for the pair
-//           (a[2j], a[2j+1]) and j < row / 2, zero for the tail; r = b[0]
-//   4 hv    out[i] = a[i] * (h[i] odd ? r : 1 - r), r = b[0]
+//   3 bind  the bound half of each row of a (rows of length `row`): out
+//           has row / 2 elements a row, out[j] = lo + (hi - lo) * r for the
+//           pair (a[2j], a[2j+1]) of its row
+//   4 hv    out[i] = a[i] * (h[i % bdiv] odd ? r : 1 - r)
+// In modes 3 and 4 the outputs come in lanes of bdiv elements (one proof
+// of a batch each, or one lane), each with its own challenge: lane i /
+// bdiv reads r = b[(i / bdiv) * bmod], bmod being the lane stride of b in
+// elements, and in mode 4 the lanes share h.  The lanes add no launch: a
+// batch of proofs binds in the one launch of a single proof.
 #include "gf2.cuh"
 
 template <class C>
@@ -51,20 +58,16 @@ __global__ void k_fp_elementwise(int mode, uint4* __restrict__ out,
       r = fp_sub(E::load(a, i), E::load(b, (i / bdiv) % bmod));
       break;
     case 3: {
-      long long base = (i / row) * row;
-      long long j = i - base;
-      if (j < row / 2) {
-        E lo = E::load(a, base + 2 * j);
-        E hi = E::load(a, base + 2 * j + 1);
-        r = fp_add(lo, fp_mul(fp_sub(hi, lo), E::load(b, 0)));
-      } else {
-        r = fp_zero<C>();
-      }
+      const long long half = row / 2;
+      const long long k = i / half, j = i - k * half;
+      E lo = E::load(a, k * row + 2 * j);
+      E hi = E::load(a, k * row + 2 * j + 1);
+      r = fp_add(lo, fp_mul(fp_sub(hi, lo), E::load(b, (i / bdiv) * bmod)));
       break;
     }
     default: {
-      E rr = E::load(b, 0);
-      E f = (h[i] & 1) ? rr : fp_sub(fp_one<C>(), rr);
+      E rr = E::load(b, (i / bdiv) * bmod);
+      E f = (h[i % bdiv] & 1) ? rr : fp_sub(fp_one<C>(), rr);
       r = fp_mul(E::load(a, i), f);
       break;
     }

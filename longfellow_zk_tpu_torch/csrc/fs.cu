@@ -18,6 +18,12 @@
 //                          below n from prf (Transcript.choose); its own
 //                          entry point, fs_choose_<field>
 //
+// Lanes: a launch runs nlanes independent transcripts (the proofs of a
+// batch), one block each: block b takes fs[b], prf[b], in + b in_stride
+// and out + b out_stride (bytes; an in_stride of 0 shares in).  No block
+// waits on another, so a lane whose samples reject draws more bytes
+// without holding the others back.
+//
 // Replaces the JAX package's random_oracle/device_fs.py:82-411 (mode 9:
 // :369 dev_nat, :399 dev_choose, which zk/fused.py:234 runs for the
 // Ligero column openings) and
@@ -30,15 +36,23 @@
 // operations; an AES-256 block 14 rounds of S-box loads from constant
 // memory and XORs; a Montgomery product 2 N^2 dependent 64-bit
 // multiply-adds.  Nothing is parallel across threads: the oracle is one
-// hash chain.  One thread, the states in local memory, one launch a step.
+// hash chain.  One thread a lane, the states in local memory, one launch
+// a step; with lanes, the jax.vmap of the batch prover over these steps
+// (zk/batch.py:301, :344).
 #include "fs.cuh"
 
 template <class C>
 __global__ void k_fs_oracle(int mode, FsState* __restrict__ fs,
                             PrfState* __restrict__ prf,
                             const uint8_t* __restrict__ in,
-                            uint8_t* __restrict__ out, long long n) {
+                            uint8_t* __restrict__ out, long long n,
+                            long long in_stride, long long out_stride) {
   typedef Fp<C> E;
+  const long long lane = blockIdx.x;
+  fs += lane;
+  prf += lane;
+  in += lane * in_stride;
+  out += lane * out_stride;
   FsState s;
   PrfState p;
   const bool read_fs = mode == 0 || mode == 1 || mode == 3 || mode == 5 ||
@@ -99,6 +113,8 @@ __global__ void k_fs_oracle(int mode, FsState* __restrict__ fs,
 // every step depending on the last.  The chain: the squeeze, the key
 // schedule, one AES block (the counter blocks do not depend on each
 // other), then a few instructions and two dependent accesses of A a step.
+// Lanes: block b walks lane b's own stream (fs[b], prf[b]) into out + b (k
+// + n), each with its array in its own shared memory.
 constexpr long long CHOOSE_SMEM_MAX = 12288;  // 48 KB of int
 
 template <class C>
@@ -106,6 +122,10 @@ __global__ void k_fs_choose(const FsState* __restrict__ fs,
                             PrfState* __restrict__ prf, int* __restrict__ out,
                             long long k, long long n) {
   extern __shared__ int smem[];
+  const long long lane = blockIdx.x;
+  fs += lane;
+  prf += lane;
+  out += lane * (k + n);
   int* A = n <= CHOOSE_SMEM_MAX ? smem : out + k;
   for (long long j = threadIdx.x; j < n; j += blockDim.x) A[j] = (int)j;
   __syncthreads();
@@ -133,47 +153,53 @@ __global__ void k_fs_choose(const FsState* __restrict__ fs,
   *prf = p;
 }
 
+// out: nlanes x (k + n) ints.
 template <class C>
 static int fs_choose(void* fs, void* prf, void* out, long long k,
-                     long long n, void* stream) {
-  if (k <= 0 || k > n || n >= (1ll << 31)) return (int)cudaErrorInvalidValue;
+                     long long n, int nlanes, void* stream) {
+  if (k <= 0 || k > n || n >= (1ll << 31) || nlanes <= 0)
+    return (int)cudaErrorInvalidValue;
   const size_t smem = n <= CHOOSE_SMEM_MAX ? (size_t)n * sizeof(int) : 0;
-  k_fs_choose<C><<<1, 256, smem, (cudaStream_t)stream>>>(
+  k_fs_choose<C><<<nlanes, 256, smem, (cudaStream_t)stream>>>(
       (const FsState*)fs, (PrfState*)prf, (int*)out, k, n);
   return (int)cudaGetLastError();
 }
 
 template <class C>
 static int fs_oracle(int mode, void* fs, void* prf, const void* in,
-                     void* out, long long n, void* stream) {
-  if (mode < 0 || mode > 8) return (int)cudaErrorInvalidValue;
-  k_fs_oracle<C><<<1, 1, 0, (cudaStream_t)stream>>>(
+                     void* out, long long n, int nlanes, long long in_stride,
+                     long long out_stride, void* stream) {
+  if (mode < 0 || mode > 8 || nlanes <= 0) return (int)cudaErrorInvalidValue;
+  k_fs_oracle<C><<<nlanes, 1, 0, (cudaStream_t)stream>>>(
       mode, (FsState*)fs, (PrfState*)prf, (const uint8_t*)in, (uint8_t*)out,
-      n);
+      n, in_stride, out_stride);
   return (int)cudaGetLastError();
 }
 
 #define LFZK_ARGS                                                     \
   int mode, void *fs, void *prf, const void *in, void *out, long long n, \
-      void *stream
+      int nlanes, long long in_stride, long long out_stride, void *stream
+#define LFZK_PASS \
+  mode, fs, prf, in, out, n, nlanes, in_stride, out_stride, stream
 extern "C" int fs_oracle_fp128(LFZK_ARGS) {
-  return fs_oracle<P128>(mode, fs, prf, in, out, n, stream);
+  return fs_oracle<P128>(LFZK_PASS);
 }
 extern "C" int fs_oracle_fp256(LFZK_ARGS) {
-  return fs_oracle<P256>(mode, fs, prf, in, out, n, stream);
+  return fs_oracle<P256>(LFZK_PASS);
 }
 extern "C" int fs_oracle_gf2_128(LFZK_ARGS) {
-  return fs_oracle<G128>(mode, fs, prf, in, out, n, stream);
+  return fs_oracle<G128>(LFZK_PASS);
 }
 
-#define LFZK_CHOOSE_ARGS \
-  void *fs, void *prf, void *out, long long k, long long n, void *stream
+#define LFZK_CHOOSE_ARGS                                                 \
+  void *fs, void *prf, void *out, long long k, long long n, int nlanes, \
+      void *stream
 extern "C" int fs_choose_fp128(LFZK_CHOOSE_ARGS) {
-  return fs_choose<P128>(fs, prf, out, k, n, stream);
+  return fs_choose<P128>(fs, prf, out, k, n, nlanes, stream);
 }
 extern "C" int fs_choose_fp256(LFZK_CHOOSE_ARGS) {
-  return fs_choose<P256>(fs, prf, out, k, n, stream);
+  return fs_choose<P256>(fs, prf, out, k, n, nlanes, stream);
 }
 extern "C" int fs_choose_gf2_128(LFZK_CHOOSE_ARGS) {
-  return fs_choose<G128>(fs, prf, out, k, n, stream);
+  return fs_choose<G128>(fs, prf, out, k, n, nlanes, stream);
 }

@@ -21,6 +21,11 @@
 // ligero_finish_dev (:211-219: F.mul, the gathers, F.select of F.neg and
 // one F.lazy_segment_sum, then the layout_Aext concatenation).
 //
+// Lanes: the grid's y dimension runs the proofs of a batch, each with its
+// own k, alphal and alphaq (lane strides nk, nlc, nq3 elements) into its
+// own [nrow, block] of out, the plan shared; with lanes it replaces the
+// jax.vmap of the batch prover over this step (zk/batch.py:344).
+//
 // Design: one thread an output element, each summing its few entries
 // (one to three at most positions) in order; no two threads write one
 // element, so no atomics and no second pass.  Bound on the H100: bytes
@@ -35,8 +40,12 @@ __global__ void k_inner_product(const int* __restrict__ ptr,
                                 const uint4* __restrict__ alphal,
                                 const uint4* __restrict__ alphaq,
                                 uint4* __restrict__ out, long long nout,
-                                int block, int r, int wd) {
+                                int block, int r, int wd, long long nk,
+                                long long nlc, long long nq3) {
   typedef Fp<C> E;
+  const long long lane = blockIdx.y;
+  const long long ko = lane * nk, lo = lane * nlc, qo = lane * nq3,
+                  oo = lane * nout;
   for (long long o = (long long)blockIdx.x * blockDim.x + threadIdx.x;
        o < nout; o += (long long)gridDim.x * blockDim.x) {
     const long long row = o / block;
@@ -47,14 +56,15 @@ __global__ void k_inner_product(const int* __restrict__ ptr,
       for (int e = ptr[w]; e < ptr[w + 1]; e++) {
         const int2 en = ent[e];
         if (en.x >= 0) {
-          acc = fp_add(acc, fp_mul(E::load(k, en.x), E::load(alphal, en.y)));
+          acc = fp_add(acc, fp_mul(E::load(k, ko + en.x),
+                                   E::load(alphal, lo + en.y)));
         } else {
-          const E q = E::load(alphaq, -1 - en.x);
+          const E q = E::load(alphaq, qo - 1 - en.x);
           acc = en.y ? fp_sub(acc, q) : fp_add(acc, q);
         }
       }
     }
-    acc.store(out, o);
+    acc.store(out, oo + o);
   }
 }
 
@@ -63,32 +73,36 @@ static int ligero_inner_product(const void* ptr, const void* ent,
                                 const void* k, const void* alphal,
                                 const void* alphaq, void* out,
                                 long long nrow, int block, int r, int wd,
-                                void* stream) {
-  if (nrow <= 0 || block != r + wd) return (int)cudaErrorInvalidValue;
+                                int nlanes, long long nk, long long nlc,
+                                long long nq3, void* stream) {
+  if (nrow <= 0 || block != r + wd || nlanes <= 0 || nlanes > 65535)
+    return (int)cudaErrorInvalidValue;
   const long long nout = nrow * block;
   const int nt = 256;
   long long nb = (nout + nt - 1) / nt;
   if (nb > 65535) nb = 65535;
-  k_inner_product<C><<<(int)nb, nt, 0, (cudaStream_t)stream>>>(
+  dim3 grid((unsigned)nb, (unsigned)nlanes);
+  k_inner_product<C><<<grid, nt, 0, (cudaStream_t)stream>>>(
       (const int*)ptr, (const int2*)ent, (const uint4*)k,
       (const uint4*)alphal, (const uint4*)alphaq, (uint4*)out, nout, block,
-      r, wd);
+      r, wd, nk, nlc, nq3);
   return (int)cudaGetLastError();
 }
 
 #define LFZK_ARGS                                                           \
   const void *ptr, const void *ent, const void *k, const void *alphal,     \
       const void *alphaq, void *out, long long nrow, int block, int r,     \
-      int wd, void *stream
+      int wd, int nlanes, long long nk, long long nlc, long long nq3,      \
+      void *stream
+#define LFZK_PASS                                                         \
+  ptr, ent, k, alphal, alphaq, out, nrow, block, r, wd, nlanes, nk, nlc, \
+      nq3, stream
 extern "C" int ligero_inner_product_fp128(LFZK_ARGS) {
-  return ligero_inner_product<P128>(ptr, ent, k, alphal, alphaq, out, nrow,
-                                    block, r, wd, stream);
+  return ligero_inner_product<P128>(LFZK_PASS);
 }
 extern "C" int ligero_inner_product_fp256(LFZK_ARGS) {
-  return ligero_inner_product<P256>(ptr, ent, k, alphal, alphaq, out, nrow,
-                                    block, r, wd, stream);
+  return ligero_inner_product<P256>(LFZK_PASS);
 }
 extern "C" int ligero_inner_product_gf2_128(LFZK_ARGS) {
-  return ligero_inner_product<G128>(ptr, ent, k, alphal, alphaq, out, nrow,
-                                    block, r, wd, stream);
+  return ligero_inner_product<G128>(LFZK_PASS);
 }

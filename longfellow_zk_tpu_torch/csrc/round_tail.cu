@@ -20,6 +20,13 @@
 // evals_of_coefs (:70) and eval_lagrange (:94), _write_tagged_elts (:248)
 // and dev_sample_elt(fs_squeeze(fs)) (device_fs.py:296, :212).
 //
+// Lanes: one launch runs the round of nlanes proofs (a batch), one block
+// of one thread each, with eq0 and consts shared: block b takes fs[b],
+// claim[b], a[b, 0..1] and the row and pad at b row_stride and
+// b pad_stride elements (views into per-layer tensors), so no lane waits
+// on another's rejection sampling.  With lanes it replaces the jax.vmap
+// of the batch prover over one_hand (zk/batch.py:301).
+//
 // Bound on the H100: the dependent chain of one thread (fs.cuh): 1-2
 // SHA-256 compressions to absorb, 1-2 to finalize the key, the AES-256
 // key schedule and 2 blocks, about 12 field products.
@@ -32,20 +39,24 @@ __global__ void k_round_tail(FsState* __restrict__ fs,
                              const uint4* __restrict__ a,
                              const uint4* __restrict__ eq0,
                              const uint4* __restrict__ pad,
-                             const uint4* __restrict__ consts) {
+                             const uint4* __restrict__ consts,
+                             long long row_stride, long long pad_stride) {
   typedef Fp<C> E;
+  const long long lane = blockIdx.x;
+  const long long rowo = lane * row_stride, pado = lane * pad_stride;
+  fs += lane;
   const E e = E::load(eq0, 0);
-  const E c0 = fp_mul(e, E::load(a, 0));
-  const E c2 = fp_mul(e, E::load(a, 1));
-  const E c1 = fp_sub(fp_sub(fp_sub(E::load(claim, 0), c0), c0), c2);
+  const E c0 = fp_mul(e, E::load(a, 2 * lane));
+  const E c2 = fp_mul(e, E::load(a, 2 * lane + 1));
+  const E c1 = fp_sub(fp_sub(fp_sub(E::load(claim, lane), c0), c0), c2);
   const E x0 = E::load(consts, 0), x1 = E::load(consts, 1),
           x2 = E::load(consts, 2);
   const E r0 = c0;
   const E r1 = fp_add(fp_add(c0, c1), c2);
   const E r2 = fp_add(fp_mul(fp_add(fp_mul(c2, x2), c1), x2), c0);
-  const E ev0 = fp_sub(r0, E::load(pad, 0));
-  const E ev1 = fp_sub(r1, E::load(pad, 1));
-  const E ev2 = fp_sub(r2, E::load(pad, 2));
+  const E ev0 = fp_sub(r0, E::load(pad, pado));
+  const E ev1 = fp_sub(r1, E::load(pad, pado + 1));
+  const E ev2 = fp_sub(r2, E::load(pad, pado + 2));
 
   FsState s = *fs;
   fs_absorb_byte(s, TAG_FIELD_ELEM);
@@ -62,33 +73,40 @@ __global__ void k_round_tail(FsState* __restrict__ fs,
   const E nc = fp_add(
       fp_mul(fp_add(fp_mul(t2, fp_sub(r, x1)), t1), fp_sub(r, x0)), r0);
 
-  ev0.store(row, 0);
-  ev1.store(row, 1);
-  ev2.store(row, 2);
-  r.store(row, 3);
-  nc.store(claim, 0);
+  ev0.store(row, rowo);
+  ev1.store(row, rowo + 1);
+  ev2.store(row, rowo + 2);
+  r.store(row, rowo + 3);
+  nc.store(claim, lane);
   *fs = s;
 }
 
 template <class C>
 static int round_tail(void* fs, void* claim, void* row, const void* a,
                       const void* eq0, const void* pad, const void* consts,
+                      int nlanes, long long row_stride, long long pad_stride,
                       void* stream) {
-  k_round_tail<C><<<1, 1, 0, (cudaStream_t)stream>>>(
+  if (nlanes <= 0) return (int)cudaErrorInvalidValue;
+  k_round_tail<C><<<nlanes, 1, 0, (cudaStream_t)stream>>>(
       (FsState*)fs, (uint4*)claim, (uint4*)row, (const uint4*)a,
-      (const uint4*)eq0, (const uint4*)pad, (const uint4*)consts);
+      (const uint4*)eq0, (const uint4*)pad, (const uint4*)consts,
+      row_stride, pad_stride);
   return (int)cudaGetLastError();
 }
 
 #define LFZK_ARGS                                                          \
   void *fs, void *claim, void *row, const void *a, const void *eq0,       \
-      const void *pad, const void *consts, void *stream
+      const void *pad, const void *consts, int nlanes,                    \
+      long long row_stride, long long pad_stride, void *stream
+#define LFZK_PASS                                                      \
+  fs, claim, row, a, eq0, pad, consts, nlanes, row_stride, pad_stride, \
+      stream
 extern "C" int sumcheck_round_tail_fp128(LFZK_ARGS) {
-  return round_tail<P128>(fs, claim, row, a, eq0, pad, consts, stream);
+  return round_tail<P128>(LFZK_PASS);
 }
 extern "C" int sumcheck_round_tail_fp256(LFZK_ARGS) {
-  return round_tail<P256>(fs, claim, row, a, eq0, pad, consts, stream);
+  return round_tail<P256>(LFZK_PASS);
 }
 extern "C" int sumcheck_round_tail_gf2_128(LFZK_ARGS) {
-  return round_tail<G128>(fs, claim, row, a, eq0, pad, consts, stream);
+  return round_tail<G128>(LFZK_PASS);
 }

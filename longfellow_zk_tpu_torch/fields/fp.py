@@ -197,13 +197,15 @@ class PrimeField:
         return fp_elementwise(self, MUL, a, one)
 
     def bind(self, x: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
-        """Fixed-shape bind of x [..., n, N] along the element axis:
-        pairs fold to lo + (hi - lo) * r, the tail is zero-filled."""
+        """The bound half of x [..., n, N] along the element axis: pairs
+        fold to lo + (hi - lo) * r, [..., n / 2, N].  r is one element [N]
+        or one per lane [B, N] (x [B, ..., n, N])."""
         return fp_elementwise(self, BIND, x, r)
 
     def hv_update(self, hv: torch.Tensor, h: torch.Tensor,
                   r: torch.Tensor) -> torch.Tensor:
-        """hv[t] * (h[t] odd ? r : 1 - r)."""
+        """hv[t] * (h[t] odd ? r : 1 - r); r [N], or [B, N] for hv [B,
+        T, N] with h [T] shared by the lanes."""
         return fp_elementwise(self, HV, hv, r, h=h)
 
     def lazy_sum(self, x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -333,20 +335,26 @@ def _renorm16(F: PrimeField, cols: torch.Tensor) -> torch.Tensor:
 
 def elementwise_plain(F: PrimeField, mode: int, a: torch.Tensor,
                       b: torch.Tensor, h: Optional[torch.Tensor] = None):
-    """Plain version of K1 (fp_elementwise); any device."""
+    """Plain version of K1 (fp_elementwise); any device.  In bind and hv
+    b holds one challenge per lane (lanes = b's elements), lane-major in
+    a."""
+    if mode in (BIND, HV):
+        nl = b.numel() // F.nlimb
+        r = _split16(b).reshape(nl, 1, F.nl16)
     if mode == BIND:
-        a16 = _split16(a)
+        row = a.shape[-2]
+        a16 = _split16(a).reshape(nl, -1, row, F.nl16)
         lo, hi = a16[..., 0::2, :], a16[..., 1::2, :]
-        r = _split16(b).reshape(F.nl16)
         bound = _add16(F, lo, _mont_mul16(F, _sub16(F, hi, lo),
-                                          r.expand_as(lo)))
-        return _join16(torch.cat([bound, torch.zeros_like(bound)], dim=-2))
+                                          r[:, None].expand_as(lo)))
+        return _join16(bound).reshape(a.shape[:-2] + (row // 2, F.nlimb))
     if mode == HV:
-        r = _split16(b).reshape(F.nl16)
         one = _const16(F._one16, r)
-        f = torch.where((h & 1).bool()[..., None], r, _sub16(F, one, r))
-        a16 = _split16(a)
-        return _join16(_mont_mul16(F, a16, f.expand_as(a16)))
+        f = torch.where((h.reshape(1, -1) & 1).bool()[..., None], r,
+                        _sub16(F, one, r))
+        a16 = _split16(a).reshape(nl, -1, F.nl16)
+        return _join16(_mont_mul16(F, a16, f.expand_as(a16))).reshape(
+            a.shape)
     a16, b16 = torch.broadcast_tensors(_split16(a), _split16(b))
     fn = {MUL: _mont_mul16, ADD: _add16, SUB: _sub16}[mode]
     return _join16(fn(F, a16, b16))
@@ -380,17 +388,18 @@ def axis_sum_plain(F: PrimeField, x: torch.Tensor, dim: int) -> torch.Tensor:
 
 
 def wire_sums_plain(F: PrimeField, hv, Wh, Wo, h, ho) -> torch.Tensor:
-    """Plain version of K3 mode 0: [a0, a2] as a [2, N] tensor."""
-    h = h.long()
-    z = elementwise_plain(F, MUL, hv, Wo[ho.long()])
-    whi, wlo = Wh[h | 1], Wh[h & ~1]
+    """Plain version of K3 mode 0: [a0, a2] as a [2, N] tensor; [B, 2,
+    N] with a leading lane axis on hv, Wh and Wo."""
+    h, ax = h.long(), hv.dim() - 2
+    z = elementwise_plain(F, MUL, hv, Wo.index_select(ax, ho.long()))
+    whi, wlo = Wh.index_select(ax, h | 1), Wh.index_select(ax, h & ~1)
     odd = (h & 1).bool()[:, None]
     t0 = elementwise_plain(F, MUL, z, wlo)
-    a0 = axis_sum_plain(F, torch.where(odd, torch.zeros_like(t0), t0), 0)
+    a0 = axis_sum_plain(F, torch.where(odd, torch.zeros_like(t0), t0), ax)
     zd = elementwise_plain(F, MUL, z, elementwise_plain(F, SUB, whi, wlo))
     zds = torch.where(odd, zd, elementwise_plain(F, SUB,
                                                  torch.zeros_like(zd), zd))
-    return torch.stack([a0, axis_sum_plain(F, zds, 0)])
+    return torch.stack([a0, axis_sum_plain(F, zds, ax)], dim=-2)
 
 
 # ----------------------------------------------------------------------
@@ -473,31 +482,57 @@ def broadcast_operands(a: torch.Tensor, b: torch.Tensor, a_elt, b_elt,
     return a, b, dm[0], dm[1]
 
 
+def _lane_challenges(F, r: torch.Tensor):
+    """(lanes, stride): r is one element [N] (one lane) or one per lane
+    [B, N], each lane's element contiguous and the lanes `stride` elements
+    apart (a view into a larger tensor, such as the sumcheck's rows)."""
+    N = F.nlimb
+    if r.dtype != torch.int32 or r.shape[-1] != N or r.dim() > 2 or \
+            r.stride(-1) != 1:
+        raise ValueError("the challenges must be int32 [N] or [B, N] with "
+                         "contiguous elements, got %s" % (tuple(r.shape),))
+    if r.dim() == 1:
+        return 1, 0
+    if r.stride(0) % N:
+        raise ValueError("the challenges' lane stride must be a multiple "
+                         "of N")
+    return r.shape[0], r.stride(0) // N
+
+
 def fp_elementwise(F: PrimeField, mode: int, a: torch.Tensor, b: torch.Tensor,
                    h: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """K1 wrapper.  mul/add/sub broadcast a and b over the element axes;
-    bind and hv take a single element b (the challenge r)."""
+    """K1 wrapper.  mul/add/sub broadcast a and b over the element axes.
+    bind and hv take the challenge r as b: one element [N], or one per
+    lane [B, N], lane b of a being its b-th B-th part (a [B, ..., N]); hv's
+    indices h are shared by the lanes; bind returns the bound half."""
     name = route("fp_elementwise", F, a, b)
     if name is None:
         return plain_of(F).elementwise_plain(F, mode, a, b, h)
     if mode in (BIND, HV):
         check_elts(a, "a", F.elt_shape)
-        if b.numel() != F.nlimb:
-            raise ValueError("bind/hv take one challenge element")
-        b = b.contiguous()
-        out = torch.empty_like(a)
-        n = a.numel() // F.nlimb
-        row = a.shape[-2] if mode == BIND else 1
-        if mode == BIND and row % 2:
-            raise ValueError("bind needs an even length, got %d" % row)
-        hp = 0
-        if mode == HV:
-            if h is None or h.dtype != torch.int32 or h.numel() != n or \
-                    not h.is_contiguous() or h.device != a.device:
-                raise ValueError("hv needs int32 indices h of a's length")
+        lanes, rstride = _lane_challenges(F, b)
+        na = a.numel() // F.nlimb
+        if na % lanes:
+            raise ValueError("a's %d elements do not split into %d lanes"
+                             % (na, lanes))
+        hp, row = 0, 1
+        if mode == BIND:
+            row = a.shape[-2]
+            if row % 2:
+                raise ValueError("bind needs an even length, got %d" % row)
+            out = torch.empty(a.shape[:-2] + (row // 2,) + F.elt_shape,
+                              dtype=torch.int32, device=a.device)
+        else:
+            if h is None or h.dtype != torch.int32 or \
+                    h.numel() != na // lanes or not h.is_contiguous() or \
+                    h.device != a.device:
+                raise ValueError("hv needs int32 indices h of a lane's "
+                                 "length")
             hp = h.data_ptr()
+            out = torch.empty_like(a)
+        n = out.numel() // F.nlimb
         kernels.launch(name, 1, mode, out.data_ptr(), a.data_ptr(),
-                       b.data_ptr(), hp, n, row, 1, 1)
+                       b.data_ptr(), hp, n, row, n // lanes, rstride)
         return out
     # the full operand goes first (sub does not commute)
     a, b, bdiv, bmod = broadcast_operands(a, b, F.elt_shape, F.elt_shape,
@@ -582,7 +617,9 @@ def fp_axis_sum(F: PrimeField, x: torch.Tensor, dim: int) -> torch.Tensor:
 def fp_wire_sums(F: PrimeField, hv: torch.Tensor, Wh: torch.Tensor,
                  Wo: torch.Tensor, h: torch.Tensor,
                  ho: torch.Tensor) -> torch.Tensor:
-    """K3 wrapper, mode 0: [a0, a2] ([2, N]) of one hand's wire round."""
+    """K3 wrapper, mode 0: [a0, a2] ([2, N]) of one hand's wire round;
+    with a leading lane axis on hv [B, T, N], Wh [B, nh, N] and Wo [B, no,
+    N] (h and ho shared), [B, 2, N] in the same two launches."""
     name = route("fp_wire_round", F, hv, Wh, Wo, h, ho)
     if name is None:
         return plain_of(F).wire_sums_plain(F, hv, Wh, Wo, h, ho)
@@ -590,12 +627,17 @@ def fp_wire_sums(F: PrimeField, hv: torch.Tensor, Wh: torch.Tensor,
         check_elts(t, tname, F.elt_shape)
     _i32(h, "h")
     _i32(ho, "ho")
-    T = hv.shape[0]
-    out = torch.empty((2, F.nlimb), dtype=torch.int32, device=hv.device)
+    lanes = hv.dim() == 3
+    B = hv.shape[0] if lanes else 1
+    if Wh.dim() != hv.dim() or Wo.dim() != hv.dim() or \
+            (lanes and (Wh.shape[0] != B or Wo.shape[0] != B)):
+        raise ValueError("hv, Wh and Wo need the same lanes")
+    T = hv.shape[-2]
+    out = torch.empty((B, 2, F.nlimb), dtype=torch.int32, device=hv.device)
     nblk = _k3_blocks(T)
-    scratch = torch.empty(2 * F.nlimb * nblk, dtype=torch.int64,
+    scratch = torch.empty(2 * B * F.nlimb * nblk, dtype=torch.int64,
                           device=hv.device)
     kernels.launch(name, 2, 0, out.data_ptr(), scratch.data_ptr(),
                    hv.data_ptr(), Wh.data_ptr(), Wo.data_ptr(), h.data_ptr(),
-                   ho.data_ptr(), T, 0, 0, 0, nblk)
-    return out
+                   ho.data_ptr(), T, B, Wh.shape[-2], Wo.shape[-2], nblk)
+    return out if lanes else out[0]

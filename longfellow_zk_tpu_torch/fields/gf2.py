@@ -247,13 +247,14 @@ class GF2_128:
         return a
 
     def bind(self, x: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
-        """Pairs of x [..., n, 4] fold to lo + (hi - lo) * r, the tail is
-        zero-filled."""
+        """The bound half of x [..., n, 4]: pairs fold to lo + (hi - lo)
+        * r, [..., n / 2, 4]; r [4], or [B, 4] for x [B, ..., n, 4]."""
         return fp_elementwise(self, BIND, x, r)
 
     def hv_update(self, hv: torch.Tensor, h: torch.Tensor,
                   r: torch.Tensor) -> torch.Tensor:
-        """hv[t] * (h[t] odd ? r : 1 - r)."""
+        """hv[t] * (h[t] odd ? r : 1 - r); r [4], or [B, 4] for hv [B,
+        T, 4] with h [T] shared."""
         return fp_elementwise(self, HV, hv, r, h=h)
 
     def lazy_sum(self, x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -338,15 +339,21 @@ def _one_like(r: torch.Tensor) -> torch.Tensor:
 
 def elementwise_plain(F, mode: int, a: torch.Tensor, b: torch.Tensor,
                       h: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Plain version of K1[gf2_128]; any device."""
+    """Plain version of K1[gf2_128]; any device.  In bind and hv b holds
+    one challenge per lane (lanes = b's elements), lane-major in a."""
+    if mode in (BIND, HV):
+        nl = b.numel() // 4
+        r = b.reshape(nl, 1, 4)
     if mode == BIND:
-        lo, hi = a[..., 0::2, :], a[..., 1::2, :]
-        bound = lo ^ mul_plain(hi ^ lo, b.reshape(4))
-        return torch.cat([bound, torch.zeros_like(bound)], dim=-2)
+        row = a.shape[-2]
+        a4 = a.reshape(nl, -1, row, 4)
+        lo, hi = a4[..., 0::2, :], a4[..., 1::2, :]
+        bound = lo ^ mul_plain(hi ^ lo, r[:, None])
+        return bound.reshape(a.shape[:-2] + (row // 2, 4))
     if mode == HV:
-        r = b.reshape(4)
-        f = torch.where((h & 1).bool()[..., None], r, r ^ _one_like(r))
-        return mul_plain(a, f)
+        f = torch.where((h.reshape(1, -1) & 1).bool()[..., None], r,
+                        r ^ _one_like(r))
+        return mul_plain(a.reshape(nl, -1, 4), f).reshape(a.shape)
     if mode == MUL:
         return mul_plain(a, b)
     return torch.bitwise_xor(*torch.broadcast_tensors(a, b)).contiguous()
@@ -399,11 +406,13 @@ def axis_sum_plain(F, x: torch.Tensor, dim: int) -> torch.Tensor:
 
 def wire_sums_plain(F, hv, Wh, Wo, h, ho) -> torch.Tensor:
     """Plain version of K3[gf2_128] mode 0: [a0, a2] as a [2, 4] tensor
-    (-1 = 1 in characteristic 2)."""
-    h = h.long()
-    z = mul_plain(hv, Wo[ho.long()])
-    whi, wlo = Wh[h | 1], Wh[h & ~1]
+    (-1 = 1 in characteristic 2); [B, 2, 4] with a leading lane axis on
+    hv, Wh and Wo."""
+    h, ax = h.long(), hv.dim() - 2
+    z = mul_plain(hv, Wo.index_select(ax, ho.long()))
+    whi, wlo = Wh.index_select(ax, h | 1), Wh.index_select(ax, h & ~1)
     odd = (h & 1).bool()[:, None]
     t0 = mul_plain(z, wlo)
-    a0 = axis_sum_plain(F, torch.where(odd, torch.zeros_like(t0), t0), 0)
-    return torch.stack([a0, axis_sum_plain(F, mul_plain(z, whi ^ wlo), 0)])
+    a0 = axis_sum_plain(F, torch.where(odd, torch.zeros_like(t0), t0), ax)
+    return torch.stack([a0, axis_sum_plain(F, mul_plain(z, whi ^ wlo), ax)],
+                       dim=-2)

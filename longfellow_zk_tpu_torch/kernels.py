@@ -30,7 +30,9 @@ point) per field.  K9's mode 9 (CHOOSE) has entry points of its own,
 
 (fp128: p = 2^128 - 2^108 + 1; fp256: the P-256 base field; fp256x2: Fp2
 over it; gf2_128: GF(2^128), csrc/gf2.cuh; bytes: K8 hashes bytes and
-knows no field.)  A kernel's name here is
+knows no field.)  K1's bind and hv, K3, K9 (mode 9 too), K10, K11 and
+K12 take a lane axis: the proofs of a batch (zk/batch.py) run in the
+launches of one proof.  A kernel's name here is
 "kernel[instance]".  `LAUNCHES` counts, per instance, the CUDA launches
 its wrapper made; a run sets the counts to zero with `reset_launches()`
 and reads them after.
@@ -77,16 +79,18 @@ _SOURCES = {
                                       _P, _LL, _I, _P],
                      ("fp128", "fp256", "gf2_128")),
     "sha256_msgs": ("sha256.cu", [_P, _P, _LL, _I, _P], ("bytes",)),
-    "fs_oracle": ("fs.cu", [_I, _P, _P, _P, _P, _LL, _P],
+    "fs_oracle": ("fs.cu", [_I, _P, _P, _P, _P, _LL, _I, _LL, _LL, _P],
                   ("fp128", "fp256", "gf2_128")),
-    "fs_choose": ("fs.cu", [_P, _P, _P, _LL, _LL, _P],
+    "fs_choose": ("fs.cu", [_P, _P, _P, _LL, _LL, _I, _P],
                   ("fp128", "fp256", "gf2_128")),
-    "sumcheck_round_tail": ("round_tail.cu", [_P, _P, _P, _P, _P, _P, _P, _P],
+    "sumcheck_round_tail": ("round_tail.cu", [_P, _P, _P, _P, _P, _P, _P, _I,
+                                              _LL, _LL, _P],
                             ("fp128", "fp256", "gf2_128")),
-    "zk_constraints": ("constraints.cu", [_P, _I, _I, _P, _P, _P, _P, _P, _P],
+    "zk_constraints": ("constraints.cu", [_P, _I, _I, _P, _P, _P, _P, _P, _I,
+                                          _LL, _LL, _P],
                        ("fp128", "fp256", "gf2_128")),
     "ligero_inner_product": ("ligero_a.cu", [_P, _P, _P, _P, _P, _P, _LL, _I,
-                                             _I, _I, _P],
+                                             _I, _I, _I, _LL, _LL, _LL, _P],
                              ("fp128", "fp256", "gf2_128")),
 }
 

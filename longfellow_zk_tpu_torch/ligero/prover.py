@@ -16,11 +16,18 @@ the vector A (K12), the transcript writes and the column choice (K9), runs
 on the card in zk/fused.ligero_finish_dev, and `assemble` fills the proof
 from the prover's one fetch.  The host draws (ligero/transcript.py) and
 inner_product_vector (ligero/param.py) stay for the verifier.
+
+A LigeroProver commits the tableaus of B lanes at once (the proofs of a
+batch, zk/batch.py; one proof is one lane): their rows go through the
+RS kernels as one stack, their columns through one K8 launch and their
+Merkle heaps level by level in one launch a level (the jax.vmap of the
+JAX package's _commit_full_fn, zk/batch.py:124), one device-to-host copy
+brings every heap back, and each lane keeps its own MerkleCommitment.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Sequence
+from typing import Callable, List, Sequence
 
 import torch
 
@@ -28,8 +35,7 @@ from ..device import resolve_device
 from ..merkle.merkle import MerkleCommitment, NONCE_LEN
 from ..merkle.merkle_dev import merkle_heap
 from ..merkle.sha256_dev import sha256_msgs
-from .param import LigeroCommitment, LigeroParam, LigeroProof
-from .transcript import write_commitment
+from .param import LigeroParam, LigeroProof
 
 
 class LigeroProver:
@@ -40,8 +46,8 @@ class LigeroProver:
         self.F = F
         self.rs_factory = rs_factory
         self.device = resolve_device(device)
-        self.mc = MerkleCommitment(p.block_ext)
-        self.tableau = None  # [nrow, block_enc, N] Montgomery limbs
+        self.mcs: List[MerkleCommitment] = []  # one a lane
+        self.tableau = None  # [B, nrow, block_enc, N] Montgomery limbs
         self.aext_rs = None  # the dot test's (block, dblock) encoder
 
     # ------------------------------------------------------------------
@@ -112,66 +118,78 @@ class LigeroProver:
         nonces = [rng.bytes(NONCE_LEN) for _ in range(p.block_ext)]
         return block_rows, [idot, iquad], nonces
 
-    def commit(self, ts, W_host: Sequence, subfield_boundary: int, lqc,
-               rng) -> LigeroCommitment:
-        """Build and encode the tableau, Merkle-commit its columns
-        (ligero_prover.h:58-79)."""
+    def commit(self, preps) -> List[bytes]:
+        """Encode the lanes' tableaus and Merkle-commit their columns
+        (ligero_prover.h:58-79), every lane in the same launches; preps
+        are _commit_prep's results, one a lane.  Returns the lanes' roots
+        (the caller writes each to its transcript)."""
         p, F, dev = self.p, self.F, self.device
-        block_rows, dblock_rows, nonces = self._commit_prep(
-            W_host, subfield_boundary, lqc, rng)
-        arr_b = F.to_limbs([v for row in block_rows for v in row],
-                           dev).reshape(len(block_rows), p.block, -1)
-        arr_d = F.to_limbs([v for row in dblock_rows for v in row],
-                           dev).reshape(2, p.dblock, -1)
-        enc_b = self.rs_factory(p.block, p.block_enc).interpolate(arr_b)
-        enc_d = self.rs_factory(p.dblock, p.block_enc).interpolate(arr_d)
+        B = len(preps)
+
+        def rows(k, width):
+            vals = [v for prep in preps for row in prep[k] for v in row]
+            return F.to_limbs(vals, dev).reshape(
+                (B * len(preps[0][k]), width) + F.elt_shape)
+
+        enc_b = self.rs_factory(p.block, p.block_enc).interpolate(
+            rows(0, p.block)).reshape((B, -1, p.block_enc) + F.elt_shape)
+        enc_d = self.rs_factory(p.dblock, p.block_enc).interpolate(
+            rows(1, p.dblock)).reshape((B, 2, p.block_enc) + F.elt_shape)
         # made here, with its uploads, so that the responses upload nothing
         self.aext_rs = self.rs_factory(p.block, p.dblock)
         # row order [ildt, idot, iquad, iw.., iq..]
-        self.tableau = torch.cat([enc_b[:1], enc_d, enc_b[1:]])
+        self.tableau = torch.cat([enc_b[:, :1], enc_d, enc_b[:, 1:]], dim=1)
         # the leaves: H(nonce || natural little-endian bytes of the
         # column), each element kBytes of its [4 N] bytes
-        nat = F.from_mont(self.tableau[:, p.dblock :].contiguous())
-        cols = nat.view(torch.uint8)[:, :, : F.kBytes].transpose(0, 1)
-        nonce_t = torch.frombuffer(bytearray(b"".join(nonces)),
-                                   dtype=torch.uint8).to(dev)
-        msgs = torch.cat([nonce_t.reshape(p.block_ext, NONCE_LEN),
-                          cols.reshape(p.block_ext, -1)], dim=1)
-        heap = merkle_heap(sha256_msgs(msgs))
-        root = self.mc.commit_heap(heap.cpu().numpy(), nonces)
-        commitment = LigeroCommitment(root=root)
-        write_commitment(commitment, ts)
-        return commitment
+        nat = F.from_mont(self.tableau[:, :, p.dblock :].contiguous())
+        cols = nat.view(torch.uint8)[..., : F.kBytes].transpose(1, 2)
+        nonce_t = torch.frombuffer(
+            bytearray(b"".join(n for prep in preps for n in prep[2])),
+            dtype=torch.uint8).to(dev)
+        msgs = torch.cat([nonce_t.reshape(B, p.block_ext, NONCE_LEN),
+                          cols.reshape(B, p.block_ext, -1)], dim=2)
+        leaves = sha256_msgs(msgs.reshape(B * p.block_ext, -1))
+        heaps = merkle_heap(leaves.reshape(B, p.block_ext, -1)).cpu().numpy()
+        self.mcs = [MerkleCommitment(p.block_ext) for _ in range(B)]
+        return [mc.commit_heap(heap, prep[2])
+                for mc, heap, prep in zip(self.mcs, heaps, preps)]
 
     # ------------------------------------------------------------------
 
     def _responses(self, u_ldt, A_rows, u_quad):
         """The three Ligero tests (ligero_prover.h:283-350) over the
-        resident tableau: (y_ldt, y_dot, y_quad) tensors."""
+        resident tableaus, every lane at once (u_ldt [B, nwqrow, N], A_rows
+        [B, nwqrow, block, N], u_quad [B, nqtriples, N]): (y_ldt, y_dot,
+        y_quad) tensors [B, block or dblock, N]."""
         p, F, T = self.p, self.F, self.tableau
-        wrows = T[p.iw : p.iw + p.nwqrow]
+        wrows = T[:, p.iw : p.iw + p.nwqrow]
         # low-degree test: ildt + sum_i u_i * w_i over [0, block)
-        t0 = F.mul(wrows[:, : p.block].contiguous(), u_ldt[:, None])
-        y_ldt = F.add(T[p.ildt, : p.block].contiguous(), F.lazy_sum(t0, 0))
+        t0 = F.mul(wrows[:, :, : p.block].contiguous(), u_ldt[:, :, None])
+        y_ldt = F.add(T[:, p.ildt, : p.block].contiguous(), F.lazy_sum(t0, 1))
         # dot test: idot + sum_i Aext_i o w_i over [0, dblock)
-        aext = self.aext_rs.interpolate(A_rows)
-        t1 = F.mul(aext, wrows[:, : p.dblock].contiguous())
-        y_dot = F.add(T[p.idot, : p.dblock].contiguous(), F.lazy_sum(t1, 0))
+        aext = self.aext_rs.interpolate(
+            A_rows.reshape((-1, p.block) + F.elt_shape)).reshape(
+                A_rows.shape[:2] + (p.dblock,) + F.elt_shape)
+        t1 = F.mul(aext, wrows[:, :, : p.dblock].contiguous())
+        y_dot = F.add(T[:, p.idot, : p.dblock].contiguous(),
+                      F.lazy_sum(t1, 1))
         # quadratic test: iquad + sum_i u_i * (z_i - x_i o y_i)
         nqt = p.nqtriples
-        xr = T[p.iq : p.iq + nqt, : p.dblock].contiguous()
-        yr = T[p.iq + nqt : p.iq + 2 * nqt, : p.dblock].contiguous()
-        zr = T[p.iq + 2 * nqt : p.iq + 3 * nqt, : p.dblock].contiguous()
-        t2 = F.mul(F.sub(zr, F.mul(xr, yr)), u_quad[:, None])
-        y_quad = F.add(T[p.iquad, : p.dblock].contiguous(),
-                       F.lazy_sum(t2, 0))
+        xr = T[:, p.iq : p.iq + nqt, : p.dblock].contiguous()
+        yr = T[:, p.iq + nqt : p.iq + 2 * nqt, : p.dblock].contiguous()
+        zr = T[:, p.iq + 2 * nqt : p.iq + 3 * nqt, : p.dblock].contiguous()
+        t2 = F.mul(F.sub(zr, F.mul(xr, yr)), u_quad[:, :, None])
+        y_quad = F.add(T[:, p.iquad, : p.dblock].contiguous(),
+                       F.lazy_sum(t2, 1))
         return y_ldt, y_dot, y_quad
 
-    def assemble(self, y_ldt, y_dot, y_quad, idx, cols) -> LigeroProof:
-        """The LigeroProof from the fetched responses and openings (host
-        arrays of the device finish, zk/fused.ligero_finish_dev: y_ldt
-        [block, N], y_dot and y_quad [dblock, N], idx [nreq], cols [nrow,
-        nreq, N]), with the Merkle openings of the chosen columns."""
+    def assemble(self, lane: int, y_ldt, y_dot, y_quad, idx,
+                 cols) -> LigeroProof:
+        """Lane `lane`'s LigeroProof from its fetched responses and
+        openings (host arrays of the device finish,
+        zk/fused.ligero_finish_dev: y_ldt [block, N], y_dot and y_quad
+        [dblock, N], idx [nreq], cols [nrow, nreq, N]), with the Merkle
+        openings of the chosen columns."""
         p, F = self.p, self.F
         proof = LigeroProof()
         proof.y_ldt = list(F.from_limbs(torch.from_numpy(y_ldt)))
@@ -181,6 +199,6 @@ class LigeroProver:
         proof.y_quad_2 = list(yq[p.block : p.dblock])
         colv = F.from_limbs(torch.from_numpy(cols))  # [nrow, nreq] ints
         proof.req = [list(colv[i]) for i in range(p.nrow)]
-        proof.merkle_path, proof.merkle_nonce = self.mc.open(
+        proof.merkle_path, proof.merkle_nonce = self.mcs[lane].open(
             [int(i) for i in idx])
         return proof

@@ -33,7 +33,8 @@ rejection-sampled naturals, with an entry point of its own
 Each function takes the field F first: it picks the kernel instance
 (`fs_oracle[F.tag]`), and the field-free steps (absorb, getkey, the PRF
 bytes) run through it too.  For a CUDA tensor a function launches its
-kernel (one launch, one thread: csrc/fs.cu, csrc/round_tail.cu); for a
+kernel (one launch, one thread a lane: csrc/fs.cu, csrc/round_tail.cu;
+the lanes are the transcripts of a batch of proofs, zk/batch.py); for a
 CPU tensor it runs its plain version (`*_plain`, int64 torch ops; the
 SHA-256 compression is merkle/sha256_dev.compress_plain).  The plain
 versions read counts and rejection results on the host: they are the
@@ -87,9 +88,11 @@ def fs_state_to_host(ts, fs) -> None:
     ts.import_state(blob)
 
 
-def new_prf(device) -> torch.Tensor:
-    """An (empty) prf state on `device`, for a squeeze to fill."""
-    return torch.zeros(PRF_STATE_BYTES, dtype=torch.uint8, device=device)
+def new_prf(device, lanes: int = None) -> torch.Tensor:
+    """An (empty) prf state on `device` ([272], or [lanes, 272]), for a
+    squeeze to fill."""
+    shape = (PRF_STATE_BYTES,) if lanes is None else (lanes, PRF_STATE_BYTES)
+    return torch.zeros(shape, dtype=torch.uint8, device=device)
 
 
 # ----------------------------------------------------------------------
@@ -365,12 +368,39 @@ def dev_choose_plain(F, fs: torch.Tensor, prf: torch.Tensor, n: int,
 # ----------------------------------------------------------------------
 # wrappers: the kernel for a CUDA tensor, the plain version for a CPU one
 # ----------------------------------------------------------------------
+#
+# Every step takes one transcript (fs [104], prf [272]) or a lane axis of
+# them (fs [B, 104], prf [B, 272]: the proofs of a batch), and then gives
+# its outputs and takes its per-lane inputs with that leading axis.  The
+# kernels run the lanes in one launch, one block each; the plain versions
+# run them one after another.
 
-def _state(t: torch.Tensor, nbytes: int, name: str) -> None:
-    if t.dtype != torch.uint8 or t.numel() != nbytes or \
-            not t.is_contiguous():
-        raise ValueError("%s must be a contiguous uint8 [%d] tensor"
-                         % (name, nbytes))
+def _lanes(t: torch.Tensor, nbytes: int, name: str) -> int:
+    """The lanes of a state tensor: 1 for [nbytes], B for [B, nbytes]."""
+    if t.dtype != torch.uint8 or t.dim() not in (1, 2) or \
+            t.shape[-1] != nbytes or not t.is_contiguous():
+        raise ValueError("%s must be a contiguous uint8 [%d] or [B, %d] "
+                         "tensor" % (name, nbytes, nbytes))
+    return 1 if t.dim() == 1 else t.shape[0]
+
+
+def _lanes_of(*states) -> int:
+    """The lanes of (tensor, nbytes, name) states, which must agree."""
+    got = {(_lanes(t, nb, nm), t.dim()) for t, nb, nm in states
+           if t is not None}
+    if len(got) != 1:
+        raise ValueError("the states' lanes differ: %s" % sorted(got))
+    return got.pop()[0]
+
+
+def _each(state: torch.Tensor, fn, *per_lane):
+    """fn(b, *(x[b] for x in per_lane)) for each lane b of `state`, or
+    fn(None, *per_lane) once for a state without a lane axis; the results
+    stacked (None for steps that only update the states)."""
+    if state.dim() == 1:
+        return fn(None, *per_lane)
+    out = [fn(b, *(x[b] for x in per_lane)) for b in range(state.shape[0])]
+    return None if out[0] is None else torch.stack(out)
 
 
 def _elts(F, xs: torch.Tensor, name: str) -> torch.Tensor:
@@ -380,62 +410,77 @@ def _elts(F, xs: torch.Tensor, name: str) -> torch.Tensor:
     return xs.contiguous()
 
 
-def _k9(name: str, mode: int, fs, prf, inp, out, n: int) -> None:
+def _k9(name: str, mode: int, lanes: int, fs, prf, inp, out, n: int,
+        in_stride: int = 0, out_stride: int = 0) -> None:
+    """One K9 launch over `lanes` lanes; the strides are the bytes between
+    lanes of inp and out (0: shared)."""
     kernels.launch(name, 1, mode, *[0 if t is None else t.data_ptr()
-                                    for t in (fs, prf, inp, out)], n)
+                                    for t in (fs, prf, inp, out)], n, lanes,
+                   in_stride, out_stride)
 
 
 def fs_absorb(F, fs: torch.Tensor, data: torch.Tensor) -> None:
-    """fs absorbs the bytes of data (uint8 [n]), untyped."""
-    _state(fs, FS_BYTES, "fs")
-    if data.dtype != torch.uint8:
-        raise ValueError("data must be a uint8 tensor")
+    """fs absorbs the bytes of data (uint8 [n], shared by the lanes, or
+    [B, n], one row a lane), untyped."""
+    B = _lanes(fs, FS_BYTES, "fs")
+    if data.dtype != torch.uint8 or data.dim() > fs.dim() or \
+            (data.dim() == 2 and data.shape[0] != B):
+        raise ValueError("data must be a uint8 [n] or [B, n] tensor")
     data = data.contiguous()
     name = route("fs_oracle", F, fs, data)
     if name is None:
-        return fs_absorb_plain(F, fs, data)
-    _k9(name, ABSORB, fs, None, data, None, data.numel())
+        return _each(fs, lambda b, f: fs_absorb_plain(
+            F, f, data if data.dim() == 1 else data[b]), fs)
+    n = data.shape[-1]
+    _k9(name, ABSORB, B, fs, None, data, None, n,
+        in_stride=n if data.dim() == 2 else 0)
 
 
 def fs_getkey(F, fs: torch.Tensor) -> torch.Tensor:
-    """The 32-byte key of the transcript (the digest of a copy)."""
-    _state(fs, FS_BYTES, "fs")
+    """The 32-byte key of the transcript (the digest of a copy): [32], or
+    [B, 32]."""
+    B = _lanes(fs, FS_BYTES, "fs")
     name = route("fs_oracle", F, fs)
     if name is None:
-        return fs_getkey_plain(F, fs)
-    out = torch.empty(32, dtype=torch.uint8, device=fs.device)
-    _k9(name, GETKEY, fs, None, None, out, 0)
+        return _each(fs, lambda b, f: fs_getkey_plain(F, f), fs)
+    out = torch.empty(fs.shape[:-1] + (32,), dtype=torch.uint8,
+                      device=fs.device)
+    _k9(name, GETKEY, B, fs, None, None, out, 0, out_stride=32)
     return out
 
 
 def prf_fresh(F, prf: torch.Tensor, key: torch.Tensor) -> None:
-    """prf becomes a fresh stream under the 32-byte key (uint8)."""
-    _state(prf, PRF_STATE_BYTES, "prf")
-    _state(key, 32, "key")
+    """prf becomes a fresh stream under the 32-byte key (uint8; [B, 32]
+    for lanes)."""
+    B = _lanes(prf, PRF_STATE_BYTES, "prf")
+    if key.dtype != torch.uint8 or tuple(key.shape) != \
+            tuple(prf.shape[:-1]) + (32,):
+        raise ValueError("key must be uint8 [32], or [B, 32] for lanes")
+    key = key.contiguous()
     name = route("fs_oracle", F, prf, key)
     if name is None:
-        return prf_fresh_plain(F, prf, key)
-    _k9(name, PRF_FRESH, None, prf, key, None, 0)
+        return _each(prf, lambda b, p, k: prf_fresh_plain(F, p, k), prf, key)
+    _k9(name, PRF_FRESH, B, None, prf, key, None, 0, in_stride=32)
 
 
 def fs_squeeze(F, fs: torch.Tensor, prf: torch.Tensor) -> None:
     """prf becomes a fresh stream keyed by the transcript."""
-    _state(fs, FS_BYTES, "fs")
-    _state(prf, PRF_STATE_BYTES, "prf")
+    B = _lanes_of((fs, FS_BYTES, "fs"), (prf, PRF_STATE_BYTES, "prf"))
     name = route("fs_oracle", F, fs, prf)
     if name is None:
-        return fs_squeeze_plain(F, fs, prf)
-    _k9(name, SQUEEZE, fs, prf, None, None, 0)
+        return _each(fs, lambda b, f, p: fs_squeeze_plain(F, f, p), fs, prf)
+    _k9(name, SQUEEZE, B, fs, prf, None, None, 0)
 
 
 def prf_bytes(F, prf: torch.Tensor, k: int) -> torch.Tensor:
-    """The next k bytes of the stream (uint8 [k])."""
-    _state(prf, PRF_STATE_BYTES, "prf")
+    """The next k bytes of the stream (uint8 [k], or [B, k])."""
+    B = _lanes(prf, PRF_STATE_BYTES, "prf")
     name = route("fs_oracle", F, prf)
     if name is None:
-        return prf_bytes_plain(F, prf, k)
-    out = torch.empty(k, dtype=torch.uint8, device=prf.device)
-    _k9(name, PRF_BYTES, None, prf, None, out, k)
+        return _each(prf, lambda b, p: prf_bytes_plain(F, p, k), prf)
+    out = torch.empty(prf.shape[:-1] + (k,), dtype=torch.uint8,
+                      device=prf.device)
+    _k9(name, PRF_BYTES, B, None, prf, None, out, k, out_stride=k)
     return out
 
 
@@ -448,71 +493,89 @@ def bstr_tensor(data: bytes, device) -> torch.Tensor:
     return torch.frombuffer(bytearray(blob), dtype=torch.uint8).to(device)
 
 
-def fs_write_elts(F, fs: torch.Tensor, xs: torch.Tensor) -> None:
-    """fs absorbs xs ([k, N]) as one tagged array (Transcript.write_elts)."""
-    _state(fs, FS_BYTES, "fs")
+def _write(F, mode: int, plain, fs: torch.Tensor, xs: torch.Tensor) -> None:
+    B = _lanes(fs, FS_BYTES, "fs")
     xs = _elts(F, xs, "xs")
+    if fs.dim() == 2 and (xs.dim() < 2 or xs.shape[0] != B):
+        raise ValueError("xs needs the lane axis of fs")
     name = route("fs_oracle", F, fs, xs)
     if name is None:
-        return fs_write_elts_plain(F, fs, xs)
-    _k9(name, WRITE_ARRAY, fs, None, xs, None, xs.numel() // F.nlimb)
+        return _each(fs, lambda b, f, x: plain(F, f, x), fs, xs)
+    k = xs[0].numel() // F.nlimb if fs.dim() == 2 else \
+        xs.numel() // F.nlimb
+    _k9(name, mode, B, fs, None, xs, None, k, in_stride=4 * F.nlimb * k)
+
+
+def fs_write_elts(F, fs: torch.Tensor, xs: torch.Tensor) -> None:
+    """fs absorbs xs ([k, N]; [B, k, N] for lanes) as one tagged array a
+    lane (Transcript.write_elts)."""
+    _write(F, WRITE_ARRAY, fs_write_elts_plain, fs, xs)
 
 
 def write_tagged_elts(F, fs: torch.Tensor, xs: torch.Tensor) -> None:
-    """fs absorbs the k elements of xs ([k, N]), each tagged, in one step
-    (k calls of Transcript.write_elt)."""
-    _state(fs, FS_BYTES, "fs")
-    xs = _elts(F, xs, "xs")
-    name = route("fs_oracle", F, fs, xs)
-    if name is None:
-        return write_tagged_elts_plain(F, fs, xs)
-    _k9(name, WRITE_TAGGED, fs, None, xs, None, xs.numel() // F.nlimb)
+    """fs absorbs the k elements of xs ([k, N]; [B, k, N] for lanes), each
+    tagged, in one step (k calls of Transcript.write_elt)."""
+    _write(F, WRITE_TAGGED, write_tagged_elts_plain, fs, xs)
 
 
 def dev_sample_elts(F, prf: torch.Tensor, n: int,
                     fs: torch.Tensor = None) -> torch.Tensor:
-    """n elements ([n, N], the kernels' form) from the stream prf, by
-    rejection as Transcript.elt; with fs, prf is first squeezed fresh from
-    it (one launch for both)."""
-    _state(prf, PRF_STATE_BYTES, "prf")
-    if fs is not None:
-        _state(fs, FS_BYTES, "fs")
+    """n elements ([n, N], the kernels' form; [B, n, N] for lanes) from
+    the stream prf, by rejection as Transcript.elt; with fs, prf is first
+    squeezed fresh from it (one launch for both).  Lanes that reject draw
+    more bytes of their own streams."""
+    B = _lanes_of((prf, PRF_STATE_BYTES, "prf"), (fs, FS_BYTES, "fs"))
     name = route("fs_oracle", F, *((prf,) if fs is None else (prf, fs)))
     if name is None:
-        if fs is not None:
-            fs_squeeze_plain(F, fs, prf)
-        return dev_sample_elts_plain(F, prf, n)
-    out = torch.empty((n, F.nlimb), dtype=torch.int32, device=prf.device)
-    _k9(name, SAMPLE if fs is None else SQUEEZE_SAMPLE, fs, prf, None, out,
-        n)
+        def one(b, p):
+            if fs is not None:
+                fs_squeeze_plain(F, fs if b is None else fs[b], p)
+            return dev_sample_elts_plain(F, p, n)
+        return _each(prf, one, prf)
+    out = torch.empty(prf.shape[:-1] + (n, F.nlimb), dtype=torch.int32,
+                      device=prf.device)
+    _k9(name, SAMPLE if fs is None else SQUEEZE_SAMPLE, B, fs, prf, None, out,
+        n, out_stride=4 * F.nlimb * n)
     return out
 
 
 def dev_choose(F, fs: torch.Tensor, prf: torch.Tensor, n: int,
                k: int) -> torch.Tensor:
     """K9 mode 9, one launch: a fresh squeeze of fs into prf, then k
-    distinct indices in [0, n) (int32 [k]) by the partial Fisher-Yates
-    walk of Transcript.choose, each step a rejection sample of
-    Transcript.nat(n - i); prf is left where the walk ended."""
-    _state(fs, FS_BYTES, "fs")
-    _state(prf, PRF_STATE_BYTES, "prf")
+    distinct indices in [0, n) (int32 [k]; [B, k] for lanes, each from
+    its own stream) by the partial Fisher-Yates walk of Transcript.choose,
+    each step a rejection sample of Transcript.nat(n - i); prf is left
+    where the walk ended."""
+    B = _lanes_of((fs, FS_BYTES, "fs"), (prf, PRF_STATE_BYTES, "prf"))
     if not 0 < k <= n < 2**31:
         raise ValueError("choose needs 0 < k <= n < 2^31, got %d, %d"
                          % (k, n))
     name = route("fs_choose", F, fs, prf)
     if name is None:
-        return dev_choose_plain(F, fs, prf, n, k)
-    # the k indices, then the walk's array of n (when it does not fit in
-    # shared memory)
-    out = torch.empty(k + n, dtype=torch.int32, device=prf.device)
+        return _each(fs, lambda b, f, p: dev_choose_plain(F, f, p, n, k),
+                     fs, prf)
+    # a lane's k indices, then its walk's array of n (when it does not fit
+    # in shared memory)
+    out = torch.empty(fs.shape[:-1] + (k + n,), dtype=torch.int32,
+                      device=prf.device)
     kernels.launch(name, 1, fs.data_ptr(), prf.data_ptr(), out.data_ptr(),
-                   k, n)
-    return out[:k]
+                   k, n, B)
+    return out[..., :k]
 
 
 def dev_sample_elt(F, prf: torch.Tensor) -> torch.Tensor:
     """One element ([N]) from the stream prf."""
     return dev_sample_elts(F, prf, 1)[0]
+
+
+def _rows(t: torch.Tensor, nm: str, lanes: int, n: int, N: int) -> int:
+    """The lane stride (elements) of t, [lanes, n, N] with each lane's
+    [n, N] contiguous (a view into a per-layer tensor)."""
+    if t.dtype != torch.int32 or tuple(t.shape) != (lanes, n, N) or \
+            t.stride(2) != 1 or t.stride(1) != N or t.stride(0) % N:
+        raise ValueError("%s must be int32 [%d, %d, %d] with contiguous "
+                         "lanes, got %s" % (nm, lanes, n, N, tuple(t.shape)))
+    return t.stride(0) // N
 
 
 def round_tail(F, fs: torch.Tensor, claim: torch.Tensor, row: torch.Tensor,
@@ -521,20 +584,28 @@ def round_tail(F, fs: torch.Tensor, claim: torch.Tensor, row: torch.Tensor,
     """K10: the tail of one sumcheck hand-round (csrc/round_tail.cu).
     a [2, N] = (a0, a2) from K3, eq0 [N], pad [3, N] the round's pad
     evaluations, consts [6, N] (fields/fp.round_consts); updates fs and
-    claim [N] in place and writes row [4, N] = [ev0, ev1, ev2, r]."""
-    _state(fs, FS_BYTES, "fs")
+    claim [N] in place and writes row [4, N] = [ev0, ev1, ev2, r].  For
+    lanes, fs [B, 104], claim [B, N], a [B, 2, N], and row [B, 4, N] and
+    pad [B, 3, N] may be views whose lanes lie apart (eq0 and consts are
+    shared); one launch runs every lane."""
+    B = _lanes(fs, FS_BYTES, "fs")
     N = F.nlimb
-    for t, nm, shape in ((claim, "claim", (N,)), (row, "row", (4, N)),
-                         (a, "a", (2, N)), (eq0, "eq0", (N,)),
-                         (pad, "pad", (3, N)), (consts, "consts", (6, N))):
+    one = fs.dim() == 1
+    lead = () if one else (B,)
+    for t, nm, shape in ((claim, "claim", lead + (N,)),
+                         (a, "a", lead + (2, N)), (eq0, "eq0", (N,)),
+                         (consts, "consts", (6, N))):
         if t.dtype != torch.int32 or tuple(t.shape) != shape or \
                 not t.is_contiguous():
             raise ValueError("%s must be a contiguous int32 %s tensor"
                              % (nm, list(shape)))
+    row_s = _rows(row[None] if one else row, "row", B, 4, N)
+    pad_s = _rows(pad[None] if one else pad, "pad", B, 3, N)
     name = route("sumcheck_round_tail", F, fs, claim, row, a, eq0, pad,
                  consts)
     if name is None:
-        return round_tail_plain(F, fs, claim, row, a, eq0, pad, consts)
+        return _each(fs, lambda b, f, c, r, x, p: round_tail_plain(
+            F, f, c, r, x, eq0, p, consts), fs, claim, row, a, pad)
     kernels.launch(name, 1, fs.data_ptr(), claim.data_ptr(), row.data_ptr(),
                    a.data_ptr(), eq0.data_ptr(), pad.data_ptr(),
-                   consts.data_ptr())
+                   consts.data_ptr(), B, row_s, pad_s)

@@ -42,6 +42,13 @@ package, and each bind keeps only the bound half (the JAX package keeps
 the fixed shape, zero-filled, for its scan).  Only circuits with one
 copy (logc = 0) are supported: copy rounds are not ported yet.
 
+Every step carries a leading lane axis B (the proofs of a batch of
+witnesses of one circuit, zk/batch.py; the JAX package's jax.vmap of
+these programs, zk/batch.py:301): W, hv, the pads, the claims, the rows
+and the transcripts are [B, ...], the circuit's tables are shared, and a
+hand-round of B proofs takes the launches of one.  A single proof is
+B = 1.
+
 Proof bytes equal the JAX package's (tests/test_torch_sumcheck.py).
 """
 
@@ -62,27 +69,30 @@ def _eq_dev(F, logn: int, n: int, q: torch.Tensor,
             one: torch.Tensor) -> torch.Tensor:
     """EQ[Q, i] for 0 <= i < n as a tensor [n, N], from the challenges
     q [>= logn, N] on the card, by logn interleave steps
-    (eqs.h:104-134); one is the field's 1 [N]."""
-    eq = one[None]
+    (eqs.h:104-134); one is the field's 1 [N].  With a lane axis, q [B,
+    >= logn, N] (one proof of a batch a lane) gives [B, n, N]."""
+    lead, N = tuple(q.shape[:-2]), one.shape[-1]
+    eq = one.expand(lead + (1, N))
     if logn == 0:
-        return eq[:n]
+        return eq[..., :n, :]
     sizes = [n]
     for _ in range(logn):
         sizes.append((sizes[-1] + 1) // 2)
     for l in range(logn - 1, -1, -1):
-        hi = F.mul(eq, q[l])
+        hi = F.mul(eq, q[..., l : l + 1, :])
         lo = F.sub(eq, hi)
-        eq = torch.stack([lo, hi], dim=-2).reshape(-1, lo.shape[-1])
-        eq = eq[: sizes[l]]
+        eq = torch.stack([lo, hi], dim=-2).reshape(lead + (-1, N))
+        eq = eq[..., : sizes[l], :]
     return eq
 
 
 def _raw_eq2_dev(F, logn: int, n: int, g0: torch.Tensor, g1: torch.Tensor,
                  alpha: torch.Tensor, one: torch.Tensor) -> torch.Tensor:
-    """EQ(G0, i) + alpha * EQ(G1, i) (eqs.h:46-53)."""
+    """EQ(G0, i) + alpha * EQ(G1, i) (eqs.h:46-53); with lanes, g0 and g1
+    [B, >= logn, N] and alpha [B, N]."""
     e0 = _eq_dev(F, logn, n, g0, one)
     e1 = _eq_dev(F, logn, n, g1, one)
-    return F.add(e0, F.mul(e1, alpha))
+    return F.add(e0, F.mul(e1, alpha.unsqueeze(-2)))
 
 
 def _wire_merge_plan(h0: np.ndarray, h1: np.ndarray, logw: int):
@@ -174,7 +184,11 @@ def quad_tensors(F, quad, device) -> dict:
 
 
 class SumcheckProver:
-    """Sumcheck prover over one-copy circuits; tensors on `device`."""
+    """Sumcheck prover over one-copy circuits; tensors on `device`.  Its
+    steps carry a leading lane axis B: the proofs of a batch of witnesses
+    of one circuit, each with its own transcript, pad and challenges, in
+    the launches of one proof (the circuit's tables are shared); a single
+    proof is the lane axis of length 1."""
 
     # terms below this count aren't worth the merge prologue
     K_MERGE_MIN_TERMS = 4096
@@ -194,6 +208,30 @@ class SumcheckProver:
                 torch.as_tensor(np.searchsorted(g, wires, side=side)
                                 .astype(np.int32), device=self.device)
                 for side in ("left", "right"))
+        return cache[key]
+
+    def _lane_terms(self, quad, nv: int, nin: int, B: int):
+        """K2 mode 1's arrays of a layer for B lanes flattened into one
+        evaluation (h0, h1, v, bmask, starts, ends): lane b's inputs at b
+        nin, its terms at b T, its outputs' segments after lane b - 1's;
+        the layer's own arrays for one lane.  Made on the card from the
+        uploaded ones and kept with the quad."""
+        qd = quad_tensors(self.F, quad, self.device)
+        starts, ends = self._segments(quad, nv)
+        if B == 1:
+            return qd["h0"], qd["h1"], qd["v"], qd["bmask"], starts, ends
+        cache = quad.__dict__.setdefault("_torch_cache", {})
+        key = ("lanes", str(self.device), nv, nin, B)
+        if key not in cache:
+            T = qd["h0"].shape[0]
+            lane = torch.arange(B, dtype=torch.int32, device=self.device)
+
+            def off(x, step):
+                return (x[None] + lane[:, None] * step).reshape(-1)
+
+            cache[key] = (off(qd["h0"], nin), off(qd["h1"], nin),
+                          qd["v"].repeat(B, 1), qd["bmask"].repeat(B),
+                          off(starts, T), off(ends, T))
         return cache[key]
 
     def _wm_for(self, quad, logw: int):
@@ -224,10 +262,14 @@ class SumcheckProver:
     # ------------------------------------------------------------------
 
     def _eval(self, circ: Circuit, W0: torch.Tensor):
-        """(inputs per layer, final V, ok) with ok a 0-dim bool tensor."""
+        """(inputs per layer [B, nw, N], final V [B, nv, N], ok) for the
+        lanes' inputs W0 [B, ninputs, N], one K2 launch a layer for all
+        lanes; ok is a 0-dim bool tensor, false if an assert-zero term of
+        any lane fails."""
         if circ.logc > 0:
             raise NotImplementedError("copy rounds (logc > 0) are not ported")
         F = self.F
+        B = W0.shape[0]
         nl = circ.nl
         inputs: List = [None] * nl
         inputs[nl - 1] = W0
@@ -235,10 +277,9 @@ class SumcheckProver:
         oks = []
         for l in range(nl - 1, -1, -1):
             nv = circ.layers[l - 1].nw if l > 0 else circ.nv
-            qd = quad_tensors(self.F, circ.layers[l].quad, self.device)
-            starts, ends = self._segments(circ.layers[l].quad, nv)
-            W, ok = fp_eval_layer(F, W, qd["h0"], qd["h1"], qd["v"],
-                                  qd["bmask"], starts, ends)
+            terms = self._lane_terms(circ.layers[l].quad, nv, W.shape[1], B)
+            V, ok = fp_eval_layer(F, W.reshape((-1,) + F.elt_shape), *terms)
+            W = V.reshape((B, nv) + F.elt_shape)
             oks.append(ok)
             if l > 0:
                 inputs[l - 1] = W
@@ -247,111 +288,122 @@ class SumcheckProver:
     def eval_circuit(self, circ: Circuit, W0: torch.Tensor):
         """W0: [ninputs, N].  Returns (inputs per layer, final V), or
         (None, None) if an assert-zero term fails."""
-        inputs, V, ok = self._eval(circ, W0)
+        inputs, V, ok = self._eval(circ, W0[None])
         if not bool(ok.item()):
             return None, None
-        return inputs, V
+        return [x[0] for x in inputs], V[0]
 
-    def evaluate(self, circ: Circuit, W0: torch.Tensor) -> Optional[List]:
-        """The circuit's inputs per layer, or None if the witness does not
-        satisfy it (every output zero, no assert-zero term failing): the
-        one value read back before the rounds."""
+    def evaluate(self, circ: Circuit, W0: torch.Tensor):
+        """(the circuit's inputs per layer, flags): W0 [B, ninputs, N],
+        flags a bool [B] on the card, whether each lane's witness
+        satisfies the circuit (every output zero, no assert-zero term
+        failing; the latter is one flag for all lanes, so a failing one
+        clears every lane's: the caller finds the lane by evaluating it
+        alone).  Reading flags back is the one wait before the rounds."""
         inputs, V, ok = self._eval(circ, W0)
-        if not bool((ok & (V == 0).all()).item()):
-            return None
-        return inputs
+        return inputs, (V == 0).flatten(1).all(1) & ok
 
     # ------------------------------------------------------------------
     # proving
     # ------------------------------------------------------------------
 
-    def prepare(self, circ: Circuit, pad: Optional[Proof]):
+    def prepare(self, circ: Circuit, pads: List[Optional[Proof]]):
         """Every upload the rounds need, made before them (the merge
-        plans, the pads, the constants; the quads went up with the
+        plans, the lanes' pads, the constants; the quads went up with the
         evaluation): (pads, consts) for _rounds."""
         F, dev = self.F, self.device
         for layer in circ.layers:
             self._wm_for(layer.quad, layer.logw)
-        pads = self._pads_dev(circ, pad)
-        return pads, dict(one=F.to_limbs(1, dev), rc=round_consts(F, dev))
+        return self._pads_dev(circ, pads), dict(one=F.to_limbs(1, dev),
+                                                rc=round_consts(F, dev))
 
     def prove_with_witness(self, circ: Circuit, W0: torch.Tensor, ts,
                            pad: Optional[Proof] = None):
         """Circuit evaluation + sumcheck (prover_layers.h:114-166) with
-        the transcript on the card.  ts is a TranscriptSumcheck; its host
-        transcript ends where the host prover's would.  Returns (proof,
-        aux, bindings) with bindings = dict(q=[], g=[g0, g1], logv=...),
-        or (None, None, None) if the witness does not satisfy the circuit
-        (then the transcript is left untouched)."""
-        inputs = self.evaluate(circ, W0)
-        if inputs is None:
+        the transcript on the card, one proof: W0 [ninputs, N], ts a
+        TranscriptSumcheck; its host transcript ends where the host
+        prover's would.  Returns (proof, aux, bindings) with bindings =
+        dict(q=[], g=[g0, g1], logv=...), or (None, None, None) if the
+        witness does not satisfy the circuit (then the transcript is left
+        untouched)."""
+        inputs, flags = self.evaluate(circ, W0[None])
+        if not bool(flags[0].item()):
             return None, None, None
-        pads, consts = self.prepare(circ, pad)
-        fs = dfs.fs_init_from_host(ts.ts, self.device)
+        pads, consts = self.prepare(circ, [pad])
+        fs = dfs.fs_init_from_host(ts.ts, self.device)[None]
         outs, _ = self._rounds(circ, inputs, fs, pads, consts)
         # the one fetch: every layer's rows, wc, bound quad and flag, and
         # the transcript's state
-        host = torch.cat(self.words(outs) + [fs.view(torch.int32)]) \
+        host = torch.cat(self.words(outs) + [fs.view(torch.int32)], dim=1) \
             .cpu().numpy()
-        return self._assemble(circ, pad, host, ts.ts)
+        return self._assemble(circ, pad, host[0], ts.ts)
 
     @staticmethod
     def words(outs: List[dict]) -> List[torch.Tensor]:
-        """The layers' outputs as the flat int32 words _assemble reads:
-        per layer its rows, wc, bound quad and closing flag."""
+        """The layers' outputs as the flat int32 words _assemble reads, a
+        row [B, ...] a lane: per layer its rows, wc, bound quad and closing
+        flag."""
         parts = []
         for o in outs:
-            parts += [o["rows"].reshape(-1), o["wc"].reshape(-1),
-                      o["bq"].reshape(-1), o["ok"].to(torch.int32)[None]]
+            B = o["wc"].shape[0]
+            parts += [o["rows"].reshape(B, -1), o["wc"].reshape(B, -1),
+                      o["bq"].reshape(B, -1), o["ok"].to(torch.int32)[:, None]]
         return parts
 
-    def _pads_dev(self, circ: Circuit, pad: Optional[Proof]):
-        """Each layer's pad on the card, uploaded at once (the JAX
-        package's _pads_dev, :1150): (hp [logw, 2, 3, N], wc [2, N]);
-        zeros without a pad."""
+    def _pads_dev(self, circ: Circuit, pads: List[Optional[Proof]]):
+        """Each layer's pads of the lanes on the card, uploaded at once (the
+        JAX package's _pads_dev, :1150): (hp [B, logw, 2, 3, N], wc [B, 2,
+        N]); zeros for a lane without a pad."""
         F, dev = self.F, self.device
-        shapes = [((layer.logw, 2, 3), (2,)) for layer in circ.layers]
-        if pad is None:
-            return [(F.zeros(hs, dev), F.zeros(ws, dev)) for hs, ws in shapes]
-        vals = []
-        for lp, layer in zip(pad.layers, circ.layers):
-            for rnd in range(layer.logw):
-                for hand in range(2):
-                    vals += list(lp.hp[hand][rnd])
-            vals += list(lp.wc)
+        B = len(pads)
+        zero = F.of_scalar(0)
+        vals, out = [], []
+        for ly, layer in enumerate(circ.layers):
+            for pad in pads:
+                if pad is None:
+                    vals += [zero] * (layer.logw * 6)
+                    continue
+                for rnd in range(layer.logw):
+                    for hand in range(2):
+                        vals += list(pad.layers[ly].hp[hand][rnd])
+            for pad in pads:
+                vals += [zero] * 2 if pad is None else list(pad.layers[ly].wc)
         flat = F.to_limbs(vals, dev)
-        out, off = [], 0
-        for hs, ws in shapes:
-            nh = int(np.prod(hs))
-            out.append((flat[off : off + nh].reshape(hs + F.elt_shape),
-                        flat[off + nh : off + nh + 2]))
-            off += nh + 2
+        off = 0
+        for layer in circ.layers:
+            nh = B * layer.logw * 6
+            out.append((flat[off : off + nh].reshape(
+                (B, layer.logw, 2, 3) + F.elt_shape),
+                flat[off + nh : off + nh + 2 * B].reshape(
+                    (B, 2) + F.elt_shape)))
+            off += nh + 2 * B
         return out
 
     def _rounds(self, circ: Circuit, inputs: List, fs: torch.Tensor, pads,
                 consts):
         """The sumcheck from begin_circuit to the last layer's wc write,
-        every step on the card, nothing read back; fs is updated in
-        place.  Returns (each layer's outputs, as device tensors; the
-        rows of all layers, [sum logw, 2, 4, N], of which each layer's
-        "rows" is a view)."""
+        every step on the card, nothing read back, for the lanes of fs [B,
+        104] (updated in place).  Returns (each layer's outputs, as device
+        tensors; the rows of all layers, [B, sum logw, 2, 4, N], of which
+        each layer's "rows" is a view)."""
         F, dev = self.F, self.device
         if circ.logc > 0:
             raise NotImplementedError("copy rounds (logc > 0) are not ported")
-        prf = dfs.new_prf(dev)
+        B = fs.shape[0]
+        prf = dfs.new_prf(dev, B)
         # begin_circuit: q, then g, from one stream (q is for copies)
         g_full = dfs.dev_sample_elts(F, prf, 2 * KMAX_BINDINGS,
-                                     fs=fs)[KMAX_BINDINGS:]
+                                     fs=fs)[:, KMAX_BINDINGS:]
         bnd_g = [g_full, g_full]
-        WC = F.zeros((2,), dev)
+        WC = F.zeros((B, 2), dev)
         logv = circ.logv
-        rows = torch.empty((sum(layer.logw for layer in circ.layers), 2, 4)
+        rows = torch.empty((B, sum(layer.logw for layer in circ.layers), 2, 4)
                            + F.elt_shape, dtype=torch.int32, device=dev)
         outs, off = [], 0
         for ly, layer in enumerate(circ.layers):
             o = self._layer(fs, prf, ly > 0, layer, logv, bnd_g,
                             inputs[ly], WC, pads[ly], consts,
-                            rows[off : off + layer.logw])
+                            rows[:, off : off + layer.logw])
             outs.append(o)
             bnd_g, WC = o["g"], o["wc"]
             logv = layer.logw
@@ -361,67 +413,78 @@ class SumcheckProver:
     def _layer(self, fs, prf, fresh: bool, layer, logv: int, bnd_g, W, WC,
                pad, consts, rows) -> dict:
         """One layer (prover_layers.h:185-271; the JAX package's
-        _layer_fn): alpha and beta (a fresh squeeze unless this is layer
-        0, which continues begin_circuit's stream), the prologue, logw
-        wire rounds of two hands each, the closing check and wc write.
-        rows [logw, 2, 4, N] receives row [rnd, hand] = [ev0, ev1, ev2,
-        r] (the evaluations minus the pad)."""
+        _layer_fn, and the jax.vmap of its batch prover over it,
+        zk/batch.py:301), every lane at once: alpha and beta (a fresh
+        squeeze unless this is layer 0, which continues begin_circuit's
+        stream), the prologue, logw wire rounds of two hands each, the
+        closing check and wc write.  rows [B, logw, 2, 4, N] receives row
+        [b, rnd, hand] = [ev0, ev1, ev2, r] (the evaluations minus the
+        pad)."""
         F, dev = self.F, self.device
+        B = fs.shape[0]
         one, rc = consts["one"], consts["rc"]
         hp_pad, wc_pad = pad
         ab = dfs.dev_sample_elts(F, prf, 2, fs=fs if fresh else None)
-        alpha, beta = ab[0], ab[1]
-        claim = F.add(WC[0], F.mul(alpha, WC[1]))
+        alpha, beta = ab[:, 0], ab[:, 1]
+        claim = F.add(WC[:, 0], F.mul(alpha, WC[:, 1]))
         qd = quad_tensors(self.F, layer.quad, self.device)
         dot = _raw_eq2_dev(F, logv, 1 << logv, bnd_g[0], bnd_g[1], alpha,
                            one)
-        vq = torch.where(qd["bmask"][:, None], beta, qd["v"])
-        hv = F.mul(vq, dot[qd["g"]])
+        vq = torch.where(qd["bmask"][:, None], beta[:, None], qd["v"])
+        hv = F.mul(vq, dot[:, qd["g"]])
         # one copy: the copy EQ array is [1]
         eq0 = one
 
         N = 1 << layer.logw
-        Wh = torch.cat([W, F.zeros((N - W.shape[0],), dev)])
+        Wh = torch.cat([W, F.zeros((B, N - W.shape[1]), dev)], dim=1)
         WH = [Wh, Wh]
         plan = self._wm_for(layer.quad, layer.logw)
         if plan is None:
             stages = [(layer.logw, None, None, qd["h0"], qd["h1"])]
         else:
-            hv = hv[plan["perm"]]
+            hv = hv[:, plan["perm"]]
             stages = plan["stages"]
 
         rnd = 0
+        lane = torch.arange(B, dtype=torch.int32, device=dev)[:, None]
         for nr, starts, ends, h0, h1 in stages:
             if starts is not None:
-                hv = F.lazy_segment_sum(hv, starts, ends)
+                # the lanes' segments, one after another
+                T = hv.shape[1]
+                hv = F.lazy_segment_sum(
+                    hv.reshape((-1,) + F.elt_shape),
+                    (starts[None] + lane * T).reshape(-1),
+                    (ends[None] + lane * T).reshape(-1)).reshape(
+                        (B, -1) + F.elt_shape)
             h = [h0, h1]
             for _ in range(nr):
                 for hand in range(2):
                     a = fp_wire_sums(F, hv, WH[hand], WH[1 - hand], h[hand],
                                      h[1 - hand])
-                    row = rows[rnd, hand]
+                    row = rows[:, rnd, hand]
                     dfs.round_tail(F, fs, claim, row, a, eq0,
-                                   hp_pad[rnd, hand], rc)
-                    r_t = row[3]
+                                   hp_pad[:, rnd, hand], rc)
+                    r_t = row[:, 3]
                     # the bound half: the hands' indices are shifted
                     # right each round, so the zero tail is never read
-                    WH[hand] = F.bind(WH[hand], r_t)[: WH[hand].shape[0] // 2]
+                    WH[hand] = F.bind(WH[hand], r_t)
                     hv = F.hv_update(hv, h[hand], r_t)
                     h[hand] = h[hand] >> 1
                 rnd += 1
 
-        bq = F.lazy_sum(hv, 0)
-        wc = torch.stack([WH[0][0], WH[1][0]])
-        expected = F.mul(eq0, F.mul(bq, F.mul(wc[0], wc[1])))
+        bq = F.lazy_sum(hv, 1)
+        wc = torch.stack([WH[0][:, 0], WH[1][:, 0]], dim=1)
+        expected = F.mul(eq0, F.mul(bq, F.mul(wc[:, 0], wc[:, 1])))
         dfs.fs_write_elts(F, fs, F.sub(wc, wc_pad))
-        return dict(rows=rows, wc=wc, bq=bq, ok=(claim == expected).all(),
-                    g=[rows[:, 0, 3], rows[:, 1, 3]], alpha=alpha)
+        return dict(rows=rows, wc=wc, bq=bq,
+                    ok=(claim == expected).flatten(1).all(1),
+                    g=[rows[:, :, 0, 3], rows[:, :, 1, 3]], alpha=alpha)
 
     def _assemble(self, circ: Circuit, pad: Optional[Proof],
                   host: np.ndarray, host_ts):
-        """The Proof, aux and bindings from the fetched words (the JAX
-        package's _assemble, :1099); the host transcript takes the device
-        state."""
+        """The Proof, aux and bindings of one lane from its fetched words
+        (the JAX package's _assemble, :1099); the host transcript takes
+        the device state."""
         F = self.F
         N = F.nlimb
         proof = Proof()

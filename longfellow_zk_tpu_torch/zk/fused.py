@@ -23,6 +23,10 @@ packs or unpacks a program's output.
     the four response writes, the column choice (K9 mode 9) and the
     column gather.
 
+The steps carry the prover's lane axis (the proofs of a batch,
+zk/batch.py): k, the challenges, A, the responses and the choices are
+[B, ...], FusedTables is shared, K11 and K12 run a grid row a lane.
+
 Every table these steps read is uploaded before the sumcheck's first
 round by `prepare`, which returns them as one FusedTables that each step
 takes as an argument, so nothing between that round and the prover's
@@ -193,49 +197,52 @@ def prepare(F, stat: FusedStatic, device) -> FusedTables:
 def constraints_plain(F, lay: np.ndarray, rows: torch.Tensor,
                       scal: torch.Tensor, wcpad: torch.Tensor,
                       lag: torch.Tensor) -> torch.Tensor:
-    """Plain version of K11 (csrc/constraints.cu), every layer at once:
-    sym [nl, nvar_max, N], round by round, a layer with fewer rounds
-    left as it is (the rows of the table lay, a host array, drive the
-    loop)."""
+    """Plain version of K11 (csrc/constraints.cu), every layer of every
+    lane at once (rows [B, R, 2, 4, N], scal [B, nl, 4, N], wcpad [B, nl,
+    2, N]): sym [B, nl, nvar_max, N], round by round, a layer with fewer
+    rounds left as it is (the rows of the table lay, a host array, drive
+    the loop); returns [B, nk, N] ([nk, N] without the lane axis)."""
+    if scal.dim() == 3:
+        return constraints_plain(F, lay, rows[None], scal[None],
+                                 wcpad[None], lag)[0]
     ew = plain_of(F).elementwise_plain
     N = F.nlimb
-    nl = lay.shape[0]
+    B, nl = rows.shape[0], lay.shape[0]
     logw = lay[:, 0].astype(np.int64)
     nv = int((4 * logw + 6).max())
     dev = rows.device
     one = F.to_limbs(1, dev)
     t = torch.arange(nv, device=dev)
-    sym = torch.zeros((nl, nv, N), dtype=torch.int32, device=dev)
-    sym[:, 0] = one
-    sym[:, 1] = scal[:, 0]
+    sym = torch.zeros((B, nl, nv, N), dtype=torch.int32, device=dev)
+    sym[:, :, 0] = one
+    sym[:, :, 1] = scal[:, :, 0]
     x0, x1, x2, d0, d1, d2 = lag.unbind(0)
-    rr = rows.reshape(-1, 4, N)[:, 3]
+    rr = rows.reshape(B, -1, 4, N)[:, :, 3]
     for rnd in range(2 * int(logw.max())):
         live = torch.as_tensor(2 * logw > rnd, device=dev)
         src = np.minimum(2 * lay[:, 2].astype(np.int64) + rnd,
-                         rr.shape[0] - 1)
-        r = rr[torch.as_tensor(src, device=dev)]                   # [nl, N]
+                         rr.shape[1] - 1)
+        r = rr[:, torch.as_tensor(src, device=dev)]             # [B, nl, N]
         a, b, c = ew(F, SUB, r, x0), ew(F, SUB, r, x1), ew(F, SUB, r, x2)
-        L0 = ew(F, MUL, ew(F, MUL, b, c), d0)
-        L1 = ew(F, MUL, ew(F, MUL, a, c), d1)
-        L2 = ew(F, MUL, ew(F, MUL, a, b), d2)
+        L0 = ew(F, MUL, ew(F, MUL, b, c), d0)[:, :, None]
+        L1 = ew(F, MUL, ew(F, MUL, a, c), d1)[:, :, None]
+        L2 = ew(F, MUL, ew(F, MUL, a, b), d2)[:, :, None]
         at0 = ((t == 3 + rnd * 2)[None] & live[:, None])[..., None]
         at2 = ((t == 4 + rnd * 2)[None] & live[:, None])[..., None]
         sym = torch.where(at0, ew(F, SUB, sym, one), sym)
-        sym = torch.where(live[:, None, None],
-                          ew(F, MUL, sym, L1[:, None]), sym)
-        sym = torch.where(at0, ew(F, ADD, sym, L0[:, None]), sym)
-        sym = torch.where(at2, ew(F, ADD, sym, L2[:, None]), sym)
+        sym = torch.where(live[:, None, None], ew(F, MUL, sym, L1), sym)
+        sym = torch.where(at0, ew(F, ADD, sym, L0), sym)
+        sym = torch.where(at2, ew(F, ADD, sym, L2), sym)
     c0 = torch.as_tensor(3 + 4 * logw, device=dev)[:, None, None]
-    alpha, bq, wc0, wc1 = scal.unbind(1)
-    tt1 = ew(F, MUL, bq, ew(F, SUB, wc1, wcpad[:, 1]))
-    tt0 = ew(F, MUL, bq, ew(F, SUB, wc0, wcpad[:, 0]))
+    alpha, bq, wc0, wc1 = scal.unbind(2)
+    tt1 = ew(F, MUL, bq, ew(F, SUB, wc1, wcpad[:, :, 1]))[:, :, None]
+    tt0 = ew(F, MUL, bq, ew(F, SUB, wc0, wcpad[:, :, 0]))[:, :, None]
     tn = t[None, :, None]
-    sym = torch.where(tn == c0, ew(F, SUB, sym, tt1[:, None]), sym)
-    sym = torch.where(tn == c0 + 1, ew(F, SUB, sym, tt0[:, None]), sym)
-    sym = torch.where(tn == c0 + 2, ew(F, SUB, sym, bq[:, None]), sym)
-    return torch.cat([sym[ly, lay[ly, 1] : 4 * logw[ly] + 6]
-                      for ly in range(nl)])
+    sym = torch.where(tn == c0, ew(F, SUB, sym, tt1), sym)
+    sym = torch.where(tn == c0 + 1, ew(F, SUB, sym, tt0), sym)
+    sym = torch.where(tn == c0 + 2, ew(F, SUB, sym, bq[:, :, None]), sym)
+    return torch.cat([sym[:, ly, lay[ly, 1] : 4 * logw[ly] + 6]
+                      for ly in range(nl)], dim=1)
 
 
 def zk_constraints(F, tabs: FusedTables, rows: torch.Tensor,
@@ -243,12 +250,18 @@ def zk_constraints(F, tabs: FusedTables, rows: torch.Tensor,
     """K11: the layers' part of the k vector, [stat.nk_layers, N].  rows
     [sum logw, 2, 4, N] are the sumcheck's rows (r at [..., 3, :]), scal
     [nl, 4, N] each layer's (alpha, bound quad, wc0, wc1) with wc the raw
-    claims, wcpad [nl, 2, N] their pads."""
+    claims, wcpad [nl, 2, N] their pads.  With a leading lane axis on
+    rows, scal and wcpad (the proofs of a batch), [B, nk_layers, N] in
+    the one launch."""
     stat, lag = tabs.stat, tabs.lag
     nl = stat.lay.shape[0]
-    for t, nm, shape in ((rows, "rows", (int(stat.lay[:, 0].sum()), 2, 4)),
-                         (scal, "scal", (nl, 4)), (wcpad, "wcpad", (nl, 2)),
-                         (lag, "lag", (6,))):
+    lanes = scal.dim() == 4
+    if not lanes:
+        rows, scal, wcpad = rows[None], scal[None], wcpad[None]
+    B, R = rows.shape[0], int(stat.lay[:, 0].sum())
+    for t, nm, shape in ((rows, "rows", (B, R, 2, 4)),
+                         (scal, "scal", (B, nl, 4)),
+                         (wcpad, "wcpad", (B, nl, 2)), (lag, "lag", (6,))):
         check_elts(t, nm, F.elt_shape)
         if tuple(t.shape[: t.dim() - 1]) != shape:
             raise ValueError("%s must be [%s, N], got %s"
@@ -256,38 +269,42 @@ def zk_constraints(F, tabs: FusedTables, rows: torch.Tensor,
                                 tuple(t.shape)))
     name = route("zk_constraints", F, rows, scal, wcpad, lag, tabs.lay)
     if name is None:
-        return constraints_plain(F, stat.lay, rows, scal, wcpad, lag)
-    out = torch.empty((stat.nk_layers,) + F.elt_shape, dtype=torch.int32,
-                      device=rows.device)
-    kernels.launch(name, 1, tabs.lay.data_ptr(), nl, stat.nthreads,
-                   rows.data_ptr(), scal.data_ptr(), wcpad.data_ptr(),
-                   lag.data_ptr(), out.data_ptr())
-    return out
+        out = constraints_plain(F, stat.lay, rows, scal, wcpad, lag)
+    else:
+        out = torch.empty((B, stat.nk_layers) + F.elt_shape,
+                          dtype=torch.int32, device=rows.device)
+        kernels.launch(name, 1, tabs.lay.data_ptr(), nl, stat.nthreads,
+                       rows.data_ptr(), scal.data_ptr(), wcpad.data_ptr(),
+                       lag.data_ptr(), out.data_ptr(), B, R, stat.nk_layers)
+    return out if lanes else out[0]
 
 
 def constraints_dev(F, tabs: FusedTables, outs: List[dict],
                     rows: torch.Tensor, pads, fs: torch.Tensor,
                     one: torch.Tensor) -> torch.Tensor:
-    """The k vector of the prover's linear constraints, [len(stat.ws), N]
-    aligned with stat.ws / stat.cs (the JAX package's zk/fused.py:139),
-    from the sumcheck's device outputs (SumcheckProver._rounds: outs,
-    rows; pads from its prepare).  The input binding samples alpha_b from
-    a fresh squeeze of fs, which stays as it was (Transcript.elt after
-    the last layer's write).  Nothing is read back."""
+    """The k vectors of the prover's linear constraints, [B, len(stat.ws),
+    N], each aligned with stat.ws / stat.cs (the JAX package's
+    zk/fused.py:139), from the sumcheck's device outputs of the lanes of
+    fs [B, 104] (SumcheckProver._rounds: outs, rows; pads from its
+    prepare).  The input binding samples alpha_b from a fresh squeeze of
+    fs, which stays as it was (Transcript.elt after the last layer's
+    write).  Nothing is read back."""
     circ = tabs.stat.circ
+    B = fs.shape[0]
     scal = torch.stack([x for o in outs for x in
-                        (o["alpha"], o["bq"], o["wc"][0], o["wc"][1])]) \
-        .reshape((circ.nl, 4) + F.elt_shape)
-    wcpad = torch.stack([wc for _, wc in pads])
+                        (o["alpha"], o["bq"], o["wc"][:, 0], o["wc"][:, 1])],
+                       dim=1).reshape((B, circ.nl, 4) + F.elt_shape)
+    wcpad = torch.stack([wc for _, wc in pads], dim=1)
     k_layers = zk_constraints(F, tabs, rows, scal, wcpad)
     # input binding (zk_common.h:406-439)
-    alpha_b = dfs.dev_sample_elts(F, dfs.new_prf(fs.device), 1, fs=fs)[0]
+    alpha_b = dfs.dev_sample_elts(F, dfs.new_prf(fs.device, B), 1,
+                                  fs=fs)[:, 0]
     g0, g1 = outs[-1]["g"]
     vec = _raw_eq2_dev(F, circ.layers[-1].logw, circ.ninputs, g0, g1,
                        alpha_b, one)
     pair = F.sub(torch.zeros_like(tabs.lag[:2]),
-                 torch.stack([one, alpha_b]))
-    return torch.cat([k_layers, vec[circ.npub_in :], pair])
+                 torch.stack([one.expand_as(alpha_b), alpha_b], dim=1))
+    return torch.cat([k_layers, vec[:, circ.npub_in :], pair], dim=1)
 
 
 # ----------------------------------------------------------------------
@@ -298,24 +315,31 @@ def inner_product_plain(F, ptr: torch.Tensor, ent: torch.Tensor,
                         k: torch.Tensor, alphal: torch.Tensor,
                         alphaq: torch.Tensor, nrow: int, r: int,
                         wd: int) -> torch.Tensor:
-    """Plain version of K12 (csrc/ligero_a.cu): every entry's value in
-    plan order, one segment sum by position (K2's plain version), then
-    the [nrow, r + wd] layout with r zeros a row."""
+    """Plain version of K12 (csrc/ligero_a.cu) for lanes (k [B, nk, N],
+    alphal and alphaq [B, ., N]): every entry's value in plan order, one
+    segment sum by position a lane (K2's plain version), then the [B,
+    nrow, r + wd] layout with r zeros a row ([nrow, r + wd] without the
+    lane axis)."""
+    if k.dim() == 2:
+        return inner_product_plain(F, ptr, ent, k[None], alphal[None],
+                                   alphaq[None], nrow, r, wd)[0]
     pm = plain_of(F)
+    B = k.shape[0]
     src, aux = ent[:, 0].long(), ent[:, 1].long()
     isq = (src < 0)[:, None]
-    kv = pm.elementwise_plain(F, MUL, k[src.clamp(min=0)],
-                              alphal[torch.where(src < 0, 0, aux)])
-    if alphaq.shape[0] == 0:
-        alphaq = torch.zeros_like(alphal[:1])
-    q = alphaq[(-1 - src).clamp(min=0)]
+    kv = pm.elementwise_plain(F, MUL, k[:, src.clamp(min=0)],
+                              alphal[:, torch.where(src < 0, 0, aux)])
+    if alphaq.shape[1] == 0:
+        alphaq = torch.zeros_like(alphal[:, :1])
+    q = alphaq[:, (-1 - src).clamp(min=0)]
     qv = torch.where((aux == 1)[:, None], pm.elementwise_plain(
         F, SUB, torch.zeros_like(q), q), q)
     vals = torch.where(isq, qv, kv)
-    A = pm.segment_sum_plain(F, vals, ptr[:-1], ptr[1:])
-    out = torch.zeros((nrow, r + wd) + F.elt_shape, dtype=torch.int32,
+    A = torch.stack([pm.segment_sum_plain(F, vals[b], ptr[:-1], ptr[1:])
+                     for b in range(B)])
+    out = torch.zeros((B, nrow, r + wd) + F.elt_shape, dtype=torch.int32,
                       device=k.device)
-    out[:, r:] = A.reshape((nrow, wd) + F.elt_shape)
+    out[:, :, r:] = A.reshape((B, nrow, wd) + F.elt_shape)
     return out
 
 
@@ -325,27 +349,35 @@ def ligero_inner_product(F, tabs: FusedTables, k: torch.Tensor,
     """K12: A laid out as the dot test's rows (layout_Aext), [nwqrow,
     block, N]: A[w] = sum of k[t] * alphal[cs[t]] over the linear terms at
     w, plus or minus alphaq[qcol] over the quadratic entries at w, at row
-    w // p.w, column p.r + w % p.w."""
+    w // p.w, column p.r + w % p.w.  With a leading lane axis on k,
+    alphal and alphaq (the proofs of a batch), [B, nwqrow, block, N] in
+    the one launch."""
     stat = tabs.stat
     p = stat.p
+    lanes = k.dim() == 3
+    k, alphal, alphaq = (t.contiguous() if lanes else t[None]
+                         for t in (k, alphal, alphaq))
+    B = k.shape[0]
     for t, nm, n in ((k, "k", len(stat.ws)),
                      (alphal, "alphal", stat.nl_constraints),
                      (alphaq, "alphaq", 3 * p.nq)):
         check_elts(t, nm, F.elt_shape)
-        if t.dim() != 2 or t.shape[0] != n:
-            raise ValueError("%s must be [%d, N], got %s"
+        if t.dim() != 3 or tuple(t.shape[:2]) != (B, n):
+            raise ValueError("%s must be [%d, N] a lane, got %s"
                              % (nm, n, tuple(t.shape)))
     name = route("ligero_inner_product", F, k, alphal, alphaq, tabs.ptr,
                  tabs.ent)
     if name is None:
-        return inner_product_plain(F, tabs.ptr, tabs.ent, k, alphal, alphaq,
-                                   p.nwqrow, p.r, p.w)
-    out = torch.empty((p.nwqrow, p.block) + F.elt_shape, dtype=torch.int32,
-                      device=k.device)
-    kernels.launch(name, 1, tabs.ptr.data_ptr(), tabs.ent.data_ptr(),
-                   k.data_ptr(), alphal.data_ptr(), alphaq.data_ptr(),
-                   out.data_ptr(), p.nwqrow, p.block, p.r, p.w)
-    return out
+        out = inner_product_plain(F, tabs.ptr, tabs.ent, k, alphal, alphaq,
+                                  p.nwqrow, p.r, p.w)
+    else:
+        out = torch.empty((B, p.nwqrow, p.block) + F.elt_shape,
+                          dtype=torch.int32, device=k.device)
+        kernels.launch(name, 1, tabs.ptr.data_ptr(), tabs.ent.data_ptr(),
+                       k.data_ptr(), alphal.data_ptr(), alphaq.data_ptr(),
+                       out.data_ptr(), p.nwqrow, p.block, p.r, p.w, B,
+                       len(stat.ws), stat.nl_constraints, 3 * p.nq)
+    return out if lanes else out[0]
 
 
 # ----------------------------------------------------------------------
@@ -354,27 +386,33 @@ def ligero_inner_product(F, tabs: FusedTables, k: torch.Tensor,
 
 def ligero_finish_dev(F, lp, tabs: FusedTables, fs: torch.Tensor,
                       k: torch.Tensor) -> dict:
-    """The Ligero prover's responses and openings on the card (the JAX
-    package's zk/fused.py:198, reference ligero_prover.h:84-146), fs
-    updated in place: the HASH_OF_A write; u_ldt, alphal, alphaq and
-    u_quad from one stream (no write between them, ligero_transcript.h);
-    A (K12); the three responses (lp._responses); the four response
-    writes; the column choice from a fresh squeeze; the column gather.
-    Returns device tensors: y_ldt [block, N], y_dot and y_quad [dblock,
-    N], okq (the W part of y_quad is zero, a 0-dim bool), idx int32
-    [nreq], cols [nrow, nreq, N]."""
+    """The Ligero prover's responses and openings on the card for the
+    lanes of fs [B, 104] (the JAX package's zk/fused.py:198 and its batch
+    prover's jax.vmap of the responses and the gather, zk/batch.py:344,
+    :375; reference ligero_prover.h:84-146), fs updated in place: the
+    HASH_OF_A write; u_ldt, alphal, alphaq and u_quad from one stream (no
+    write between them, ligero_transcript.h); A (K12); the three
+    responses (lp._responses over its tableaus [B, nrow, block_enc, N]);
+    the four response writes; the column choice from a fresh squeeze, one
+    a lane; the column gather.  Returns device tensors with a leading
+    lane axis: y_ldt [B, block, N], y_dot and y_quad [B, dblock, N], okq
+    (the W part of y_quad is zero, bool [B]), idx int32 [B, nreq], cols
+    [B, nrow, nreq, N]."""
     p = tabs.stat.p
+    B = fs.shape[0]
     dfs.fs_absorb(F, fs, tabs.hash_of_a)
-    prf = dfs.new_prf(fs.device)
+    prf = dfs.new_prf(fs.device, B)
     sizes = [p.nwqrow, tabs.stat.nl_constraints, 3 * p.nq, p.nqtriples]
     u_ldt, alphal, alphaq, u_quad = torch.split(
-        dfs.dev_sample_elts(F, prf, sum(sizes), fs=fs), sizes)
+        dfs.dev_sample_elts(F, prf, sum(sizes), fs=fs), sizes, dim=1)
     A = ligero_inner_product(F, tabs, k, alphal, alphaq)
     y_ldt, y_dot, y_quad = lp._responses(u_ldt, A, u_quad)
-    okq = (y_quad[p.r : p.r + p.w] == 0).all()
-    for y in (y_ldt, y_dot, y_quad[: p.r], y_quad[p.block : p.dblock]):
+    okq = (y_quad[:, p.r : p.r + p.w] == 0).flatten(1).all(1)
+    for y in (y_ldt, y_dot, y_quad[:, : p.r], y_quad[:, p.block : p.dblock]):
         dfs.fs_write_elts(F, fs, y)
     idx = dfs.dev_choose(F, fs, prf, p.block_enc - p.dblock, p.nreq)
-    cols = lp.tableau.index_select(1, idx.to(torch.int64) + p.dblock)
+    T = lp.tableau
+    at = (idx.to(torch.int64) + p.dblock)[:, None, :, None].expand(
+        B, p.nrow, p.nreq, T.shape[-1])
     return dict(y_ldt=y_ldt, y_dot=y_dot, y_quad=y_quad, okq=okq, idx=idx,
-                cols=cols)
+                cols=torch.gather(T, 2, at))

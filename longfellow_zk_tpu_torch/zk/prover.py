@@ -7,13 +7,20 @@ the pad subtracted from every transcript message (the encrypted
 transcript), then prove via Ligero that the committed pad+witness
 decrypt the transcript into something the sumcheck verifier accepts.
 
-After the commit, `prove` reads one value back (the evaluation check),
-uploads every table its steps need, then runs on the card, with the
-transcript there too, nothing read back between them: the sumcheck
+The prover's one flow runs B lanes at once: the proofs of B witnesses of
+one circuit, each on its own transcript, in the launches of one proof
+(`commit_lanes`, `prove_lanes`; zk/batch.py's BatchZkProver calls them
+for a batch, `commit` and `prove` for one proof, B = 1).  The commit
+draws each lane's pad and tableau rows on the host in lane order, from
+one randomness stream, then encodes and hashes every lane on the card
+and brings the Merkle heaps back in one copy.  After the commit, the
+prove reads one value back (every lane's evaluation check), uploads
+every table its steps need, then runs on the card, with the transcripts
+there too, nothing read back between them: the sumcheck
 (sumcheck/prover.py), the linear constraints (K11, zk/fused.py), the
 Ligero finish (K12, the responses, K9's draws, writes and column choice,
-zk/fused.py); then one fetch, from which the host assembles the proof
-and its transcript takes the final state.
+zk/fused.py); then one fetch, from which the host assembles each lane's
+proof and each lane's transcript takes its final state.
 """
 
 from __future__ import annotations
@@ -24,8 +31,9 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..ligero.param import LigeroParam
+from ..ligero.param import LigeroCommitment, LigeroParam
 from ..ligero.prover import LigeroProver
+from ..ligero.transcript import write_commitment
 from ..random_oracle import device_fs as dfs
 from ..sumcheck.circuit import Circuit, LayerProof, Proof
 from ..sumcheck.prover import SumcheckProver
@@ -51,63 +59,106 @@ class ZkProver:
         self.lqc = setup_lqc(circ, self.n_witness)
         self.pad: Optional[Proof] = None
         self.witness: Optional[List] = None
+        self.pads: List[Proof] = []  # the committed lanes' pads
         self.lp: Optional[LigeroProver] = None
         self.sumcheck = SumcheckProver(F, self.device)
 
     def commit(self, zkp: ZkProof, W_host: List, ts, rng) -> None:
         """(zk_prover.h:72-100).  W_host: all input wires (public first)."""
-        c, F = self.circ, self.F
-        self.witness = list(W_host[c.npub_in : c.ninputs])
-        subfield_boundary = max(0, c.subfield_boundary - c.npub_in)
-        self._fill_pad(rng)
-        self.lp = LigeroProver(self.param, F, self.rs_factory, self.device)
-        zkp.com = self.lp.commit(ts, self.witness, subfield_boundary,
-                                 self.lqc, rng)
+        self.commit_lanes([zkp], [W_host], [ts], rng)
 
     def prove(self, zkp: ZkProof, W_host: List, ts) -> bool:
         """(zk_prover.h:102-149): the evaluation check, the uploads, the
         device chain (_prove_dev), one fetch; ts ends where the host
-        prover's transcript would (its PRF aside)."""
+        prover's transcript would (its PRF aside).  False if the witness
+        does not satisfy the circuit."""
+        return self.prove_lanes([zkp], [W_host], [ts])[0]
+
+    def commit_lanes(self, zkps: List[ZkProof], Ws: List[List], tss,
+                     rng) -> None:
+        """The commit of B lanes (W: all input wires, public first; ts
+        each lane's transcript): each lane's pad and tableau rows on the
+        host, in lane order from the one stream rng (the JAX package's
+        zk/batch.py:104-116), then one device commit of every lane (the
+        jax.vmap of its _commit_full_fn, :118-134) and each root written
+        to its lane's transcript (:136-146)."""
+        c, F = self.circ, self.F
+        subfield_boundary = max(0, c.subfield_boundary - c.npub_in)
+        self.lp = LigeroProver(self.param, F, self.rs_factory, self.device)
+        self.pads, preps = [], []
+        for W_host in Ws:
+            self.witness = list(W_host[c.npub_in : c.ninputs])
+            self._fill_pad(rng)
+            self.pads.append(self.pad)
+            preps.append(self.lp._commit_prep(self.witness, subfield_boundary,
+                                              self.lqc, rng))
+        for zkp, ts, root in zip(zkps, tss, self.lp.commit(preps)):
+            zkp.com = LigeroCommitment(root=root)
+            write_commitment(zkp.com, ts)
+
+    def prove_lanes(self, zkps: List[ZkProof], Ws: List[List],
+                    tss) -> List[bool]:
+        """The prove of the committed lanes, each on its own transcript:
+        every lane's evaluation check, read back in one copy; if every
+        lane holds, the device chain of all lanes and one fetch, then each
+        lane's proof and final transcript state.  Returns each lane's
+        flag; if one lane fails, no lane is proved (nothing after the
+        evaluation runs)."""
         c, F, p, dev = self.circ, self.F, self.param, self.device
-        assert self.lp is not None, "must run commit before prove"
-        initialize_sumcheck_fiat_shamir(ts, c, W_host, F)
-        W0 = F.to_limbs(W_host[: c.ninputs], dev)
-        inputs = self.sumcheck.evaluate(c, W0)
-        if inputs is None:
-            return False
+        B = len(Ws)
+        assert self.lp is not None and len(self.pads) == B, \
+            "must commit these lanes before the prove"
+        for W_host, ts in zip(Ws, tss):
+            initialize_sumcheck_fiat_shamir(ts, c, W_host, F)
+        W0 = F.to_limbs([w for W_host in Ws for w in W_host[: c.ninputs]],
+                        dev).reshape((B, c.ninputs) + F.elt_shape)
+        inputs, flags = self.sumcheck.evaluate(c, W0)
+        oks = flags.tolist()
+        if not all(oks):
+            # one lane's failing assert-zero term clears every lane's
+            # flag: find which lanes fail by evaluating each alone
+            return oks if B == 1 else [
+                bool(self.sumcheck.evaluate(c, W0[b : b + 1])[1].item())
+                for b in range(B)]
         # every upload before the first round (the responses' encoder
         # went up with the commit)
-        pads, consts = self.sumcheck.prepare(c, self.pad)
+        pads, consts = self.sumcheck.prepare(c, self.pads)
         tabs = prepare(F, fused_static(c, p, self.lqc, self.n_witness), dev)
-        fs = dfs.fs_init_from_host(ts, dev)
+        fs = torch.stack([dfs.fs_init_from_host(ts, "cpu")
+                          for ts in tss]).to(dev)
         host = self._prove_dev(inputs, fs, pads, consts, tabs).cpu().numpy()
-        # [okq | y_ldt | y_dot | y_quad | idx | cols | sumcheck | fs]
+        # a lane's words: [okq | y_ldt | y_dot | y_quad | idx | cols |
+        # sumcheck | fs]
         N = F.nlimb
         sizes = [1, p.block * N, p.dblock * N, p.dblock * N, p.nreq,
                  p.nrow * p.nreq * N]
-        okq, y_ldt, y_dot, y_quad, idx, cols, rest = np.split(
-            host, np.cumsum(sizes))
-        assert okq[0], "W part of y_quad is nonzero"
-        zkp.proof, _, _ = self.sumcheck._assemble(c, self.pad, rest, ts)
-        zkp.com_proof = self.lp.assemble(
-            y_ldt.reshape(-1, N), y_dot.reshape(-1, N),
-            y_quad.reshape(-1, N), idx, cols.reshape(p.nrow, p.nreq, N))
-        return True
+        for b, (zkp, ts) in enumerate(zip(zkps, tss)):
+            okq, y_ldt, y_dot, y_quad, idx, cols, rest = np.split(
+                host[b], np.cumsum(sizes))
+            assert okq[0], "W part of y_quad is nonzero"
+            zkp.proof, _, _ = self.sumcheck._assemble(c, self.pads[b], rest,
+                                                      ts)
+            zkp.com_proof = self.lp.assemble(
+                b, y_ldt.reshape(-1, N), y_dot.reshape(-1, N),
+                y_quad.reshape(-1, N), idx, cols.reshape(p.nrow, p.nreq, N))
+        return oks
 
     def _prove_dev(self, inputs, fs, pads, consts, tabs) -> torch.Tensor:
         """Everything between the first round and the one fetch, on the
-        card, nothing read back: the sumcheck on fs, the constraints, the
-        Ligero finish.  Returns the words to fetch (int32)."""
+        card, for the lanes of fs [B, 104], nothing read back: the
+        sumcheck on fs, the constraints, the Ligero finish.  Returns the
+        words to fetch (int32 [B, .], a row a lane)."""
         F = self.F
+        B = fs.shape[0]
         outs, rows = self.sumcheck._rounds(self.circ, inputs, fs, pads,
                                            consts)
         k = constraints_dev(F, tabs, outs, rows, pads, fs, consts["one"])
         lig = ligero_finish_dev(F, self.lp, tabs, fs, k)
         return torch.cat(
-            [lig["okq"].to(torch.int32)[None]] +
-            [lig[n].reshape(-1) for n in ("y_ldt", "y_dot", "y_quad", "idx",
-                                          "cols")] +
-            self.sumcheck.words(outs) + [fs.view(torch.int32)])
+            [lig["okq"].to(torch.int32)[:, None]] +
+            [lig[n].reshape(B, -1) for n in ("y_ldt", "y_dot", "y_quad",
+                                             "idx", "cols")] +
+            self.sumcheck.words(outs) + [fs.view(torch.int32)], dim=1)
 
     def _fill_pad(self, rng) -> None:
         """Random pad; the P(1) entries are zero (zk_prover.h:152-188)."""

@@ -110,9 +110,10 @@ def _run(field):
     real = zkprover.constraints_dev
 
     def spy(F_, tabs, outs, rows, pads, fs, one):
-        seen.update(stat=tabs.stat, fs=fs.clone())
+        # the one proof is the prover's lane 0
+        seen.update(stat=tabs.stat, fs=fs[0].clone())
         k = real(F_, tabs, outs, rows, pads, fs, one)
-        seen["k"] = k
+        seen["k"] = k[0]
         return k
 
     mp = pytest.MonkeyPatch()
@@ -177,7 +178,7 @@ def test_toy_proof_without_host_steps(field):
     idx = gen_idx(p, jts, J)
     assert r["ts"].export_state() == jts.export_state()
     # the opened columns are the tableau's at the JAX package's choice
-    T = r["F"].from_limbs(r["prover"].lp.tableau)
+    T = r["F"].from_limbs(r["prover"].lp.tableau[0])
     assert [list(row) for row in T[:, np.asarray(idx) + p.dblock]] == \
         lpf.req
 

@@ -44,7 +44,7 @@ for mod in ("fields.fp2", "ec.curves", "circuits.ecdsa.verify",
             "circuits.mdoc.witness", "utils.zstd", "sumcheck.verifier",
             "ligero.verifier", "zk.verifier", "zk.serialization",
             "merkle.sha256_dev", "merkle.merkle_dev",
-            "random_oracle.device_fs", "zk.fused"):
+            "random_oracle.device_fs", "zk.fused", "zk.batch"):
     assert pkg.__name__ + "." + mod in names, mod
 from longfellow_zk_tpu_torch.fields.fp_instances import (
     fp128, p256_base, P128_OMEGA, P128_OMEGA_ORDER, P256_FP2_ROOT_X,
@@ -56,6 +56,7 @@ from longfellow_zk_tpu_torch.circuits.mdoc.api import (
 from longfellow_zk_tpu_torch.sumcheck.circuit import Circuit
 from longfellow_zk_tpu_torch.sumcheck.verifier import SumcheckVerifier
 from longfellow_zk_tpu_torch.zk.verifier import ZkVerifier
+from longfellow_zk_tpu_torch.zk.batch import BatchZkProver
 from longfellow_zk_tpu_torch.sumcheck.prover import SumcheckProver
 from longfellow_zk_tpu_torch.transforms.lch14 import LCH14ReedSolomon
 from longfellow_zk_tpu_torch.zk.testing import rs_factory_for
@@ -70,6 +71,10 @@ for make in (lambda: SumcheckProver(fp128()),
                                         ninputs=2, npub_in=1,
                                         subfield_boundary=0), fp128(), None,
                                 rate=4, nreq=6),
+             lambda: BatchZkProver(Circuit(nv=1, logv=0, nc=1, logc=0, nl=0,
+                                           ninputs=2, npub_in=1,
+                                           subfield_boundary=0), fp128(),
+                                   None, rate=4, nreq=6),
              lambda: SumcheckVerifier(fp128()),
              lambda: rs_factory_for(fp128(), P128_OMEGA, P128_OMEGA_ORDER),
              lambda: SumcheckProver(p256_base()),

@@ -379,3 +379,124 @@ def test_k11_k12_constraints_and_inner_product(dev, field):
     _same(fused.ligero_inner_product(F, tabs, k, alphal, alphaq),
           fused.inner_product_plain(F, tabs.ptr, tabs.ent, k, alphal,
                                     alphaq, p.nwqrow, p.r, p.w))
+
+
+# ----------------------------------------------------------------------
+# the lane axis of K1's bind and hv, K3, K9 (mode 9 too), K10, K11 and
+# K12: the proofs of a batch in one launch, against the plain versions
+# (K9's and K10's loop over the lanes with the one-lane code)
+# ----------------------------------------------------------------------
+
+# a label whose transcript's first Fp128 draw is >= p (found by a host
+# search; tests/test_torch_device_fs.py REJECT_LABEL)
+REJECT_LABEL = b"reject-1044179"
+
+
+@pytest.mark.parametrize("field", list(FIELDS))
+def test_lanes_k1_k3(dev, field):
+    """Bind and hv with one challenge a lane, read from a strided view of
+    a rows tensor as the sumcheck passes them; K3's wire sums of 8 lanes
+    with Wh and Wo of different lengths."""
+    F, rng, B = FIELDS[field](), np.random.default_rng(15), 8
+    P = fpm.plain_of(F)
+    N = F.nlimb
+    rows = _elts(F, rng, B * 9 * 8, dev).reshape(B, 9, 2, 4, N)
+    r = rows[:, 4, 1, 3]
+    x = _elts(F, rng, B * 2048, dev).reshape(B, 2048, N)
+    _same(F.bind(x, r), P.elementwise_plain(F, fpm.BIND, x, r))
+    T = 9000
+    hv = _elts(F, rng, B * T, dev).reshape(B, T, N)
+    h = torch.as_tensor(rng.integers(0, 1024, T, dtype=np.int32), device=dev)
+    ho = torch.as_tensor(rng.integers(0, 2048, T, dtype=np.int32),
+                         device=dev)
+    _same(F.hv_update(hv, h, r), P.elementwise_plain(F, fpm.HV, hv, r, h))
+    Wh, Wo = x[:, :1024].contiguous(), x.flip(1).contiguous()
+    _same(fpm.fp_wire_sums(F, hv, Wh, Wo, h, ho),
+          P.wire_sums_plain(F, hv, Wh, Wo, h, ho))
+
+
+def _fs_lanes(rng, dev, B):
+    """B random transcript states [B, 104] on the card and on the CPU,
+    lane 1 from REJECT_LABEL (its first Fp128 draw rejects)."""
+    states = []
+    for b in range(B):
+        ts = Transcript(REJECT_LABEL if b == 1 else rng.bytes(5))
+        if b != 1:
+            ts.write_bytes(rng.bytes(int(rng.integers(0, 200))))
+        states.append(dfs.fs_init_from_host(ts, "cpu"))
+    fs = torch.stack(states)
+    return fs.clone().to(dev), fs
+
+
+@pytest.mark.parametrize("field", list(FIELDS))
+def test_lanes_k9_k10(dev, field):
+    """K9's modes, its column choice and K10 over 8 lanes (one of them
+    rejecting) against the plain versions on the CPU, whole states
+    compared."""
+    F, rng, B = FIELDS[field](), np.random.default_rng(16), 8
+    N = F.nlimb
+    fs, fs2 = _fs_lanes(rng, dev, B)
+    prf, prf2 = dfs.new_prf(dev, B), dfs.new_prf("cpu", B)
+    _same(dfs.dev_sample_elts(F, prf, 80, fs=fs),
+          dfs.dev_sample_elts(F, prf2, 80, fs=fs2))
+    _same(prf, prf2)
+    for data in (rng.integers(0, 256, 57, dtype=np.uint8),
+                 rng.integers(0, 256, (B, 9), dtype=np.uint8)):
+        dfs.fs_absorb(F, fs, torch.as_tensor(data, device=dev))
+        dfs.fs_absorb(F, fs2, torch.as_tensor(data))
+    xs = _elts(F, rng, B * 5, dev).reshape(B, 5, N)
+    dfs.fs_write_elts(F, fs, xs)
+    dfs.fs_write_elts(F, fs2, xs.cpu())
+    dfs.write_tagged_elts(F, fs, xs)
+    dfs.write_tagged_elts(F, fs2, xs.cpu())
+    _same(fs, fs2)
+    _same(dfs.fs_getkey(F, fs), dfs.fs_getkey(F, fs2))
+    dfs.fs_squeeze(F, fs, prf)
+    dfs.fs_squeeze(F, fs2, prf2)
+    _same(dfs.prf_bytes(F, prf, 33), dfs.prf_bytes(F, prf2, 33))
+    _same(dfs.dev_sample_elts(F, prf, 3), dfs.dev_sample_elts(F, prf2, 3))
+    key = dfs.fs_getkey(F, fs)
+    dfs.prf_fresh(F, prf, key)
+    dfs.prf_fresh(F, prf2, key.cpu())
+    _same(prf, prf2)
+    for n, k in ((1367, 128), (20000, 16)):
+        _same(dfs.dev_choose(F, fs, prf, n, k),
+              dfs.dev_choose(F, fs2, prf2, n, k))
+        _same(prf, prf2)
+    consts = fpm.round_consts(F, dev)
+    rows = torch.zeros((B, 6, 2, 4, N), dtype=torch.int32, device=dev)
+    rows2 = rows.cpu().clone()
+    x = _elts(F, rng, B * 3, dev).reshape(B, 3, N)
+    claim, claim2 = x[:, 0].contiguous(), x[:, 0].cpu().contiguous()
+    a = x[:, 1:].contiguous()
+    pads = _elts(F, rng, B * 36, dev).reshape(B, 6, 2, 3, N)
+    for rnd in range(3):
+        dfs.round_tail(F, fs, claim, rows[:, rnd, 1], a, x[0, 0],
+                       pads[:, rnd, 1], consts)
+        dfs.round_tail(F, fs2, claim2, rows2[:, rnd, 1], a.cpu(),
+                       x[0, 0].cpu(), pads[:, rnd, 1].cpu(), consts.cpu())
+    _same(rows, rows2)
+    _same(claim, claim2)
+    _same(fs, fs2)
+
+
+@pytest.mark.parametrize("field", list(FIELDS))
+def test_lanes_k11_k12(dev, field):
+    """K11 and K12 of 8 lanes against their plain versions."""
+    F, rng, B = FIELDS[field](), np.random.default_rng(17), 8
+    N = F.nlimb
+    stat = _fused_stat([15, 3, 1, 10], 3000, 7)
+    R, nl = int(stat.lay[:, 0].sum()), stat.lay.shape[0]
+    rows = _elts(F, rng, B * R * 8, dev).reshape(B, R, 2, 4, N)
+    scal = _elts(F, rng, B * 4 * nl, dev).reshape(B, nl, 4, N)
+    wcpad = _elts(F, rng, B * 2 * nl, dev).reshape(B, nl, 2, N)
+    tabs = fused.prepare(F, stat, dev)
+    _same(fused.zk_constraints(F, tabs, rows, scal, wcpad),
+          fused.constraints_plain(F, stat.lay, rows, scal, wcpad, tabs.lag))
+    p = stat.p
+    k = _elts(F, rng, B * len(stat.ws), dev).reshape(B, -1, N)
+    alphal = _elts(F, rng, B * stat.nl_constraints, dev).reshape(B, -1, N)
+    alphaq = _elts(F, rng, B * 3 * p.nq, dev).reshape(B, -1, N)
+    _same(fused.ligero_inner_product(F, tabs, k, alphal, alphaq),
+          fused.inner_product_plain(F, tabs.ptr, tabs.ent, k, alphal,
+                                    alphaq, p.nwqrow, p.r, p.w))

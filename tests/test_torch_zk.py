@@ -61,19 +61,25 @@ def _port_toy_proof(W=None):
     return write_zk_proof(zkp, circ, prover.param, F)
 
 
-def test_toy_proof_bytes_equal_jax():
+@pytest.fixture(scope="module")
+def toy_proof():
+    """The port's toy proof, made once for the module's tests."""
+    return _port_toy_proof()
+
+
+def test_toy_proof_bytes_equal_jax(toy_proof):
     with open(TOY_BIN, "rb") as f:
-        assert _port_toy_proof() == f.read()
+        assert toy_proof == f.read()
 
 
-def test_jax_verifier_accepts_port_proof():
+def test_jax_verifier_accepts_port_proof(toy_proof):
     J = jax_fp128()
     jc = _zk_circuit(J)
     W = toy_inputs(J.p)
     factory = jax_rs_factory(J, P128_OMEGA, P128_OMEGA_ORDER)
     verifier = ZkVerifier(jc, J, factory, rate=TOY_RATE, nreq=TOY_NREQ,
                           block_enc=TOY_BLOCK_ENC)
-    zkp = read_zk_proof(_port_toy_proof(), jc, verifier.param, J,
+    zkp = read_zk_proof(toy_proof, jc, verifier.param, J,
                         rate=TOY_RATE, nreq=TOY_NREQ)
     assert zkp is not None
     ts = JaxTranscript(TOY_LABEL)
@@ -101,5 +107,5 @@ def test_entry_points_need_a_device():
 
 
 @pytest.mark.slow
-def test_toy_proof_bytes_equal_live_jax():
-    assert _port_toy_proof() == jax_toy_proof()[0]
+def test_toy_proof_bytes_equal_live_jax(toy_proof):
+    assert toy_proof == jax_toy_proof()[0]
