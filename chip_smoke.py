@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 1. Prints the card (name, count, power limit).
-2. Builds the kernels K1-K12 from longfellow_zk_tpu_torch/csrc with nvcc.
+2. Builds the kernels K1-K15 from longfellow_zk_tpu_torch/csrc with nvcc.
 3. Runs each kernel instance at the shapes of the proofs below, holds
    it against its plain PyTorch version on the same inputs (field
    arithmetic, hashing and the transcript states are exact: tolerance 0)
@@ -34,7 +34,11 @@
    h. the lane axis of the batch prover (8 proofs in one launch): K1's
       bind and hv, K3, K9, K10, K11, K12 and K9 mode 9 [fp128] at the
       SHA-256 proof's shapes, 8 lanes (one of whose samples rejects), a
-      row "<kernel> lanes=8" each.
+      row "<kernel> lanes=8" each;
+   i. the secp256k1 instances of K1-K3, K7, K9-K12 at the bitaddr
+      proof's shapes, and the CRT Reed-Solomon kernels at its tableau (25
+      rows, 18 prime lanes, 4,096 points): K13 crt_to, K4 fp_ntt[crt],
+      K14 mp_elementwise and K15 crt_from.
 4. Drives the port's three prover paths, each with the launch counts set
    to zero just before it and read just after (every kernel instance of
    the path must have launched, K8-K12 included), its bytes under
@@ -60,7 +64,11 @@
       on stacked lanes), held as in b, not timed;
    e. the mdoc presentation through circuits/mdoc/api.run_mdoc_prover
       (the GF(2^128) hash proof and the P-256 signature proof; the bytes
-      of the port's CPU path, which the JAX verifier accepts).
+      of the port's CPU path, which the JAX verifier accepts);
+   f. the secp256k1 bitaddr proof (a Bitcoin address's key, the circuit
+      artifacts/bitaddr_p256k1.lfc1.gz) with the CRT Reed-Solomon code
+      (K13-K15, K4 [crt]; the bytes of the port's CPU path, which the JAX
+      verifier accepts).
    Then 5 more proofs under SecureRandomEngine() are timed (median), one
    is profiled on the host (cProfile, with its count of host field
    products) and one on the card (busy share, device-to-host and
@@ -73,13 +81,15 @@
    bit flipped (it
    must refuse); then times 5 verifications and profiles them as above:
    a. ZkVerifier on the SHA-256 proof; b. ZkVerifier on the ECDSA proof;
-   c. circuits/mdoc/api.run_mdoc_verifier on the mdoc proof.
+   c. circuits/mdoc/api.run_mdoc_verifier on the mdoc proof; d.
+   ZkVerifier on the bitaddr proof.
 6. Prints the kernels line, the card line and, last, the result line.
 
 Any failure exits non-zero before the result line.  Imports no JAX.
 """
 
 import gzip
+import hashlib
 import json
 import os
 import random
@@ -102,11 +112,15 @@ T0 = time.perf_counter()       # the script's start, for the "at" stamps
 # as 2)
 INT32_OPS_PER_S = 67e12 / 4
 # 32x32->64 products per field product: 2 N^2 for N 32-bit words, three
-# base products for an Fp2 product.  A GF(2^128) product counts none: no
+# base products for an Fp2 product, 2 for a one-word Montgomery product
+# of the CRT lanes ("crt"); a Montgomery reduction alone (a product by
+# 1) N^2 + N (redc_ops) and a product of one word by N words N: the
+# conversions of the CRT route.  A GF(2^128) product counts none: no
 # instruction of the card computes a carry-less product, so its bound is
 # the bytes bound (the kernels' shift-and-XOR spends about 2,000 32-bit
 # operations a product, GF2_OPS_PER_MUL, printed beside it).
-MUL_OPS = {"fp128": 32, "fp256": 128, "fp256x2": 3 * 128, "gf2_128": 0}
+MUL_OPS = {"fp128": 32, "fp256": 128, "fp256k1": 128, "fp256x2": 3 * 128,
+           "gf2_128": 0, "crt": 2}
 GF2_OPS_PER_MUL = 128 * 16
 # 32-bit operations of one SHA-256 compression (K8): 64 rounds of about
 # 17 (three funnel-shift rotations and a LOP3 for each sigma, the
@@ -122,7 +136,13 @@ DEP_CYCLES = 4
 SHA_CHAIN = 64 * 6
 AES_KEY_CHAIN = 52 * 2
 AES_BLOCK_CHAIN = 14 * 4
-PROD_CHAIN = {"fp128": 32, "fp256": 128, "gf2_128": 3 * 128}
+PROD_CHAIN = {"fp128": 32, "fp256": 128, "fp256k1": 128, "gf2_128": 3 * 128,
+              "crt": 2}
+
+
+def redc_ops(nwords):
+    """32x32->64 products of one Montgomery reduction of N words."""
+    return nwords * nwords + nwords
 
 
 def bound_ms(nbytes, ops):
@@ -337,6 +357,66 @@ def check_ntt(rows, F, ntt, tag, nrows, n, elts):
                 lambda: ntt_plain(F, xr, tw),
                 2 * eb * nrows * n + eb * (n - 1),
                 MUL_OPS[tag] * nrows * (n // 2) * (logn - 1))
+
+
+def check_crt(rows, F, dev, nrows, m, rng):
+    """The CRT Reed-Solomon kernels at the secp256k1 tableau (nrows rows
+    of m points): K13 on nrows x m elements, K4 [crt] on the 18 lanes of
+    each row, K14 by a per-lane table broadcast over the rows (the
+    convolution's product), K15 back; each against its plain version."""
+    from longfellow_zk_tpu_torch.fields import multiprime as mpm
+    from longfellow_zk_tpu_torch.transforms import crt_conv
+    from longfellow_zk_tpu_torch.transforms.ntt import NTT, fp_ntt, ntt_plain
+
+    ctx = crt_conv.CRTContext(F, device=dev)
+    mp = ctx.mp
+    vs, n, N = mp.vs, nrows * m, F.nlimb
+    x = elts_of(F, rng, dev)(n).reshape(nrows, m, N)
+    z = ctx.to_crt(x)
+    err = max(max_err(z, crt_conv.to_crt_plain(ctx, x)),
+              max_err(ctx.from_crt(z), x))
+    src, crt_py = ("longfellow_zk_tpu_torch/csrc/crt.cu",
+                   "longfellow_zk_tpu/transforms/crt_conv.py")
+    mops = MUL_OPS["crt"]
+    rows.record("crt_to[fp256k1]", src, crt_py + ":86", err,
+                lambda: ctx.to_crt(x), lambda: crt_conv.to_crt_plain(ctx, x),
+                n * (4 * N + 4 * vs) + 4 * N * vs,
+                n * (redc_ops(N) + N * vs * mops))
+    tab = mp.to_limbs([np.array([int(rng.integers(0, q)) for q in mp.primes],
+                                dtype=object) for _ in range(m)], dev)
+    err = 0
+    for mode in (mpm.MUL, mpm.ADD, mpm.SUB):
+        for b in (tab, z):
+            err = max(err, max_err(mpm.mp_elementwise(mp, mode, z, b),
+                                   mpm.mp_elementwise_plain(mp, mode, z, b)))
+    rows.record("mp_elementwise[crt]", src,
+                "longfellow_zk_tpu/fields/multiprime.py:233", err,
+                lambda: mp.mul(z, tab),
+                lambda: mpm.mp_elementwise_plain(mp, mpm.MUL, z, tab),
+                4 * (2 * vs * n + vs * m), mops * vs * n)
+    ntt = NTT(mp, mp.omegas, mp.omega_order, dev)
+    zr = z.reshape(vs * nrows, m, 1)
+    err = 0
+    for inverse in (False, True):
+        tw = ntt.twiddles(m, inverse)
+        err = max(err, max_err(fp_ntt(mp, zr, tw), ntt_plain(mp, zr, tw)))
+    logm = m.bit_length() - 1
+    rows.record("fp_ntt[crt]", "longfellow_zk_tpu_torch/csrc/ntt.cu",
+                "longfellow_zk_tpu/transforms/ntt.py:94", err,
+                lambda: fp_ntt(mp, zr, tw), lambda: ntt_plain(mp, zr, tw),
+                2 * 4 * vs * n + 4 * vs * (m - 1),
+                mops * vs * nrows * (m // 2) * (logm - 1))
+    y = mpm.mp_elementwise(mp, mpm.MUL, z, tab)  # residues of no element
+    err = max_err(ctx.from_crt(y), crt_conv.from_crt_plain(ctx, y))
+    rows.record("crt_from[fp256k1]", src, crt_py + ":101", err,
+                lambda: ctx.from_crt(y),
+                lambda: crt_conv.from_crt_plain(ctx, y),
+                n * (4 * vs + 4 * N) + 4 * vs * (vs + N),
+                # the natural residues, Garner, then the dot at its
+                # least: VS digits times N-word constants, summed before
+                # one reduction
+                n * (mops * (vs + vs * (vs - 1) // 2) + vs * N +
+                     redc_ops(N)))
 
 
 def check_lch14(rows, F, dev, nrows, m, rng):
@@ -1280,6 +1360,8 @@ def main() -> int:
         print("no CUDA device", file=sys.stderr)
         return 2
     from longfellow_zk_tpu_torch import kernels
+    from longfellow_zk_tpu_torch.circuits.bitaddr.bitaddr import (
+        BitaddrWitness)
     from longfellow_zk_tpu_torch.circuits.ecdsa.verify import compute_witness
     from longfellow_zk_tpu_torch.circuits.mdoc import api as mdoc_api
     from longfellow_zk_tpu_torch.circuits.mdoc.witness import (
@@ -1288,14 +1370,16 @@ def main() -> int:
         find_zk_spec_by_version)
     from longfellow_zk_tpu_torch.circuits.sha.sha256 import (
         SHA256_INIT, pack_block_witness, sha256_pad, transform_block_witness)
-    from longfellow_zk_tpu_torch.ec.curves import ecdsa_sign, p256_curve
+    from longfellow_zk_tpu_torch.circuits.ripemd.reference import ripemd160
+    from longfellow_zk_tpu_torch.ec.curves import (
+        ecdsa_sign, p256_curve, p256k1_curve)
     from longfellow_zk_tpu_torch.fields import fp2 as fp2m
     from longfellow_zk_tpu_torch.fields.fp_instances import (
         P128_OMEGA, P128_OMEGA_ORDER, P256_FP2_ROOT_ORDER, P256_FP2_ROOT_X,
-        P256_FP2_ROOT_Y, fp128, p256_base)
+        P256_FP2_ROOT_Y, fp128, p256_base, p256k1_base)
     from longfellow_zk_tpu_torch.fields.gf2 import gf2_128
     from longfellow_zk_tpu_torch.proto.lfc1 import (
-        FP128_ID, P256_ID, read_circuit)
+        FP128_ID, P256_ID, SECP_ID, read_circuit)
     from longfellow_zk_tpu_torch.random_oracle.engine import (
         DeterministicEngine)
     from longfellow_zk_tpu_torch.random_oracle.transcript import Transcript
@@ -1431,6 +1515,30 @@ def main() -> int:
     # -- 3h. the lane axis (the batch prover's) at the SHA-256 shapes -------
     check_lanes(rows, F, circ, zp_sha.param, zp_sha.lqc, zp_sha.n_witness,
                 dev, rng, clock_mhz)
+
+    # -- 3i. the secp256k1 instances and the CRT kernels at the bitaddr
+    #        proof's shapes ------------------------------------------------
+    FK = p256k1_base()
+    bmeta = json.load(open(os.path.join(TESTDATA,
+                                        "bitaddr_p256k1.proof.json")))
+    bcirc = read_circuit(FK, SECP_ID, gzip.open(os.path.join(
+        REPO, bmeta["circuit"]), "rb").read())
+    zp_bit = ZkProver(bcirc, FK, None, rate=bmeta["rate"],
+                      nreq=bmeta["nreq"], device=dev)
+    lp_bit = zp_bit.param
+    print("bitaddr: %d layers, %d terms, tableau %d x %d (block %d, dblock "
+          "%d)" % (bcirc.nl, sum(ly.nterms for ly in bcirc.layers),
+                   lp_bit.nrow, lp_bit.block_enc, lp_bit.block,
+                   lp_bit.dblock))
+    check_fp_kernels(rows, FK, bcirc, dev, "fp256k1", 1 << 16,
+                     (lp_bit.nrow, lp_bit.block_enc), rng,
+                     dblock=lp_bit.dblock)
+    check_crt(rows, FK, dev, lp_bit.nrow, lp_bit.block_enc, rng)
+    check_quad_bind(rows, FK, bcirc, dev, "fp256k1", rng)
+    check_fs_oracle(rows, FK, dev, "fp256k1", rng, clock_mhz)
+    check_round_tail(rows, FK, dev, "fp256k1", rng, clock_mhz)
+    check_fused(rows, FK, bcirc, lp_bit, zp_bit.lqc, zp_bit.n_witness, dev,
+                "fp256k1", rng, clock_mhz)
     if rows.failures:
         print("FAIL: kernels disagree with their plain versions:",
               rows.failures)
@@ -1564,6 +1672,27 @@ def main() -> int:
                                  "sig prove")):
         return 1
 
+    # -- 4f. the secp256k1 bitaddr proof, with the CRT Reed-Solomon code ----
+    bgolden = open(os.path.join(TESTDATA, "bitaddr_p256k1.proof.bin"),
+                   "rb").read()
+    eck = p256k1_curve()
+    sk = random.Random(bmeta["seed"]).randrange(1, eck.order)
+    bw = BitaddrWitness(eck, FK)
+    bw.compute_witness(sk)
+    pk = eck.normalize(eck.scalar_mult(eck.generator(), sk))
+    compressed = bytes([2 + (pk.y & 1)]) + pk.x.to_bytes(32, "big")
+    addr = int.from_bytes(ripemd160(hashlib.sha256(compressed).digest()),
+                          "big")
+    assert bw.addr == addr
+    BW = [FK.of_scalar(1), addr % FK.p] + bw.fill()
+    brs = rs_factory_for(FK, device=dev)
+    if run_path("the secp256k1 bitaddr proof (CRT Reed-Solomon)",
+                "bitaddr_zk_prover_ms", proof_fn(FK, bcirc, brs, BW, bmeta),
+                bgolden, "the golden bitaddr proof",
+                states["bitaddr_p256k1"], kernels, rows,
+                prover_kernels("[fp256k1]", "[crt]"), smi) is None:
+        return 1
+
     # -- 5. the verifiers on the golden proofs ------------------------------
     # the first sumcheck element of a ZK proof starts after the 32-byte root
     if not run_verifier_path(
@@ -1607,6 +1736,17 @@ def main() -> int:
              "fp_quad_bind[fp256]", "fp_ntt[fp256x2]",
              "fp2_elementwise[fp256x2]"], smi,
             ("read", "hash verify", "sig verify")):
+        return 1
+
+    if not run_verifier_path(
+            "the secp256k1 bitaddr verifier", "bitaddr_zk_verifier_ms",
+            zk_verify_fn(FK, bcirc, brs, BW[: bcirc.npub_in], bmeta, dev),
+            bgolden, states["bitaddr_p256k1"], flipped(bgolden, 32, 1),
+            kernels, rows,
+            ["fp_elementwise[fp256k1]", "fp_quad_bind[fp256k1]",
+             "crt_to[fp256k1]", "fp_ntt[crt]", "mp_elementwise[crt]",
+             "crt_from[fp256k1]"], smi,
+            ("read", "recv_commitment + verify")):
         return 1
 
     # -- 6. results ---------------------------------------------------------

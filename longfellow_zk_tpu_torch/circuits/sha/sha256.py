@@ -80,6 +80,26 @@ def transform_block_witness(H0: Sequence[int], block: bytes) -> ShaBlockWitness:
     return ShaBlockWitness(outw=outw, oute=oute, outa=outa, h1=h1)
 
 
+def message_witness(message: bytes, max_blocks: int):
+    """Returns (nb, padded bytes [64*max], block witnesses [max], digest)."""
+    padded = sha256_pad(message)
+    nb = len(padded) // 64
+    assert nb <= max_blocks
+    # Dummy blocks past nb keep chaining through h1 over zero data
+    # (flatsha256_witness.cc:155-164): the circuit asserts the transform
+    # equations for every block, real or padding.
+    padded_full = padded + b"\x00" * (64 * (max_blocks - nb))
+    H = list(SHA256_INIT)
+    bws = []
+    digest = None
+    for b in range(max_blocks):
+        bw = transform_block_witness(H, padded_full[64 * b : 64 * (b + 1)])
+        bws.append(bw)
+        H = bw.h1
+        if b == nb - 1:
+            digest = b"".join(x.to_bytes(4, "big") for x in H)
+    return nb, padded_full, bws, digest
+
 def pack_block_witness(F, plucker_logn: int, bws: Sequence[ShaBlockWitness]
                        ) -> List:
     """Host field elements in circuit input order for each block witness."""

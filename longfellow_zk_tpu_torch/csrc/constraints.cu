@@ -1,9 +1,9 @@
-// K11 zk_constraints: the Ligero linear-constraint coefficients of the
-// ZK prover's sumcheck layers, with an instance for Fp128, one for the
-// P-256 base field and one for GF(2^128).  The twin of the symbolic
-// replay of the sumcheck verifier (zk/common.py verifier_constraints;
-// reference zk_common.h:49-136): per layer, a coefficient vector sym over
-// the layer's nvar = 4 logw + 6 pad variables
+// K11 zk_constraints: the Ligero linear-constraint coefficients of the ZK
+// prover's sumcheck layers, with an instance for Fp128, one each for the
+// P-256 and secp256k1 base fields and one for GF(2^128).  The twin of the
+// symbolic replay of the sumcheck verifier (zk/common.py
+// verifier_constraints; reference zk_common.h:49-136): per layer, a
+// coefficient vector sym over the layer's nvar = 4 logw + 6 pad variables
 //
 //   [claim pad of the layer before (3) | poly pads (2 a hand-round) |
 //    the layer's claim pad (3)]
@@ -124,6 +124,9 @@ extern "C" int zk_constraints_fp128(LFZK_ARGS) {
 }
 extern "C" int zk_constraints_fp256(LFZK_ARGS) {
   return zk_constraints<P256>(LFZK_PASS);
+}
+extern "C" int zk_constraints_fp256k1(LFZK_ARGS) {
+  return zk_constraints<P256K1>(LFZK_PASS);
 }
 extern "C" int zk_constraints_gf2_128(LFZK_ARGS) {
   return zk_constraints<G128>(LFZK_PASS);

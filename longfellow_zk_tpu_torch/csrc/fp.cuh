@@ -5,6 +5,8 @@
 //   P128  p = 2^128 - 2^108 + 1                    N = 4, n0inv = 2^32 - 1
 //   P256  p = 2^256 - 2^224 + 2^192 + 2^96 - 1     N = 8, n0inv = 1
 //         (the NIST P-256 base field; p = -1 mod 2^32)
+//   P256K1  p = 2^256 - 2^32 - 977                  N = 8,
+//         n0inv = 0xD2253531 (the secp256k1 base field; p = -977 mod 2^32)
 //
 // An element Fp<C> is C::N little-endian 32-bit limbs (C::N / 4 uint4
 // vectors, 16 or 32 bytes), in Montgomery form with R = 2^(32 N), and
@@ -14,7 +16,10 @@
 // CIOS with 64-bit products and carries; it uses no special form of p.
 //
 // P-256's p exceeds 2^255, so a + b and the CIOS result can carry out of
-// 2^(32 N): fp_cond_sub takes that carry as a top word.
+// 2^(32 N): fp_cond_sub takes that carry as a top word.  secp256k1's p
+// lies within 2^32 + 977 of R, so no code here may lean on headroom below
+// R: every sum, product and accumulator reduction assumes only a value
+// below 2p (p > R / 2 for all three primes), never below R - p.
 //
 // Sums are exact: each 32-bit limb is added into a 64-bit accumulator
 // (fewer than 2^31 addends, so no accumulator overflows) and the N
@@ -68,6 +73,29 @@ struct P256 {
     const uint32_t v[8] = {0x00000003u, 0x00000000u, 0xFFFFFFFFu,
                            0xFFFFFFFBu, 0xFFFFFFFEu, 0xFFFFFFFFu,
                            0xFFFFFFFDu, 0x00000004u};
+    return v[j];
+  }
+};
+
+struct P256K1 {
+  static constexpr int N = 8;
+  static constexpr uint32_t N0INV = 0xD2253531u;  // -p^-1 mod 2^32
+  __device__ static __forceinline__ uint32_t p(int j) {
+    const uint32_t v[8] = {0xFFFFFC2Fu, 0xFFFFFFFEu, 0xFFFFFFFFu,
+                           0xFFFFFFFFu, 0xFFFFFFFFu, 0xFFFFFFFFu,
+                           0xFFFFFFFFu, 0xFFFFFFFFu};
+    return v[j];
+  }
+  __device__ static __forceinline__ uint32_t one(int j) {  // R mod p
+    const uint32_t v[8] = {0x000003D1u, 0x00000001u, 0x00000000u,
+                           0x00000000u, 0x00000000u, 0x00000000u,
+                           0x00000000u, 0x00000000u};
+    return v[j];
+  }
+  __device__ static __forceinline__ uint32_t r2(int j) {  // R^2 mod p
+    const uint32_t v[8] = {0x000E90A1u, 0x000007A2u, 0x00000001u,
+                           0x00000000u, 0x00000000u, 0x00000000u,
+                           0x00000000u, 0x00000000u};
     return v[j];
   }
 };

@@ -1,6 +1,6 @@
-// K1 fp_elementwise: field elementwise ops, one element per thread, with
-// an instance for Fp128, one for the P-256 base field and one for
-// GF(2^128) (gf2.cuh: add = sub = XOR, 1 - r = 1 ^ r).
+// K1 fp_elementwise: field elementwise ops, one element per thread, with an
+// instance for Fp128, one each for the P-256 and secp256k1 base fields and
+// one for GF(2^128) (gf2.cuh: add = sub = XOR, 1 - r = 1 ^ r).
 //
 // Replaces the JAX package's limb-unrolled field ops inside its jitted
 // programs: PrimeField.add / sub / _mont_mul_limbs / from_mont_device
@@ -97,6 +97,9 @@ extern "C" int fp_elementwise_fp128(LFZK_ARGS) {
 }
 extern "C" int fp_elementwise_fp256(LFZK_ARGS) {
   return fp_elementwise<P256>(mode, out, a, b, h, n, row, bdiv, bmod, stream);
+}
+extern "C" int fp_elementwise_fp256k1(LFZK_ARGS) {
+  return fp_elementwise<P256K1>(mode, out, a, b, h, n, row, bdiv, bmod, stream);
 }
 extern "C" int fp_elementwise_gf2_128(LFZK_ARGS) {
   return fp_elementwise<G128>(mode, out, a, b, h, n, row, bdiv, bmod, stream);

@@ -1,7 +1,7 @@
 // K9 fs_oracle: the Fiat-Shamir oracle's steps on the card (fs.cuh), one
-// launch a step, with an instance for Fp128, one for the P-256 base field
-// and one for GF(2^128).  The states fs (104 bytes) and prf (272 bytes)
-// live in device memory and are updated in place.
+// launch a step, with an instance for Fp128, one each for the P-256 and
+// secp256k1 base fields and one for GF(2^128).  The states fs (104 bytes) and
+// prf (272 bytes) live in device memory and are updated in place.
 //
 //   mode 0 ABSORB          fs absorbs the n bytes of in
 //   mode 1 GETKEY          out[32] = the key of fs (fork and finalize)
@@ -187,6 +187,9 @@ extern "C" int fs_oracle_fp128(LFZK_ARGS) {
 extern "C" int fs_oracle_fp256(LFZK_ARGS) {
   return fs_oracle<P256>(LFZK_PASS);
 }
+extern "C" int fs_oracle_fp256k1(LFZK_ARGS) {
+  return fs_oracle<P256K1>(LFZK_PASS);
+}
 extern "C" int fs_oracle_gf2_128(LFZK_ARGS) {
   return fs_oracle<G128>(LFZK_PASS);
 }
@@ -199,6 +202,9 @@ extern "C" int fs_choose_fp128(LFZK_CHOOSE_ARGS) {
 }
 extern "C" int fs_choose_fp256(LFZK_CHOOSE_ARGS) {
   return fs_choose<P256>(fs, prf, out, k, n, nlanes, stream);
+}
+extern "C" int fs_choose_fp256k1(LFZK_CHOOSE_ARGS) {
+  return fs_choose<P256K1>(fs, prf, out, k, n, nlanes, stream);
 }
 extern "C" int fs_choose_gf2_128(LFZK_CHOOSE_ARGS) {
   return fs_choose<G128>(fs, prf, out, k, n, nlanes, stream);

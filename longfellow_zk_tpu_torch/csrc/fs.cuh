@@ -64,6 +64,11 @@ struct Oracle<P256> {
   static constexpr bool RAW = false;
 };
 template <>
+struct Oracle<P256K1> {
+  static constexpr int KBYTES = 32, EXACT_BITS = 256;
+  static constexpr bool RAW = false;
+};
+template <>
 struct Oracle<G128> {
   static constexpr int KBYTES = 16, EXACT_BITS = 128;
   static constexpr bool RAW = true;

@@ -1,6 +1,6 @@
-// K12 ligero_inner_product: the Ligero prover's grand inner-product
-// vector A, laid out as the rows the dot test encodes, with an instance
-// for Fp128, one for the P-256 base field and one for GF(2^128):
+// K12 ligero_inner_product: the Ligero prover's grand inner-product vector A,
+// laid out as the rows the dot test encodes, with an instance for Fp128, one
+// each for the P-256 and secp256k1 base fields and one for GF(2^128):
 //
 //   A[w] = sum over the linear terms t at w of k[t] * alphal[c_t]
 //        + sum over the quadratic entries e at w of +-alphaq[q_e]
@@ -102,6 +102,9 @@ extern "C" int ligero_inner_product_fp128(LFZK_ARGS) {
 }
 extern "C" int ligero_inner_product_fp256(LFZK_ARGS) {
   return ligero_inner_product<P256>(LFZK_PASS);
+}
+extern "C" int ligero_inner_product_fp256k1(LFZK_ARGS) {
+  return ligero_inner_product<P256K1>(LFZK_PASS);
 }
 extern "C" int ligero_inner_product_gf2_128(LFZK_ARGS) {
   return ligero_inner_product<G128>(LFZK_PASS);

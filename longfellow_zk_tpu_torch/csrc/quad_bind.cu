@@ -1,6 +1,6 @@
-// K7 fp_quad_bind: the fully bound quad of one sumcheck layer, the
-// verifier's one O(terms) step, with an instance for Fp128, one for the
-// P-256 base field and one for GF(2^128) (sums by XOR, gf2.cuh):
+// K7 fp_quad_bind: the fully bound quad of one sumcheck layer, the verifier's
+// one O(terms) step, with an instance for Fp128, one each for the P-256 and
+// secp256k1 base fields and one for GF(2^128) (sums by XOR, gf2.cuh):
 //
 //   out = sum over t of (bmask[t] ? beta : v[t]) * dot[g[t]]
 //                       * eqh0[h0[t]] * eqh1[h1[t]]
@@ -82,6 +82,10 @@ extern "C" int fp_quad_bind_fp128(LFZK_ARGS) {
 extern "C" int fp_quad_bind_fp256(LFZK_ARGS) {
   return fp_quad_bind<P256>(out, scratch, g, h0, h1, v, bmask, dot, eqh0,
                             eqh1, beta, T, nblk, stream);
+}
+extern "C" int fp_quad_bind_fp256k1(LFZK_ARGS) {
+  return fp_quad_bind<P256K1>(out, scratch, g, h0, h1, v, bmask, dot, eqh0,
+                              eqh1, beta, T, nblk, stream);
 }
 extern "C" int fp_quad_bind_gf2_128(LFZK_ARGS) {
   return fp_quad_bind<G128>(out, scratch, g, h0, h1, v, bmask, dot, eqh0,

@@ -1,7 +1,7 @@
 // K10 sumcheck_round_tail: everything of one sumcheck hand-round after its
-// sums (K3), in one thread, with an instance for Fp128, one for the P-256
-// base field and one for GF(2^128).  With a = [a0, a2] from K3, the copy
-// weight eq0 and the running claim:
+// sums (K3), in one thread, with an instance for Fp128, one each for the
+// P-256 and secp256k1 base fields and one for GF(2^128).  With a = [a0, a2]
+// from K3, the copy weight eq0 and the running claim:
 //
 //   c0 = eq0 a0,  c2 = eq0 a2,  c1 = claim - 2 c0 - c2
 //   raw_k = c0 + c1 x_k + c2 x_k^2 at the points x_0, x_1, x_2
@@ -106,6 +106,9 @@ extern "C" int sumcheck_round_tail_fp128(LFZK_ARGS) {
 }
 extern "C" int sumcheck_round_tail_fp256(LFZK_ARGS) {
   return round_tail<P256>(LFZK_PASS);
+}
+extern "C" int sumcheck_round_tail_fp256k1(LFZK_ARGS) {
+  return round_tail<P256K1>(LFZK_PASS);
 }
 extern "C" int sumcheck_round_tail_gf2_128(LFZK_ARGS) {
   return round_tail<G128>(LFZK_PASS);

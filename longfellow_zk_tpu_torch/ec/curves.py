@@ -1,5 +1,5 @@
 """Host-side elliptic curve arithmetic for witness generation (a copy of
-the JAX package's ec/curves.py, P-256 part).
+the JAX package's ec/curves.py: P-256 and secp256k1).
 
 Semantic twin of reference lib/ec/elliptic_curve.h:34-547 and
 lib/ec/p256.h: projective short-Weierstrass points with the *complete*
@@ -14,7 +14,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Sequence, Tuple
 
-from ..fields.fp_instances import P256, P256_ORDER
+from ..fields.fp_instances import P256, P256_ORDER, P256K1, P256K1_ORDER
 
 
 @dataclass
@@ -159,6 +159,18 @@ def p256_curve() -> EllipticCurve:
         gx=0x6B17D1F2E12C4247F8BCE6E563A440F277037D812DEB33A0F4A13945D898C296,
         gy=0x4FE342E2FE1A7F9B8EE7EB4A7C0F9E162BCE33576B315ECECBB6406837BF51F5,
         order=P256_ORDER,
+        kbits=256,
+    )
+
+
+def p256k1_curve() -> EllipticCurve:
+    return EllipticCurve(
+        p=P256K1,
+        a=0,
+        b=7,
+        gx=0x79BE667EF9DCBBAC55A06295CE870B07029BFCDB2DCE28D959F2815B16F81798,
+        gy=0x483ADA7726A3C4655DA4FBFC0E1108A8FD17B448A68554199C47D08FFB10D4B8,
+        order=P256K1_ORDER,
         kbits=256,
     )
 

@@ -7,7 +7,9 @@ An Fp2 tensor is planar there, uint32[2, 2N, ...] (re, im leading), and
 int32[..., 2, N] here.  Both packages use Montgomery form with
 R = 2^(32N), so the conversion moves bits and changes no value.  A
 GF(2^128) tensor holds polynomial-basis bits on both sides: uint32[8, ...]
-halfwords there, int32[..., 4] words here.
+halfwords there, int32[..., 4] words here.  A multi-prime (CRT) tensor
+is uint32[2, VS, ...] there (two 16-bit limbs a residue) and
+int32[VS, ..., 1] here, both Montgomery with R = 2^32 a lane.
 """
 
 from __future__ import annotations
@@ -87,3 +89,21 @@ def circuit_from_arrays(F, nv: int, nc: int, ninputs: int, npub_in: int,
                    ninputs=ninputs, npub_in=npub_in,
                    subfield_boundary=subfield_boundary, layers=out,
                    id=circuit_id)
+
+
+def mp_from_jax(arr: np.ndarray) -> torch.Tensor:
+    """Multi-prime uint32[2, VS, ...] (two 16-bit limbs a residue) ->
+    int32[VS, ..., 1] words (CPU)."""
+    a = np.asarray(arr, dtype=np.uint32)
+    assert a.shape[0] == 2, a.shape
+    w = (a[0] & np.uint32(0xFFFF)) | ((a[1] & np.uint32(0xFFFF))
+                                      << np.uint32(16))
+    return torch.from_numpy(np.ascontiguousarray(w).view(np.int32)[..., None]
+                            .copy())
+
+
+def mp_to_jax(t: torch.Tensor) -> np.ndarray:
+    """int32[VS, ..., 1] words -> multi-prime uint32[2, VS, ...]."""
+    assert t.shape[-1] == 1, tuple(t.shape)
+    w = np.ascontiguousarray(t.detach().cpu().numpy()[..., 0]).view(np.uint32)
+    return np.stack([w & np.uint32(0xFFFF), w >> np.uint32(16)])

@@ -1,7 +1,10 @@
 """Concrete prime-field instances: Fp128 (reference
-lib/algebra/fp_p128.h:26-56) and the NIST P-256 base field (reference
+lib/algebra/fp_p128.h:26-56), the NIST P-256 base field (reference
 lib/algebra/fp_p256.h, lib/ec/p256.h), with the Fp2 root of unity that
-the P-256 Reed-Solomon encoder uses (lib/circuits/mdoc/mdoc_zk.cc:82-88).
+the P-256 Reed-Solomon encoder uses (lib/circuits/mdoc/mdoc_zk.cc:82-88),
+and the secp256k1 base field (reference lib/algebra/fp_p256k1.h), whose
+Reed-Solomon code goes through the CRT convolution
+(transforms/crt_conv.py).
 """
 
 from __future__ import annotations
@@ -20,6 +23,10 @@ P128_OMEGA_ORDER = 1 << 108
 P256 = 0xFFFFFFFF00000001000000000000000000000000FFFFFFFFFFFFFFFFFFFFFFFF
 P256_ORDER = 0xFFFFFFFF00000000FFFFFFFFFFFFFFFFBCE6FAADA7179E84F3B9CAC2FC632551
 
+# --- secp256k1 ---------------------------------------------------------------
+P256K1 = (1 << 256) - (1 << 32) - 977
+P256K1_ORDER = 0xFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFEBAAEDCE6AF48A03BBFD25E8CD0364141
+
 # Root of unity of order 2^31 in Fp2 over the P-256 base field
 # (mdoc_zk.cc:83-88); element is kRootX + i*kRootY.
 P256_FP2_ROOT_X = int(
@@ -34,7 +41,7 @@ P256_FP2_ROOT_ORDER = 1 << 31
 
 # The fields whose tensors the CUDA kernels take: p -> instance tag (the
 # suffix of the kernel names in kernels.py).
-KERNEL_TAGS = {P128: "fp128", P256: "fp256"}
+KERNEL_TAGS = {P128: "fp128", P256: "fp256", P256K1: "fp256k1"}
 
 
 @functools.lru_cache(maxsize=None)
@@ -45,3 +52,8 @@ def fp128() -> PrimeField:
 @functools.lru_cache(maxsize=None)
 def p256_base() -> PrimeField:
     return PrimeField(P256, "Fp256Base")
+
+
+@functools.lru_cache(maxsize=None)
+def p256k1_base() -> PrimeField:
+    return PrimeField(P256K1, "Fp256k1Base")

@@ -7,30 +7,38 @@ are loaded with ctypes.  Nothing here runs when the package is imported.
 The sources share the field arithmetic of `csrc/fp.cuh`, templated on the
 field (K3 and K7 also the two-pass sum of `csrc/reduce.cuh`, K8-K10 the
 SHA-256 compression of `csrc/sha256.cuh`, K9 and K10 the Fiat-Shamir
-oracle of `csrc/fs.cuh`); each kernel has one instance (and one C entry
-point) per field.  K9's mode 9 (CHOOSE) has entry points of its own,
+oracle of `csrc/fs.cuh`, K4 [crt] and K13-K15 the 32-bit prime lanes of
+`csrc/mp.cuh`); each kernel has one instance (and one C entry point) per
+field.  K9's mode 9 (CHOOSE) has entry points of its own,
 `fs_choose`, so that its launches are counted apart:
 
-    K1 fp_elementwise  fp_ops.cu      fp128 fp256 gf2_128  fields/fp.py
-    K2 fp_segment_sum  segsum.cu      fp128 fp256 gf2_128  fields/fp.py
-    K3 fp_wire_round   wire_round.cu  fp128 fp256 gf2_128  fields/fp.py
-    K4 fp_ntt          ntt.cu         fp128 fp256x2        transforms/ntt.py
-    K5 fp2_elementwise fp2_ops.cu     fp256x2              fields/fp2.py
-    K6 gf2_lch14       lch14.cu       gf2_128              transforms/lch14.py
-    K7 fp_quad_bind    quad_bind.cu   fp128 fp256 gf2_128  sumcheck/verifier.py
-    K8 sha256_msgs     sha256.cu      bytes                merkle/sha256_dev.py
-    K9 fs_oracle       fs.cu          fp128 fp256 gf2_128  random_oracle/device_fs.py
+    K1 fp_elementwise  fp_ops.cu      P gf2_128      fields/fp.py
+    K2 fp_segment_sum  segsum.cu      P gf2_128      fields/fp.py
+    K3 fp_wire_round   wire_round.cu  P gf2_128      fields/fp.py
+    K4 fp_ntt          ntt.cu         fp128 fp256x2 crt
+                                                     transforms/ntt.py
+    K5 fp2_elementwise fp2_ops.cu     fp256x2        fields/fp2.py
+    K6 gf2_lch14       lch14.cu       gf2_128        transforms/lch14.py
+    K7 fp_quad_bind    quad_bind.cu   P gf2_128      sumcheck/verifier.py
+    K8 sha256_msgs     sha256.cu      bytes          merkle/sha256_dev.py
+    K9 fs_oracle       fs.cu          P gf2_128      random_oracle/device_fs.py
     K9 mode 9 fs_choose
-                       fs.cu          fp128 fp256 gf2_128  random_oracle/device_fs.py
+                       fs.cu          P gf2_128      random_oracle/device_fs.py
     K10 sumcheck_round_tail
-                       round_tail.cu  fp128 fp256 gf2_128  random_oracle/device_fs.py
-    K11 zk_constraints constraints.cu fp128 fp256 gf2_128  zk/fused.py
+                       round_tail.cu  P gf2_128      random_oracle/device_fs.py
+    K11 zk_constraints constraints.cu P gf2_128      zk/fused.py
     K12 ligero_inner_product
-                       ligero_a.cu    fp128 fp256 gf2_128  zk/fused.py
+                       ligero_a.cu    P gf2_128      zk/fused.py
+    K13 crt_to         crt.cu         fp256k1        transforms/crt_conv.py
+    K14 mp_elementwise crt.cu         crt            fields/multiprime.py
+    K15 crt_from       crt.cu         fp256k1        transforms/crt_conv.py
 
-(fp128: p = 2^128 - 2^108 + 1; fp256: the P-256 base field; fp256x2: Fp2
-over it; gf2_128: GF(2^128), csrc/gf2.cuh; bytes: K8 hashes bytes and
-knows no field.)  K1's bind and hv, K3, K9 (mode 9 too), K10, K11 and
+(P: the prime fields fp128, fp256 and fp256k1.  fp128: p = 2^128 -
+2^108 + 1; fp256: the P-256 base field; fp256x2: Fp2 over it; fp256k1:
+the secp256k1 base field; crt: the multi-prime field of the CRT
+convolution, 32-bit residue lanes modulo the primes of csrc/mp.cuh;
+gf2_128: GF(2^128), csrc/gf2.cuh; bytes: K8 hashes bytes and knows no
+field.)  K1's bind and hv, K3, K9 (mode 9 too), K10, K11 and
 K12 take a lane axis: the proofs of a batch (zk/batch.py) run in the
 launches of one proof.  A kernel's name here is
 "kernel[instance]".  `LAUNCHES` counts, per instance, the CUDA launches
@@ -63,35 +71,41 @@ _LL = ctypes.c_longlong
 # instance is "<kernel>_<instance>"
 _SOURCES = {
     "fp_elementwise": ("fp_ops.cu", [_I, _P, _P, _P, _P, _LL, _LL, _LL, _LL,
-                                     _P], ("fp128", "fp256", "gf2_128")),
+                                     _P],
+                       ("fp128", "fp256", "fp256k1", "gf2_128")),
     "fp_segment_sum": ("segsum.cu", [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                      _P, _I, _P],
-                       ("fp128", "fp256", "gf2_128")),
+                       ("fp128", "fp256", "fp256k1", "gf2_128")),
     "fp_wire_round": ("wire_round.cu", [_I, _P, _P, _P, _P, _P, _P, _P, _LL,
                                         _LL, _LL, _LL, _I, _P],
-                      ("fp128", "fp256", "gf2_128")),
-    "fp_ntt": ("ntt.cu", [_P, _P, _P, _LL, _I, _P], ("fp128", "fp256x2")),
+                      ("fp128", "fp256", "fp256k1", "gf2_128")),
+    "fp_ntt": ("ntt.cu", [_P, _P, _P, _LL, _I, _LL, _P],
+               ("fp128", "fp256x2", "crt")),
     "fp2_elementwise": ("fp2_ops.cu", [_I, _P, _P, _P, _LL, _LL, _LL, _P],
                         ("fp256x2",)),
     "gf2_lch14": ("lch14.cu", [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                _I, _I, _P], ("gf2_128",)),
     "fp_quad_bind": ("quad_bind.cu", [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                       _P, _LL, _I, _P],
-                     ("fp128", "fp256", "gf2_128")),
+                     ("fp128", "fp256", "fp256k1", "gf2_128")),
     "sha256_msgs": ("sha256.cu", [_P, _P, _LL, _I, _P], ("bytes",)),
     "fs_oracle": ("fs.cu", [_I, _P, _P, _P, _P, _LL, _I, _LL, _LL, _P],
-                  ("fp128", "fp256", "gf2_128")),
+                  ("fp128", "fp256", "fp256k1", "gf2_128")),
     "fs_choose": ("fs.cu", [_P, _P, _P, _LL, _LL, _I, _P],
-                  ("fp128", "fp256", "gf2_128")),
+                  ("fp128", "fp256", "fp256k1", "gf2_128")),
     "sumcheck_round_tail": ("round_tail.cu", [_P, _P, _P, _P, _P, _P, _P, _I,
                                               _LL, _LL, _P],
-                            ("fp128", "fp256", "gf2_128")),
+                            ("fp128", "fp256", "fp256k1", "gf2_128")),
     "zk_constraints": ("constraints.cu", [_P, _I, _I, _P, _P, _P, _P, _P, _I,
                                           _LL, _LL, _P],
-                       ("fp128", "fp256", "gf2_128")),
+                       ("fp128", "fp256", "fp256k1", "gf2_128")),
     "ligero_inner_product": ("ligero_a.cu", [_P, _P, _P, _P, _P, _P, _LL, _I,
                                              _I, _I, _I, _LL, _LL, _LL, _P],
-                             ("fp128", "fp256", "gf2_128")),
+                             ("fp128", "fp256", "fp256k1", "gf2_128")),
+    "crt_to": ("crt.cu", [_P, _P, _P, _LL, _I, _P], ("fp256k1",)),
+    "mp_elementwise": ("crt.cu", [_I, _P, _P, _P, _LL, _I, _LL, _LL, _LL, _P],
+                       ("crt",)),
+    "crt_from": ("crt.cu", [_P, _P, _P, _P, _LL, _I, _P], ("fp256k1",)),
 }
 
 # "kernel[instance]" -> (source, C entry point, argtypes)

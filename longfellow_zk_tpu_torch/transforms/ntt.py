@@ -10,10 +10,12 @@ Port of the JAX package's transforms/ntt.py, twin of the reference FFT
 
 The transform runs in kernel K4 (`fp_ntt`, csrc/ntt.cu) over a batch of
 rows: bit reversal, then log2(n) butterfly stages with per-stage twiddle
-tables computed on the host.  K4 has an instance over Fp128 and one over
-Fp2 on the P-256 base field.  Tensors are int32 [..., n, *F.elt_shape]
-(fields/fp.py: [..., n, N]; fields/fp2.py: [..., n, 2, N]); the transform
-runs along the element axis n.
+tables computed on the host.  K4 has an instance over Fp128, one over
+Fp2 on the P-256 base field and one over the multi-prime field of the
+CRT convolution (transforms/crt_conv.py).  Tensors are int32 [..., n,
+*F.elt_shape] (fields/fp.py: [..., n, N]; fields/fp2.py: [..., n, 2, N];
+fields/multiprime.py: [VS, ..., n, 1], a twiddle table a prime); the
+transform runs along the element axis n.
 
 A field without roots of unity of the needed order (P-256's base field)
 convolves through Fp2 (FFTExtConvolution): lift to Fp2 with im = 0,
@@ -31,6 +33,7 @@ from .. import kernels
 from ..device import resolve_device
 from ..fields.fp import ADD, MUL, SUB, elementwise_plain, route
 from ..fields.fp2 import Fp2, fp2_elementwise_plain
+from ..fields.multiprime import MultiPrimeField, mp_elementwise_plain
 
 
 def bitrev_permutation(n: int) -> np.ndarray:
@@ -46,43 +49,58 @@ def bitrev_permutation(n: int) -> np.ndarray:
 def _plain(F, mode: int, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if isinstance(F, Fp2):
         return fp2_elementwise_plain(F, mode, a, b)
+    if isinstance(F, MultiPrimeField):
+        return mp_elementwise_plain(F, mode, a, b)
     return elementwise_plain(F, mode, a, b)
+
+
+def _lanes(F) -> int:
+    """The rows of a transform come in this many lanes, each with its
+    own twiddle table: the primes of a multi-prime field, else one."""
+    return F.vs if isinstance(F, MultiPrimeField) else 1
 
 
 def ntt_plain(F, x: torch.Tensor, tw: torch.Tensor) -> torch.Tensor:
     """Plain version of K4: x [rows, n, *E] -> its transform under the
-    concatenated stage twiddles tw [n - 1, *E]; any device."""
+    concatenated stage twiddles tw [n - 1, *E] ([VS, n - 1, 1] for a
+    multi-prime field, whose rows come lane-major); any device."""
     rows, n, E = x.shape[0], x.shape[1], tuple(F.elt_shape)
-    x = x[:, torch.as_tensor(bitrev_permutation(n), device=x.device)]
+    L = _lanes(F)
+    x = x.reshape((L, rows // L, n) + E)
+    x = x[:, :, torch.as_tensor(bitrev_permutation(n), device=x.device)]
+    ax = tw.dim() - len(E) - 1  # tw's element axis
     s = 0
     while (1 << s) < n:
         m = 1 << s
-        xr = x.reshape((rows, n // (2 * m), 2, m) + E)
-        lo, hi = xr[:, :, 0], xr[:, :, 1]
-        t = hi if s == 0 else _plain(F, MUL, hi, tw[m - 1 : 2 * m - 1])
+        xr = x.reshape((L, rows // L, n // (2 * m), 2, m) + E)
+        lo, hi = xr[:, :, :, 0], xr[:, :, :, 1]
+        t = hi if s == 0 else _plain(F, MUL, hi, tw.narrow(ax, m - 1, m))
         x = torch.stack([_plain(F, ADD, lo, t), _plain(F, SUB, lo, t)],
-                        dim=2).reshape((rows, n) + E)
+                        dim=3).reshape((L, rows // L, n) + E)
         s += 1
-    return x
+    return x.reshape((rows, n) + E)
 
 
 def fp_ntt(F, x: torch.Tensor, tw: torch.Tensor) -> torch.Tensor:
     """K4 wrapper: transform of every row of x [rows, n, *F.elt_shape],
-    n = 2^logn."""
+    n = 2^logn; over a multi-prime field the rows come lane-major, lane b
+    with the twiddles tw[b] ([VS, n - 1, 1])."""
     name = route("fp_ntt", F, x, tw)
     if name is None:
         return ntt_plain(F, x, tw)
     rows, n, E = x.shape[0], x.shape[1], tuple(F.elt_shape)
     logn = n.bit_length() - 1
+    L = _lanes(F)
     if x.dtype != torch.int32 or tuple(x.shape[2:]) != E or \
-            n != 1 << logn or tuple(tw.shape) != (n - 1,) + E:
+            n != 1 << logn or rows % L or \
+            tw.numel() != L * (n - 1) * int(np.prod(E)):
         raise ValueError("fp_ntt takes int32 [rows, 2^k, %s] and 2^k - 1 "
-                         "twiddles, got %s" % (E, tuple(x.shape)))
+                         "twiddles a lane, got %s" % (E, tuple(x.shape)))
     x = x.contiguous()
     tw = tw.contiguous()
     y = torch.empty_like(x)
     kernels.launch(name, logn, y.data_ptr(), x.data_ptr(), tw.data_ptr(),
-                   rows, logn)
+                   rows, logn, rows // L)
     return y
 
 

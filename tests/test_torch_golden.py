@@ -39,9 +39,13 @@ at SHA size; the JAX ECDSA proof takes 12-16 minutes and 14 GB) and
 never run in the default (not slow) test run.  Regenerate the files with
 
     JAX_PLATFORMS=cpu python tests/test_torch_golden.py \
-        [--toy] [--toy-p256] [--ecdsa] [--toy-gf2] [--mdoc]
+        [--toy] [--toy-p256] [--ecdsa] [--toy-gf2] [--mdoc] \
+        [--bitaddr-circuit] [--toy-p256k1] [--bitaddr] [--bitaddr-jax]
 
-(no flag: all of them; a flag: only that file.)
+(no flag: all of them; a flag: only that file.  --bitaddr-jax writes
+nothing: it makes the bitaddr proof with the JAX package, its host-round
+sumcheck and its CRT code, and compares it with the golden; its Ligero
+commit alone ran for more than an hour on an 8-core CPU host.)
 """
 
 import gzip
@@ -472,6 +476,200 @@ def write_ecdsa_golden() -> int:
     return len(data)
 
 
+BITADDR_CIRCUIT = os.path.join(REPO, "artifacts", "bitaddr_p256k1.lfc1.gz")
+BITADDR_BIN = os.path.join(TESTDATA, "bitaddr_p256k1.proof.bin")
+BITADDR_JSON = os.path.join(TESTDATA, "bitaddr_p256k1.proof.json")
+TOY_P256K1_BIN = os.path.join(TESTDATA, "zk_toy_p256k1.proof.bin")
+BITADDR_SEED = 23
+BITADDR_LABEL = b"bitaddr"
+
+
+def jax_bitaddr_circuit():
+    """(LFC1 bytes, circuit) of the bitaddr circuit compiled by the JAX
+    package (tests/test_bitaddr.py::test_bitaddr_compiled_zk: QuadCircuit,
+    Logic, BitaddrCircuit, mkcircuit(nc=1)), over the secp256k1 base
+    field."""
+    from longfellow_zk_tpu.circuits.bitaddr import BitaddrCircuit
+    from longfellow_zk_tpu.compiler.logic import CompilerBackend, Logic
+    from longfellow_zk_tpu.compiler.quad_circuit import QuadCircuit
+    from longfellow_zk_tpu.ec.curves import p256k1_curve
+    from longfellow_zk_tpu.fields.fp_instances import p256k1_base
+    from longfellow_zk_tpu.proto.lfc1 import SECP_ID, write_circuit
+
+    F = p256k1_base()
+    qc = QuadCircuit(F)
+    L = Logic(CompilerBackend(qc), F)
+    bc = BitaddrCircuit(L, p256k1_curve())
+    addr_elt = L.eltw_input()
+    qc.private_input()
+    w = bc.witness_input()
+    bc.assert_bitaddr(addr_elt, w)
+    circ = qc.mkcircuit(nc=1)
+    return write_circuit(F, SECP_ID, circ), circ
+
+
+def write_bitaddr_circuit() -> int:
+    data = gzip.compress(jax_bitaddr_circuit()[0], mtime=0)
+    with open(BITADDR_CIRCUIT, "wb") as f:
+        f.write(data)
+    return len(data)
+
+
+def bitaddr_key(ec):
+    """(sk, Hash160 address) from random.Random(BITADDR_SEED), as
+    tests/test_bitaddr.py draws them."""
+    import hashlib
+
+    from longfellow_zk_tpu_torch.circuits.ripemd.reference import ripemd160
+
+    sk = random.Random(BITADDR_SEED).randrange(1, ec.order)
+    pk = ec.normalize(ec.scalar_mult(ec.generator(), sk))
+    compressed = bytes([2 + (int(pk.y) & 1)]) + int(pk.x).to_bytes(32, "big")
+    return sk, int.from_bytes(
+        ripemd160(hashlib.sha256(compressed).digest()), "big")
+
+
+def bitaddr_witness(F, ec, BitaddrWitness):
+    """All input wires of the bitaddr circuit: [1, addr] and the host
+    witness of the given package's BitaddrWitness."""
+    sk, addr = bitaddr_key(ec)
+    bw = BitaddrWitness(ec, F)
+    bw.compute_witness(sk)
+    return [F.of_scalar(1), addr % F.p] + bw.fill()
+
+
+def jax_crt_rs_factory(F):
+    """The JAX package's Reed-Solomon factory over a root-poor field: the
+    CRT convolution (bitaddr_test.cc:103-125 CrtConvolutionFactory)."""
+    from longfellow_zk_tpu.transforms.crt_conv import (
+        make_crt_convolution_factory)
+    from longfellow_zk_tpu.transforms.ntt import ReedSolomon
+
+    conv = make_crt_convolution_factory(F)
+    cache = {}
+
+    def rs(n, m):
+        if (n, m) not in cache:
+            cache[(n, m)] = ReedSolomon(n, m, F, conv)
+        return cache[(n, m)]
+
+    rs.fingerprint = ("crt", F.name)
+    return rs
+
+
+def jax_toy_p256k1_proof():
+    """(proof bytes, circuit, prover) of the JAX package on the toy
+    circuit of tests/test_zk.py over the secp256k1 base field, with the
+    CRT Reed-Solomon code."""
+    from longfellow_zk_tpu.fields.fp_instances import p256k1_base
+    from longfellow_zk_tpu.random_oracle.engine import DeterministicEngine
+    from longfellow_zk_tpu.random_oracle.transcript import Transcript
+    from longfellow_zk_tpu.zk.proof import ZkProof
+    from longfellow_zk_tpu.zk.prover import ZkProver
+    from longfellow_zk_tpu.zk.serialization import write_zk_proof
+    from test_zk import _zk_circuit
+
+    F = p256k1_base()
+    circ = _zk_circuit(F)
+    W = toy_inputs(F.p, 32)
+    zkp = ZkProof(rate=TOY_RATE, nreq=TOY_NREQ)
+    prover = ZkProver(circ, F, jax_crt_rs_factory(F), rate=TOY_RATE,
+                      nreq=TOY_NREQ, block_enc=TOY_BLOCK_ENC)
+    ts = Transcript(TOY_LABEL)
+    prover.commit(zkp, W, ts, DeterministicEngine())
+    assert prover.prove(zkp, W, ts)
+    return write_zk_proof(zkp, circ, prover.param, F), circ, prover
+
+
+def write_toy_p256k1_golden() -> int:
+    data = jax_toy_p256k1_proof()[0]
+    os.makedirs(TESTDATA, exist_ok=True)
+    with open(TOY_P256K1_BIN, "wb") as f:
+        f.write(data)
+    return len(data)
+
+
+def jax_bitaddr_proof() -> bytes:
+    """The JAX package's bitaddr proof bytes, its sumcheck by the
+    host-round prover and its Reed-Solomon code the JAX CRT convolution,
+    under DeterministicEngine()."""
+    from longfellow_zk_tpu.circuits.bitaddr.bitaddr import BitaddrWitness
+    from longfellow_zk_tpu.ec.curves import p256k1_curve
+    from longfellow_zk_tpu.fields.fp_instances import p256k1_base
+    from longfellow_zk_tpu.proto.lfc1 import SECP_ID, read_circuit
+    from longfellow_zk_tpu.random_oracle.engine import DeterministicEngine
+    from longfellow_zk_tpu.random_oracle.transcript import Transcript
+    from longfellow_zk_tpu.zk.proof import ZkProof
+    from longfellow_zk_tpu.zk.prover import ZkProver
+    from longfellow_zk_tpu.zk.serialization import write_zk_proof
+    from longfellow_zk_tpu.zk.testing import K_VERSION
+
+    F = p256k1_base()
+    circ = read_circuit(F, SECP_ID, gzip.open(BITADDR_CIRCUIT, "rb").read())
+    W = bitaddr_witness(F, p256k1_curve(), BitaddrWitness)
+    zkp = ZkProof(rate=RATE, nreq=NREQ)
+    prover = ZkProver(circ, F, jax_crt_rs_factory(F), rate=RATE, nreq=NREQ)
+    prover.sumcheck = _HostRoundSumcheck(F)
+    ts = Transcript(BITADDR_LABEL, version=K_VERSION)
+    prover.commit(zkp, W, ts, DeterministicEngine())
+    assert prover.prove(zkp, W, ts)
+    return write_zk_proof(zkp, circ, prover.param, F)
+
+
+def port_bitaddr_proof() -> bytes:
+    """The port's CPU-path (plain versions) bitaddr proof bytes, with
+    the CRT Reed-Solomon code, under DeterministicEngine()."""
+    from longfellow_zk_tpu_torch.circuits.bitaddr.bitaddr import (
+        BitaddrWitness)
+    from longfellow_zk_tpu_torch.ec.curves import p256k1_curve
+    from longfellow_zk_tpu_torch.fields.fp_instances import p256k1_base
+    from longfellow_zk_tpu_torch.proto.lfc1 import SECP_ID, read_circuit
+    from longfellow_zk_tpu_torch.random_oracle.engine import (
+        DeterministicEngine)
+    from longfellow_zk_tpu_torch.random_oracle.transcript import Transcript
+    from longfellow_zk_tpu_torch.zk.proof import ZkProof
+    from longfellow_zk_tpu_torch.zk.prover import ZkProver
+    from longfellow_zk_tpu_torch.zk.serialization import write_zk_proof
+    from longfellow_zk_tpu_torch.zk.testing import K_VERSION, rs_factory_for
+
+    F = p256k1_base()
+    circ = read_circuit(F, SECP_ID, gzip.open(BITADDR_CIRCUIT, "rb").read())
+    W = bitaddr_witness(F, p256k1_curve(), BitaddrWitness)
+    zkp = ZkProof(rate=RATE, nreq=NREQ)
+    prover = ZkProver(circ, F, rs_factory_for(F, device="cpu"),
+                      rate=RATE, nreq=NREQ, device="cpu")
+    ts = Transcript(BITADDR_LABEL, version=K_VERSION)
+    prover.commit(zkp, W, ts, DeterministicEngine())
+    assert prover.prove(zkp, W, ts)
+    return write_zk_proof(zkp, circ, prover.param, F)
+
+
+def write_bitaddr_golden() -> int:
+    import hashlib
+
+    from longfellow_zk_tpu_torch.zk.testing import K_VERSION
+
+    data = port_bitaddr_proof()
+    os.makedirs(TESTDATA, exist_ok=True)
+    with open(BITADDR_BIN, "wb") as f:
+        f.write(data)
+    meta = {"circuit": "artifacts/bitaddr_p256k1.lfc1.gz",
+            "witness": "sk = random.Random(seed).randrange(1, n) on "
+                       "secp256k1, addr its Hash160 (tests/test_bitaddr.py)",
+            "seed": BITADDR_SEED, "engine": "DeterministicEngine()",
+            "engine_seed": "bogorng",
+            "rs": "CRTConvolution over 18 primes c*2^22+1",
+            "transcript_label": BITADDR_LABEL.decode(), "version": K_VERSION,
+            "rate": RATE, "nreq": NREQ, "proof_bytes": len(data),
+            "sha256": hashlib.sha256(data).hexdigest(),
+            "made_by": "tests/test_torch_golden.py --bitaddr (the port's "
+                       "ZkProver on the CPU, plain versions)"}
+    with open(BITADDR_JSON, "w") as f:
+        json.dump(meta, f, indent=1)
+        f.write("\n")
+    return len(data)
+
+
 @pytest.mark.slow
 def test_jax_reproduces_golden_and_verifies():
     from longfellow_zk_tpu.fields.fp_instances import (
@@ -618,3 +816,13 @@ if __name__ == "__main__":
         print(write_toy_gf2_golden(), "bytes written to", TOY_GF2_BIN)
     if not only or "--mdoc" in only:
         print(write_mdoc_golden(), "bytes written to", MDOC_BIN)
+    if not only or "--bitaddr-circuit" in only:
+        print(write_bitaddr_circuit(), "bytes written to", BITADDR_CIRCUIT)
+    if not only or "--toy-p256k1" in only:
+        print(write_toy_p256k1_golden(), "bytes written to", TOY_P256K1_BIN)
+    if not only or "--bitaddr" in only:
+        print(write_bitaddr_golden(), "bytes written to", BITADDR_BIN)
+    if "--bitaddr-jax" in only:
+        with open(BITADDR_BIN, "rb") as f:
+            print("the JAX package's bitaddr proof equals", BITADDR_BIN,
+                  jax_bitaddr_proof() == f.read())

@@ -44,10 +44,13 @@ for mod in ("fields.fp2", "ec.curves", "circuits.ecdsa.verify",
             "circuits.mdoc.witness", "utils.zstd", "sumcheck.verifier",
             "ligero.verifier", "zk.verifier", "zk.serialization",
             "merkle.sha256_dev", "merkle.merkle_dev",
-            "random_oracle.device_fs", "zk.fused", "zk.batch"):
+            "random_oracle.device_fs", "zk.fused", "zk.batch",
+            "fields.multiprime", "transforms.crt_conv",
+            "circuits.bitaddr.bitaddr", "circuits.ripemd.witness",
+            "circuits.ecdsa.pk"):
     assert pkg.__name__ + "." + mod in names, mod
 from longfellow_zk_tpu_torch.fields.fp_instances import (
-    fp128, p256_base, P128_OMEGA, P128_OMEGA_ORDER, P256_FP2_ROOT_X,
+    fp128, p256_base, p256k1_base, P128_OMEGA, P128_OMEGA_ORDER, P256_FP2_ROOT_X,
     P256_FP2_ROOT_Y, P256_FP2_ROOT_ORDER)
 from longfellow_zk_tpu_torch.fields.fp2 import Fp2
 from longfellow_zk_tpu_torch.fields.gf2 import gf2_128
@@ -78,6 +81,7 @@ for make in (lambda: SumcheckProver(fp128()),
              lambda: SumcheckVerifier(fp128()),
              lambda: rs_factory_for(fp128(), P128_OMEGA, P128_OMEGA_ORDER),
              lambda: SumcheckProver(p256_base()),
+             lambda: rs_factory_for(p256k1_base()),
              lambda: rs_factory_for(p256_base(), F2=Fp2(p256_base()),
                                     omega2=(P256_FP2_ROOT_X, P256_FP2_ROOT_Y),
                                     omega_order=P256_FP2_ROOT_ORDER)):

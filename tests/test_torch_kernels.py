@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (K1-K12, every instance) against their plain
+"""The port's CUDA kernels (K1-K15, every instance) against their plain
 PyTorch versions, on the card.  Field arithmetic, hashing and the
 Fiat-Shamir states are exact: equality, tolerance 0.
 
@@ -18,15 +18,16 @@ from longfellow_zk_tpu_torch.fields.fp2 import (
     MUL_BASE, Fp2, fp2_elementwise, fp2_elementwise_plain)
 from longfellow_zk_tpu_torch.fields.fp_instances import (
     P128_OMEGA, P128_OMEGA_ORDER, P256_FP2_ROOT_ORDER, P256_FP2_ROOT_X,
-    P256_FP2_ROOT_Y, fp128, p256_base)
+    P256_FP2_ROOT_Y, fp128, p256_base, p256k1_base)
 from longfellow_zk_tpu_torch.fields.gf2 import gf2_128
+from longfellow_zk_tpu_torch.fields import multiprime as mpm
 from longfellow_zk_tpu_torch.merkle.merkle_dev import merkle_heap
 from longfellow_zk_tpu_torch.merkle.sha256_dev import (
     sha256_msgs, sha256_msgs_plain)
 from longfellow_zk_tpu_torch.random_oracle import device_fs as dfs
 from longfellow_zk_tpu_torch.random_oracle.transcript import Transcript
 from longfellow_zk_tpu_torch.sumcheck import verifier
-from longfellow_zk_tpu_torch.transforms import lch14
+from longfellow_zk_tpu_torch.transforms import crt_conv, lch14
 from longfellow_zk_tpu_torch.transforms.ntt import NTT, fp_ntt, ntt_plain
 from longfellow_zk_tpu_torch.zk import fused
 
@@ -53,7 +54,8 @@ def dev():
     return torch.device("cuda")
 
 
-FIELDS = {"fp128": fp128, "fp256": p256_base, "gf2_128": gf2_128}
+FIELDS = {"fp128": fp128, "fp256": p256_base, "fp256k1": p256k1_base,
+          "gf2_128": gf2_128}
 
 
 def _elts(F, rng, n, dev):
@@ -206,6 +208,53 @@ def test_k4_ntt_fp2(dev, n):
     for inverse in (False, True):
         tw = ntt.twiddles(n, inverse)
         _same(fp_ntt(F2, x, tw), ntt_plain(F2, x, tw))
+
+
+def _residues(mp, rng, shape, dev):
+    """Residues [VS, *shape, 1] from a numpy seed, each lane below its
+    prime, with 0, 1 and p_b - 1 first."""
+    n = int(np.prod(shape))
+    vals = [np.array([v % p if v >= 0 else p - 1 for p in mp.primes],
+                     dtype=object) for v in (0, 1, -1)]
+    vals += [np.array([int(rng.integers(0, p)) for p in mp.primes],
+                      dtype=object) for _ in range(n)]
+    return mp.to_limbs(vals[:n], dev).reshape((mp.vs,) + tuple(shape) + (1,))
+
+
+@pytest.mark.parametrize("n", [2, 64, 4096])
+def test_k4_ntt_crt(dev, n):
+    """K4 [crt]: every lane's rows under its own prime and twiddles."""
+    mp, rng = mpm.MultiPrimeField(18), np.random.default_rng(11)
+    x = _residues(mp, rng, (3, n), dev).reshape(18 * 3, n, 1)
+    ntt = NTT(mp, mp.omegas, mp.omega_order, dev)
+    for inverse in (False, True):
+        tw = ntt.twiddles(n, inverse)
+        _same(fp_ntt(mp, x, tw), ntt_plain(mp, x, tw))
+
+
+@pytest.mark.parametrize("mode", [mpm.MUL, mpm.ADD, mpm.SUB])
+def test_k14_mp_elementwise(dev, mode):
+    """K14 on full operands, on a per-lane table broadcast over rows (the
+    convolution's product) and on one constant a lane."""
+    mp, rng = mpm.MultiPrimeField(18), np.random.default_rng(12)
+    a = _residues(mp, rng, (5, 300), dev)
+    for b in (_residues(mp, rng, (5, 300), dev),
+              _residues(mp, rng, (300,), dev), _residues(mp, rng, (), dev)):
+        _same(mpm.mp_elementwise(mp, mode, a, b),
+              mpm.mp_elementwise_plain(mp, mode, a, b))
+
+
+def test_k13_k15_crt_conversions(dev):
+    """K13 (to_crt) and K15 (from_crt) of secp256k1 elements; from_crt
+    of to_crt is the identity."""
+    F, rng = p256k1_base(), np.random.default_rng(13)
+    ctx = crt_conv.CRTContext(F, device=dev)
+    x = _elts(F, rng, 3 * 700, dev).reshape(3, 700, F.nlimb)
+    z = ctx.to_crt(x)
+    _same(z, crt_conv.to_crt_plain(ctx, x))
+    _same(ctx.from_crt(z), x)
+    r = _residues(ctx.mp, rng, (3, 700), dev)
+    _same(ctx.from_crt(r), crt_conv.from_crt_plain(ctx, r))
 
 
 @pytest.mark.parametrize("mode", [fpm.MUL, fpm.ADD, fpm.SUB, MUL_BASE])
