@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 1. Prints the card (name, count, power limit).
-2. Builds the kernels K1-K15 from longfellow_zk_tpu_torch/csrc with nvcc.
+2. Builds the kernels K1-K16 from longfellow_zk_tpu_torch/csrc with nvcc.
 3. Runs each kernel instance at the shapes of the proofs below, holds
    it against its plain PyTorch version on the same inputs (field
    arithmetic, hashing and the transcript states are exact: tolerance 0)
@@ -38,7 +38,12 @@
    i. the secp256k1 instances of K1-K3, K7, K9-K12 at the bitaddr
       proof's shapes, and the CRT Reed-Solomon kernels at its tableau (25
       rows, 18 prime lanes, 4,096 points): K13 crt_to, K4 fp_ntt[crt],
-      K14 mp_elementwise and K15 crt_from.
+      K14 mp_elementwise and K15 crt_from;
+   j. the copy rounds of the plain sumcheck: K16 (copy_round_sums) of
+      each field at a largest layer over copies (Fp128: the SHA-256
+      circuit's x 64; P-256: the ECDSA circuit's x 8; secp256k1: the
+      bitaddr circuit's x 8; GF(2^128): the mdoc hash circuit's x 2),
+      and K10's cubic mode of each field on random rounds.
 4. Drives the port's three prover paths, each with the launch counts set
    to zero just before it and read just after (every kernel instance of
    the path must have launched, K8-K12 included), its bytes under
@@ -73,6 +78,16 @@
    is profiled on the host (cProfile, with its count of host field
    products) and one on the card (busy share, device-to-host and
    host-to-device copies).
+   g. the plain sumcheck (SumcheckProver.prove_with_witness, no ZK) over
+      the SHA-256 circuit with 64 copies: copy 0 the message b"abc",
+      copy c the message msg000c (c = 1..63); the proof (every field
+      element, the bindings and the final transcript state) held against
+      testdata/sumcheck_sha256_copies64.json, 60 launches each of K16
+      and K10's cubic mode, the rounds under the sync check; the port's
+      verify accepts it and refuses a flip in a copy round's p(0) and one
+      in a wc; 5 proofs and 5 verifications timed
+      (sumcheck_sha256_copies64_prove_ms, ..._verify_ms), the device ms
+      of the copy rounds against the wire rounds.
 5. Drives the port's three verifier paths on those golden proofs, each
    with the launch counts set to zero just before the first verification
    and read just after (it must accept, K7 and the path's other kernels
@@ -88,6 +103,8 @@
 Any failure exits non-zero before the result line.  Imports no JAX.
 """
 
+import copy
+import dataclasses
 import gzip
 import hashlib
 import json
@@ -609,39 +626,79 @@ def check_fs_oracle(rows, F, dev, tag, rng, clock_mhz):
                 bound=(chain_ms(steps, clock_mhz), "operations"))
 
 
-def check_round_tail(rows, F, dev, tag, rng, clock_mhz):
-    """K10 instance `tag` against its plain version on random rounds
-    (fs, the claim and the row compared)."""
+def check_round_tail(rows, F, dev, tag, rng, clock_mhz, cubic=False):
+    """K10 instance `tag` (with `cubic`, its cubic mode, the copy rounds'
+    tail) against its plain version on random rounds (fs, the claim and
+    the row compared)."""
     from longfellow_zk_tpu_torch.fields.fp import round_consts
     from longfellow_zk_tpu_torch.random_oracle import device_fs as dfs
 
     elts = elts_of(F, rng, dev)
     consts = round_consts(F, dev)
+    npts = 4 if cubic else 3
+    tail, plain = ((dfs.round_tail_cubic, dfs.round_tail_cubic_plain)
+                   if cubic else (dfs.round_tail, dfs.round_tail_plain))
     err = 0
     for _ in range(8):
         fs, fs2 = _fs_states(F, rng, dev)
-        x = elts(7)
+        x = elts(2 * npts + 1)
         claim, claim2 = x[0].clone(), x[0].clone()
-        a, eq0, pad = x[1:3], x[3], x[4:7]
-        row = torch.empty((4, F.nlimb), dtype=torch.int32, device=dev)
+        # the sums (with the copy weight eq0 for a hand-round) and the pad
+        args = (x[1:npts],) if cubic else (x[1:3], x[3])
+        pad = x[npts + 1 :]
+        row = torch.empty((npts + 1, F.nlimb), dtype=torch.int32, device=dev)
         row2 = torch.empty_like(row)
-        dfs.round_tail(F, fs, claim, row, a, eq0, pad, consts)
-        dfs.round_tail_plain(F, fs2, claim2, row2, a, eq0, pad, consts)
+        tail(F, fs, claim, row, *args, pad, consts)
+        plain(F, fs2, claim2, row2, *args, pad, consts)
         err = max(err, max_err(fs, fs2), max_err(claim, claim2),
                   max_err(row, row2))
     off = _fs_off(fs)
-    absorbed = 2 * (1 + F.kBytes)
+    absorbed = (npts - 1) * (1 + F.kBytes)
     steps = ((off + absorbed) // 64 + 1 + ((off + absorbed) % 64 >= 56)) * \
         SHA_CHAIN + AES_KEY_CHAIN + AES_BLOCK_CHAIN + 7 * PROD_CHAIN[tag]
-    print("K10[%s] chain of a round: %d steps" % (tag, steps))
-    rows.record("sumcheck_round_tail[%s]" % tag,
-                "longfellow_zk_tpu_torch/csrc/round_tail.cu",
-                "longfellow_zk_tpu/sumcheck/prover_device.py:571", err,
-                lambda: dfs.round_tail(F, fs, claim, row, a, eq0, pad,
-                                       consts),
-                lambda: dfs.round_tail_plain(F, fs2, claim2, row2, a, eq0,
-                                             pad, consts), 0, 0,
-                bound=(chain_ms(steps, clock_mhz), "operations"))
+    kname = "sumcheck_round_tail%s[%s]" % ("_cubic" if cubic else "", tag)
+    print("K10%s[%s] chain of a round: %d steps"
+          % (" cubic" if cubic else "", tag, steps))
+    rows.record(kname, "longfellow_zk_tpu_torch/csrc/round_tail.cu",
+                "longfellow_zk_tpu/sumcheck/prover_device.py:%d"
+                % (543 if cubic else 571), err,
+                lambda: tail(F, fs, claim, row, *args, pad, consts),
+                lambda: plain(F, fs2, claim2, row2, *args, pad, consts),
+                0, 0, bound=(chain_ms(steps, clock_mhz), "operations"))
+
+
+def check_copy_round(rows, F, circ, nc, dev, tag, rng):
+    """K16 instance `tag` against its plain version at the largest layer
+    of `circ` over nc copies: its uploaded terms, random EQ, inputs W
+    [nw, C] and hv.  Bound: W's rows the terms touch, EQ, the indices
+    and hv read once; 7 products a copy pair and 3 a term."""
+    from longfellow_zk_tpu_torch.fields import fp as fpm
+    from longfellow_zk_tpu_torch.sumcheck.prover import quad_tensors
+
+    ly = max(range(circ.nl), key=lambda i: circ.layers[i].nterms)
+    layer = circ.layers[ly]
+    qd = quad_tensors(F, layer.quad, dev)
+    T, C = layer.nterms, 1 << (nc - 1).bit_length()
+    elts = elts_of(F, rng, dev)
+    EQ = elts(C)
+    EQ[nc:] = 0
+    W = elts(layer.nw * C).reshape(layer.nw, C, F.nlimb)
+    W[:, nc:] = 0
+    hv = elts(T)
+    args = (EQ, W, qd["h0"], qd["h1"], hv)
+    err = max_err(fpm.fp_copy_round_sums(F, *args),
+                  fpm.copy_round_sums_plain(F, *args))
+    touched = int(torch.unique(torch.cat([qd["h0"], qd["h1"]])).numel())
+    print("K16[%s] at layer %d x %d copies: %d terms, nw %d (%d rows "
+          "touched), C %d" % (tag, ly, nc, T, layer.nw, touched, C))
+    eb = 4 * F.nlimb
+    rows.record("copy_round_sums[%s]" % tag,
+                "longfellow_zk_tpu_torch/csrc/copy_round.cu",
+                "longfellow_zk_tpu/sumcheck/prover_device.py:519", err,
+                lambda: fpm.fp_copy_round_sums(F, *args),
+                lambda: fpm.copy_round_sums_plain(F, *args),
+                (touched + 1) * C * eb + T * (8 + eb) + 3 * eb,
+                (7 * (C // 2) + 3) * T * MUL_OPS[tag])
 
 
 def check_fused(rows, F, circ, param, lqc, n_witness, dev, tag, rng,
@@ -1029,21 +1086,25 @@ def profile_one(run):
 def check_prove_syncs():
     """From here on, every prover's device chain, from the sumcheck's
     first round to its one fetch (ZkProver._prove_dev: the rounds, the
-    constraints, the Ligero finish), runs under
+    constraints, the Ligero finish; the plain sumcheck's
+    SumcheckProver._rounds), runs under
     torch.cuda.set_sync_debug_mode("error"): a host synchronisation there
     raises and fails the path."""
+    from longfellow_zk_tpu_torch.sumcheck.prover import SumcheckProver
     from longfellow_zk_tpu_torch.zk.prover import ZkProver
 
-    chain = ZkProver._prove_dev
+    def checked(chain):
+        def call(*args, **kwargs):
+            mode = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return chain(*args, **kwargs)
+            finally:
+                torch.cuda.set_sync_debug_mode(mode)
+        return call
 
-    def checked(self, *args, **kwargs):
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            return chain(self, *args, **kwargs)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-
-    ZkProver._prove_dev = checked
+    ZkProver._prove_dev = checked(ZkProver._prove_dev)
+    SumcheckProver._rounds = checked(SumcheckProver._rounds)
 
 
 # the host transcript's exported state (hex) after each ZkProver.prove and
@@ -1355,6 +1416,187 @@ def run_verifier_path(label, metric, verify, golden, states, bad, kernels,
     return True
 
 
+COPIES = 64
+COPIES_LABEL = b"sha256-copies"
+
+
+def listing(F, proof, aux, bindings, ts):
+    """Every field element of a plain sumcheck proof as canonical hex (the
+    format of testdata/sumcheck_sha256_copies64.json): per layer cp, hp,
+    wc and the bound quad; the bindings q and g; the transcript's final
+    state."""
+    w = 2 * F.kBytes
+
+    def hx(x):
+        return "%0*x" % (w, int(x))
+
+    return {"layers": [{"cp": [[hx(v) for v in p] for p in lp.cp],
+                        "hp": [[[hx(v) for v in p] for p in hand]
+                               for hand in lp.hp],
+                        "wc": [hx(v) for v in lp.wc], "bound_quad": hx(bq)}
+                       for lp, bq in zip(proof.layers, aux.bound_quad)],
+            "q": [hx(x) for x in bindings["q"]],
+            "g": [[hx(x) for x in h] for h in bindings["g"]],
+            "transcript_state": ts.export_state().hex()}
+
+
+def copy_split(prove):
+    """Device ms of one proof: the copy rounds' own kernels (K16 and the
+    K10 launches that follow one, its cubic mode), the wire rounds' (K3's
+    wire sums and the K10 launches that follow them) and the rest (K1's
+    binds and products, K2, K3's finish and sums, K9, copies; shared by
+    both and by the evaluation), from the profiler's kernel names in
+    stream order; and the wall ms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        prove([])
+        wall_ms = (time.perf_counter() - t) * 1e3
+    cuda = torch.autograd.DeviceType.CUDA
+    split = {"copy": 0.0, "wire": 0.0, "rest": 0.0}
+    last = "rest"
+    for e in sorted((e for e in prof.events() if e.device_type == cuda),
+                    key=lambda e: e.time_range.start):
+        ms = e.device_time / 1e3
+        if "k_copy_round" in e.name:
+            last = "copy"
+            split["copy"] += ms
+        elif "k_wire_partial" in e.name:
+            last = "wire"
+            split["wire"] += ms
+        elif "k_round_tail<" in e.name:
+            split[last] += ms
+        else:
+            split["rest"] += ms
+    return split, wall_ms
+
+
+def run_copies_path(F, circ, W_host, dev, kernels, rows, smi):
+    """Drives the plain sumcheck over the SHA-256 circuit with COPIES
+    copies (copy c's witness W_host[c]): the proof of
+    SumcheckProver.prove_with_witness on the card with the launch counts
+    set to zero just before it and read just after (every kernel of the
+    plain sumcheck launched, K16 and K10 cubic once a copy round: 60,
+    nothing of another field; the rounds under the sync check), its
+    listing and
+    final transcript state held against
+    testdata/sumcheck_sha256_copies64.json; the port's verify accepts it
+    and refuses a one-bit flip in layer 0's first copy-round p(0) and one
+    in a wc; then 5 proofs and 5 verifications timed, one profiled each,
+    and the device ms of the copy rounds against the wire rounds.
+    Returns False on a failure."""
+    from longfellow_zk_tpu_torch.random_oracle.transcript import Transcript
+    from longfellow_zk_tpu_torch.sumcheck.prover import SumcheckProver
+    from longfellow_zk_tpu_torch.sumcheck.transcript_sumcheck import (
+        TranscriptSumcheck)
+    from longfellow_zk_tpu_torch.sumcheck.verifier import (
+        bind_dense_host, verify)
+
+    nc = len(W_host)
+    print("== the plain sumcheck, SHA-256 x %d copies [at %.0f s]"
+          % (nc, time.perf_counter() - T0))
+    golden = json.load(open(os.path.join(
+        TESTDATA, "sumcheck_sha256_copies64.json")))
+    cc = dataclasses.replace(circ, nc=nc, logc=(nc - 1).bit_length())
+    W0 = F.to_limbs([w for W in W_host for w in W], dev).reshape(
+        (nc, cc.ninputs) + F.elt_shape)
+    out = {}
+
+    def prove(phases):
+        t0 = time.perf_counter()
+        ts = Transcript(COPIES_LABEL)
+        tss = TranscriptSumcheck(ts, F)
+        tss.write_input(W_host)
+        t1 = time.perf_counter()
+        proof, aux, b = SumcheckProver(F, dev).prove_with_witness(cc, W0, tss)
+        torch.cuda.synchronize()
+        phases.append(((t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3))
+        out.update(proof=proof, aux=aux, b=b, ts=ts)
+
+    def verify_one(proof):
+        ts = TranscriptSumcheck(Transcript(COPIES_LABEL), F)
+        return verify(cc, proof, W_host, ts, F, device=dev)
+
+    expect = [k for k in kernels.KERNELS if k.endswith("[fp128]") and
+              k.startswith(("fp_elementwise[", "fp_segment_sum[",
+                            "fp_wire_round[", "fs_oracle[",
+                            "sumcheck_round_tail[", "copy_round_sums[",
+                            "sumcheck_round_tail_cubic["))]
+    _, first_ms, launches, why = first_run(kernels, expect,
+                                           lambda: prove([]))
+    print("first proof: %.1f ms (uploads the circuit's copy tables)"
+          % first_ms)
+    print("launches in one proof:", json.dumps(launches))
+    got = listing(F, out["proof"], out["aux"], out["b"], out["ts"])
+    if got != golden["listing"]:
+        bad = [i for i, (a, b) in enumerate(zip(got["layers"],
+                                                 golden["listing"]["layers"]))
+               if a != b]
+        print("FAIL: the proof differs from "
+              "testdata/sumcheck_sha256_copies64.json (layers %s; q %s, g "
+              "%s, state %s)" % (bad, got["q"] == golden["listing"]["q"],
+                                 got["g"] == golden["listing"]["g"],
+                                 got["transcript_state"] ==
+                                 golden["listing"]["transcript_state"]))
+        return False
+    print("the proof's listing and final transcript state equal "
+          "testdata/sumcheck_sha256_copies64.json (%s)" % golden["made_by"])
+    if why:
+        print("FAIL:", why)
+        return False
+    nround = cc.nl * cc.logc
+    for k in ("copy_round_sums[fp128]", "sumcheck_round_tail_cubic[fp128]"):
+        if launches[k] != nround:
+            print("FAIL: %d %s launches, not %d" % (launches[k], k, nround))
+            return False
+    for k in ("copy_round_sums[fp128]", "sumcheck_round_tail_cubic[fp128]"):
+        rows.rows[k]["launches"] = launches[k]
+
+    proof = out["proof"]
+    ok = verify_one(proof)
+    bad_cp = copy.deepcopy(proof)
+    bad_cp.layers[0].cp[0][0] ^= 1
+    bad_wc = copy.deepcopy(proof)
+    bad_wc.layers[0].wc[0] ^= 1
+    refusals = (verify_one(bad_cp), verify_one(bad_wc))
+    print("verify: %s; a flip in layer 0's first p(0): %s; a flip in a wc: "
+          "%s" % (ok, refusals[0], refusals[1]))
+    if ok != (True, "ok") or refusals != (
+            (False, "claim != p(0) + p(1)"), (False, "got != claim (layer)")):
+        print("FAIL: verify's verdicts differ from (True, ok), (False, "
+              "claim != p(0) + p(1)), (False, got != claim (layer))")
+        return False
+
+    measure("sumcheck_sha256_copies64_prove_ms", prove, smi,
+            ("write input", "prove"))
+    split, wall = copy_split(prove)
+    busy = sum(split.values())
+    print("sumcheck_sha256_copies64 device ms of one proof: copy rounds "
+          "%.3f (K16, K10 cubic), wire rounds %.3f (K3 wire sums, K10), "
+          "the rest %.3f (K1, K2, K3 finish and sums, K9); %.1f ms wall, "
+          "busy share %.4f on %s" % (split["copy"], split["wire"],
+                                     split["rest"], wall, busy / wall, smi))
+
+    def timed_verify(phases):
+        t = time.perf_counter()
+        assert verify_one(proof) == (True, "ok")
+        phases.append(((time.perf_counter() - t) * 1e3,))
+
+    # verify's binding of the inputs along the copies (its loop), alone
+    t = time.perf_counter()
+    W_cols = [[W_host[c][w] for c in range(nc)] for w in range(cc.ninputs)]
+    for r in out["b"]["q"]:
+        W_cols = [bind_dense_host(F, col, r) for col in W_cols]
+    print("verify's input binding alone (%d columns of %d copies, %d "
+          "products each, host): %.1f ms on %s" % (
+              cc.ninputs, nc, nc - 1, (time.perf_counter() - t) * 1e3, smi))
+    measure("sumcheck_sha256_copies64_verify_ms", timed_verify, smi,
+            ("verify",))
+    return True
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
@@ -1539,16 +1781,26 @@ def main() -> int:
     check_round_tail(rows, FK, dev, "fp256k1", rng, clock_mhz)
     check_fused(rows, FK, bcirc, lp_bit, zp_bit.lqc, zp_bit.n_witness, dev,
                 "fp256k1", rng, clock_mhz)
+
+    # -- 3j. the copy rounds: K16 at each field's largest layer over
+    #        copies, K10's cubic mode ------------------------------------
+    for Fx, cx, nc, tag in ((F, circ, COPIES, "fp128"), (FB, ecirc, 8, "fp256"),
+                            (FK, bcirc, 8, "fp256k1"),
+                            (GF, c_hash, 2, "gf2_128")):
+        check_copy_round(rows, Fx, cx, nc, dev, tag, rng)
+        check_round_tail(rows, Fx, dev, tag, rng, clock_mhz, cubic=True)
     if rows.failures:
         print("FAIL: kernels disagree with their plain versions:",
               rows.failures)
         return 1
 
     def prover_kernels(*instances):
-        """The prover's kernels of those instances, all but K7, which
-        only the verifier runs, and K8, which knows no field."""
+        """The ZK prover's kernels of those instances, all but K7, which
+        only the verifier runs, K16 and K10's cubic mode, which only the
+        plain sumcheck's copy rounds run, and K8, which knows no field."""
         return [k for k in kernels.KERNELS if k.endswith(instances)
-                and not k.startswith("fp_quad_bind[")] + \
+                and not k.startswith(("fp_quad_bind[", "copy_round_sums[",
+                                      "sumcheck_round_tail_cubic["))] + \
             ["sha256_msgs[bytes]"]
 
     check_prove_syncs()
@@ -1691,6 +1943,12 @@ def main() -> int:
                 bgolden, "the golden bitaddr proof",
                 states["bitaddr_p256k1"], kernels, rows,
                 prover_kernels("[fp256k1]", "[crt]"), smi) is None:
+        return 1
+
+    # -- 4g. the plain sumcheck over the SHA-256 circuit x 64 copies -------
+    if not run_copies_path(F, circ, [sha_witness(m) for m in (
+            [b"abc"] + [b"msg%04d" % i for i in range(1, COPIES)])], dev,
+            kernels, rows, smi):
         return 1
 
     # -- 5. the verifiers on the golden proofs ------------------------------

@@ -9,7 +9,10 @@ R = 2^(32N), so the conversion moves bits and changes no value.  A
 GF(2^128) tensor holds polynomial-basis bits on both sides: uint32[8, ...]
 halfwords there, int32[..., 4] words here.  A multi-prime (CRT) tensor
 is uint32[2, VS, ...] there (two 16-bit limbs a residue) and
-int32[VS, ..., 1] here, both Montgomery with R = 2^32 a lane.
+int32[VS, ..., 1] here, both Montgomery with R = 2^32 a lane.  The
+wires of a circuit over nc copies lie [L, nw, nc] there (copies last)
+and [nc, nw, N] here (copies leading, as the lanes of a batch: the
+evaluation runs them through the lane path).
 """
 
 from __future__ import annotations
@@ -53,6 +56,17 @@ def gf2_to_jax(t: torch.Tensor) -> np.ndarray:
     """GF(2^128) int32[..., 4] words -> uint32[8, ...] halfwords."""
     assert t.shape[-1] == 4, tuple(t.shape)
     return limbs_to_jax(t)
+
+
+def copies_from_jax(arr: np.ndarray) -> torch.Tensor:
+    """A prime-field or GF(2^128) array over copies, uint32[2N, nw, nc]
+    (or [8, nw, nc]) -> int32[nc, nw, N] (CPU)."""
+    return limbs_from_jax(arr).transpose(0, 1).contiguous()
+
+
+def copies_to_jax(t: torch.Tensor) -> np.ndarray:
+    """int32[nc, nw, N] -> uint32[2N, nw, nc] (copies last)."""
+    return limbs_to_jax(t.transpose(0, 1))
 
 
 def fp2_from_jax(arr: np.ndarray) -> torch.Tensor:

@@ -9,7 +9,8 @@ canonical (< p).  R is the JAX package's R (2N 16-bit limbs), so the two
 packages hold the same integers (fields/bridge.py converts the layouts).
 
 Every tensor operation is a wrapper over one of the hand-written kernels
-(K1 fp_elementwise, K2 fp_segment_sum, K3 fp_wire_round; see
+(K1 fp_elementwise, K2 fp_segment_sum, K3 fp_wire_round, and K16
+copy_round_sums, the sums of the plain sumcheck's copy rounds; see
 kernels.py).  For a CUDA tensor the wrapper launches its kernel; for a
 CPU tensor it runs the kernel's plain PyTorch version, which lives in
 this module too (`*_plain`) and computes in int64 over 16-bit limbs
@@ -37,6 +38,11 @@ MUL, ADD, SUB, BIND, HV = 0, 1, 2, 3, 4
 
 # K3 grid: blocks per output, at most
 _K3_MAX_BLOCKS = 264
+# K16 grid: blocks, at most; copy pairs per chunk of its plain version
+# (bounds the plain products' int64 temporaries: about 0.5 GB for a
+# P-256 product)
+_K16_MAX_BLOCKS = 1024
+_PLAIN_PAIRS = 1 << 18
 
 
 class PrimeField:
@@ -219,22 +225,24 @@ class PrimeField:
 
 
 def round_consts(F, device) -> torch.Tensor:
-    """The constants of K10 (random_oracle/device_fs.round_tail) for field
-    F (prime or GF(2^128)), int32 [6, N] on `device` in the kernels' form,
-    uploaded once per device: a hand-round polynomial's evaluation points
-    x0, x1, x2 (0, 1, 2 for a prime field; 0, 1, g for GF(2^128)) and its
-    Newton denominators 1/(x1 - x0), 1/(x2 - x1), 1/(x2 - x0), from the
-    host field's poly_evaluation_point and newton_denominator (the JAX
-    package's _pts_dev and _newton_denoms_dev, prover_device.py:44-58).
-    The rest of what K9 and K10 need of a field, p, R^2, exact_bits and
-    kBytes, is compiled into each instance (csrc/fp.cuh, csrc/fs.cuh)."""
+    """The constants of K10 (random_oracle/device_fs.round_tail and its
+    cubic mode round_tail_cubic) for field F (prime or GF(2^128)), int32
+    [10, N] on `device` in the kernels' form, uploaded once per device: a
+    round polynomial's evaluation points x0, x1, x2 (0, 1, 2 for a prime
+    field; 0, 1, g for GF(2^128)) and its Newton denominators 1/(x1 - x0),
+    1/(x2 - x1), 1/(x2 - x0), then the cubic mode's fourth point x3 (3; g^2)
+    and 1/(x3 - x2), 1/(x3 - x1), 1/(x3 - x0), from the host field's
+    poly_evaluation_point and newton_denominator (the JAX package's
+    _pts_dev and _newton_denoms_dev, prover_device.py:44-58).  The rest
+    of what K9 and K10 need of a field, p, R^2, exact_bits and kBytes, is
+    compiled into each instance (csrc/fp.cuh, csrc/fs.cuh)."""
     cache = F.__dict__.setdefault("_round_consts", {})
     key = str(device)
     if key not in cache:
+        pt, nd = F.poly_evaluation_point, F.newton_denominator
         cache[key] = F.to_limbs(
-            [F.poly_evaluation_point(k) for k in range(3)] +
-            [F.newton_denominator(1, 1), F.newton_denominator(2, 1),
-             F.newton_denominator(2, 2)], device)
+            [pt(0), pt(1), pt(2), nd(1, 1), nd(2, 1), nd(2, 2),
+             pt(3), nd(3, 1), nd(3, 2), nd(3, 3)], device)
     return cache[key]
 
 
@@ -400,6 +408,44 @@ def wire_sums_plain(F: PrimeField, hv, Wh, Wo, h, ho) -> torch.Tensor:
     zds = torch.where(odd, zd, elementwise_plain(F, SUB,
                                                  torch.zeros_like(zd), zd))
     return torch.stack([a0, axis_sum_plain(F, zds, ax)], dim=-2)
+
+
+def copy_round_sums_plain(F, EQ: torch.Tensor, W: torch.Tensor,
+                          h0: torch.Tensor, h1: torch.Tensor,
+                          hv: torch.Tensor) -> torch.Tensor:
+    """Plain version of K16 (csrc/copy_round.cu), for any sumcheck field
+    (the products and sums of plain_of(F)): (c0, c2, c3) as a [3, N]
+    tensor, from EQ [C, N], W [nw, C, N] (copies inner), h0, h1 [T] and
+    hv [T, N], C even; the JAX package's SumcheckProver._evaluations_c
+    (sumcheck/prover.py:272) over the gathered rows, in chunks of terms."""
+    pm = plain_of(F)
+
+    def mul(a, b):
+        return pm.elementwise_plain(F, MUL, a, b)
+
+    def sub(a, b):
+        return pm.elementwise_plain(F, SUB, a, b)
+
+    eq0, eq1 = EQ[0::2], EQ[1::2]
+    deq = sub(eq1, eq0)
+    step = max(1, _PLAIN_PAIRS // eq0.shape[0])
+    parts = [[F.zeros((), EQ.device)] for _ in range(3)]
+    for s in range(0, h0.shape[0], step):
+        wr, wl = W[h0[s : s + step].long()], W[h1[s : s + step].long()]
+        wr0, wr1, wl0, wl1 = wr[:, 0::2], wr[:, 1::2], wl[:, 0::2], wl[:, 1::2]
+        d0 = mul(eq0, wr0)
+        d2 = mul(deq, sub(wr1, wr0))
+        d1 = sub(sub(mul(eq1, wr1), d0), d2)
+        c1m = sub(wl1, wl0)
+        ls = (mul(d0, wl0),
+              pm.elementwise_plain(F, ADD, mul(d1, c1m), mul(d2, wl0)),
+              mul(d2, c1m))
+        for k, lk in enumerate(ls):
+            per_term = pm.axis_sum_plain(F, lk, 1)
+            parts[k].append(pm.axis_sum_plain(
+                F, mul(per_term, hv[s : s + step]), 0))
+    return torch.stack([pm.axis_sum_plain(F, torch.stack(p), 0)
+                        for p in parts])
 
 
 # ----------------------------------------------------------------------
@@ -641,3 +687,37 @@ def fp_wire_sums(F: PrimeField, hv: torch.Tensor, Wh: torch.Tensor,
                    hv.data_ptr(), Wh.data_ptr(), Wo.data_ptr(), h.data_ptr(),
                    ho.data_ptr(), T, B, Wh.shape[-2], Wo.shape[-2], nblk)
     return out if lanes else out[0]
+
+
+def fp_copy_round_sums(F, EQ: torch.Tensor, W: torch.Tensor,
+                       h0: torch.Tensor, h1: torch.Tensor,
+                       hv: torch.Tensor) -> torch.Tensor:
+    """K16 wrapper: (c0, c2, c3), [3, N], of one copy round from the copy
+    EQ array EQ [C, N], a layer's inputs W [nw, C, N] (copies inner), the
+    terms' indices h0, h1 (int32 [T]) and values hv [T, N]; C even (see
+    copy_round_sums_plain)."""
+    name = route("copy_round_sums", F, EQ, W, h0, h1, hv)
+    if name is None:
+        return copy_round_sums_plain(F, EQ, W, h0, h1, hv)
+    for t, tname in ((EQ, "EQ"), (W, "W"), (hv, "hv")):
+        check_elts(t, tname, F.elt_shape)
+    _i32(h0, "h0")
+    _i32(h1, "h1")
+    C, T = EQ.shape[0], hv.shape[0]
+    if EQ.dim() != 2 or C < 2 or C % 2:
+        raise ValueError("EQ must be [C, N] with C even, got %s"
+                         % (tuple(EQ.shape),))
+    if W.dim() != 3 or W.shape[1] != C:
+        raise ValueError("W must be [nw, %d, N], got %s"
+                         % (C, tuple(W.shape)))
+    if hv.dim() != 2 or h0.shape != (T,) or h1.shape != (T,):
+        raise ValueError("h0, h1 and hv need one entry per term")
+    nblk = max(1, min(_K16_MAX_BLOCKS, (T + 255) // 256))
+    out = torch.empty((3, F.nlimb), dtype=torch.int32, device=W.device)
+    # the partials, then the count of blocks done (zero)
+    scratch = torch.zeros(3 * F.nlimb * nblk + 1, dtype=torch.int64,
+                          device=W.device)
+    kernels.launch(name, 1, out.data_ptr(), scratch.data_ptr(),
+                   EQ.data_ptr(), W.data_ptr(), h0.data_ptr(), h1.data_ptr(),
+                   hv.data_ptr(), T, C, nblk)
+    return out

@@ -5,12 +5,13 @@ together) into a shared library with a plain C interface, in the
 package's ignored build directory `_build/`, at first use; the libraries
 are loaded with ctypes.  Nothing here runs when the package is imported.
 The sources share the field arithmetic of `csrc/fp.cuh`, templated on the
-field (K3 and K7 also the two-pass sum of `csrc/reduce.cuh`, K8-K10 the
-SHA-256 compression of `csrc/sha256.cuh`, K9 and K10 the Fiat-Shamir
-oracle of `csrc/fs.cuh`, K4 [crt] and K13-K15 the 32-bit prime lanes of
-`csrc/mp.cuh`); each kernel has one instance (and one C entry point) per
-field.  K9's mode 9 (CHOOSE) has entry points of its own,
-`fs_choose`, so that its launches are counted apart:
+field (K3, K7 and K16 also the two-pass sum of `csrc/reduce.cuh`, K8-K10
+the SHA-256 compression of `csrc/sha256.cuh`, K9 and K10 the
+Fiat-Shamir oracle of `csrc/fs.cuh`, K4 [crt] and K13-K15 the 32-bit
+prime lanes of `csrc/mp.cuh`); each kernel has one instance (and one C
+entry point) per field.  K9's mode 9 (CHOOSE) has entry points of its own,
+`fs_choose`, and so has K10's cubic mode (the copy rounds' tail),
+`sumcheck_round_tail_cubic`, so that their launches are counted apart:
 
     K1 fp_elementwise  fp_ops.cu      P gf2_128      fields/fp.py
     K2 fp_segment_sum  segsum.cu      P gf2_128      fields/fp.py
@@ -26,20 +27,24 @@ field.  K9's mode 9 (CHOOSE) has entry points of its own,
                        fs.cu          P gf2_128      random_oracle/device_fs.py
     K10 sumcheck_round_tail
                        round_tail.cu  P gf2_128      random_oracle/device_fs.py
+    K10 cubic sumcheck_round_tail_cubic
+                       round_tail.cu  P gf2_128      random_oracle/device_fs.py
     K11 zk_constraints constraints.cu P gf2_128      zk/fused.py
     K12 ligero_inner_product
                        ligero_a.cu    P gf2_128      zk/fused.py
     K13 crt_to         crt.cu         fp256k1        transforms/crt_conv.py
     K14 mp_elementwise crt.cu         crt            fields/multiprime.py
     K15 crt_from       crt.cu         fp256k1        transforms/crt_conv.py
+    K16 copy_round_sums
+                       copy_round.cu  P gf2_128      fields/fp.py
 
 (P: the prime fields fp128, fp256 and fp256k1.  fp128: p = 2^128 -
 2^108 + 1; fp256: the P-256 base field; fp256x2: Fp2 over it; fp256k1:
 the secp256k1 base field; crt: the multi-prime field of the CRT
 convolution, 32-bit residue lanes modulo the primes of csrc/mp.cuh;
 gf2_128: GF(2^128), csrc/gf2.cuh; bytes: K8 hashes bytes and knows no
-field.)  K1's bind and hv, K3, K9 (mode 9 too), K10, K11 and
-K12 take a lane axis: the proofs of a batch (zk/batch.py) run in the
+field.)  K1's bind and hv, K3, K9 (mode 9 too), K10 (its cubic mode
+too), K11 and K12 take a lane axis: the proofs of a batch (zk/batch.py) run in the
 launches of one proof.  A kernel's name here is
 "kernel[instance]".  `LAUNCHES` counts, per instance, the CUDA launches
 its wrapper made; a run sets the counts to zero with `reset_launches()`
@@ -96,6 +101,9 @@ _SOURCES = {
     "sumcheck_round_tail": ("round_tail.cu", [_P, _P, _P, _P, _P, _P, _P, _I,
                                               _LL, _LL, _P],
                             ("fp128", "fp256", "fp256k1", "gf2_128")),
+    "sumcheck_round_tail_cubic": ("round_tail.cu", [_P, _P, _P, _P, _P, _P,
+                                                    _I, _LL, _LL, _P],
+                                  ("fp128", "fp256", "fp256k1", "gf2_128")),
     "zk_constraints": ("constraints.cu", [_P, _I, _I, _P, _P, _P, _P, _P, _I,
                                           _LL, _LL, _P],
                        ("fp128", "fp256", "fp256k1", "gf2_128")),
@@ -106,6 +114,9 @@ _SOURCES = {
     "mp_elementwise": ("crt.cu", [_I, _P, _P, _P, _LL, _I, _LL, _LL, _LL, _P],
                        ("crt",)),
     "crt_from": ("crt.cu", [_P, _P, _P, _P, _LL, _I, _P], ("fp256k1",)),
+    "copy_round_sums": ("copy_round.cu", [_P, _P, _P, _P, _P, _P, _P, _LL,
+                                          _LL, _I, _P],
+                        ("fp128", "fp256", "fp256k1", "gf2_128")),
 }
 
 # "kernel[instance]" -> (source, C entry point, argtypes)

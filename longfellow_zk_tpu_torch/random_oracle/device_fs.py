@@ -1,9 +1,11 @@
 """The Fiat-Shamir transcript on the card: K9 (fs_oracle) and K10
-(sumcheck_round_tail), with their plain PyTorch versions.
+(sumcheck_round_tail, and its cubic mode sumcheck_round_tail_cubic for
+the plain sumcheck's copy rounds), with their plain PyTorch versions.
 
 Port of the JAX package's random_oracle/device_fs.py:53-399 and of the
 oracle part of its device sumcheck (sumcheck/prover_device.py:248
-`_write_tagged_elts`, :571-597 `_wire_scan.one_hand`).  Byte-exact twin
+`_write_tagged_elts`, :571-597 `_wire_scan.one_hand`, :543-553
+`_copy_scan`).  Byte-exact twin
 of the host `Transcript` / `FSPRF` (random_oracle/transcript.py), so the
 sumcheck can keep its transcript on the card from `begin_circuit` to the
 last layer's write and hand it back to the host once.
@@ -307,36 +309,63 @@ def dev_sample_elts_plain(F, prf: torch.Tensor, n: int) -> torch.Tensor:
     return _join16(_mont_mul16(F, x16, r2))
 
 
+def _newton_at(F, raw, x, consts):
+    """raw (the values at the points of consts) interpolated at x in
+    Newton's form (poly.eval_lagrange), with the plain products."""
+    ew = plain_of(F).elementwise_plain
+    pts = [consts[0], consts[1], consts[2], consts[6]][: len(raw)]
+    nd = {(1, 1): 3, (2, 1): 4, (2, 2): 5, (3, 1): 7, (3, 2): 8, (3, 3): 9}
+    t = list(raw)
+    for i in range(1, len(t)):
+        for k in range(len(t) - 1, i - 1, -1):
+            t[k] = ew(F, MUL, ew(F, SUB, t[k], t[k - 1]), consts[nd[(k, i)]])
+    e = t[-1]
+    for i in range(len(t) - 2, -1, -1):
+        e = ew(F, ADD, ew(F, MUL, e, ew(F, SUB, x, pts[i])), t[i])
+    return e
+
+
+def _tail_plain(F, fs, claim, row, coefs, pad, consts, absorb) -> None:
+    """The round polynomial of monomial coefficients `coefs` at the
+    points of consts, its evaluations minus the pad absorbed at `absorb`
+    (each tagged), the challenge r from a fresh squeeze, the claim
+    interpolated at r; row = [the evaluations minus the pad, r]."""
+    ew = plain_of(F).elementwise_plain
+    pts = [consts[0], consts[1], consts[2], consts[6]][: len(coefs)]
+    raw = []
+    for x in pts:
+        e = coefs[-1]
+        for c in coefs[-2::-1]:
+            e = ew(F, ADD, ew(F, MUL, e, x), c)
+        raw.append(e)
+    ev = [ew(F, SUB, r, p) for r, p in zip(raw, pad)]
+    write_tagged_elts_plain(F, fs, torch.stack([ev[k] for k in absorb]))
+    prf = new_prf(fs.device)
+    fs_squeeze_plain(F, fs, prf)
+    r = dev_sample_elts_plain(F, prf, 1)[0]
+    row.copy_(torch.stack(ev + [r]))
+    claim.copy_(_newton_at(F, raw, r, consts))
+
+
 def round_tail_plain(F, fs, claim, row, a, eq0, pad, consts) -> None:
     """Plain version of K10 (csrc/round_tail.cu): one hand-round's tail;
     fs and claim are updated in place, row [4, N] = [ev0, ev1, ev2, r]."""
     ew = plain_of(F).elementwise_plain
+    c0, c2 = ew(F, MUL, eq0, a[0]), ew(F, MUL, eq0, a[1])
+    c1 = ew(F, SUB, ew(F, SUB, ew(F, SUB, claim, c0), c0), c2)
+    _tail_plain(F, fs, claim, row, [c0, c1, c2], pad, consts, (0, 2))
 
-    def mul(x, y):
-        return ew(F, MUL, x, y)
 
-    def add(x, y):
-        return ew(F, ADD, x, y)
-
-    def sub(x, y):
-        return ew(F, SUB, x, y)
-
-    c0, c2 = mul(eq0, a[0]), mul(eq0, a[1])
-    c1 = sub(sub(sub(claim, c0), c0), c2)
-    x0, x1, x2, n11, n21, n22 = consts.unbind(0)
-    r0 = c0
-    r1 = add(add(c0, c1), c2)
-    r2 = add(mul(add(mul(c2, x2), c1), x2), c0)
-    ev = [sub(r0, pad[0]), sub(r1, pad[1]), sub(r2, pad[2])]
-    write_tagged_elts_plain(F, fs, torch.stack([ev[0], ev[2]]))
-    prf = new_prf(fs.device)
-    fs_squeeze_plain(F, fs, prf)
-    r = dev_sample_elts_plain(F, prf, 1)[0]
-    t1 = mul(sub(r1, r0), n11)
-    t2 = mul(sub(mul(sub(r2, r1), n21), t1), n22)
-    nc = add(mul(add(mul(t2, sub(r, x1)), t1), sub(r, x0)), r0)
-    row.copy_(torch.stack(ev + [r]))
-    claim.copy_(nc)
+def round_tail_cubic_plain(F, fs, claim, row, c, pad, consts) -> None:
+    """Plain version of K10's cubic mode (csrc/round_tail.cu): one copy
+    round's tail from c [3, N] = (c0, c2, c3) of K16; fs and claim are
+    updated in place, row [5, N] = [ev0, ev1, ev2, ev3, r]."""
+    ew = plain_of(F).elementwise_plain
+    c0, c2, c3 = c.unbind(0)
+    c1 = claim
+    for x in (c0, c0, c2, c3):
+        c1 = ew(F, SUB, c1, x)
+    _tail_plain(F, fs, claim, row, [c0, c1, c2, c3], pad, consts, (0, 2, 3))
 
 
 def dev_choose_plain(F, fs: torch.Tensor, prf: torch.Tensor, n: int,
@@ -578,29 +607,40 @@ def _rows(t: torch.Tensor, nm: str, lanes: int, n: int, N: int) -> int:
     return t.stride(0) // N
 
 
-def round_tail(F, fs: torch.Tensor, claim: torch.Tensor, row: torch.Tensor,
-               a: torch.Tensor, eq0: torch.Tensor, pad: torch.Tensor,
-               consts: torch.Tensor) -> None:
-    """K10: the tail of one sumcheck hand-round (csrc/round_tail.cu).
-    a [2, N] = (a0, a2) from K3, eq0 [N], pad [3, N] the round's pad
-    evaluations, consts [6, N] (fields/fp.round_consts); updates fs and
-    claim [N] in place and writes row [4, N] = [ev0, ev1, ev2, r].  For
-    lanes, fs [B, 104], claim [B, N], a [B, 2, N], and row [B, 4, N] and
-    pad [B, 3, N] may be views whose lanes lie apart (eq0 and consts are
-    shared); one launch runs every lane."""
+def _tail_args(F, fs, claim, row, a, pad, consts, na: int, nrow: int):
+    """Checks a round tail's arguments ([B]-lane or one transcript, a with
+    na elements a lane, row and pad with nrow and nrow - 1) and returns
+    (lanes, row stride, pad stride)."""
     B = _lanes(fs, FS_BYTES, "fs")
     N = F.nlimb
     one = fs.dim() == 1
     lead = () if one else (B,)
     for t, nm, shape in ((claim, "claim", lead + (N,)),
-                         (a, "a", lead + (2, N)), (eq0, "eq0", (N,)),
-                         (consts, "consts", (6, N))):
+                         (a, "a", lead + (na, N)),
+                         (consts, "consts", (10, N))):
         if t.dtype != torch.int32 or tuple(t.shape) != shape or \
                 not t.is_contiguous():
             raise ValueError("%s must be a contiguous int32 %s tensor"
                              % (nm, list(shape)))
-    row_s = _rows(row[None] if one else row, "row", B, 4, N)
-    pad_s = _rows(pad[None] if one else pad, "pad", B, 3, N)
+    return (B, _rows(row[None] if one else row, "row", B, nrow, N),
+            _rows(pad[None] if one else pad, "pad", B, nrow - 1, N))
+
+
+def round_tail(F, fs: torch.Tensor, claim: torch.Tensor, row: torch.Tensor,
+               a: torch.Tensor, eq0: torch.Tensor, pad: torch.Tensor,
+               consts: torch.Tensor) -> None:
+    """K10: the tail of one sumcheck hand-round (csrc/round_tail.cu).
+    a [2, N] = (a0, a2) from K3, eq0 [N], pad [3, N] the round's pad
+    evaluations, consts [10, N] (fields/fp.round_consts); updates fs and
+    claim [N] in place and writes row [4, N] = [ev0, ev1, ev2, r].  For
+    lanes, fs [B, 104], claim [B, N], a [B, 2, N], and row [B, 4, N] and
+    pad [B, 3, N] may be views whose lanes lie apart (eq0 and consts are
+    shared); one launch runs every lane."""
+    B, row_s, pad_s = _tail_args(F, fs, claim, row, a, pad, consts, 2, 4)
+    if eq0.dtype != torch.int32 or tuple(eq0.shape) != (F.nlimb,) or \
+            not eq0.is_contiguous():
+        raise ValueError("eq0 must be a contiguous int32 [%d] tensor"
+                         % F.nlimb)
     name = route("sumcheck_round_tail", F, fs, claim, row, a, eq0, pad,
                  consts)
     if name is None:
@@ -609,3 +649,23 @@ def round_tail(F, fs: torch.Tensor, claim: torch.Tensor, row: torch.Tensor,
     kernels.launch(name, 1, fs.data_ptr(), claim.data_ptr(), row.data_ptr(),
                    a.data_ptr(), eq0.data_ptr(), pad.data_ptr(),
                    consts.data_ptr(), B, row_s, pad_s)
+
+
+def round_tail_cubic(F, fs: torch.Tensor, claim: torch.Tensor,
+                     row: torch.Tensor, c: torch.Tensor, pad: torch.Tensor,
+                     consts: torch.Tensor) -> None:
+    """K10's cubic mode: the tail of one copy round of the plain sumcheck
+    (csrc/round_tail.cu).  c [3, N] = (c0, c2, c3) from K16, pad [4, N]
+    the round's pad evaluations, consts [10, N] (fields/fp.round_consts);
+    updates fs and claim [N] in place and writes row [5, N] = [ev0, ev1,
+    ev2, ev3, r].  Lanes as in round_tail (fs [B, 104], claim [B, N], c
+    [B, 3, N], row [B, 5, N] and pad [B, 4, N] views), one launch."""
+    B, row_s, pad_s = _tail_args(F, fs, claim, row, c, pad, consts, 3, 5)
+    name = route("sumcheck_round_tail_cubic", F, fs, claim, row, c, pad,
+                 consts)
+    if name is None:
+        return _each(fs, lambda b, f, cl, r, x, p: round_tail_cubic_plain(
+            F, f, cl, r, x, p, consts), fs, claim, row, c, pad)
+    kernels.launch(name, 1, fs.data_ptr(), claim.data_ptr(), row.data_ptr(),
+                   c.data_ptr(), pad.data_ptr(), consts.data_ptr(), B, row_s,
+                   pad_s)

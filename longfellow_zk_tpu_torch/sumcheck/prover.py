@@ -24,6 +24,15 @@ transcript on the card for the constraint build), `words` and
     PRF stream);
   - the layer prologue (EQ tables from the challenge tensors,
     hv = vq * dot[g]): K1;
+  - the copy rounds of a circuit with nc > 1 copies, logc = lg(nc)
+    cubic rounds a layer before its wire rounds (prover_layers.h:415-496;
+    the JAX package's _copy_scan, :519): K16 (fp_copy_round_sums) sums
+    the round over terms and copy pairs, K10's cubic mode
+    (device_fs.round_tail_cubic) takes the rest of the round, and K1
+    binds the copy EQ array and the layer's inputs W [nw, C] along the
+    copies (arrays/dense.bind); the bound EQ[0] weighs the wire rounds
+    and the closing check.  The copy challenges of a layer bind the next
+    layer's copy EQ (layer 0's are begin_circuit's q);
   - per hand-round, with z_t = hv_t * W_o[ho_t],
         a0 = sum_{t: h_t even} z_t * W_h[h_t]
         a2 = sum_t (-1)^(h_t+1) * z_t * (W_h[h_t|1] - W_h[h_t & ~1])
@@ -39,15 +48,18 @@ transcript on the card for the constraint build), `words` and
 
 The W arrays start at their padded power-of-two length, as in the JAX
 package, and each bind keeps only the bound half (the JAX package keeps
-the fixed shape, zero-filled, for its scan).  Only circuits with one
-copy (logc = 0) are supported: copy rounds are not ported yet.
+the fixed shape, zero-filled, for its scan); the copies too are padded
+to C = 2^logc with zeros.
 
 Every step carries a leading lane axis B (the proofs of a batch of
 witnesses of one circuit, zk/batch.py; the JAX package's jax.vmap of
 these programs, zk/batch.py:301): W, hv, the pads, the claims, the rows
 and the transcripts are [B, ...], the circuit's tables are shared, and a
 hand-round of B proofs takes the launches of one.  A single proof is
-B = 1.
+B = 1.  Copies ride the same leading axis through the evaluation (the
+inputs of copy c are its lane c, [nc, nw, N]); lanes and copies are
+never both above 1 (the batch prover is ZK-only, and ZK refuses copies),
+so the rounds of a circuit with copies take one transcript.
 
 Proof bytes equal the JAX package's (tests/test_torch_sumcheck.py).
 """
@@ -59,8 +71,10 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from ..arrays import dense
 from ..device import resolve_device
-from ..fields.fp import fp_eval_layer, fp_wire_sums, round_consts
+from ..fields.fp import (fp_copy_round_sums, fp_eval_layer, fp_wire_sums,
+                         round_consts)
 from ..random_oracle import device_fs as dfs
 from .circuit import KMAX_BINDINGS, Circuit, LayerProof, Proof, ProofAux
 
@@ -184,11 +198,12 @@ def quad_tensors(F, quad, device) -> dict:
 
 
 class SumcheckProver:
-    """Sumcheck prover over one-copy circuits; tensors on `device`.  Its
-    steps carry a leading lane axis B: the proofs of a batch of witnesses
-    of one circuit, each with its own transcript, pad and challenges, in
-    the launches of one proof (the circuit's tables are shared); a single
-    proof is the lane axis of length 1."""
+    """Sumcheck prover; tensors on `device`.  Its steps carry a leading
+    lane axis B: the proofs of a batch of witnesses of one circuit, each
+    with its own transcript, pad and challenges, in the launches of one
+    proof (the circuit's tables are shared); a single proof is the lane
+    axis of length 1.  A circuit with nc > 1 copies is proved one proof
+    at a time, its copies on the lane axis of the evaluation."""
 
     # terms below this count aren't worth the merge prologue
     K_MERGE_MIN_TERMS = 4096
@@ -263,11 +278,9 @@ class SumcheckProver:
 
     def _eval(self, circ: Circuit, W0: torch.Tensor):
         """(inputs per layer [B, nw, N], final V [B, nv, N], ok) for the
-        lanes' inputs W0 [B, ninputs, N], one K2 launch a layer for all
-        lanes; ok is a 0-dim bool tensor, false if an assert-zero term of
-        any lane fails."""
-        if circ.logc > 0:
-            raise NotImplementedError("copy rounds (logc > 0) are not ported")
+        lanes' inputs W0 [B, ninputs, N] (or the copies' [nc, ninputs,
+        N]), one K2 launch a layer for all lanes; ok is a 0-dim bool
+        tensor, false if an assert-zero term of any lane fails."""
         F = self.F
         B = W0.shape[0]
         nl = circ.nl
@@ -286,12 +299,16 @@ class SumcheckProver:
         return inputs, W, torch.stack(oks).all()
 
     def eval_circuit(self, circ: Circuit, W0: torch.Tensor):
-        """W0: [ninputs, N].  Returns (inputs per layer, final V), or
-        (None, None) if an assert-zero term fails."""
-        inputs, V, ok = self._eval(circ, W0[None])
+        """W0: [ninputs, N], or [nc, ninputs, N] for a circuit with copies.
+        Returns (inputs per layer, final V), each with W0's copy axis, or
+        (None, None) if an assert-zero term of any copy fails."""
+        one = W0.dim() == 1 + len(self.F.elt_shape)
+        inputs, V, ok = self._eval(circ, W0[None] if one else W0)
         if not bool(ok.item()):
             return None, None
-        return [x[0] for x in inputs], V[0]
+        if one:
+            return [x[0] for x in inputs], V[0]
+        return inputs, V
 
     def evaluate(self, circ: Circuit, W0: torch.Tensor):
         """(the circuit's inputs per layer, flags): W0 [B, ninputs, N],
@@ -320,14 +337,21 @@ class SumcheckProver:
     def prove_with_witness(self, circ: Circuit, W0: torch.Tensor, ts,
                            pad: Optional[Proof] = None):
         """Circuit evaluation + sumcheck (prover_layers.h:114-166) with
-        the transcript on the card, one proof: W0 [ninputs, N], ts a
-        TranscriptSumcheck; its host transcript ends where the host
-        prover's would.  Returns (proof, aux, bindings) with bindings =
-        dict(q=[], g=[g0, g1], logv=...), or (None, None, None) if the
-        witness does not satisfy the circuit (then the transcript is left
+        the transcript on the card, one proof: W0 [ninputs, N], or [nc,
+        ninputs, N] (copy c's inputs in row c) for a circuit with nc
+        copies; ts a TranscriptSumcheck, its host transcript ends where
+        the host prover's would.  Returns (proof, aux, bindings) with
+        bindings = dict(q=[the last layer's copy challenges], g=[g0, g1],
+        logv=...), or (None, None, None) if the witness of some copy does
+        not satisfy the circuit (then the transcript is left
         untouched)."""
-        inputs, flags = self.evaluate(circ, W0[None])
-        if not bool(flags[0].item()):
+        if W0.dim() == 1 + len(self.F.elt_shape):
+            W0 = W0[None]
+        if W0.shape[0] != circ.nc:
+            raise ValueError("W0 holds %d copies, the circuit %d"
+                             % (W0.shape[0], circ.nc))
+        inputs, flags = self.evaluate(circ, W0)
+        if not bool(flags.all().item()):
             return None, None, None
         pads, consts = self.prepare(circ, [pad])
         fs = dfs.fs_init_from_host(ts.ts, self.device)[None]
@@ -341,28 +365,31 @@ class SumcheckProver:
     @staticmethod
     def words(outs: List[dict]) -> List[torch.Tensor]:
         """The layers' outputs as the flat int32 words _assemble reads, a
-        row [B, ...] a lane: per layer its rows, wc, bound quad and closing
-        flag."""
+        row [B, ...] a lane: per layer its copy rows (none without
+        copies), its rows, wc, bound quad and closing flag."""
         parts = []
         for o in outs:
             B = o["wc"].shape[0]
-            parts += [o["rows"].reshape(B, -1), o["wc"].reshape(B, -1),
-                      o["bq"].reshape(B, -1), o["ok"].to(torch.int32)[:, None]]
+            parts += [o["cp"].reshape(B, -1), o["rows"].reshape(B, -1),
+                      o["wc"].reshape(B, -1), o["bq"].reshape(B, -1),
+                      o["ok"].to(torch.int32)[:, None]]
         return parts
 
     def _pads_dev(self, circ: Circuit, pads: List[Optional[Proof]]):
         """Each layer's pads of the lanes on the card, uploaded at once (the
-        JAX package's _pads_dev, :1150): (hp [B, logw, 2, 3, N], wc [B, 2,
-        N]); zeros for a lane without a pad."""
+        JAX package's _pads_dev, :1150): (cp [B, logc, 4, N], hp [B, logw,
+        2, 3, N], wc [B, 2, N]); zeros for a lane without a pad."""
         F, dev = self.F, self.device
-        B = len(pads)
+        B, logc = len(pads), circ.logc
         zero = F.of_scalar(0)
         vals, out = [], []
         for ly, layer in enumerate(circ.layers):
             for pad in pads:
                 if pad is None:
-                    vals += [zero] * (layer.logw * 6)
+                    vals += [zero] * (logc * 4 + layer.logw * 6)
                     continue
+                for rnd in range(logc):
+                    vals += list(pad.layers[ly].cp[rnd])
                 for rnd in range(layer.logw):
                     for hand in range(2):
                         vals += list(pad.layers[ly].hp[hand][rnd])
@@ -371,59 +398,68 @@ class SumcheckProver:
         flat = F.to_limbs(vals, dev)
         off = 0
         for layer in circ.layers:
-            nh = B * layer.logw * 6
-            out.append((flat[off : off + nh].reshape(
-                (B, layer.logw, 2, 3) + F.elt_shape),
-                flat[off + nh : off + nh + 2 * B].reshape(
-                    (B, 2) + F.elt_shape)))
-            off += nh + 2 * B
+            n = logc * 4 + layer.logw * 6
+            lane = flat[off : off + B * n].reshape((B, n) + F.elt_shape)
+            off += B * n
+            out.append((lane[:, : logc * 4].reshape(
+                (B, logc, 4) + F.elt_shape),
+                lane[:, logc * 4 :].reshape(
+                    (B, layer.logw, 2, 3) + F.elt_shape),
+                flat[off : off + 2 * B].reshape((B, 2) + F.elt_shape)))
+            off += 2 * B
         return out
 
     def _rounds(self, circ: Circuit, inputs: List, fs: torch.Tensor, pads,
                 consts):
         """The sumcheck from begin_circuit to the last layer's wc write,
         every step on the card, nothing read back, for the lanes of fs [B,
-        104] (updated in place).  Returns (each layer's outputs, as device
-        tensors; the rows of all layers, [B, sum logw, 2, 4, N], of which
-        each layer's "rows" is a view)."""
+        104] (updated in place); a circuit with copies takes one lane, its
+        inputs [nc, nw, N] a layer.  Returns (each layer's outputs, as
+        device tensors; the rows of all layers' hand-rounds, [B, sum logw,
+        2, 4, N], of which each layer's "rows" is a view)."""
         F, dev = self.F, self.device
-        if circ.logc > 0:
-            raise NotImplementedError("copy rounds (logc > 0) are not ported")
         B = fs.shape[0]
+        if circ.logc > 0 and B > 1:
+            raise ValueError("a circuit with copies is proved one proof at "
+                             "a time (lanes %d)" % B)
         prf = dfs.new_prf(dev, B)
-        # begin_circuit: q, then g, from one stream (q is for copies)
-        g_full = dfs.dev_sample_elts(F, prf, 2 * KMAX_BINDINGS,
-                                     fs=fs)[:, KMAX_BINDINGS:]
+        # begin_circuit: q (the copies' bindings), then g, from one stream
+        qg = dfs.dev_sample_elts(F, prf, 2 * KMAX_BINDINGS, fs=fs)
+        bnd_q, g_full = qg[:, :KMAX_BINDINGS], qg[:, KMAX_BINDINGS:]
         bnd_g = [g_full, g_full]
         WC = F.zeros((B, 2), dev)
         logv = circ.logv
         rows = torch.empty((B, sum(layer.logw for layer in circ.layers), 2, 4)
                            + F.elt_shape, dtype=torch.int32, device=dev)
+        cps = torch.empty((B, circ.nl, circ.logc, 5) + F.elt_shape,
+                          dtype=torch.int32, device=dev)
         outs, off = [], 0
         for ly, layer in enumerate(circ.layers):
-            o = self._layer(fs, prf, ly > 0, layer, logv, bnd_g,
-                            inputs[ly], WC, pads[ly], consts,
+            o = self._layer(fs, prf, ly > 0, circ, layer, logv, bnd_q, bnd_g,
+                            inputs[ly], WC, pads[ly], consts, cps[:, ly],
                             rows[:, off : off + layer.logw])
             outs.append(o)
-            bnd_g, WC = o["g"], o["wc"]
+            bnd_q, bnd_g, WC = o["q"], o["g"], o["wc"]
             logv = layer.logw
             off += layer.logw
         return outs, rows
 
-    def _layer(self, fs, prf, fresh: bool, layer, logv: int, bnd_g, W, WC,
-               pad, consts, rows) -> dict:
+    def _layer(self, fs, prf, fresh: bool, circ: Circuit, layer, logv: int,
+               bnd_q, bnd_g, W, WC, pad, consts, cp, rows) -> dict:
         """One layer (prover_layers.h:185-271; the JAX package's
         _layer_fn, and the jax.vmap of its batch prover over it,
         zk/batch.py:301), every lane at once: alpha and beta (a fresh
         squeeze unless this is layer 0, which continues begin_circuit's
-        stream), the prologue, logw wire rounds of two hands each, the
-        closing check and wc write.  rows [B, logw, 2, 4, N] receives row
+        stream), the prologue, logc copy rounds (one lane; W [nc, nw, N]
+        the copies' inputs), logw wire rounds of two hands each, the
+        closing check and wc write.  cp [B, logc, 5, N] receives copy row
+        [b, rnd] = [ev0, ev1, ev2, ev3, r] and rows [B, logw, 2, 4, N] row
         [b, rnd, hand] = [ev0, ev1, ev2, r] (the evaluations minus the
         pad)."""
         F, dev = self.F, self.device
         B = fs.shape[0]
         one, rc = consts["one"], consts["rc"]
-        hp_pad, wc_pad = pad
+        cp_pad, hp_pad, wc_pad = pad
         ab = dfs.dev_sample_elts(F, prf, 2, fs=fs if fresh else None)
         alpha, beta = ab[:, 0], ab[:, 1]
         claim = F.add(WC[:, 0], F.mul(alpha, WC[:, 1]))
@@ -432,8 +468,26 @@ class SumcheckProver:
                            one)
         vq = torch.where(qd["bmask"][:, None], beta[:, None], qd["v"])
         hv = F.mul(vq, dot[:, qd["g"]])
-        # one copy: the copy EQ array is [1]
+        # the copy rounds (prover_layers.h:415-496): EQ [1, C] over the
+        # copies and the inputs W [nw, C] (copies inner, both zero past
+        # nc), bound to each round's challenge; one copy: eq0 = 1
         eq0 = one
+        if circ.logc > 0:
+            C = 1 << circ.logc
+            EQ = F.zeros((1, C), dev)
+            EQ[:, : circ.nc] = _eq_dev(F, circ.logc, circ.nc, bnd_q, one)
+            Wc = F.zeros((W.shape[1], C), dev)
+            Wc[:, : circ.nc] = W.transpose(0, 1)
+            for rnd in range(circ.logc):
+                c = fp_copy_round_sums(F, EQ[0], Wc, qd["h0"], qd["h1"],
+                                       hv[0])
+                row = cp[:, rnd]
+                dfs.round_tail_cubic(F, fs, claim, row, c[None],
+                                     cp_pad[:, rnd], rc)
+                EQ = dense.bind(F, EQ, row[:, 4])
+                Wc = dense.bind(F, Wc, row[:, 4])
+            eq0 = EQ[0, 0]
+            W = Wc.reshape((1, -1) + F.elt_shape)
 
         N = 1 << layer.logw
         Wh = torch.cat([W, F.zeros((B, N - W.shape[1]), dev)], dim=1)
@@ -476,9 +530,10 @@ class SumcheckProver:
         wc = torch.stack([WH[0][:, 0], WH[1][:, 0]], dim=1)
         expected = F.mul(eq0, F.mul(bq, F.mul(wc[:, 0], wc[:, 1])))
         dfs.fs_write_elts(F, fs, F.sub(wc, wc_pad))
-        return dict(rows=rows, wc=wc, bq=bq,
+        return dict(cp=cp, rows=rows, wc=wc, bq=bq,
                     ok=(claim == expected).flatten(1).all(1),
-                    g=[rows[:, :, 0, 3], rows[:, :, 1, 3]], alpha=alpha)
+                    q=cp[:, :, 4], g=[rows[:, :, 0, 3], rows[:, :, 1, 3]],
+                    alpha=alpha)
 
     def _assemble(self, circ: Circuit, pad: Optional[Proof],
                   host: np.ndarray, host_ts):
@@ -487,19 +542,22 @@ class SumcheckProver:
         the device state."""
         F = self.F
         N = F.nlimb
+        logc = circ.logc
         proof = Proof()
         aux = ProofAux()
         off = 0
         for ly, layer in enumerate(circ.layers):
-            n = layer.logw * 2 * 4 * N
+            n = (logc * 5 + layer.logw * 2 * 4 + 3) * N
             vals = F.from_limbs(torch.from_numpy(
-                host[off : off + n + 3 * N].reshape(-1, N)))
-            ok = host[off + n + 3 * N]
-            off += n + 3 * N + 1
+                host[off : off + n].reshape(-1, N)))
+            ok = host[off + n]
+            off += n + 1
             assert ok, "sum != eq0*quad*wl*wr"
-            rows = vals[: n // N].reshape(layer.logw, 2, 4)
-            wc0, wc1, bq = vals[n // N :]
-            lp = LayerProof(cp=[], hp=[[], []], wc=[wc0, wc1])
+            cps = vals[: logc * 5].reshape(logc, 5)
+            rows = vals[logc * 5 : -3].reshape(layer.logw, 2, 4)
+            wc0, wc1, bq = vals[-3:]
+            lp = LayerProof(cp=[list(cps[rnd, :4]) for rnd in range(logc)],
+                            hp=[[], []], wc=[wc0, wc1])
             for rnd in range(layer.logw):
                 for hand in range(2):
                     lp.hp[hand].append(list(rows[rnd, hand, :3]))
@@ -512,4 +570,4 @@ class SumcheckProver:
         dfs.fs_state_to_host(host_ts, host[off:].astype("<i4").view(np.uint8))
         last = circ.layers[-1]
         g = [list(rows[:, hand, 3]) for hand in range(2)]
-        return proof, aux, dict(q=[], g=g, logv=last.logw)
+        return proof, aux, dict(q=list(cps[:, 4]), g=g, logv=last.logw)

@@ -294,7 +294,7 @@ def constraints_dev(F, tabs: FusedTables, outs: List[dict],
     scal = torch.stack([x for o in outs for x in
                         (o["alpha"], o["bq"], o["wc"][:, 0], o["wc"][:, 1])],
                        dim=1).reshape((B, circ.nl, 4) + F.elt_shape)
-    wcpad = torch.stack([wc for _, wc in pads], dim=1)
+    wcpad = torch.stack([wc for *_, wc in pads], dim=1)
     k_layers = zk_constraints(F, tabs, rows, scal, wcpad)
     # input binding (zk_common.h:406-439)
     alpha_b = dfs.dev_sample_elts(F, dfs.new_prf(fs.device, B), 1,

@@ -47,7 +47,7 @@ for mod in ("fields.fp2", "ec.curves", "circuits.ecdsa.verify",
             "random_oracle.device_fs", "zk.fused", "zk.batch",
             "fields.multiprime", "transforms.crt_conv",
             "circuits.bitaddr.bitaddr", "circuits.ripemd.witness",
-            "circuits.ecdsa.pk"):
+            "circuits.ecdsa.pk", "arrays.dense"):
     assert pkg.__name__ + "." + mod in names, mod
 from longfellow_zk_tpu_torch.fields.fp_instances import (
     fp128, p256_base, p256k1_base, P128_OMEGA, P128_OMEGA_ORDER, P256_FP2_ROOT_X,

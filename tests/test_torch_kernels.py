@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (K1-K15, every instance) against their plain
+"""The port's CUDA kernels (K1-K16, every instance) against their plain
 PyTorch versions, on the card.  Field arithmetic, hashing and the
 Fiat-Shamir states are exact: equality, tolerance 0.
 
@@ -368,6 +368,44 @@ def test_k10_round_tail(dev, field):
         _same(fs, fs2)
         _same(claim, claim2)
         _same(row, row2)
+
+
+@pytest.mark.parametrize("field", list(FIELDS))
+def test_k10_cubic_round_tail(dev, field):
+    F, rng = FIELDS[field](), np.random.default_rng(16)
+    consts = fpm.round_consts(F, dev)
+    for _ in range(6):
+        fs, fs2 = _fs_pair(rng, dev)
+        x = _elts(F, rng, 11, dev)[3:]   # random elements
+        claim = x[0].clone()
+        claim2 = claim.clone()
+        c, pad = x[1:4], x[4:8]
+        row = torch.empty((5, F.nlimb), dtype=torch.int32, device=dev)
+        row2 = torch.empty_like(row)
+        dfs.round_tail_cubic(F, fs, claim, row, c, pad, consts)
+        dfs.round_tail_cubic_plain(F, fs2, claim2, row2, c, pad, consts)
+        _same(fs, fs2)
+        _same(claim, claim2)
+        _same(row, row2)
+
+
+@pytest.mark.parametrize("field", list(FIELDS))
+@pytest.mark.parametrize("C,T", [(2, 1), (4, 0), (8, 3000), (64, 9000)])
+def test_k16_copy_round_sums(dev, field, C, T):
+    """K16 against its plain version on random layers (repeated indices,
+    a zero-padded copy tail), twice in a row (the count of blocks done
+    is left at zero for the next launch)."""
+    F, rng = FIELDS[field](), np.random.default_rng(C + T)
+    nw = 700
+    EQ = _elts(F, rng, C, dev)
+    EQ[C - 1] = 0
+    W = _elts(F, rng, nw * C, dev).reshape(nw, C, -1)
+    h0, h1 = (torch.as_tensor(rng.integers(0, nw, T, dtype=np.int32),
+                              device=dev) for _ in range(2))
+    hv = _elts(F, rng, T, dev) if T else F.zeros((0,), dev)
+    for _ in range(2):
+        _same(fpm.fp_copy_round_sums(F, EQ, W, h0, h1, hv),
+              fpm.copy_round_sums_plain(F, EQ, W, h0, h1, hv))
 
 
 @pytest.mark.parametrize("field", list(FIELDS))

@@ -208,10 +208,15 @@ def test_unsatisfied_witness_leaves_transcript_untouched():
 
 
 def test_copy_rounds_not_ported():
+    """Copy rounds are not ported to the lane axis: lanes and copies are
+    never both above 1 (the batch prover is ZK-only and ZK refuses
+    copies), so the rounds of a circuit with copies refuse a second lane
+    (tests/test_torch_copies.py holds the copy rounds of one proof)."""
     pc = port_circuit(_mul_check_circuit(jax_fp128(), 2))
-    with pytest.raises(NotImplementedError):
-        SumcheckProver(fp128(), device="cpu").prove_with_witness(
-            pc, torch.zeros(8, 4, dtype=torch.int32), None)
+    fs = torch.zeros((2, 104), dtype=torch.uint8)
+    with pytest.raises(ValueError, match="one proof at a time"):
+        SumcheckProver(fp128(), device="cpu")._rounds(
+            pc, [None] * pc.nl, fs, None, None)
 
 
 @pytest.mark.slow
