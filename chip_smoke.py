@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 1. Prints the card (name, count, power limit).
-2. Builds the kernels K1-K16 from longfellow_zk_tpu_torch/csrc with nvcc.
+2. Builds the kernels K1-K20 from longfellow_zk_tpu_torch/csrc with nvcc.
 3. Runs each kernel instance at the shapes of the proofs below, holds
    it against its plain PyTorch version on the same inputs (field
    arithmetic, hashing and the transcript states are exact: tolerance 0)
@@ -43,7 +43,14 @@
       each field at a largest layer over copies (Fp128: the SHA-256
       circuit's x 64; P-256: the ECDSA circuit's x 8; secp256k1: the
       bitaddr circuit's x 8; GF(2^128): the mdoc hash circuit's x 2),
-      and K10's cubic mode of each field on random rounds.
+      and K10's cubic mode of each field on random rounds;
+   k. the Reed-Solomon transforms: K17 (the matmul NTT's B-point block)
+      at B = 16, 64 and 128 on the blocks of a 2^14-point transform, and
+      at B = 128 on all 2^20 points (timed there); K18 (the half-complex
+      RFFT's passes) in its three modes at the ECDSA tableau (14 rows of
+      2,048); K19 and K20 (Nussbaumer's butterfly level and base case) of
+      each prime field at the shapes that the bitaddr tableau's cyclic
+      convolution (25 rows, padding 4,096) reaches.
 4. Drives the port's three prover paths, each with the launch counts set
    to zero just before it and read just after (every kernel instance of
    the path must have launched, K8-K12 included), its bytes under
@@ -87,7 +94,22 @@
       verify accepts it and refuses a flip in a copy round's p(0) and one
       in a wc; 5 proofs and 5 verifications timed
       (sumcheck_sha256_copies64_prove_ms, ..._verify_ms), the device ms
-      of the copy rounds against the wire rounds.
+      of the copy rounds against the wire rounds;
+   h-j. the SHA-256, ECDSA and bitaddr proofs again, each with its
+      Reed-Solomon code through another transform (rs_factory_with):
+      the matmul NTT (K17 launched, K4 [fp128] not), the half-complex
+      RFFT (K18 and K4 [fp256x2], K5 not) and Nussbaumer (K19 and K20,
+      K13-K15 and K4 [crt] not); each held, as above, to the same golden
+      bytes and transcript states under the sync check and timed, and
+      the port's ZkVerifier with the same factory accepts the golden and
+      refuses a one-bit flip;
+   k. bench.py's phase_fft on its own inputs (np.random.default_rng(0)):
+      fft_fp128_2e20_ms (MatmulNTT.fftb, held to K4's NTT.fftb, timed
+      beside it), fft_fp256x2_2e20_ms (K4 [fp256x2], fftf(fftb(x)) = n x,
+      two outputs against a host evaluation) and
+      rs_encode_fp128_2e16_x3_ms (ReedSolomon(2^16, 3 2^16) through K4,
+      held to the MatmulNTT route and at 4 points to a host barycentric
+      evaluation), each a median of 5 between CUDA events.
 5. Drives the port's three verifier paths on those golden proofs, each
    with the launch counts set to zero just before the first verification
    and read just after (it must accept, K7 and the path's other kernels
@@ -191,9 +213,11 @@ def call_ms(fn, iters):
 def device_ms(fn, iters, warmup=3):
     """Device time of one call: the sum of the device activity that the
     profiler records over `iters` calls (after `warmup` calls), divided
-    by `iters`.  Where the profiler records none (it has dropped the
-    records of some one-thread kernels), the time of one call between
-    CUDA events, each call synchronised, and a note that says so."""
+    by `iters`, read from the profiler's raw records (its event tree
+    takes seconds to build over a plain version's thousands of small
+    ops).  Where the profiler records none (it has dropped the records
+    of some one-thread kernels), the median of `iters` calls between
+    CUDA events, and a note that says so."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
@@ -204,22 +228,32 @@ def device_ms(fn, iters, warmup=3):
             fn()
         torch.cuda.synchronize()
     cuda = torch.autograd.DeviceType.CUDA
-    total_us = sum(e.device_time for e in prof.events()
-                   if e.device_type == cuda)
-    if total_us > 0:
-        return total_us / 1e3 / iters
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
+    total_ns = sum(e.end_ns() - e.start_ns()
+                   for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == cuda)
+    if total_ns > 0:
+        return total_ns / 1e6 / iters
+    print("  (the profiler recorded no device time: CUDA events, %d calls)"
+          % iters)
+    return event_ms(fn, iters, warmup=0)[0]
+
+
+def event_ms(fn, reps=5, warmup=1):
+    """(median, all) of `reps` calls of fn, each synchronised and timed
+    between CUDA events, after `warmup` calls."""
+    for _ in range(warmup):
+        fn()
     ms = []
-    for _ in range(iters):
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
         t0.record()
         fn()
         t1.record()
         t1.synchronize()
         ms.append(t0.elapsed_time(t1))
-    print("  (the profiler recorded no device time: CUDA events, %d calls)"
-          % iters)
-    return statistics.median(ms)
+    return statistics.median(ms), ms
 
 
 def max_err(a, b):
@@ -240,9 +274,9 @@ class Rows:
         operations over the card's rates (a one-thread chain)."""
         b, by = bound or bound_ms(nbytes, ops)
         # the plain versions run thousands of small ops (one lane after
-        # another for K9 and K10), which the profiler is slow to record:
-        # one warm-up and one timed call
-        ms, plain_ms = device_ms(fn, 50), device_ms(plain_fn, 1, warmup=1)
+        # another for K9 and K10): one profiled call (the check just
+        # before warmed it)
+        ms, plain_ms = device_ms(fn, 50), device_ms(plain_fn, 1, warmup=0)
         self.rows[kname] = dict(name=kname, route="cuda", source=source,
                                 replaces=replaces, launches=0,
                                 max_abs_err=err, ms=ms, plain_ms=plain_ms,
@@ -977,6 +1011,158 @@ def check_lanes(rows, F, circ, param, lqc, n_witness, dev, rng, clock_mhz):
                 0, 0, bound=(chain_ms(steps, clock_mhz), "operations"))
 
 
+# the int8 tensor cores' dense rate (NVIDIA's data sheet): the bound of
+# K17's byte products, 2 operations a multiply-add
+INT8_OPS_PER_S = 1979e12
+
+
+def check_matmul_ntt(rows, F, dev, rng):
+    """K17 against its plain version on the blocks of a 2^14-point
+    transform at B = 16, 64 and 128, both directions; then timed (and
+    compared) on all 2^20 points at B = 128, the pass of bench.py's
+    phase_fft.  Bound: the bytes of x, y and the matrix, or the u8
+    multiply-adds (16 B)^2 a block on the int8 tensor cores."""
+    from longfellow_zk_tpu_torch.fields.fp_instances import (
+        P128_OMEGA, P128_OMEGA_ORDER)
+    from longfellow_zk_tpu_torch.transforms import matmul_ntt as mnt
+
+    mm = mnt.MatmulNTT(F, P128_OMEGA, P128_OMEGA_ORDER, 128, dev)
+    elts = elts_of(F, rng, dev)
+    x = elts(1 << 14)
+    err = 0
+    for B in (16, 64, 128):
+        for inverse in (False, True):
+            G = mm.block_matrix(B, inverse)
+            xb = x.reshape(-1, B, 4)
+            err = max(err, max_err(mnt.fp_matmul_ntt(F, xb, G),
+                                   mnt.matmul_ntt_plain(F, xb, G)))
+    B, n = 128, 1 << 20
+    G = mm.block_matrix(B, False)
+    xb = elts(n).reshape(-1, B, 4)
+    err = max(err, max_err(mnt.fp_matmul_ntt(F, xb, G),
+                           mnt.matmul_ntt_plain(F, xb, G)))
+    nbytes = 2 * 16 * n + 4 * G.numel()
+    macs = (n // B) * (16 * B) ** 2
+    tb, to = nbytes / HBM_BYTES_PER_S, 2 * macs / INT8_OPS_PER_S
+    print("K17[fp128] at 2^20 points, B = %d: %d blocks, %.3g u8 "
+          "multiply-adds" % (B, n // B, macs))
+    rows.record("fp_matmul_ntt[fp128]",
+                "longfellow_zk_tpu_torch/csrc/matmul_ntt.cu",
+                "longfellow_zk_tpu/transforms/matmul_ntt.py:119", err,
+                lambda: mnt.fp_matmul_ntt(F, xb, G),
+                lambda: mnt.matmul_ntt_plain(F, xb, G), nbytes, 0,
+                bound=(max(tb, to) * 1e3,
+                       "bytes" if tb >= to else "operations"))
+
+
+def check_rfft(rows, F2, omega2, order, dev, rng, nrows, n):
+    """K18 in its three modes at the ECDSA tableau (nrows rows of n base
+    elements), as one convolution runs them: split after the forward NTT,
+    hc_mul by one broadcast spectrum, merge before the backward NTT; each
+    against its plain version (hc_mul with full rows too).  Bound: each
+    pass's rows read and written once (tables too), or its products: one
+    Fp2 product (3 base products) an index but 0 (by w^0 = 1) in split
+    and merge, whose halvings are no products, and in hc_mul but at 0
+    and h (one base product each)."""
+    from longfellow_zk_tpu_torch.transforms import rfft as rfm
+
+    rf = rfm.RFFT(F2, omega2, order, dev)
+    fw, bw = rf.w_tables(n)
+    eb, h = 4 * F2.nlimb, n // 2
+    elts = elts_of(F2.f, rng, dev)
+    Z = elts(nrows * n).reshape(nrows, h, 2, F2.nlimb)
+    hc = elts(nrows * n).reshape(nrows, n, F2.nlimb)
+    hy = elts(n).reshape(1, n, F2.nlimb)
+    cases = [(rfm.SPLIT, Z, None, fw, rf.inv2),
+             (rfm.HC_MUL, hc, hy, None, None),
+             (rfm.HC_MUL, hc, hc, None, None),
+             (rfm.MERGE, hc, None, bw, rf.inv2)]
+    err = 0
+    for case in cases:
+        err = max(err, max_err(rfm.rfft_pass(F2, *case),
+                               rfm.rfft_pass_plain(F2, *case)))
+    conv = [c for i, c in enumerate(cases) if i != 2]
+
+    def run(fn):
+        return lambda: [fn(F2, *case) for case in conv]
+
+    row = nrows * n * eb
+    nbytes = 6 * row + 2 * (h * 2 * eb) + n * eb
+    rows.record("rfft_pass[fp256x2]",
+                "longfellow_zk_tpu_torch/csrc/rfft.cu",
+                "longfellow_zk_tpu/transforms/rfft.py:74", err,
+                run(rfm.rfft_pass), run(rfm.rfft_pass_plain), nbytes,
+                MUL_OPS["fp256"] * nrows * (3 * 3 * (h - 1) + 2))
+
+
+def check_nussbaumer(rows, F, dev, tag, rng, nrows, n):
+    """K19 and K20 of field F at the shapes that cyclic() of nrows rows of
+    n points reaches (the bitaddr tableau: 25 rows, padding 4,096): K19
+    at every level of both directions of every negacyclic transform the
+    recursion runs ([rows, M, r]: from negacyclic(n / 2) at [nrows, 64,
+    64] down to the inner negacyclic(64) at [64 nrows, 16, 8]); K20 at
+    the base sizes 4 (cyclic), 8, 16 and 32 (negacyclic), y with the
+    rows of one tableau row (as the convolver's broadcast kernel).
+    Timed: K19's first forward level at [nrows, 64, 64] (bound: bytes)
+    and K20 at 32 points (bound: n^2 products a row)."""
+    from longfellow_zk_tpu_torch.transforms import nussbaumer as nbm
+
+    def levels(k, rr):
+        """(M, r, rows) of negacyclic(k) on rr rows and its recursion."""
+        if k <= nbm.K_SMALL:
+            return []
+        m, r = nbm._split(k)
+        return [(2 * m, r, rr)] + levels(r, rr * 2 * m)
+
+    shapes, k = [], n
+    while k > 4:
+        k //= 2
+        shapes += levels(k, nrows)
+    eb, N = 4 * F.nlimb, F.nlimb
+    elts = elts_of(F, rng, dev)
+    err = 0
+    timed = None
+    for M, r, rr in shapes:
+        A = elts(rr * M * r).reshape(rr, M, r, N)
+        m = M // 2
+        w = r // m
+        h = m
+        while h >= 1:
+            for inverse, step in ((False, w * (m // h)),
+                                  (True, -w * (m // h))):
+                err = max(err, max_err(
+                    nbm.nb_butterfly(F, A, h, step, inverse),
+                    nbm.nb_butterfly_plain(F, A, h, step, inverse)))
+            h //= 2
+        if timed is None:
+            timed = A
+    print("K19[%s] checked at [rows, M, r] = %s" % (
+        tag, ", ".join("[%d, %d, %d]" % (rr, M, r) for M, r, rr in shapes)))
+    rows.record("nb_butterfly[%s]" % tag,
+                "longfellow_zk_tpu_torch/csrc/nussbaumer.cu",
+                "longfellow_zk_tpu/transforms/nussbaumer.py:95", err,
+                lambda: nbm.nb_butterfly(F, timed, 32, 1, False),
+                lambda: nbm.nb_butterfly_plain(F, timed, 32, 1, False),
+                2 * eb * timed.numel() // N, 0)
+    err = 0
+    for k in (4, 8, 16, 32):
+        x = elts(nrows * n // 2).reshape(nrows, -1, k, N)
+        y = elts(n // 2).reshape(1, -1, k, N)
+        for neg in ((False, True) if k > 4 else (False,)):
+            x2, y2 = nbm._rows_of(x, y)
+            err = max(err, max_err(nbm.nb_base_conv(F, x, y, neg)
+                                   .reshape(x2.shape),
+                                   nbm.nb_base_conv_plain(F, x2, y2, neg)))
+    x2, y2 = nbm._rows_of(x, y)
+    rows.record("nb_base_conv[%s]" % tag,
+                "longfellow_zk_tpu_torch/csrc/nussbaumer.cu",
+                "longfellow_zk_tpu/transforms/nussbaumer.py:63", err,
+                lambda: nbm.nb_base_conv(F, x, y, True),
+                lambda: nbm.nb_base_conv_plain(F, x2, y2, True),
+                eb * (2 * x2.numel() + y2.numel()) // N,
+                MUL_OPS[tag] * x2.shape[0] * 32 * 32)
+
+
 def zk_verify_fn(F, circ, rs, pub, meta, dev):
     """verify(data, phases): a ZkVerifier's recv_commitment + verify on the
     proof bytes data on `dev` (phases gets the ms of (construction and
@@ -1163,14 +1349,15 @@ def first_run(kernels, expect, fn):
 
 def run_path(label, metric, prove, golden, golden_what, states, kernels,
              rows, expect, smi, first_engine=None,
-             phase_names=("commit", "prove")):
+             phase_names=("commit", "prove"), rows_of=None):
     """Drives one prover path: the first proof (`first_engine`, by
     default DeterministicEngine()) with the launch counts set to zero
     just before it and read just after, its bytes held against `golden`
     and its transcript states against `states`; then `measure` under
     SecureRandomEngine().  `prove(engine, phases)`
     returns the proof bytes and appends its phase times (ms, in the order
-    of phase_names) to phases.  Returns the first proof's launches, None
+    of phase_names) to phases.  The first proof's launches go to the
+    kernel rows (only to those of rows_of if given).  Returns them, None
     on a failure."""
     from longfellow_zk_tpu_torch.random_oracle.engine import (
         DeterministicEngine, SecureRandomEngine)
@@ -1193,7 +1380,8 @@ def run_path(label, metric, prove, golden, golden_what, states, kernels,
         print("FAIL:", why)
         return None
     for k, v in launches.items():
-        rows.rows[k]["launches"] = v
+        if rows_of is None or k in rows_of:
+            rows.rows[k]["launches"] = v
     measure(metric, lambda ph: prove(SecureRandomEngine(), ph), smi,
             phase_names)
     return launches
@@ -1383,14 +1571,14 @@ def run_batch_path(label, metric, F, circ, rs, Ws, tags, meta, golden, dev,
 
 
 def run_verifier_path(label, metric, verify, golden, states, bad, kernels,
-                      rows, expect, smi, phase_names):
+                      rows, expect, smi, phase_names, timed=True):
     """Drives one verifier path: `verify(data, phases)` on the golden
     proof with the launch counts set to zero just before it and read just
     after (it must accept, end each ZkVerifier.verify in the state of
     `states`, and every kernel of `expect` launch; the counts go to the
     K7 rows), then on `bad`, a copy with one bit flipped
-    (it must refuse); then `measure` on the golden.  Returns False on a
-    failure."""
+    (it must refuse); then, if timed, `measure` on the golden.  Returns
+    False on a failure."""
     print("== %s [at %.0f s]" % (label, time.perf_counter() - T0))
     STATES.clear()
     ok, first_ms, launches, why = first_run(
@@ -1412,7 +1600,8 @@ def run_verifier_path(label, metric, verify, golden, states, bad, kernels,
         print("FAIL: a copy with one bit flipped is accepted")
         return False
     print("a copy with one bit flipped is refused")
-    measure(metric, lambda ph: verify(golden, ph), smi, phase_names)
+    if timed:
+        measure(metric, lambda ph: verify(golden, ph), smi, phase_names)
     return True
 
 
@@ -1597,6 +1786,130 @@ def run_copies_path(F, circ, W_host, dev, kernels, rows, smi):
     return True
 
 
+def barycentric(F, ys, x):
+    """The value at the point x of the polynomial of degree < len(ys)
+    through (i, ys[i]), i = 0 .. len(ys) - 1 (x not among them)."""
+    n, p = len(ys), F.p
+    fact = [1] * n
+    for i in range(1, n):
+        fact[i] = fact[i - 1] * i % p
+    ell, acc = 1, 0
+    for j in range(n):
+        ell = ell * (x - j) % p
+    for i, y in enumerate(ys):
+        w = fact[i] * fact[n - 1 - i] % p
+        if (n - 1 - i) % 2:
+            w = p - w
+        acc = (acc + y * pow((x - i) * w % p, -1, p)) % p
+    return ell * acc % p
+
+
+def run_fft_phase(F, F2, omega2, order2, dev, kernels, smi):
+    """bench.py's phase_fft on its own inputs (np.random.default_rng(0):
+    limbs [8, 2^20] with the top limb & 0x7FFF, then limbs2 [2, 16, 2^20]
+    likewise, the JAX package's Montgomery limbs) through the port's
+    classes: MatmulNTT.fftb at 2^20 over Fp128 (held to K4's NTT.fftb,
+    timed beside it), K4's Fp2 NTT.fftb at 2^20 (fftf(fftb(x)) = n x, two
+    outputs against a host evaluation) and ReedSolomon(2^16, 3 2^16) over
+    Fp128 through K4 (held to the MatmulNTT route and, at 4 points, to a
+    host barycentric evaluation).  Each timed as a median of 5 between
+    CUDA events.  Returns False on a failure."""
+    from longfellow_zk_tpu_torch.fields.bridge import (
+        fp2_from_jax, limbs_from_jax)
+    from longfellow_zk_tpu_torch.fields.fp_instances import (
+        P128_OMEGA, P128_OMEGA_ORDER)
+    from longfellow_zk_tpu_torch.transforms.matmul_ntt import MatmulNTT
+    from longfellow_zk_tpu_torch.transforms.ntt import (
+        NTT, ReedSolomon, _pow, make_fft_convolution_factory)
+
+    print("== bench.py phase_fft on the port [at %.0f s]"
+          % (time.perf_counter() - T0))
+    n = 1 << 20
+    rng = np.random.default_rng(0)
+    limbs = rng.integers(0, 1 << 16, size=(8, n), dtype=np.uint32)
+    limbs[7] &= 0x7FFF
+    limbs2 = rng.integers(0, 1 << 16, size=(2, 16, n), dtype=np.uint32)
+    limbs2[:, 15] &= 0x7FFF
+    x = limbs_from_jax(limbs).to(dev)
+    x2 = fp2_from_jax(limbs2).to(dev)
+    ok = True
+
+    mm = MatmulNTT(F, P128_OMEGA, P128_OMEGA_ORDER, 128, dev)
+    nt = NTT(F, P128_OMEGA, P128_OMEGA_ORDER, dev)
+    mm.prepare(n)
+    nt.prepare(n)
+    kernels.reset_launches()
+    y = mm.fftb(x)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    same = torch.equal(y, nt.fftb(x))
+    ok &= same and set(launches) == {"fp_matmul_ntt[fp128]",
+                                     "fp_elementwise[fp128]"}
+    t_mm, all_mm = event_ms(lambda: mm.fftb(x))
+    t_k4, all_k4 = event_ms(lambda: nt.fftb(x))
+    # bounds: the matmul route's three passes (B = 64, 128, 128; the int8
+    # tensor cores) and two twiddle products; K4's n/2 (log n - 1)
+    # products and its input, output and twiddles read or written once
+    mm_ops = 2 * sum((n // B) * (16 * B) ** 2 for B in (64, 128, 128))
+    b_mm = max(6 * 16 * n / HBM_BYTES_PER_S,
+               mm_ops / INT8_OPS_PER_S + 2 * MUL_OPS["fp128"] * n /
+               INT32_OPS_PER_S) * 1e3
+    b_k4 = bound_ms(3 * 16 * n,
+                    MUL_OPS["fp128"] * (n // 2) * (n.bit_length() - 2))
+    print("fft_fp128_2e20_ms: %.4f (MatmulNTT.fftb, K17; median of 5: %s; "
+          "bound %.5f ms), equal to K4's NTT.fftb: %s; K4 [fp128] NTT.fftb: "
+          "%.4f ms (%s; bound %.5f ms, %s); launches of one transform: %s; "
+          "on %s" % (
+              t_mm, ", ".join("%.4f" % v for v in all_mm), b_mm, same, t_k4,
+              ", ".join("%.4f" % v for v in all_k4), b_k4[0], b_k4[1],
+              json.dumps(launches), smi))
+
+    n2 = NTT(F2, omega2, order2, dev)
+    n2.prepare(n)
+    y2 = n2.fftb(x2)
+    back = n2.fftf(y2)
+    scaled = F2.mul_base(x2, F2.f.to_limbs(n, dev))
+    round_trip = torch.equal(back, scaled)
+    xs = F2.from_limbs(x2)
+    w = n2._root_of_order(n, False)
+    host = True
+    for j in (1, 777777):
+        wj = _pow(F2, w, j)
+        acc = F2.of_scalar(0)
+        for k in range(n - 1, -1, -1):
+            acc = F2.add_i(F2.mul_i(acc, wj), tuple(xs[k]))
+        host &= acc == F2.from_limbs(y2[j])
+    ok &= round_trip and host
+    t2, all2 = event_ms(lambda: n2.fftb(x2))
+    print("fft_fp256x2_2e20_ms: %.4f (K4 [fp256x2] NTT.fftb; median of 5: "
+          "%s); fftf(fftb(x)) = n x: %s; outputs 1 and 777777 equal a host "
+          "evaluation: %s" % (t2, ", ".join("%.4f" % v for v in all2),
+                              round_trip, host))
+
+    k, m = 1 << 16, 3 << 16
+    xr = x[:k].contiguous()
+    rs4 = ReedSolomon(k, m, F, make_fft_convolution_factory(
+        F, P128_OMEGA, P128_OMEGA_ORDER, dev), dev)
+    rsm = ReedSolomon(k, m, F, make_fft_convolution_factory(
+        F, P128_OMEGA, P128_OMEGA_ORDER, dev, ntt_impl=mm), dev)
+    o4 = rs4.interpolate(xr)
+    same_rs = torch.equal(o4, rsm.interpolate(xr))
+    ys = [int(v) for v in F.from_limbs(xr)]
+    pts = (k, k + 1, 2 * k + 12345, m - 1)
+    bary = all(barycentric(F, ys, q) == F.from_limbs(o4[q]) for q in pts)
+    ok &= same_rs and bary
+    t_rs, all_rs = event_ms(lambda: rs4.interpolate(xr))
+    t_rsm, _ = event_ms(lambda: rsm.interpolate(xr))
+    print("rs_encode_fp128_2e16_x3_ms: %.4f (ReedSolomon(2^16, 3 2^16), "
+          "K4; median of 5: %s), equal to the MatmulNTT route (%.4f ms): "
+          "%s; points %s equal a host barycentric evaluation: %s" % (
+              t_rs, ", ".join("%.4f" % v for v in all_rs), t_rsm, same_rs,
+              list(pts), bary))
+    if not ok:
+        print("FAIL: a phase_fft check failed")
+    return ok
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
@@ -1625,11 +1938,18 @@ def main() -> int:
     from longfellow_zk_tpu_torch.random_oracle.engine import (
         DeterministicEngine)
     from longfellow_zk_tpu_torch.random_oracle.transcript import Transcript
-    from longfellow_zk_tpu_torch.transforms.ntt import NTT
+    from longfellow_zk_tpu_torch.transforms.matmul_ntt import MatmulNTT
+    from longfellow_zk_tpu_torch.transforms.ntt import (
+        NTT, make_fft_convolution_factory)
+    from longfellow_zk_tpu_torch.transforms.nussbaumer import (
+        make_nussbaumer_convolution_factory)
+    from longfellow_zk_tpu_torch.transforms.rfft import (
+        make_rfft_ext_convolution_factory)
     from longfellow_zk_tpu_torch.zk.proof import ZkProof
     from longfellow_zk_tpu_torch.zk.prover import ZkProver
     from longfellow_zk_tpu_torch.zk.serialization import write_zk_proof
-    from longfellow_zk_tpu_torch.zk.testing import rs_factory_for
+    from longfellow_zk_tpu_torch.zk.testing import (
+        rs_factory_for, rs_factory_with)
 
     # -- 1. the card ----------------------------------------------------
     name = torch.cuda.get_device_name(0)
@@ -1789,6 +2109,15 @@ def main() -> int:
                             (GF, c_hash, 2, "gf2_128")):
         check_copy_round(rows, Fx, cx, nc, dev, tag, rng)
         check_round_tail(rows, Fx, dev, tag, rng, clock_mhz, cubic=True)
+
+    # -- 3k. the Reed-Solomon transforms: K17 at 2^14 and 2^20 points, K18
+    #        at the ECDSA tableau, K19 and K20 of each prime field at the
+    #        shapes of the bitaddr tableau's recursion ---------------------
+    check_matmul_ntt(rows, F, dev, rng)
+    check_rfft(rows, F2, omega2, P256_FP2_ROOT_ORDER, dev, rng, 14, 2048)
+    for Fx, tag in ((F, "fp128"), (FB, "fp256"), (FK, "fp256k1")):
+        check_nussbaumer(rows, Fx, dev, tag, rng, lp_bit.nrow,
+                         lp_bit.block_enc)
     if rows.failures:
         print("FAIL: kernels disagree with their plain versions:",
               rows.failures)
@@ -1797,11 +2126,15 @@ def main() -> int:
     def prover_kernels(*instances):
         """The ZK prover's kernels of those instances, all but K7, which
         only the verifier runs, K16 and K10's cubic mode, which only the
-        plain sumcheck's copy rounds run, and K8, which knows no field."""
+        plain sumcheck's copy rounds run, K17-K20, which only the
+        Reed-Solomon routes of section 4h-4j run, and K8, which knows no
+        field."""
         return [k for k in kernels.KERNELS if k.endswith(instances)
                 and not k.startswith(("fp_quad_bind[", "copy_round_sums[",
-                                      "sumcheck_round_tail_cubic["))] + \
-            ["sha256_msgs[bytes]"]
+                                      "sumcheck_round_tail_cubic[",
+                                      "fp_matmul_ntt[", "rfft_pass[",
+                                      "nb_butterfly[", "nb_base_conv["))
+                ] + ["sha256_msgs[bytes]"]
 
     check_prove_syncs()
     record_states()
@@ -1949,6 +2282,84 @@ def main() -> int:
     if not run_copies_path(F, circ, [sha_witness(m) for m in (
             [b"abc"] + [b"msg%04d" % i for i in range(1, COPIES)])], dev,
             kernels, rows, smi):
+        return 1
+
+    # -- 4h. the SHA-256 proof, its Reed-Solomon code through the matmul NTT
+    #        (K17 in place of K4 [fp128]) ---------------------------------
+    mrs = rs_factory_with(F, make_fft_convolution_factory(
+        F, P128_OMEGA, P128_OMEGA_ORDER, dev,
+        ntt_impl=MatmulNTT(F, P128_OMEGA, P128_OMEGA_ORDER, 128, dev)), dev)
+    mm_kernels = [k for k in prover_kernels("[fp128]")
+                  if k != "fp_ntt[fp128]"] + ["fp_matmul_ntt[fp128]"]
+    if run_path("the Fp128 SHA-256 proof, RS through the matmul NTT",
+                "zk_sha256_1block_prove_matmul_ntt_ms",
+                proof_fn(F, circ, mrs, Wit, meta), golden,
+                "the golden JAX proof", states["sha256_1block_fp128"],
+                kernels, rows, mm_kernels, smi,
+                rows_of=("fp_matmul_ntt[fp128]",)) is None:
+        return 1
+    if not run_verifier_path(
+            "the Fp128 SHA-256 verifier, RS through the matmul NTT", None,
+            zk_verify_fn(F, circ, mrs, Wit[: circ.npub_in], meta, dev),
+            golden, states["sha256_1block_fp128"], flipped(golden, 32, 1),
+            kernels, rows,
+            ["fp_elementwise[fp128]", "fp_quad_bind[fp128]",
+             "fp_matmul_ntt[fp128]"], smi, None, timed=False):
+        return 1
+
+    # -- 4i. the P-256 ECDSA proof, its Reed-Solomon code through the
+    #        half-complex RFFT (K18 and K4 [fp256x2], no K5) --------------
+    rrs = rs_factory_with(FB, make_rfft_ext_convolution_factory(
+        FB, F2, omega2, P256_FP2_ROOT_ORDER, dev), dev)
+    rf_kernels = [k for k in ecdsa_kernels
+                  if k != "fp2_elementwise[fp256x2]"] + \
+        ["rfft_pass[fp256x2]"]
+    if run_path("the P-256 ECDSA proof, RS through the half-complex RFFT",
+                "ecdsa_zk_prover_rfft_ms",
+                proof_fn(FB, ecirc, rrs, EW, emeta),
+                egolden, "the golden JAX proof", states["ecdsa_p256"],
+                kernels, rows, rf_kernels, smi,
+                rows_of=("rfft_pass[fp256x2]",)) is None:
+        return 1
+    if not run_verifier_path(
+            "the P-256 ECDSA verifier, RS through the half-complex RFFT",
+            None, zk_verify_fn(FB, ecirc, rrs, EW[: ecirc.npub_in], emeta,
+                               dev),
+            egolden, states["ecdsa_p256"], flipped(egolden, 32, 1), kernels,
+            rows,
+            ["fp_elementwise[fp256]", "fp_quad_bind[fp256]",
+             "fp_ntt[fp256x2]", "rfft_pass[fp256x2]"], smi, None,
+            timed=False):
+        return 1
+
+    # -- 4j. the secp256k1 bitaddr proof, its Reed-Solomon code through
+    #        Nussbaumer (K19, K20 in place of K13-K15 and K4 [crt]) -------
+    nrs = rs_factory_with(FK, make_nussbaumer_convolution_factory(FK, dev),
+                          dev)
+    nb_kernels = [k for k in prover_kernels("[fp256k1]")
+                  if k not in ("crt_to[fp256k1]", "crt_from[fp256k1]")] + \
+        ["nb_butterfly[fp256k1]", "nb_base_conv[fp256k1]"]
+    if run_path("the secp256k1 bitaddr proof, RS through Nussbaumer",
+                "bitaddr_zk_prover_nussbaumer_ms",
+                proof_fn(FK, bcirc, nrs, BW, bmeta), bgolden,
+                "the golden bitaddr proof", states["bitaddr_p256k1"],
+                kernels, rows, nb_kernels, smi,
+                rows_of=("nb_butterfly[fp256k1]",
+                         "nb_base_conv[fp256k1]")) is None:
+        return 1
+    if not run_verifier_path(
+            "the secp256k1 bitaddr verifier, RS through Nussbaumer", None,
+            zk_verify_fn(FK, bcirc, nrs, BW[: bcirc.npub_in], bmeta, dev),
+            bgolden, states["bitaddr_p256k1"], flipped(bgolden, 32, 1),
+            kernels, rows,
+            ["fp_elementwise[fp256k1]", "fp_quad_bind[fp256k1]",
+             "nb_butterfly[fp256k1]", "nb_base_conv[fp256k1]"], smi, None,
+            timed=False):
+        return 1
+
+    # -- 4k. bench.py's phase_fft on its inputs ----------------------------
+    if not run_fft_phase(F, F2, omega2, P256_FP2_ROOT_ORDER, dev, kernels,
+                         smi):
         return 1
 
     # -- 5. the verifiers on the golden proofs ------------------------------

@@ -37,6 +37,10 @@ entry point) per field.  K9's mode 9 (CHOOSE) has entry points of its own,
     K15 crt_from       crt.cu         fp256k1        transforms/crt_conv.py
     K16 copy_round_sums
                        copy_round.cu  P gf2_128      fields/fp.py
+    K17 fp_matmul_ntt  matmul_ntt.cu  fp128          transforms/matmul_ntt.py
+    K18 rfft_pass      rfft.cu        fp256x2        transforms/rfft.py
+    K19 nb_butterfly   nussbaumer.cu  P              transforms/nussbaumer.py
+    K20 nb_base_conv   nussbaumer.cu  P              transforms/nussbaumer.py
 
 (P: the prime fields fp128, fp256 and fp256k1.  fp128: p = 2^128 -
 2^108 + 1; fp256: the P-256 base field; fp256x2: Fp2 over it; fp256k1:
@@ -117,6 +121,14 @@ _SOURCES = {
     "copy_round_sums": ("copy_round.cu", [_P, _P, _P, _P, _P, _P, _P, _LL,
                                           _LL, _I, _P],
                         ("fp128", "fp256", "fp256k1", "gf2_128")),
+    "fp_matmul_ntt": ("matmul_ntt.cu", [_P, _P, _P, _LL, _I, _P],
+                      ("fp128",)),
+    "rfft_pass": ("rfft.cu", [_I, _P, _P, _P, _P, _P, _LL, _LL, _LL, _P],
+                  ("fp256x2",)),
+    "nb_butterfly": ("nussbaumer.cu", [_P, _P, _LL, _I, _I, _I, _LL, _I, _P],
+                     ("fp128", "fp256", "fp256k1")),
+    "nb_base_conv": ("nussbaumer.cu", [_P, _P, _P, _LL, _I, _LL, _I, _P],
+                     ("fp128", "fp256", "fp256k1")),
 }
 
 # "kernel[instance]" -> (source, C entry point, argtypes)

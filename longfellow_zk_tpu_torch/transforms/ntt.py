@@ -142,6 +142,11 @@ class NTT:
             self._tw[key] = F.to_limbs(tws, self.device)
         return self._tw[key]
 
+    def prepare(self, n: int) -> None:
+        """Uploads the twiddles of size n, both directions."""
+        for inverse in (False, True):
+            self.twiddles(n, inverse)
+
     def _transform(self, x: torch.Tensor, inverse: bool) -> torch.Tensor:
         """Transform along the element axis of x [..., n, *E]."""
         E = tuple(self.F.elt_shape)
@@ -202,28 +207,30 @@ class FFTConvolution:
 
     z[k] = sum_i x[i] y[k-i] (cyclically over the pow2 padding), first m
     entries returned.  y is fixed at construction (its transform is
-    precomputed on the host); x is batched over leading axes.
+    precomputed on the host); x is batched over leading axes.  The
+    transforms of x run in ntt_impl (fftf / fftb, e.g. the matmul NTT of
+    transforms/matmul_ntt.py) when given, else in the radix-2 NTT (K4).
     """
 
     def __init__(self, n: int, m: int, F, omega, omega_order: int,
-                 y: Sequence, device=None):
+                 y: Sequence, device=None, ntt_impl=None):
         self.F = F
         self.n = n
         self.m = m
         self.device = resolve_device(device)
         self.padding = _choose_padding(m)
-        self.ntt = NTT(F, omega, omega_order, self.device)
+        host_ntt = NTT(F, omega, omega_order, self.device)
+        self.ntt = ntt_impl if ntt_impl is not None else host_ntt
         # host-side forward transform of padded y, scaled by 1/padding
         y_pad = list(y) + [F.of_scalar(0)] * (self.padding - len(y))
-        yhat = _host_fft(F, y_pad, self.ntt._root_of_order(self.padding, True))
+        yhat = _host_fft(F, y_pad, host_ntt._root_of_order(self.padding, True))
         inv_pad = F.inv_i(F.of_scalar(self.padding))
         self._yhat = F.to_limbs([F.mul_i(v, inv_pad) for v in yhat],
                                 self.device)
-        # the twiddles too: every upload at construction, so that an
-        # encode waits on nothing (the ZK prover's dot test runs between
-        # its first round and its one fetch)
-        for inverse in (False, True):
-            self.ntt.twiddles(self.padding, inverse)
+        # the transforms' tables too: every upload at construction, so
+        # that an encode waits on nothing (the ZK prover's dot test runs
+        # between its first round and its one fetch)
+        self.ntt.prepare(self.padding)
 
     def convolution(self, x: torch.Tensor) -> torch.Tensor:
         """x: [..., n, *E] -> z: [..., m, *E]."""
@@ -288,11 +295,12 @@ def _of_int(F, i: int):
     return F.of_scalar(i % F.p)
 
 
-def make_fft_convolution_factory(F, omega, omega_order: int, device=None):
+def make_fft_convolution_factory(F, omega, omega_order: int, device=None,
+                                 ntt_impl=None):
     dev = resolve_device(device)
 
     def factory(n, m, y):
-        return FFTConvolution(n, m, F, omega, omega_order, y, dev)
+        return FFTConvolution(n, m, F, omega, omega_order, y, dev, ntt_impl)
 
     return factory
 

@@ -15,6 +15,27 @@ K_LIGERO_NREQ = 128
 K_VERSION = 7
 
 
+def rs_factory_with(F, conv_factory, device=None):
+    """factory(n, m) -> a cached Reed-Solomon (n, m) encoder over the prime
+    field F on `device` whose convolutions come from conv_factory(n, m, y)
+    (any of the transforms' factories: the radix-2 or matmul NTT, the
+    half-complex RFFT, Nussbaumer, the CRT convolution)."""
+    dev = resolve_device(device)
+    return _cached(lambda n, m: ReedSolomon(n, m, F, conv_factory, dev), dev)
+
+
+def _cached(make, dev):
+    cache = {}
+
+    def factory(n, m):
+        if (n, m) not in cache:
+            cache[(n, m)] = make(n, m)
+        return cache[(n, m)]
+
+    factory.device = dev
+    return factory
+
+
 def rs_factory_for(F, omega=None, omega_order: int = None, F2=None,
                    omega2=None, device=None):
     """factory(n, m) -> a cached Reed-Solomon (n, m) encoder on `device`:
@@ -25,25 +46,12 @@ def rs_factory_for(F, omega=None, omega_order: int = None, F2=None,
     reference's CrtConvolutionFactory, bitaddr_test.cc:103-125)."""
     dev = resolve_device(device)
     if F.kCharacteristicTwo:
-        def make(n, m):
-            return LCH14ReedSolomon(n, m, F, dev)
+        return _cached(lambda n, m: LCH14ReedSolomon(n, m, F, dev), dev)
+    if F2 is not None:
+        conv = make_fft_ext_convolution_factory(F, F2, omega2, omega_order,
+                                                dev)
+    elif omega is not None:
+        conv = make_fft_convolution_factory(F, omega, omega_order, dev)
     else:
-        if F2 is not None:
-            conv = make_fft_ext_convolution_factory(
-                F, F2, omega2, omega_order, dev)
-        elif omega is not None:
-            conv = make_fft_convolution_factory(F, omega, omega_order, dev)
-        else:
-            conv = make_crt_convolution_factory(F, device=dev)
-
-        def make(n, m):
-            return ReedSolomon(n, m, F, conv, dev)
-    cache = {}
-
-    def factory(n, m):
-        if (n, m) not in cache:
-            cache[(n, m)] = make(n, m)
-        return cache[(n, m)]
-
-    factory.device = dev
-    return factory
+        conv = make_crt_convolution_factory(F, device=dev)
+    return rs_factory_with(F, conv, dev)

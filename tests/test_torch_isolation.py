@@ -47,7 +47,8 @@ for mod in ("fields.fp2", "ec.curves", "circuits.ecdsa.verify",
             "random_oracle.device_fs", "zk.fused", "zk.batch",
             "fields.multiprime", "transforms.crt_conv",
             "circuits.bitaddr.bitaddr", "circuits.ripemd.witness",
-            "circuits.ecdsa.pk", "arrays.dense"):
+            "circuits.ecdsa.pk", "arrays.dense", "transforms.matmul_ntt",
+            "transforms.rfft", "transforms.nussbaumer"):
     assert pkg.__name__ + "." + mod in names, mod
 from longfellow_zk_tpu_torch.fields.fp_instances import (
     fp128, p256_base, p256k1_base, P128_OMEGA, P128_OMEGA_ORDER, P256_FP2_ROOT_X,
@@ -62,7 +63,14 @@ from longfellow_zk_tpu_torch.zk.verifier import ZkVerifier
 from longfellow_zk_tpu_torch.zk.batch import BatchZkProver
 from longfellow_zk_tpu_torch.sumcheck.prover import SumcheckProver
 from longfellow_zk_tpu_torch.transforms.lch14 import LCH14ReedSolomon
-from longfellow_zk_tpu_torch.zk.testing import rs_factory_for
+from longfellow_zk_tpu_torch.zk.testing import rs_factory_for, rs_factory_with
+from longfellow_zk_tpu_torch.transforms.matmul_ntt import MatmulNTT
+from longfellow_zk_tpu_torch.transforms.ntt import make_fft_convolution_factory
+from longfellow_zk_tpu_torch.transforms.rfft import (
+    RFFT, RFFTExtConvolution, make_rfft_ext_convolution_factory)
+from longfellow_zk_tpu_torch.transforms.nussbaumer import (
+    NussbaumerConvolution, make_nussbaumer_convolution_factory)
+OMEGA2 = (P256_FP2_ROOT_X, P256_FP2_ROOT_Y)
 for make in (lambda: SumcheckProver(fp128()),
              lambda: SumcheckProver(gf2_128()),
              lambda: rs_factory_for(gf2_128()),
@@ -84,7 +92,22 @@ for make in (lambda: SumcheckProver(fp128()),
              lambda: rs_factory_for(p256k1_base()),
              lambda: rs_factory_for(p256_base(), F2=Fp2(p256_base()),
                                     omega2=(P256_FP2_ROOT_X, P256_FP2_ROOT_Y),
-                                    omega_order=P256_FP2_ROOT_ORDER)):
+                                    omega_order=P256_FP2_ROOT_ORDER),
+             lambda: MatmulNTT(fp128(), P128_OMEGA, P128_OMEGA_ORDER),
+             lambda: make_fft_convolution_factory(
+                 fp128(), P128_OMEGA, P128_OMEGA_ORDER,
+                 ntt_impl=MatmulNTT(fp128(), P128_OMEGA, P128_OMEGA_ORDER,
+                                    device="cpu")),
+             lambda: RFFT(Fp2(p256_base()), OMEGA2, P256_FP2_ROOT_ORDER),
+             lambda: RFFTExtConvolution(6, 20, p256_base(), Fp2(p256_base()),
+                                        OMEGA2, P256_FP2_ROOT_ORDER, [1] * 20),
+             lambda: make_rfft_ext_convolution_factory(
+                 p256_base(), Fp2(p256_base()), OMEGA2, P256_FP2_ROOT_ORDER),
+             lambda: NussbaumerConvolution(6, 20, p256k1_base(), [1] * 20),
+             lambda: make_nussbaumer_convolution_factory(p256k1_base()),
+             lambda: rs_factory_with(p256k1_base(),
+                                     make_nussbaumer_convolution_factory(
+                                         p256k1_base(), "cpu"))):
     try:
         make()
     except RuntimeError as e:

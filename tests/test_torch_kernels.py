@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (K1-K16, every instance) against their plain
+"""The port's CUDA kernels (K1-K20, every instance) against their plain
 PyTorch versions, on the card.  Field arithmetic, hashing and the
 Fiat-Shamir states are exact: equality, tolerance 0.
 
@@ -28,6 +28,9 @@ from longfellow_zk_tpu_torch.random_oracle import device_fs as dfs
 from longfellow_zk_tpu_torch.random_oracle.transcript import Transcript
 from longfellow_zk_tpu_torch.sumcheck import verifier
 from longfellow_zk_tpu_torch.transforms import crt_conv, lch14
+from longfellow_zk_tpu_torch.transforms import matmul_ntt as mnt
+from longfellow_zk_tpu_torch.transforms import nussbaumer as nbm
+from longfellow_zk_tpu_torch.transforms import rfft as rfm
 from longfellow_zk_tpu_torch.transforms.ntt import NTT, fp_ntt, ntt_plain
 from longfellow_zk_tpu_torch.zk import fused
 
@@ -587,3 +590,96 @@ def test_lanes_k11_k12(dev, field):
     _same(fused.ligero_inner_product(F, tabs, k, alphal, alphaq),
           fused.inner_product_plain(F, tabs.ptr, tabs.ent, k, alphal,
                                     alphaq, p.nwqrow, p.r, p.w))
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("B", [2, 16, 64, 128])
+def test_k17_matmul_ntt(dev, B, inverse):
+    """K17 on 37 blocks (a ragged tile of rows), B from 2 (padded columns
+    and reduction) to 128."""
+    F, rng = fp128(), np.random.default_rng(B)
+    G = mnt.MatmulNTT(F, P128_OMEGA, P128_OMEGA_ORDER,
+                      device=dev).block_matrix(B, inverse)
+    x = _elts(F, rng, 37 * B, dev).reshape(37, B, 4)
+    _same(mnt.fp_matmul_ntt(F, x, G), mnt.matmul_ntt_plain(F, x, G))
+
+
+@pytest.mark.parametrize("radix,n,rows", [(128, 2, 3), (16, 256, 3),
+                                          (16, 256, 1), (128, 4096, 3),
+                                          (128, 4096, 1)])
+def test_k17_matmul_ntt_transform(dev, radix, n, rows):
+    """The four-step MatmulNTT on the card equals K4's NTT (one row too:
+    its transposes are then views that K17 must not be handed)."""
+    F, rng = fp128(), np.random.default_rng(n)
+    x = _elts(F, rng, rows * n, dev).reshape(rows, n, 4)
+    m = mnt.MatmulNTT(F, P128_OMEGA, P128_OMEGA_ORDER, radix, dev)
+    nt = NTT(F, P128_OMEGA, P128_OMEGA_ORDER, dev)
+    _same(m.fftb(x), nt.fftb(x))
+    _same(m.fftf(x), nt.fftf(x))
+
+
+@pytest.mark.parametrize("n", [2, 8, 2048])
+@pytest.mark.parametrize("mode", [rfm.SPLIT, rfm.MERGE, rfm.HC_MUL])
+def test_k18_rfft_pass(dev, mode, n):
+    F2, rng = Fp2(p256_base()), np.random.default_rng(n + mode)
+    rf = rfm.RFFT(F2, (P256_FP2_ROOT_X, P256_FP2_ROOT_Y),
+                  P256_FP2_ROOT_ORDER, dev)
+    fw, bw = rf.w_tables(n)
+    rows = 14
+    b, tab, inv2 = None, bw, rf.inv2
+    if mode == rfm.SPLIT:
+        a, tab = _elts2(F2, rng, rows * n // 2, dev).reshape(
+            rows, n // 2, 2, F2.nlimb), fw
+    else:
+        a = _elts(F2.f, rng, rows * n, dev).reshape(rows, n, F2.nlimb)
+    if mode == rfm.HC_MUL:
+        b, tab, inv2 = _elts(F2.f, rng, n, dev).reshape(1, n, F2.nlimb), \
+            None, None
+    _same(rfm.rfft_pass(F2, mode, a, b, tab, inv2),
+          rfm.rfft_pass_plain(F2, mode, a, b, tab, inv2))
+    if mode == rfm.HC_MUL:
+        _same(rfm.rfft_pass(F2, mode, a, a, None, None),
+              rfm.rfft_pass_plain(F2, mode, a, a, None, None))
+
+
+PRIMES = ["fp128", "fp256", "fp256k1"]
+
+
+@pytest.mark.parametrize("field", PRIMES)
+def test_k19_nb_butterfly(dev, field):
+    """Every level of both directions at the shapes of negacyclic(2048)
+    (M = 64, r = 64) and of negacyclic(64) (M = 16, r = 8), with the
+    steps the recursion uses and odd ones."""
+    F, rng = FIELDS[field](), np.random.default_rng(19)
+    for rows, M, r in ((3, 64, 64), (40, 16, 8)):
+        A = _elts(F, rng, rows * M * r, dev).reshape(rows, M, r, F.nlimb)
+        h = M // 2
+        while h >= 1:
+            for step in (r // h, 3, -7, -r):
+                for inverse in (False, True):
+                    _same(nbm.nb_butterfly(F, A, h, step, inverse),
+                          nbm.nb_butterfly_plain(F, A, h, step, inverse))
+            h //= 2
+
+
+@pytest.mark.parametrize("n", [1, 4, 8, 32])
+@pytest.mark.parametrize("field", PRIMES)
+def test_k20_nb_base_conv(dev, field, n):
+    F, rng = FIELDS[field](), np.random.default_rng(20 + n)
+    x = _elts(F, rng, 6 * n, dev).reshape(2, 3, n, F.nlimb)
+    for y in (_elts(F, rng, 3 * n, dev).reshape(3, n, F.nlimb),
+              _elts(F, rng, 6 * n, dev).reshape(2, 3, n, F.nlimb)):
+        for neg in (False, True):
+            x2, y2 = nbm._rows_of(x, y)
+            _same(nbm.nb_base_conv(F, x, y, neg).reshape(x2.shape),
+                  nbm.nb_base_conv_plain(F, x2, y2, neg))
+
+
+@pytest.mark.parametrize("field", PRIMES)
+def test_nussbaumer_cyclic_on_the_card(dev, field):
+    """cyclic at 4,096 points (K19, K20 and K1; negacyclic(2,048)
+    recurses twice), y one row, equals the CPU's plain versions."""
+    F, rng = FIELDS[field](), np.random.default_rng(21)
+    x = _elts(F, rng, 2 * 4096, dev).reshape(2, 4096, F.nlimb)
+    y = _elts(F, rng, 4096, dev)
+    _same(nbm.cyclic(F, x, y), nbm.cyclic(F, x.cpu(), y.cpu()))
