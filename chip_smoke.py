@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 1. Prints the card (name, count, power limit).
-2. Builds the kernels K1-K20 from longfellow_zk_tpu_torch/csrc with nvcc.
+2. Builds the kernels K1-K22 from longfellow_zk_tpu_torch/csrc with nvcc.
 3. Runs each kernel instance at the shapes of the proofs below, holds
    it against its plain PyTorch version on the same inputs (field
    arithmetic, hashing and the transcript states are exact: tolerance 0)
@@ -50,7 +50,16 @@
       RFFT's passes) in its three modes at the ECDSA tableau (14 rows of
       2,048); K19 and K20 (Nussbaumer's butterfly level and base case) of
       each prime field at the shapes that the bitaddr tableau's cyclic
-      convolution (25 rows, padding 4,096) reaches.
+      convolution (25 rows, padding 4,096) reaches;
+   l. the field API that no proof path calls (the JAX package's tests
+      drive it), at 2^20 elements a call: K1's modes sqr, neg, eq,
+      is_zero, select and mul_const at every instance and its new
+      instances fp24, fp64, p256n, p256k1n; K21 (the inverse) at every
+      instance; K5's modes; K22 (Fp24_6) in every mode; K2 and K3 [fp24];
+      each also against the host ints at 64 sampled elements, the
+      inverses as inv(a) a = 1 and inv(0) = 0, eq, is_zero and select
+      beside one PyTorch call (library ms); then a CUDA tensor of a
+      field or mode without a kernel must raise.
 4. Drives the port's three prover paths, each with the launch counts set
    to zero just before it and read just after (every kernel instance of
    the path must have launched, K8-K12 included), its bytes under
@@ -136,6 +145,7 @@ import statistics
 import subprocess
 import sys
 import time
+import typing
 
 import numpy as np
 import torch
@@ -159,7 +169,11 @@ INT32_OPS_PER_S = 67e12 / 4
 # the bytes bound (the kernels' shift-and-XOR spends about 2,000 32-bit
 # operations a product, GF2_OPS_PER_MUL, printed beside it).
 MUL_OPS = {"fp128": 32, "fp256": 128, "fp256k1": 128, "fp256x2": 3 * 128,
-           "gf2_128": 0, "crt": 2}
+           "gf2_128": 0, "crt": 2, "fp24": 2, "fp64": 8, "p256n": 128,
+           "p256k1n": 128}
+# an Fp24_6 product in K22: 36 word products summed lazily and 6
+# one-word Montgomery reductions of 2 multiplies each
+FP24X6_MUL_OPS = 36 + 6 * 2
 GF2_OPS_PER_MUL = 128 * 16
 # 32-bit operations of one SHA-256 compression (K8): 64 rounds of about
 # 17 (three funnel-shift rotations and a LOP3 for each sigma, the
@@ -210,32 +224,83 @@ def call_ms(fn, iters):
     return t0.elapsed_time(t1) / iters
 
 
+def kernels_mod():
+    """The port's kernels module (imported after the card check)."""
+    from longfellow_zk_tpu_torch import kernels
+    return kernels
+
+
+# The profiler loses the first kernel records of a window, more of them
+# the longer the process has run and the more it launched outside a
+# window (none at first; 5 a window after 80 s in tools/
+# profiler_records.py; 10 of 20 late in this script): device_ms opens
+# each window with HEAD_PAD sleep kernels, which it loses instead and
+# leaves out of the sum.
+HEAD_PAD = 256
+
+
+def _device_records(prof):
+    """(kernel ns, kernel records, copy and fill ns, head records) of the
+    device activity in a profiler's raw records; the head's sleep kernels
+    (spin_kernel) are counted apart."""
+    cuda = torch.autograd.DeviceType.CUDA
+    kns = nk = other = nhead = 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != cuda:
+            continue
+        if e.name().startswith(("Memcpy", "Memset")):
+            other += e.end_ns() - e.start_ns()
+        elif "spin_kernel" in e.name():
+            nhead += 1
+        else:
+            kns += e.end_ns() - e.start_ns()
+            nk += 1
+    return kns, nk, other, nhead
+
+
+class Timing(typing.NamedTuple):
+    ms: float    # device ms of one call
+    by: str      # "profiler", or "events" (CUDA events: host gaps too)
+    out: object  # the last call's output
+
+
 def device_ms(fn, iters, warmup=3):
-    """Device time of one call: the sum of the device activity that the
-    profiler records over `iters` calls (after `warmup` calls), divided
-    by `iters`, read from the profiler's raw records (its event tree
-    takes seconds to build over a plain version's thousands of small
-    ops).  Where the profiler records none (it has dropped the records
-    of some one-thread kernels), the median of `iters` calls between
-    CUDA events, and a note that says so."""
+    """The device time of one call of fn: the sum of the device activity
+    that the profiler records over `iters` calls (after `warmup` calls
+    and a head of HEAD_PAD sleep kernels), divided by `iters`, read from
+    the profiler's raw records (its event tree takes seconds to build
+    over a plain version's thousands of small ops).  One rule for the
+    records: a window must keep a record of its head (so that the loss
+    stopped there), a kernel record for each launch that the port's
+    wrappers count (kernels.LAUNCHES), and some device activity; one that
+    does not is profiled again, up to three times, and then fn is timed
+    by CUDA events instead (the median of `iters` calls), which `by` and
+    a note say."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    cuda = torch.autograd.DeviceType.CUDA
-    total_ns = sum(e.end_ns() - e.start_ns()
-                   for e in prof.profiler.kineto_results.events()
-                   if e.device_type() == cuda)
-    if total_ns > 0:
-        return total_ns / 1e6 / iters
-    print("  (the profiler recorded no device time: CUDA events, %d calls)"
-          % iters)
-    return event_ms(fn, iters, warmup=0)[0]
+    counts = kernels_mod().LAUNCHES
+    for _ in range(3):
+        n0 = sum(counts.values())
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(HEAD_PAD):
+                torch.cuda._sleep(1)
+            for _ in range(iters):
+                out = fn()
+            torch.cuda.synchronize()
+        kns, nk, other, nhead = _device_records(prof)
+        launches = sum(counts.values()) - n0
+        if nhead > 0 and nk >= launches and kns + other > 0:
+            return Timing((kns + other) / 1e6 / iters, "profiler", out)
+        print("  (the profiler kept %d of %d head records and %d kernel "
+              "records of a window of %d launches: again)"
+              % (nhead, HEAD_PAD, nk, launches))
+    print("  (the profiler missed records three times: CUDA events, %d "
+          "calls)" % iters)
+    ms, _ = event_ms(fn, iters, warmup=0)
+    return Timing(ms, "events", fn())
 
 
 def event_ms(fn, reps=5, warmup=1):
@@ -269,23 +334,34 @@ class Rows:
         self.failures = []
 
     def record(self, kname, source, replaces, err, fn, plain_fn, nbytes,
-               ops, bound=None):
+               ops, bound=None, plain=None, library_fn=None, iters=50):
         """bound: (ms, "operations") where the bound is not the bytes or
-        operations over the card's rates (a one-thread chain)."""
+        operations over the card's rates (a one-thread chain); plain: the
+        plain version's Timing where the check already took it (plain_fn
+        is then not run); library_fn: one PyTorch call that computes the
+        same function (library_ms)."""
         b, by = bound or bound_ms(nbytes, ops)
+        k = device_ms(fn, iters)
         # the plain versions run thousands of small ops (one lane after
         # another for K9 and K10): one profiled call (the check just
         # before warmed it)
-        ms, plain_ms = device_ms(fn, 50), device_ms(plain_fn, 1, warmup=0)
-        self.rows[kname] = dict(name=kname, route="cuda", source=source,
-                                replaces=replaces, launches=0,
-                                max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                bound_ms=b, bound_by=by, library_ms=None,
-                                call_ms=call_ms(fn, 200))
+        plain = plain or device_ms(plain_fn, 1, warmup=0)
+        lib = None if library_fn is None else device_ms(library_fn, iters)
+        row = dict(name=kname, route="cuda", source=source,
+                   replaces=replaces, launches=0, max_abs_err=err, ms=k.ms,
+                   plain_ms=plain.ms, bound_ms=b, bound_by=by,
+                   library_ms=None if lib is None else lib.ms,
+                   call_ms=call_ms(fn, 4 * iters), ms_by=k.by,
+                   plain_ms_by=plain.by)
+        if lib is not None:
+            row["library_ms_by"] = lib.by
+        self.rows[kname] = row
         print("kernel %-24s max_abs_err %d (tolerance 0)  device %.5f ms "
-              "(call %.5f ms)  plain %.4f ms  bound %.5f ms (%s)  [at %.0f s]"
-              % (kname, err, ms, self.rows[kname]["call_ms"], plain_ms, b,
-                 by, time.perf_counter() - T0))
+              "(call %.5f ms)  plain %.4f ms  bound %.5f ms (%s)%s  "
+              "[at %.0f s]"
+              % (kname, err, k.ms, row["call_ms"], plain.ms, b, by,
+                 "" if lib is None else "  library %.5f ms" % lib.ms,
+                 time.perf_counter() - T0))
         if err != 0:
             self.failures.append(kname)
 
@@ -331,7 +407,7 @@ def check_fp_kernels(rows, F, circ, dev, tag, k1_n, k1_table, rng,
     b_tab = elts(nt).reshape(k1_table + (F.nlimb,))
     print("K1[%s] mul at %d x %d: device %.5f ms, bound %.5f ms" % (
         tag, k1_table[0], k1_table[1],
-        device_ms(lambda: F.mul(b_tab, b_tab), 50),
+        device_ms(lambda: F.mul(b_tab, b_tab), 50).ms,
         bound_ms(3 * eb * nt, mops * nt)[0]))
     a, b = elts(k1_n), elts(k1_n)
     rows.record("fp_elementwise[%s]" % tag,
@@ -493,7 +569,7 @@ def check_lch14(rows, F, dev, nrows, m, rng):
               "bound %.5f ms (bytes)" % (
                   n, m, nrows, nbf, sched.passes.shape[0],
                   nbf * GF2_OPS_PER_MUL, GF2_OPS_PER_MUL,
-                  device_ms(lambda: rs.interpolate(y), 20),
+                  device_ms(lambda: rs.interpolate(y), 20).ms,
                   bound_ms(nbytes, 0)[0]))
         if n == 461:
             rows.record("gf2_lch14[gf2_128]",
@@ -560,14 +636,14 @@ def check_sha256(rows, dev, rng, shapes):
     err = max(err, max_err(heap, heap2))
     print("K8 heap of %d leaves: %d levels, device %.5f ms" % (
         n, (n - 1).bit_length(),
-        device_ms(lambda: merkle_heap(leaves), 20)))
+        device_ms(lambda: merkle_heap(leaves), 20).ms))
     for label, m in cases:
         n, mlen = m.shape
         blocks = n * (padded_len(mlen) // 64)
         b, by = bound_ms(n * (mlen + 32), SHA_OPS_PER_BLOCK * blocks)
         print("K8 %s: %d x %d bytes (%d blocks), device %.5f ms, bound "
               "%.5f ms (%s)" % (label, n, mlen, blocks,
-                                device_ms(lambda: sha256_msgs(m), 20), b,
+                                device_ms(lambda: sha256_msgs(m), 20).ms, b,
                                 by))
     m = cases[0][1]
     n, mlen = m.shape
@@ -639,7 +715,7 @@ def check_fs_oracle(rows, F, dev, tag, rng, clock_mhz):
         return dfs.dev_sample_elts(F, prf, 80, fs=fs)
 
     print("K9[%s] begin_circuit (a squeeze and 80 samples): device %.5f ms "
-          "(call %.5f ms)" % (tag, device_ms(begin, 20), call_ms(begin, 50)))
+          "(call %.5f ms)" % (tag, device_ms(begin, 20).ms, call_ms(begin, 50)))
 
     def plain():
         dfs.fs_squeeze_plain(F, fs2, prf2)
@@ -1161,6 +1237,387 @@ def check_nussbaumer(rows, F, dev, tag, rng, nrows, n):
                 lambda: nbm.nb_base_conv_plain(F, x2, y2, True),
                 eb * (2 * x2.numel() + y2.numel()) // N,
                 MUL_OPS[tag] * x2.shape[0] * 32 * 32)
+
+
+# section 3l: the field API at 2^20 elements, 64 of them against the
+# host ints
+API_N = 1 << 20
+API_SAMPLE = 64
+# the JAX functions each mode replaces: (prime field, GF(2^128), Fp2,
+# Fp24_6), files under longfellow_zk_tpu/fields
+API_REPLACES = {
+    "mul": ("fp.py:443", None, None, "fp24.py:227"),
+    "add": ("fp.py:245", None, None, "fp24.py:218"),
+    "sub": ("fp.py:255", None, None, "fp24.py:221"),
+    "sqr": ("fp.py:457", "gf2.py:361", "fp2.py:175", "fp24.py:242"),
+    "neg": ("fp.py:274", "gf2.py:286", "fp2.py:156", "fp24.py:224"),
+    "eq": ("fp.py:500", "gf2.py:392", "fp2.py:193", "fp24.py:261"),
+    "is_zero": ("fp.py:504", "gf2.py:395", "fp2.py:196", "fp24.py:264"),
+    "select": ("fp.py:507", "gf2.py:398", "fp2.py:199", "fp24.py:267"),
+    "mul_const": ("fp.py:460", "gf2.py:358", "fp2.py:178", None),
+    "inv": ("fp.py:466", "gf2.py:378", "fp2.py:181", "fp24.py:245"),
+}
+
+
+def _inv_products(e):
+    """Products of a left-to-right power by e: a square a bit after the
+    first, a product a set bit after the first."""
+    return e.bit_length() - 1 + bin(e).count("1") - 1
+
+
+# An inverse's operations, by the cheapest known method: Fermat's a^(p -
+# 2) (_inv_products(p - 2) products), or a var-time safegcd (Bernstein
+# and Yang, as libsecp256k1's modinv32): the divsteps that this run's
+# sampled inputs need (counted on the host), GCD_STEP_OPS word operations
+# each on the low words (a var-time batch skips a run of even values by
+# counting its trailing zeros), and per GCD_BATCH divsteps the 2 x 2
+# transition matrix applied to (f, g) and to (d, e), d and e reduced: 10
+# N multiply-adds.
+GCD_STEP_OPS = 4
+GCD_BATCH = 30
+
+
+def _divsteps(p, x):
+    """Bernstein-Yang divsteps from f = p, g = x until g = 0."""
+    d, f, g, n = 1, p, x, 0
+    while g:
+        if d > 0 and g & 1:
+            d, f, g = 1 - d, g, (g - f) >> 1
+        else:
+            d, g = 1 + d, (g + (g & 1) * f) >> 1
+        n += 1
+    return n
+
+
+def inv_ops(F, tag, xs):
+    """32-bit operations of one inverse in the prime field F (kernel
+    instance `tag`) by the cheapest known method, the divsteps averaged
+    over the nonzero natural values xs."""
+    fermat = MUL_OPS[tag] * _inv_products(F.p - 2)
+    nz = [x for x in xs if x]
+    steps = sum(_divsteps(F.p, x) for x in nz) / len(nz)
+    gcd = GCD_STEP_OPS * steps + -(-steps // GCD_BATCH) * 10 * F.nlimb
+    return min(fermat, gcd)
+
+
+def fp24x6_inv_ops(p):
+    """32-bit operations of one Fp24_6 inverse by Itoh and Tsujii: with
+    r = (p^6 - 1) / (p - 1) = 1 + p + ... + p^5, a^(r - 1) = w a^(p^5) for
+    w = v v^(p^2), v = u u^p, u = a^p: 3 products and 4 Frobenius maps (6
+    divides p - 1, so x^p = 7^((p - 1) / 6) x and a map scales five
+    coefficients: 5 base products); the norm a^r = a a^(r - 1) lies in
+    Fp, its constant coefficient 6 base products; one base inverse
+    (Fermat's 43 products: at 23 bits fewer operations than a gcd's
+    45-50 divsteps); a^(r - 1) scaled by it, 6 base products."""
+    base = MUL_OPS["fp24"]
+    return (3 * FP24X6_MUL_OPS + (4 * 5 + 6 + 6) * base +
+            _inv_products(p - 2) * base)
+
+
+def check_field_api(rows, dev, rng):
+    """Section 3l: the field device API that no proof path calls, at
+    2^20 elements a call: K1's modes sqr, neg, eq, is_zero, select and
+    mul_const at every instance, and mul (add, sub) at the new ones
+    (fp24, fp64, p256n, p256k1n); K21 at every instance; K5's modes;
+    K22's mul, sqr and inv, and Fp24_6's per-coefficient ops, which run
+    as K1 [fp24] on the six words; K2 and K3 [fp24] (the sums of the
+    small prime, which pass 2p).  Each call against its plain version on
+    the card (the plain version checked and timed in one profiled call),
+    64 sampled elements against the host ints (mul_i, inv_i, the 6-tuple
+    ops of Fp24_6), and for K21 and K22's inverse inv(a) a = 1 on the
+    nonzero inputs and inv(0) = 0; eq, is_zero and select with library
+    ms (torch.all(a == b, -1), torch.where).  a is zero at 4 places and b
+    equals a at every third.  Bound: inputs read and outputs written
+    once, or the products (2 N^2 multiplies; an Fp24_6 product
+    FP24X6_MUL_OPS; an inverse by the cheapest known method, inv_ops and
+    fp24x6_inv_ops); GF(2^128) counts no operations.  Last, a CUDA
+    tensor of a field or mode without a kernel must raise."""
+    from longfellow_zk_tpu_torch.fields import fp as fpm
+    from longfellow_zk_tpu_torch.fields import fp2 as fp2m
+    from longfellow_zk_tpu_torch.fields import fp24 as f24m
+    from longfellow_zk_tpu_torch.fields import fp_instances as fi
+    from longfellow_zk_tpu_torch.fields.gf2 import gf2_128
+
+    n = API_N
+    idx = torch.as_tensor(np.concatenate([np.arange(12), np.sort(
+        rng.choice(np.arange(12, n), API_SAMPLE - 12, replace=False))]))
+    names = {fpm.MUL: "mul", fpm.ADD: "add", fpm.SUB: "sub",
+             fpm.SQR: "sqr", fpm.NEG: "neg", fpm.EQ: "eq",
+             fpm.IS_ZERO: "is_zero", fpm.SELECT: "select",
+             fpm.INV: "inv"}
+
+    def host_of(F, zero):
+        """mode -> the host op on (x, y, t) (t: the condition)."""
+        return {fpm.MUL: lambda x, y, t: F.mul_i(x, y),
+                fpm.ADD: lambda x, y, t: F.add_i(x, y),
+                fpm.SUB: lambda x, y, t: F.sub_i(x, y),
+                fpm.SQR: lambda x, y, t: F.mul_i(x, x),
+                fpm.NEG: lambda x, y, t: F.neg_i(x),
+                fpm.EQ: lambda x, y, t: x == y,
+                fpm.IS_ZERO: lambda x, y, t: x == zero,
+                fpm.SELECT: lambda x, y, t: x if t else y,
+                fpm.INV: lambda x, y, t: zero if x == zero else F.inv_i(x)}
+
+    def vals(F, t):
+        v = F.from_limbs(t.cpu())
+        return list(v) if isinstance(v, np.ndarray) else v
+
+    def fast_elts(F):
+        """elts(n): n random canonical elements of F on the card, made in
+        bulk: uniform words, the top one below p's top word (GF(2^128):
+        any words)."""
+        N = F.nlimb
+        ptop = None if F.kCharacteristicTwo else F.p >> (32 * (N - 1))
+
+        def elts(m):
+            w = rng.integers(0, 1 << 32, (m, N), dtype=np.uint64)
+            if ptop is not None:
+                w[:, -1] %= ptop
+            return torch.as_tensor(w.astype(np.uint32).view(np.int32),
+                                   device=dev)
+        return elts
+
+    def operands(make):
+        a, b = make(n), make(n)
+        b[::3] = a[::3]
+        a[5:9] = 0
+        b[7:9] = 0
+        return a, b, torch.as_tensor(rng.random(n) < 0.5, device=dev)
+
+    def check(kname, F, zero, kfn, pfn, a, b, cond, mode, host=None,
+              one=None):
+        """(err, the plain version's Timing): kfn() against pfn() and the
+        host op at the sampled elements; the inverse's identities where
+        one is given."""
+        out = kfn()
+        plain = device_ms(pfn, 1, warmup=0)
+        err = max_err(out, plain.out)
+        xs, ys = vals(F, a[idx]), vals(F, b[idx])
+        ts = cond[idx].tolist()
+        got = out[idx].cpu().tolist() if out.dtype == torch.bool else \
+            vals(F, out[idx])
+        hfn = host or host_of(F, zero)[mode]
+        bad = sum(g != hfn(x, y, t) for g, x, y, t in zip(got, xs, ys, ts))
+        if bad:
+            print("  %s: %d of %d sampled elements differ from the host ints"
+                  % (kname, bad, API_SAMPLE))
+        err += bad
+        if one is not None:
+            nz = ~F.is_zero(a)
+            ok = bool(F.eq(F.mul(out[nz], a[nz]), one).all()) and \
+                bool(F.is_zero(out[~nz]).all())
+            print("  %s: inv(a) a = 1 on %d nonzero inputs, inv(0) = 0 on "
+                  "%d: %s" % (kname, int(nz.sum()), int((~nz).sum()), ok))
+            err += 0 if ok else 1
+        return err, plain
+
+    def run(kname, source, where, F, zero, kfn, pfn, a, b, cond, mode,
+            nbytes, ops, host=None, one=None):
+        """One row: check(), then the timings (an inverse's over 5 calls,
+        the others' over 20)."""
+        err, plain = check(kname, F, zero, kfn, pfn, a, b, cond, mode, host,
+                           one)
+        k = len(F.elt_shape)
+        lib = None
+        if mode == fpm.EQ:
+            def lib():
+                return torch.all((a == b).flatten(-k), -1)
+        elif mode == fpm.IS_ZERO:
+            def lib():
+                return torch.all((a == 0).flatten(-k), -1)
+        elif mode == fpm.SELECT:
+            def lib():
+                return torch.where(cond.reshape(cond.shape + (1,) * k), a, b)
+        rows.record(kname, source, "longfellow_zk_tpu/fields/" + where, err,
+                    kfn, None, nbytes, ops, plain=plain, library_fn=lib,
+                    iters=5 if mode == fpm.INV else 20)
+
+    def mode_bytes(mode, eb):
+        return {fpm.MUL: 3, fpm.ADD: 3, fpm.SUB: 3, fpm.SQR: 2, fpm.NEG: 2,
+                fpm.EQ: 2, fpm.IS_ZERO: 1, fpm.SELECT: 3,
+                fpm.INV: 2}[mode] * eb * n + \
+            (n if mode in (fpm.EQ, fpm.IS_ZERO, fpm.SELECT) else 0)
+
+    k1_modes = [fpm.SQR, fpm.NEG, fpm.EQ, fpm.IS_ZERO, fpm.SELECT]
+    new_tags = ("fp24", "fp64", "p256n", "p256k1n")
+    fields = [(fi.fp128(), "fp128"), (fi.p256_base(), "fp256"),
+              (fi.p256k1_base(), "fp256k1"), (gf2_128(), "gf2_128"),
+              (f24m.fp24(), "fp24"), (fi.fp64(), "fp64"),
+              (fi.p256_scalar(), "p256n"), (fi.p256k1_scalar(), "p256k1n")]
+    print("== section 3l: the field API at %d elements [at %.0f s]"
+          % (n, time.perf_counter() - T0))
+    for F, tag in fields:
+        gf = F.kCharacteristicTwo
+        col = 1 if gf else 0
+        pm = fpm.plain_of(F)
+        eb, mops = 4 * F.nlimb, MUL_OPS[tag]
+        zero = 0
+        a, b, cond = operands(fast_elts(F))
+        src = "longfellow_zk_tpu_torch/csrc/fp_ops.cu"
+        modes = ([fpm.MUL, fpm.ADD, fpm.SUB] if tag in new_tags else []) + \
+            k1_modes
+        for mode in modes:
+            bb = a if mode in fpm.UNARY else b
+            name = "fp_elementwise[%s]" % tag
+            if mode != fpm.MUL:
+                name += " " + names[mode]
+            run(name, src, API_REPLACES[names[mode]][col], F, zero,
+                lambda m=mode, y=bb: fpm.fp_elementwise(F, m, a, y, cond),
+                lambda m=mode, y=bb: pm.elementwise_plain(F, m, a, y, cond),
+                a, b, cond, mode, mode_bytes(mode, eb),
+                mops * n if mode in (fpm.MUL, fpm.SQR) else 0)
+        c = (0xC0FFEE << 100) % F.p if not gf else 0xC0FFEE << 100
+        cl = F.to_limbs(c, dev)
+        run("fp_elementwise[%s] mul_const" % tag, src,
+            API_REPLACES["mul_const"][col], F, zero,
+            lambda: F.mul_const(a, c),
+            lambda: pm.elementwise_plain(F, fpm.MUL, a, cl), a, b, cond,
+            fpm.MUL, 2 * eb * n, mops * n,
+            host=lambda x, y, t: F.mul_i(x, c))
+        run("fp_inv[%s]" % tag, "longfellow_zk_tpu_torch/csrc/inv.cu",
+            API_REPLACES["inv"][col], F, zero, lambda: F.inv(a),
+            lambda: pm.inv_plain(F, a), a, b, cond, fpm.INV, 2 * eb * n,
+            0 if gf else inv_ops(F, tag, vals(F, a[idx])) * n,
+            one=F.to_limbs(1, dev))
+
+    # Fp2 over the P-256 base field: K5's modes and K21 [fp256x2]
+    F2 = fp2m.Fp2(fi.p256_base())
+    elts_b = fast_elts(F2.f)
+    a, b, cond = operands(lambda m: torch.stack([elts_b(m), elts_b(m)],
+                                                dim=-2))
+    eb, zero = 64, (0, 0)
+    src = "longfellow_zk_tpu_torch/csrc/fp2_ops.cu"
+    for mode in k1_modes:
+        bb = a if mode in fpm.UNARY else b
+        run("fp2_elementwise[fp256x2] " + names[mode], src,
+            API_REPLACES[names[mode]][2], F2, zero,
+            lambda m=mode, y=bb: fp2m.fp2_elementwise(F2, m, a, y, cond),
+            lambda m=mode, y=bb: fp2m.fp2_elementwise_plain(F2, m, a, y,
+                                                            cond),
+            a, b, cond, mode, mode_bytes(mode, eb),
+            MUL_OPS["fp256x2"] * n if mode == fpm.SQR else 0)
+    c2 = (12345, 678)
+    c2l = F2.to_limbs(c2, dev)
+    run("fp2_elementwise[fp256x2] mul_const", src,
+        API_REPLACES["mul_const"][2], F2, zero, lambda: F2.mul_const(a, c2),
+        lambda: fp2m.fp2_elementwise_plain(F2, fpm.MUL, a, c2l), a, b, cond,
+        fpm.MUL, 2 * eb * n, MUL_OPS["fp256x2"] * n,
+        host=lambda x, y, t: F2.mul_i(x, c2))
+    # the norm re^2 + im^2, one base inverse, (re d, -im d)
+    p = F2.f.p
+    norms = [(x[0] * x[0] + x[1] * x[1]) % p for x in vals(F2, a[idx])]
+    run("fp_inv[fp256x2]", "longfellow_zk_tpu_torch/csrc/inv.cu",
+        API_REPLACES["inv"][2], F2, zero, lambda: F2.inv(a),
+        lambda: fp2m.fp2_inv_plain(F2, a), a, b, cond, fpm.INV, 2 * eb * n,
+        (inv_ops(F2.f, "fp256", norms) + 4 * MUL_OPS["fp256"]) * n,
+        one=F2.to_limbs((1, 0), dev))
+
+    # Fp24_6: K22's mul, sqr and inv
+    F6 = f24m.Fp24_6(f24m.fp24())
+    elts24 = fast_elts(F6.f)
+    a, b, cond = operands(lambda m: elts24(6 * m).reshape(m, 6, 1))
+    eb, zero = 24, (0,) * 6
+    src = "longfellow_zk_tpu_torch/csrc/fp24x6.cu"
+    for mode in (fpm.MUL, fpm.SQR, fpm.INV):
+        bb = a if mode in fpm.UNARY else b
+        run("fp24x6_elementwise[fp24x6] " + names[mode], src,
+            API_REPLACES[names[mode]][3], F6, zero,
+            lambda m=mode, y=bb: f24m.fp24x6_elementwise(F6, m, a, y),
+            lambda m=mode, y=bb: f24m.fp24x6_elementwise_plain(F6, m, a, y),
+            a, b, cond, mode, mode_bytes(mode, eb),
+            (fp24x6_inv_ops(F6.f.p) if mode == fpm.INV else FP24X6_MUL_OPS)
+            * n,
+            one=F6.to_limbs(1, dev) if mode == fpm.INV else None)
+    # and the ops of each coefficient alone: K1 [fp24] on the six words
+    # (its rows above), against K1's plain version on them and the host
+    F = F6.f
+    pm = fpm.plain_of(F)
+    api = {fpm.ADD: lambda: F6.add(a, b), fpm.SUB: lambda: F6.sub(a, b),
+           fpm.NEG: lambda: F6.neg(a), fpm.EQ: lambda: F6.eq(a, b),
+           fpm.IS_ZERO: lambda: F6.is_zero(a),
+           fpm.SELECT: lambda: F6.select(cond, a, b)}
+    plain = {fpm.ADD: lambda: pm.elementwise_plain(F, fpm.ADD, a, b),
+             fpm.SUB: lambda: pm.elementwise_plain(F, fpm.SUB, a, b),
+             fpm.NEG: lambda: pm.elementwise_plain(F, fpm.NEG, a, a),
+             fpm.EQ: lambda: pm.elementwise_plain(F, fpm.EQ, a, b).all(-1),
+             fpm.IS_ZERO:
+             lambda: pm.elementwise_plain(F, fpm.IS_ZERO, a, a).all(-1),
+             fpm.SELECT: lambda: pm.elementwise_plain(F, fpm.SELECT, a, b,
+                                                      cond[:, None])}
+    errs = {}
+    for mode in api:
+        n0 = kernels_mod().LAUNCHES["fp_elementwise[fp24]"]
+        errs[names[mode]], _ = check("Fp24_6 " + names[mode], F6, zero,
+                                     api[mode], plain[mode], a, b, cond,
+                                     mode)
+        if kernels_mod().LAUNCHES["fp_elementwise[fp24]"] == n0:
+            errs[names[mode]] += 1
+    print("  Fp24_6 through K1 [fp24] on the six words (against the plain "
+          "version and the host ints): %s" % errs)
+    if any(errs.values()):
+        rows.failures.append("Fp24_6 through K1 [fp24]")
+
+    # K2 and K3 [fp24]: a quarter of the terms p - 1, so that the sums
+    # pass 2p; held to numpy sums of the Montgomery words modulo p
+    F = f24m.fp24()
+    x = elts24(n)
+    x[: n // 4] = F.to_limbs(F.p - 1, dev)
+    nseg = 1 << 14
+    g = np.sort(rng.integers(0, nseg, n))
+    starts = torch.as_tensor(np.searchsorted(g, np.arange(nseg), "left")
+                             .astype(np.int32), device=dev)
+    ends = torch.as_tensor(np.searchsorted(g, np.arange(nseg), "right")
+                           .astype(np.int32), device=dev)
+    xw = x.cpu().numpy().view(np.uint32)[:, 0].astype(np.int64)
+    cs = np.concatenate([[0], np.cumsum(xw)])
+    seg_want = (cs[ends.cpu().numpy()] - cs[starts.cpu().numpy()]) % F.p
+    out = F.lazy_segment_sum(x, starts, ends)
+    plain = device_ms(lambda: fpm.segment_sum_plain(F, x, starts, ends), 1,
+                      warmup=0)
+    err = max_err(out, plain.out) + int(
+        (out.cpu().numpy()[:, 0].astype(np.int64) != seg_want).sum())
+    rows.record("fp_segment_sum[fp24]",
+                "longfellow_zk_tpu_torch/csrc/segsum.cu",
+                "longfellow_zk_tpu/fields/fp.py:561", err,
+                lambda: F.lazy_segment_sum(x, starts, ends), None,
+                4 * n + 12 * nseg, 0, plain=plain, iters=20)
+    x6 = elts24(6 * n).reshape(-1, 1 << 10, 6, 1)
+    x6[:256] = F.to_limbs(F.p - 1, dev)
+    out = F6.lazy_sum(x6, 1)
+    plain = device_ms(lambda: fpm.axis_sum_plain(F, x6, 1), 1, warmup=0)
+    w6 = x6.cpu().numpy().view(np.uint32)[..., 0].astype(np.int64)
+    err = max_err(out, plain.out) + int(
+        (out.cpu().numpy()[..., 0].astype(np.int64) !=
+         w6.sum(axis=1) % F.p).sum())
+    rows.record("fp_wire_round[fp24]",
+                "longfellow_zk_tpu_torch/csrc/wire_round.cu",
+                "longfellow_zk_tpu/fields/fp24.py:270", err,
+                lambda: F6.lazy_sum(x6, 1), None,
+                4 * 6 * n + 4 * 6 * (1 << 10), 0, plain=plain, iters=20)
+
+    # no kernel, no fallback: a CUDA tensor of a field or mode without a
+    # kernel raises
+    M61 = fpm.PrimeField((1 << 61) - 1, "M61")
+    m61 = M61.to_limbs([1, 2, 3], dev)
+    F2x = fp2m.Fp2(fi.fp128())
+    a2x = F2x.to_limbs([(1, 2)], dev)
+    F6b = f24m.Fp24_6(f24m.fp24(), beta=3)
+    a6b = F6b.to_limbs([(1, 2, 3, 4, 5, 6)], dev)
+    refused = 0
+    calls = [lambda: M61.mul(m61, m61), lambda: M61.inv(m61),
+             lambda: M61.eq(m61, m61), lambda: M61.lazy_sum(m61, 0),
+             lambda: F2x.inv(a2x), lambda: F2x.sqr(a2x),
+             lambda: F6b.mul(a6b, a6b),
+             lambda: fpm.fp_elementwise(M61, 11, m61, m61)]
+    for call in calls:
+        try:
+            call()
+        except (NotImplementedError, ValueError):
+            refused += 1
+    print("  fields or modes without a kernel: %d of %d CUDA calls refused"
+          % (refused, len(calls)))
+    if refused != len(calls):
+        rows.failures.append("a CUDA call without a kernel ran")
 
 
 def zk_verify_fn(F, circ, rs, pub, meta, dev):
@@ -2118,6 +2575,11 @@ def main() -> int:
     for Fx, tag in ((F, "fp128"), (FB, "fp256"), (FK, "fp256k1")):
         check_nussbaumer(rows, Fx, dev, tag, rng, lp_bit.nrow,
                          lp_bit.block_enc)
+
+    # -- 3l. the field API no proof path calls, at 2^20 elements: K1's
+    #        modes 5-9 and new instances, K21, K5's modes, K22, K2 and K3
+    #        [fp24] ---------------------------------------------------------
+    check_field_api(rows, dev, rng)
     if rows.failures:
         print("FAIL: kernels disagree with their plain versions:",
               rows.failures)
@@ -2127,13 +2589,14 @@ def main() -> int:
         """The ZK prover's kernels of those instances, all but K7, which
         only the verifier runs, K16 and K10's cubic mode, which only the
         plain sumcheck's copy rounds run, K17-K20, which only the
-        Reed-Solomon routes of section 4h-4j run, and K8, which knows no
-        field."""
+        Reed-Solomon routes of section 4h-4j run, K21, which no path
+        runs, and K8, which knows no field."""
         return [k for k in kernels.KERNELS if k.endswith(instances)
                 and not k.startswith(("fp_quad_bind[", "copy_round_sums[",
                                       "sumcheck_round_tail_cubic[",
                                       "fp_matmul_ntt[", "rfft_pass[",
-                                      "nb_butterfly[", "nb_base_conv["))
+                                      "nb_butterfly[", "nb_base_conv[",
+                                      "fp_inv["))
                 ] + ["sha256_msgs[bytes]"]
 
     check_prove_syncs()
@@ -2420,6 +2883,11 @@ def main() -> int:
 
     # -- 6. results ---------------------------------------------------------
     print("every phase passed in %.0f s" % (time.perf_counter() - T0))
+    timed_by_events = [(r["name"], k) for r in rows.rows.values()
+                       for k in ("ms_by", "plain_ms_by", "library_ms_by")
+                       if r.get(k, "profiler") != "profiler"]
+    print("%d kernel rows; times by CUDA events, not the profiler: %s"
+          % (len(rows.rows), timed_by_events or "none"))
     print(json.dumps({"kernels": list(rows.rows.values())}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -7,19 +7,30 @@
 //         (the NIST P-256 base field; p = -1 mod 2^32)
 //   P256K1  p = 2^256 - 2^32 - 977                  N = 8,
 //         n0inv = 0xD2253531 (the secp256k1 base field; p = -977 mod 2^32)
+//   FP24  p = 2^23 - 2^13 + 1 = 8,380,417          N = 1 (the ML-DSA prime)
+//   FP64  p = 2^64 - 2^32 + 1                      N = 2 (Goldilocks)
+//   P256N   the P-256 group order                  N = 8
+//   P256K1N the secp256k1 group order              N = 8
 //
 // An element Fp<C> is C::N little-endian 32-bit limbs (C::N / 4 uint4
-// vectors, 16 or 32 bytes), in Montgomery form with R = 2^(32 N), and
-// every function here returns it canonical (< p).  R is also the JAX
-// package's R (2N 16-bit limbs), so both hold the same integers; only
-// n0inv differs: mod 2^32 here, mod 2^16 there.  The multiply is plain
-// CIOS with 64-bit products and carries; it uses no special form of p.
+// vectors, 16 or 32 bytes; one uint2 at N = 2, one word at N = 1), in
+// Montgomery form with R = 2^(32 N), and every function here returns it
+// canonical (< p).  R is also the JAX package's R (2N 16-bit limbs), so
+// both hold the same integers; only n0inv differs: mod 2^32 here, mod
+// 2^16 there.  The multiply is plain CIOS with 64-bit products and
+// carries; it uses no special form of p.
 //
 // P-256's p exceeds 2^255, so a + b and the CIOS result can carry out of
 // 2^(32 N): fp_cond_sub takes that carry as a top word.  secp256k1's p
 // lies within 2^32 + 977 of R, so no code here may lean on headroom below
 // R: every sum, product and accumulator reduction assumes only a value
-// below 2p (p > R / 2 for all three primes), never below R - p.
+// below 2p, never below R - p.  fp_cond_sub, fp_add, fp_sub and the CIOS
+// need nothing more, whatever p's size: their inputs are canonical (a
+// sum below 2p, a CIOS sum below (a b + m p) / R < 2p for a < R, b < p).
+// Only fp_reduce_acc starts from a value that is merely below R, which
+// is below 2p only where p > R / 2 (every prime above but FP24, whose p
+// lies below 2^23 with R = 2^32: C::SMALL marks it, and that sum is
+// reduced by a product instead).
 //
 // Sums are exact: each 32-bit limb is added into a 64-bit accumulator
 // (fewer than 2^31 addends, so no accumulator overflows) and the N
@@ -39,6 +50,7 @@ typedef unsigned long long u64;
 struct P128 {
   static constexpr int N = 4;
   static constexpr uint32_t N0INV = 0xFFFFFFFFu;  // p = 1 mod 2^32
+  static constexpr bool SMALL = false;  // p > R / 2
   __device__ static __forceinline__ uint32_t p(int j) {
     return j == 0 ? 0x00000001u : (j == 3 ? 0xFFFFF000u : 0u);
   }
@@ -57,6 +69,7 @@ struct P128 {
 struct P256 {
   static constexpr int N = 8;
   static constexpr uint32_t N0INV = 0x00000001u;  // p = -1 mod 2^32
+  static constexpr bool SMALL = false;
   __device__ static __forceinline__ uint32_t p(int j) {
     const uint32_t v[8] = {0xFFFFFFFFu, 0xFFFFFFFFu, 0xFFFFFFFFu,
                            0x00000000u, 0x00000000u, 0x00000000u,
@@ -80,6 +93,7 @@ struct P256 {
 struct P256K1 {
   static constexpr int N = 8;
   static constexpr uint32_t N0INV = 0xD2253531u;  // -p^-1 mod 2^32
+  static constexpr bool SMALL = false;
   __device__ static __forceinline__ uint32_t p(int j) {
     const uint32_t v[8] = {0xFFFFFC2Fu, 0xFFFFFFFEu, 0xFFFFFFFFu,
                            0xFFFFFFFFu, 0xFFFFFFFFu, 0xFFFFFFFFu,
@@ -100,29 +114,126 @@ struct P256K1 {
   }
 };
 
+// p < R / 2: fp_reduce_acc reduces its low part by a product.
+struct FP24 {
+  static constexpr int N = 1;
+  static constexpr uint32_t N0INV = 0xFC7FDFFFu;
+  static constexpr bool SMALL = true;
+  __device__ static __forceinline__ uint32_t p(int j) { return 0x007FE001u; }
+  __device__ static __forceinline__ uint32_t one(int j) {  // R mod p
+    return 0x003FFE00u;
+  }
+  __device__ static __forceinline__ uint32_t r2(int j) {  // R^2 mod p
+    return 0x002419FFu;
+  }
+};
+
+struct FP64 {
+  static constexpr int N = 2;
+  static constexpr uint32_t N0INV = 0xFFFFFFFFu;  // p = 1 mod 2^32
+  static constexpr bool SMALL = false;
+  __device__ static __forceinline__ uint32_t p(int j) {
+    return j == 0 ? 0x00000001u : 0xFFFFFFFFu;
+  }
+  __device__ static __forceinline__ uint32_t one(int j) {  // R mod p
+    return j == 0 ? 0xFFFFFFFFu : 0x00000000u;
+  }
+  __device__ static __forceinline__ uint32_t r2(int j) {  // R^2 mod p
+    return j == 0 ? 0x00000001u : 0xFFFFFFFEu;
+  }
+};
+
+// the P-256 group order n (the ECDSA scalars)
+struct P256N {
+  static constexpr int N = 8;
+  static constexpr uint32_t N0INV = 0xEE00BC4Fu;
+  static constexpr bool SMALL = false;
+  __device__ static __forceinline__ uint32_t p(int j) {
+    const uint32_t v[8] = {0xFC632551u, 0xF3B9CAC2u, 0xA7179E84u,
+                           0xBCE6FAADu, 0xFFFFFFFFu, 0xFFFFFFFFu,
+                           0x00000000u, 0xFFFFFFFFu};
+    return v[j];
+  }
+  __device__ static __forceinline__ uint32_t one(int j) {  // R mod p
+    const uint32_t v[8] = {0x039CDAAFu, 0x0C46353Du, 0x58E8617Bu,
+                           0x43190552u, 0x00000000u, 0x00000000u,
+                           0xFFFFFFFFu, 0x00000000u};
+    return v[j];
+  }
+  __device__ static __forceinline__ uint32_t r2(int j) {  // R^2 mod p
+    const uint32_t v[8] = {0xBE79EEA2u, 0x83244C95u, 0x49BD6FA6u,
+                           0x4699799Cu, 0x2B6BEC59u, 0x2845B239u,
+                           0xF3D95620u, 0x66E12D94u};
+    return v[j];
+  }
+};
+
+// the secp256k1 group order n
+struct P256K1N {
+  static constexpr int N = 8;
+  static constexpr uint32_t N0INV = 0x5588B13Fu;
+  static constexpr bool SMALL = false;
+  __device__ static __forceinline__ uint32_t p(int j) {
+    const uint32_t v[8] = {0xD0364141u, 0xBFD25E8Cu, 0xAF48A03Bu,
+                           0xBAAEDCE6u, 0xFFFFFFFEu, 0xFFFFFFFFu,
+                           0xFFFFFFFFu, 0xFFFFFFFFu};
+    return v[j];
+  }
+  __device__ static __forceinline__ uint32_t one(int j) {  // R mod p
+    const uint32_t v[8] = {0x2FC9BEBFu, 0x402DA173u, 0x50B75FC4u,
+                           0x45512319u, 0x00000001u, 0x00000000u,
+                           0x00000000u, 0x00000000u};
+    return v[j];
+  }
+  __device__ static __forceinline__ uint32_t r2(int j) {  // R^2 mod p
+    const uint32_t v[8] = {0x67D7D140u, 0x896CF214u, 0x0E7CF878u,
+                           0x741496C2u, 0x5BCD07C6u, 0xE697F5E4u,
+                           0x81C69BC5u, 0x9D671CD5u};
+    return v[j];
+  }
+};
+
 template <class C>
 struct Fp {
+  static_assert(C::N == 1 || C::N == 2 || C::N % 4 == 0,
+                "an element is one word, a uint2 or uint4 vectors");
   static constexpr int V = C::N / 4;  // uint4 vectors per element
   uint32_t l[C::N];
 
+  // Element i of an array of them (the pointer's type names the array,
+  // not the element: one word or a uint2 where N < 4).
   __device__ static __forceinline__ Fp load(const uint4* a, long long i) {
     Fp r;
+    if constexpr (C::N == 1) {
+      r.l[0] = ((const uint32_t*)a)[i];
+    } else if constexpr (C::N == 2) {
+      uint2 v = ((const uint2*)a)[i];
+      r.l[0] = v.x;
+      r.l[1] = v.y;
+    } else {
 #pragma unroll
-    for (int k = 0; k < V; k++) {
-      uint4 v = a[i * V + k];
-      r.l[4 * k] = v.x;
-      r.l[4 * k + 1] = v.y;
-      r.l[4 * k + 2] = v.z;
-      r.l[4 * k + 3] = v.w;
+      for (int k = 0; k < V; k++) {
+        uint4 v = a[i * V + k];
+        r.l[4 * k] = v.x;
+        r.l[4 * k + 1] = v.y;
+        r.l[4 * k + 2] = v.z;
+        r.l[4 * k + 3] = v.w;
+      }
     }
     return r;
   }
 
   __device__ __forceinline__ void store(uint4* a, long long i) const {
+    if constexpr (C::N == 1) {
+      ((uint32_t*)a)[i] = l[0];
+    } else if constexpr (C::N == 2) {
+      ((uint2*)a)[i] = make_uint2(l[0], l[1]);
+    } else {
 #pragma unroll
-    for (int k = 0; k < V; k++)
-      a[i * V + k] = make_uint4(l[4 * k], l[4 * k + 1], l[4 * k + 2],
-                                l[4 * k + 3]);
+      for (int k = 0; k < V; k++)
+        a[i * V + k] = make_uint4(l[4 * k], l[4 * k + 1], l[4 * k + 2],
+                                  l[4 * k + 3]);
+    }
   }
 };
 
@@ -254,6 +365,20 @@ __device__ __forceinline__ Fp<C> fp_mul(const Fp<C>& a, const Fp<C>& b) {
   return fp_cond_sub(r, t[N]);
 }
 
+// a * a (GF(2^128): spread and fold, gf2.cuh)
+template <class C>
+__device__ __forceinline__ Fp<C> fp_sqr(const Fp<C>& a) {
+  return fp_mul(a, a);
+}
+
+template <class C>
+__device__ __forceinline__ bool fp_eq(const Fp<C>& a, const Fp<C>& b) {
+  uint32_t o = 0u;
+#pragma unroll
+  for (int j = 0; j < C::N; j++) o |= a.l[j] ^ b.l[j];
+  return o == 0u;
+}
+
 template <class C>
 __device__ __forceinline__ void fp_acc(u64* acc, const Fp<C>& x) {
 #pragma unroll
@@ -271,8 +396,13 @@ __device__ __forceinline__ Fp<C> fp_reduce_acc(const u64* acc) {
     lo.l[j] = (uint32_t)c;
     c >>= 32;
   }
-  // lo < R < 2p; the carry c < 2^32 stands for c * R.
-  Fp<C> low = fp_cond_sub(lo, 0u);
+  // lo < R, below 2p unless C::SMALL; there lo * (R mod p) * R^-1 = lo
+  // mod p.  The carry c < 2^32 stands for c * R.
+  Fp<C> low;
+  if constexpr (C::SMALL)
+    low = fp_mul(lo, fp_one<C>());
+  else
+    low = fp_cond_sub(lo, 0u);
   Fp<C> top = fp_zero<C>();
   top.l[0] = (uint32_t)c;
   return fp_add(low, fp_mul(top, fp_r2<C>()));

@@ -86,6 +86,45 @@ __device__ __forceinline__ Fp<G128> fp_mul<G128>(const Fp<G128>& a,
   return r;
 }
 
+// The square: squaring is linear over GF(2), so each word's bits spread
+// to the even positions of 64 (a 255-bit product with no cross terms),
+// then the high 128 bits H fold back as H (1 + x + x^2 + x^7), and the
+// at most 7 bits that fold spills past x^127 fold once more.  About 60
+// operations, against the product's 2,000 (the JAX package's GF2_128.sqr,
+// fields/gf2.py:361, spreads and folds halfwords the same way).
+__device__ __forceinline__ u64 g128_spread(uint32_t x) {
+  u64 v = x;
+  v = (v | (v << 16)) & 0x0000FFFF0000FFFFull;
+  v = (v | (v << 8)) & 0x00FF00FF00FF00FFull;
+  v = (v | (v << 4)) & 0x0F0F0F0F0F0F0F0Full;
+  v = (v | (v << 2)) & 0x3333333333333333ull;
+  v = (v | (v << 1)) & 0x5555555555555555ull;
+  return v;
+}
+
+template <>
+__device__ __forceinline__ Fp<G128> fp_sqr<G128>(const Fp<G128>& a) {
+  uint32_t t[8];
+#pragma unroll
+  for (int k = 0; k < 4; k++) {
+    const u64 v = g128_spread(a.l[k]);
+    t[2 * k] = (uint32_t)v;
+    t[2 * k + 1] = (uint32_t)(v >> 32);
+  }
+  const uint32_t* h = t + 4;
+  Fp<G128> r;
+#pragma unroll
+  for (int j = 0; j < 4; j++) {
+    uint32_t x = t[j] ^ h[j] ^ (h[j] << 1) ^ (h[j] << 2) ^ (h[j] << 7);
+    if (j > 0)
+      x ^= (h[j - 1] >> 31) ^ (h[j - 1] >> 30) ^ (h[j - 1] >> 25);
+    r.l[j] = x;
+  }
+  const uint32_t spill = (h[3] >> 31) ^ (h[3] >> 30) ^ (h[3] >> 25);
+  r.l[0] ^= spill ^ (spill << 1) ^ (spill << 2) ^ (spill << 7);
+  return r;
+}
+
 template <>
 __device__ __forceinline__ void fp_acc<G128>(u64* acc, const Fp<G128>& x) {
 #pragma unroll

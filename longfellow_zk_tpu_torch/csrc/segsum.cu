@@ -1,6 +1,8 @@
 // K2 fp_segment_sum: field sums over contiguous term ranges, with an instance
-// for Fp128, one each for the P-256 and secp256k1 base fields and one for
-// GF(2^128) (sums by XOR, gf2.cuh).
+// for Fp128, one each for the P-256 and secp256k1 base fields, one for
+// GF(2^128) (sums by XOR, gf2.cuh) and one for the ML-DSA prime (FP24, the
+// per-coefficient sums of Fp24_6; fp_reduce_acc reduces its sums, which
+// may pass 2p, by a product).
 //
 // out[s] = sum over t in [starts[s], ends[s]) of term(t), where term(t) is
 //   mode 0: x[t]                      (_contig_fold, lazy_segment_sum)
@@ -92,6 +94,10 @@ extern "C" int fp_segment_sum_fp256(LFZK_ARGS) {
 extern "C" int fp_segment_sum_fp256k1(LFZK_ARGS) {
   return fp_segment_sum<P256K1>(mode, out, bad, x, W, h0, h1, v, bmask, starts,
                                 ends, nseg, stream);
+}
+extern "C" int fp_segment_sum_fp24(LFZK_ARGS) {
+  return fp_segment_sum<FP24>(mode, out, bad, x, W, h0, h1, v, bmask, starts,
+                              ends, nseg, stream);
 }
 extern "C" int fp_segment_sum_gf2_128(LFZK_ARGS) {
   return fp_segment_sum<G128>(mode, out, bad, x, W, h0, h1, v, bmask, starts,

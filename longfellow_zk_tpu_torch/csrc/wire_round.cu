@@ -1,6 +1,8 @@
 // K3 fp_wire_round: the sums of one sumcheck wire round, and field sums along
 // an axis, with an instance for Fp128, one each for the P-256 and secp256k1
-// base fields and one for GF(2^128) (sums by XOR, -1 = 1; gf2.cuh).
+// base fields, one for GF(2^128) (sums by XOR, -1 = 1; gf2.cuh) and one
+// for the ML-DSA prime (FP24: Fp24_6.lazy_sum, fields/fp24.py:270, is
+// mode 1 over its six coefficient planes).
 //
 // mode 0 (wire): for one hand, with z = hv[t] * Wo[ho[t]],
 //   out[0] = a0 = sum over t with h[t] even of z * Wh[h[t]]
@@ -122,6 +124,10 @@ extern "C" int fp_wire_round_fp256(LFZK_ARGS) {
 extern "C" int fp_wire_round_fp256k1(LFZK_ARGS) {
   return fp_wire_round<P256K1>(mode, out, scratch, hv, Wh, Wo, h, ho, T, A, R,
                                B, nblk, stream);
+}
+extern "C" int fp_wire_round_fp24(LFZK_ARGS) {
+  return fp_wire_round<FP24>(mode, out, scratch, hv, Wh, Wo, h, ho, T, A, R,
+                             B, nblk, stream);
 }
 extern "C" int fp_wire_round_gf2_128(LFZK_ARGS) {
   return fp_wire_round<G128>(mode, out, scratch, hv, Wh, Wo, h, ho, T, A, R,

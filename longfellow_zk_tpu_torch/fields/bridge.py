@@ -1,15 +1,18 @@
 """Carrying state between the JAX package's layout and this package's.
 
 The JAX package holds a prime-field tensor as uint32[2N, ...]: 2N 16-bit
-limbs on the leading axis (eight for Fp128, sixteen for P-256).  This
-package holds it as int32[..., N]: N 32-bit limbs on the trailing axis.
+limbs on the leading axis (two for the ML-DSA prime, four for Fp64,
+eight for Fp128, sixteen for P-256).  This package holds it as
+int32[..., N]: N 32-bit limbs on the trailing axis.
 An Fp2 tensor is planar there, uint32[2, 2N, ...] (re, im leading), and
 int32[..., 2, N] here.  Both packages use Montgomery form with
 R = 2^(32N), so the conversion moves bits and changes no value.  A
 GF(2^128) tensor holds polynomial-basis bits on both sides: uint32[8, ...]
 halfwords there, int32[..., 4] words here.  A multi-prime (CRT) tensor
 is uint32[2, VS, ...] there (two 16-bit limbs a residue) and
-int32[VS, ..., 1] here, both Montgomery with R = 2^32 a lane.  The
+int32[VS, ..., 1] here, both Montgomery with R = 2^32 a lane.  An
+Fp24_6 tensor is uint32[6, 2, ...] there (six coefficients of two 16-bit
+limbs) and int32[..., 6, 1] here.  The
 wires of a circuit over nc copies lie [L, nw, nc] there (copies last)
 and [nc, nw, N] here (copies leading, as the lanes of a batch: the
 evaluation runs them through the lane path).
@@ -28,7 +31,7 @@ from ..sumcheck.circuit import Circuit, Layer, Quad
 def limbs_from_jax(arr: np.ndarray) -> torch.Tensor:
     """uint32[2N, ...] (16-bit limbs, leading) -> int32[..., N] (CPU)."""
     a = np.asarray(arr, dtype=np.uint32)
-    assert a.shape[0] in (8, 16), a.shape
+    assert a.shape[0] in (2, 4, 8, 16), a.shape
     w = (a[0::2] & np.uint32(0xFFFF)) | ((a[1::2] & np.uint32(0xFFFF))
                                          << np.uint32(16))
     w = np.ascontiguousarray(np.moveaxis(w, 0, -1)).view(np.int32)
@@ -38,7 +41,7 @@ def limbs_from_jax(arr: np.ndarray) -> torch.Tensor:
 def limbs_to_jax(t: torch.Tensor) -> np.ndarray:
     """int32[..., N] -> uint32[2N, ...] (16-bit limbs, leading)."""
     w = np.ascontiguousarray(t.detach().cpu().numpy()).view(np.uint32)
-    assert w.shape[-1] in (4, 8), w.shape
+    assert w.shape[-1] in (1, 2, 4, 8), w.shape
     lo = w & np.uint32(0xFFFF)
     hi = w >> np.uint32(16)
     out = np.stack([lo, hi], axis=-1).reshape(w.shape[:-1] +
@@ -80,6 +83,20 @@ def fp2_to_jax(t: torch.Tensor) -> np.ndarray:
     """int32[..., 2, N] -> Fp2 uint32[2, 2N, ...] (planar re, im)."""
     assert t.shape[-2] == 2, tuple(t.shape)
     return np.stack([limbs_to_jax(t[..., 0, :]), limbs_to_jax(t[..., 1, :])])
+
+
+def fp24x6_from_jax(arr: np.ndarray) -> torch.Tensor:
+    """Fp24_6 uint32[6, 2, ...] (planar coefficients) -> int32[..., 6, 1]
+    (CPU)."""
+    a = np.asarray(arr, dtype=np.uint32)
+    assert a.shape[:2] == (6, 2), a.shape
+    return torch.stack([limbs_from_jax(a[i]) for i in range(6)], dim=-2)
+
+
+def fp24x6_to_jax(t: torch.Tensor) -> np.ndarray:
+    """int32[..., 6, 1] -> Fp24_6 uint32[6, 2, ...]."""
+    assert tuple(t.shape[-2:]) == (6, 1), tuple(t.shape)
+    return np.stack([limbs_to_jax(t[..., i, :]) for i in range(6)])
 
 
 def circuit_from_arrays(F, nv: int, nc: int, ninputs: int, npub_in: int,

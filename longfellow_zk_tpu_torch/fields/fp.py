@@ -9,16 +9,19 @@ canonical (< p).  R is the JAX package's R (2N 16-bit limbs), so the two
 packages hold the same integers (fields/bridge.py converts the layouts).
 
 Every tensor operation is a wrapper over one of the hand-written kernels
-(K1 fp_elementwise, K2 fp_segment_sum, K3 fp_wire_round, and K16
-copy_round_sums, the sums of the plain sumcheck's copy rounds; see
-kernels.py).  For a CUDA tensor the wrapper launches its kernel; for a
-CPU tensor it runs the kernel's plain PyTorch version, which lives in
-this module too (`*_plain`) and computes in int64 over 16-bit limbs
-(CPU PyTorch has no uint32 `+`, `<<` or `>>`).  The kernels have an
-instance for each field of `fp_instances.KERNEL_TAGS` (Fp128 and the
-P-256 base field) and one for GF(2^128) (fields/gf2.py, whose plain
-versions the wrappers take for it); a CUDA tensor of another field
-raises.  The plain versions here take any odd p < 2^256.
+(K1 fp_elementwise, K2 fp_segment_sum, K3 fp_wire_round, K16
+copy_round_sums, the sums of the plain sumcheck's copy rounds, and K21
+fp_inv; see kernels.py).  For a CUDA tensor the wrapper launches its
+kernel; for a CPU tensor it runs the kernel's plain PyTorch version,
+which lives in this module too (`*_plain`) and computes in int64 over
+16-bit limbs (CPU PyTorch has no uint32 `+`, `<<` or `>>`).  The kernels
+have an instance for each field of `fp_instances.KERNEL_TAGS` (K2 and K3
+for Fp128, the P-256 and secp256k1 base fields and the ML-DSA prime; K1
+and K21 also for Goldilocks and the two group orders) and one for
+GF(2^128) (fields/gf2.py, whose plain versions the wrappers take for
+it); a CUDA tensor of another field raises.  The plain versions here take
+any odd p < 2^256.  N is 1, 2, 4 or 8: the fewest 32-bit words that hold
+p.
 """
 
 from __future__ import annotations
@@ -33,8 +36,12 @@ from .. import kernels
 
 MASK16 = 0xFFFF
 
-# K1 modes (csrc/fp_ops.cu)
-MUL, ADD, SUB, BIND, HV = 0, 1, 2, 3, 4
+# K1 modes (csrc/fp_ops.cu); K5 and K22 take the same numbers, and K22
+# mode 10, the inverse
+MUL, ADD, SUB, BIND, HV, SQR, NEG, EQ, IS_ZERO, SELECT, INV = range(11)
+# modes of one operand; modes whose output is one bool an element
+UNARY = (SQR, NEG, IS_ZERO, INV)
+BOOL_OUT = (EQ, IS_ZERO)
 
 # K3 grid: blocks per output, at most
 _K3_MAX_BLOCKS = 264
@@ -45,7 +52,52 @@ _K16_MAX_BLOCKS = 1024
 _PLAIN_PAIRS = 1 << 18
 
 
-class PrimeField:
+class FieldOps:
+    """The field API that K1's modes 5-9 and K21 serve, for PrimeField
+    and GF2_128 (fields/gf2.py) alike: the JAX package's sqr, neg,
+    mul_const, inv, batch_inverse, eq, is_zero, select and
+    natural_limbs_to_bytes_dev (fields/fp.py:457-507, :202; fields/
+    gf2.py:358-398, :260).  No proof path calls them."""
+
+    def sqr(self, a: torch.Tensor) -> torch.Tensor:
+        return fp_elementwise(self, SQR, a, a)
+
+    def neg(self, a: torch.Tensor) -> torch.Tensor:
+        """-a (in GF(2^128) a, which K1 copies)."""
+        return fp_elementwise(self, NEG, a, a)
+
+    def mul_const(self, a: torch.Tensor, c: int) -> torch.Tensor:
+        """a times the natural-form host constant c (K1's product by c's
+        limbs)."""
+        return fp_elementwise(self, MUL, a, self.to_limbs(c, a.device))
+
+    def inv(self, a: torch.Tensor) -> torch.Tensor:
+        """a^(p - 2) (GF(2^128): a^(2^128 - 2)): the inverse, 0 for 0
+        (K21)."""
+        return fp_inv(self, a)
+
+    # the JAX package's batch_inverse is its inv (fields/fp.py:488)
+    batch_inverse = inv
+
+    def eq(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        """a == b elementwise: bool [...]."""
+        return fp_elementwise(self, EQ, a, b)
+
+    def is_zero(self, a: torch.Tensor) -> torch.Tensor:
+        return fp_elementwise(self, IS_ZERO, a, a)
+
+    def select(self, cond: torch.Tensor, a: torch.Tensor,
+               b: torch.Tensor) -> torch.Tensor:
+        """cond ? a : b, cond a bool tensor over the element axes."""
+        return fp_elementwise(self, SELECT, a, b, h=cond)
+
+    def natural_limbs_to_bytes_dev(self, x: torch.Tensor) -> torch.Tensor:
+        """Natural-form limbs [..., N] -> their little-endian bytes, uint8
+        [..., kBytes]: a view of the words, no arithmetic."""
+        return natural_bytes(x, self.kBytes)
+
+
+class PrimeField(FieldOps):
     """A prime field Fp, p < 2^256: host int ops and tensor ops."""
 
     kCharacteristicTwo = False
@@ -56,7 +108,7 @@ class PrimeField:
         self.p = p
         # 32-bit limbs per element (the tensor layout), 16-bit limbs (the
         # plain versions)
-        self.nlimb = 4 if p < (1 << 128) else 8
+        self.nlimb = next(n for n in (1, 2, 4, 8) if p < (1 << (32 * n)))
         self.nl16 = 2 * self.nlimb
         self.elt_shape = (self.nlimb,)
         self.char = p
@@ -79,6 +131,14 @@ class PrimeField:
                        for i in range(self.nl16)]
         self._one16 = [(self.mont_one_int >> (16 * i)) & MASK16
                        for i in range(self.nl16)]
+        # p < R / 2: a value below R may pass 2p (the ML-DSA prime)
+        self.small = 2 * p < self.R
+        # R^(k + 2) mod p for the base-R digits k of a sum's int64 carry
+        # (_renorm16): one digit for N >= 2, two for N = 1
+        self._rpow16 = [
+            [(pow(self.R, k + 2, p) >> (16 * i)) & MASK16
+             for i in range(self.nl16)]
+            for k in range(-(-63 // (32 * self.nlimb)))]
         from .fp_instances import KERNEL_TAGS
         # the kernels' instance for this field ("fp128", "fp256"), or None
         self.tag = KERNEL_TAGS.get(p)
@@ -331,21 +391,49 @@ def _renorm16(F: PrimeField, cols: torch.Tensor) -> torch.Tensor:
     """Columns [..., 2N] (value = sum cols[k] 2^(16k), each < 2^62) -> the
     canonical value mod p (16-bit limbs)."""
     limbs, top = _carry16(cols)
-    low = _cond_sub16(F, limbs, torch.zeros_like(top))
-    # the carry (an int64, so four 16-bit limbs) stands for top * R:
-    # Montgomery-multiply the integer top by R^2
-    top16 = torch.stack([(top >> (16 * i)) & MASK16 if i < 4
-                         else torch.zeros_like(top) for i in range(F.nl16)],
-                        dim=-1)
-    r2 = _const16(F._r2_16, cols).expand_as(top16)
-    return _add16(F, low, _mont_mul16(F, top16, r2))
+    if F.small:
+        # limbs < R may pass 2p: limbs * (R mod p) * R^-1 = limbs mod p
+        low = _mont_mul16(F, limbs, _const16(F._one16, cols).expand_as(
+            limbs))
+    else:
+        low = _cond_sub16(F, limbs, torch.zeros_like(top))
+    # the carry (an int64) stands for top * R: its base-R digits d_k,
+    # each Montgomery-multiplied by R^(k + 2), give d_k R^(k + 1)
+    for k, rk in enumerate(F._rpow16):
+        dk = top >> (32 * F.nlimb * k)
+        d16 = torch.stack([(dk >> (16 * i)) & MASK16
+                           if 32 * F.nlimb * k + 16 * i < 63
+                           else torch.zeros_like(top)
+                           for i in range(F.nl16)], dim=-1)
+        low = _add16(F, low, _mont_mul16(
+            F, d16, _const16(rk, cols).expand_as(d16)))
+    return low
+
+
+def compare_plain(mode: int, a: torch.Tensor, b: torch.Tensor,
+                  cond: Optional[torch.Tensor], nelt: int = 1):
+    """The plain eq, is_zero and select of any field whose elements are
+    the last `nelt` axes (canonical limbs, so equal values are equal
+    limbs): bool [...] for eq and is_zero, cond ? a : b for select."""
+    if mode == SELECT:
+        return torch.where(cond.reshape(cond.shape + (1,) * nelt), a, b)
+    d = (a == b) if mode == EQ else (a == 0)
+    return d.flatten(d.dim() - nelt).all(dim=-1)
 
 
 def elementwise_plain(F: PrimeField, mode: int, a: torch.Tensor,
                       b: torch.Tensor, h: Optional[torch.Tensor] = None):
     """Plain version of K1 (fp_elementwise); any device.  In bind and hv
     b holds one challenge per lane (lanes = b's elements), lane-major in
-    a."""
+    a; in select h holds the conditions (bool)."""
+    if mode in (EQ, IS_ZERO, SELECT):
+        return compare_plain(mode, a, b, h)
+    if mode == SQR:
+        a16 = _split16(a)
+        return _join16(_mont_mul16(F, a16, a16))
+    if mode == NEG:
+        a16 = _split16(a)
+        return _join16(_sub16(F, torch.zeros_like(a16), a16))
     if mode in (BIND, HV):
         nl = b.numel() // F.nlimb
         r = _split16(b).reshape(nl, 1, F.nl16)
@@ -366,6 +454,26 @@ def elementwise_plain(F: PrimeField, mode: int, a: torch.Tensor,
     a16, b16 = torch.broadcast_tensors(_split16(a), _split16(b))
     fn = {MUL: _mont_mul16, ADD: _add16, SUB: _sub16}[mode]
     return _join16(fn(F, a16, b16))
+
+
+def inv_plain(F: PrimeField, a: torch.Tensor) -> torch.Tensor:
+    """Plain version of K21 (fp_inv): a^(p - 2) left to right over the
+    bits of p - 2, as the JAX package's scan (0 for 0)."""
+    a16 = _split16(a)
+    r = _const16(F._one16, a16).expand_as(a16)
+    for bit in bin(F.p - 2)[2:]:
+        r = _mont_mul16(F, r, r)
+        if bit == "1":
+            r = _mont_mul16(F, r, a16)
+    return _join16(r)
+
+
+def natural_bytes(x: torch.Tensor, nbytes: int) -> torch.Tensor:
+    """Natural-form words [..., N] -> uint8 [..., nbytes], their first
+    nbytes little-endian bytes: a view (the JAX package's
+    natural_limbs_to_bytes_dev, fields/fp.py:202, and what
+    ligero/prover.py's commit hashes)."""
+    return x.contiguous().view(torch.uint8)[..., :nbytes]
 
 
 def segment_sum_plain(F: PrimeField, x: torch.Tensor, starts: torch.Tensor,
@@ -545,13 +653,51 @@ def _lane_challenges(F, r: torch.Tensor):
     return r.shape[0], r.stride(0) // N
 
 
+def elementwise_operands(mode: int, a: torch.Tensor, b: torch.Tensor,
+                         cond: Optional[torch.Tensor], elt):
+    """(out, a, b, cond, n, bdiv, bmod) for an elementwise kernel of
+    elements of shape `elt` (K1, K5, K22) in a mode other than bind and
+    hv: a contiguous at the broadcast shape of the element axes, b read
+    at (i // bdiv) % bmod, cond (select) bool at that shape, out empty
+    (bool for eq and is_zero).  A unary mode reads a only (b is a)."""
+    k = len(elt)
+    if mode in UNARY:
+        a = a.contiguous()
+        check_elts(a, "a", elt)
+        b, bdiv, bmod = a, 1, 1
+    elif mode == SELECT:
+        if cond is None or cond.dtype != torch.bool:
+            raise ValueError("select needs bool conditions")
+        shape = tuple(torch.broadcast_shapes(
+            cond.shape, a.shape[: a.dim() - k], b.shape[: b.dim() - k]))
+        a, b, bdiv, bmod = broadcast_operands(
+            a.expand(shape + tuple(elt)), b, elt, elt, False)
+        cond = cond.expand(shape).contiguous()
+    else:
+        a, b, bdiv, bmod = broadcast_operands(a, b, elt, elt, mode != SUB)
+    if mode != SELECT:
+        cond = None
+    n = a.numel() // int(np.prod(elt))
+    if mode in BOOL_OUT:
+        out = torch.empty(a.shape[: a.dim() - k], dtype=torch.bool,
+                          device=a.device)
+    else:
+        out = torch.empty_like(a)
+    return out, a, b, cond, n, bdiv, bmod
+
+
 def fp_elementwise(F: PrimeField, mode: int, a: torch.Tensor, b: torch.Tensor,
                    h: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """K1 wrapper.  mul/add/sub broadcast a and b over the element axes.
-    bind and hv take the challenge r as b: one element [N], or one per
-    lane [B, N], lane b of a being its b-th B-th part (a [B, ..., N]); hv's
-    indices h are shared by the lanes; bind returns the bound half."""
-    name = route("fp_elementwise", F, a, b)
+    """K1 wrapper.  mul/add/sub/eq broadcast a and b over the element
+    axes; sqr, neg and is_zero read a alone; select takes its bool
+    conditions as h and broadcasts them with a and b.  bind and hv take
+    the challenge r as b: one element [N], or one per lane [B, N], lane b
+    of a being its b-th B-th part (a [B, ..., N]); hv's indices h are
+    shared by the lanes; bind returns the bound half."""
+    if mode not in range(SELECT + 1):
+        raise ValueError("K1 has no mode %d" % mode)
+    name = route("fp_elementwise", F,
+                 *[t for t in (a, b, h) if t is not None])
     if name is None:
         return plain_of(F).elementwise_plain(F, mode, a, b, h)
     if mode in (BIND, HV):
@@ -580,12 +726,26 @@ def fp_elementwise(F: PrimeField, mode: int, a: torch.Tensor, b: torch.Tensor,
         kernels.launch(name, 1, mode, out.data_ptr(), a.data_ptr(),
                        b.data_ptr(), hp, n, row, n // lanes, rstride)
         return out
-    # the full operand goes first (sub does not commute)
-    a, b, bdiv, bmod = broadcast_operands(a, b, F.elt_shape, F.elt_shape,
-                                          mode != SUB)
-    out = torch.empty_like(a)
+    # the full operand goes first (sub and select do not commute)
+    out, a, b, cond, n, bdiv, bmod = elementwise_operands(
+        mode, a, b, h, F.elt_shape)
     kernels.launch(name, 1, mode, out.data_ptr(), a.data_ptr(), b.data_ptr(),
-                   0, a.numel() // F.nlimb, 1, bdiv, bmod)
+                   0 if cond is None else cond.data_ptr(), n, 1, bdiv, bmod)
+    return out
+
+
+def fp_inv(F, a: torch.Tensor, plain=None) -> torch.Tensor:
+    """K21 wrapper: the inverse of each element of a (0 for 0), for a
+    prime field, GF(2^128) or Fp2 (`plain`: its plain version, by default
+    plain_of(F).inv_plain)."""
+    name = route("fp_inv", F, a)
+    if name is None:
+        return (plain or plain_of(F).inv_plain)(F, a)
+    a = a.contiguous()
+    check_elts(a, "a", F.elt_shape)
+    out = torch.empty_like(a)
+    kernels.launch(name, 1, out.data_ptr(), a.data_ptr(),
+                   a.numel() // int(np.prod(F.elt_shape)))
     return out
 
 

@@ -9,9 +9,12 @@ FFTExtConvolution, lib/circuits/mdoc/mdoc_zk.cc:82-88).
 Host scalars are (re, im) int tuples.  A tensor element is the pair of
 base-field elements in the last two axes, int32 [..., 2, N] (re first),
 in the base field's Montgomery form.  The tensor ops (mul, add, sub,
-mul_base, from_mont) are wrappers over kernel K5 `fp2_elementwise`
-(csrc/fp2_ops.cu) for a CUDA tensor and over its plain version, built on
-the base field's plain ops (fields/fp.py), for a CPU one.
+mul_base, from_mont, sqr, neg, mul_const, eq, is_zero, select) are
+wrappers over kernel K5 `fp2_elementwise` (csrc/fp2_ops.cu), inv over
+K21 `fp_inv[fp256x2]`, for a CUDA tensor, and over their plain versions,
+built on the base field's plain ops (fields/fp.py), for a CPU one.
+lazy_sum and lazy_segment_sum are the base field's K3 and K2 over the
+two parts.
 """
 
 from __future__ import annotations
@@ -22,13 +25,15 @@ import numpy as np
 import torch
 
 from .. import kernels
-from .fp import (ADD, MUL, SUB, PrimeField, broadcast_operands,
-                 elementwise_plain, route)
+from .fp import (ADD, EQ, IS_ZERO, MUL, NEG, SELECT, SQR, SUB, PrimeField,
+                 broadcast_operands, compare_plain, elementwise_operands,
+                 elementwise_plain, fp_inv, inv_plain, natural_bytes, route)
 
 Elt2 = Tuple[int, int]
 
-# K5 modes (csrc/fp2_ops.cu); mul, add and sub are K1's numbers
+# K5 modes (csrc/fp2_ops.cu); mul, add, sub and 5-9 are K1's numbers
 MUL_BASE = 3
+_K5_MODES = (MUL, ADD, SUB, MUL_BASE, SQR, NEG, EQ, IS_ZERO, SELECT)
 
 
 class Fp2:
@@ -175,13 +180,68 @@ class Fp2:
         one[0] = 1
         return fp2_elementwise(self, MUL_BASE, a, one)
 
+    def sqr(self, a: torch.Tensor) -> torch.Tensor:
+        return fp2_elementwise(self, SQR, a, a)
+
+    def neg(self, a: torch.Tensor) -> torch.Tensor:
+        return fp2_elementwise(self, NEG, a, a)
+
+    def mul_const(self, a: torch.Tensor, c) -> torch.Tensor:
+        """a times the host constant c ((re, im) or a base-field int; K5's
+        product by its limbs)."""
+        return fp2_elementwise(self, MUL, a,
+                               self.to_limbs(self.of_scalar(c), a.device))
+
+    def inv(self, a: torch.Tensor) -> torch.Tensor:
+        """(re, -im) / (re^2 + im^2): the inverse, 0 for 0 (K21)."""
+        return fp_inv(self, a, fp2_inv_plain)
+
+    batch_inverse = inv
+
+    def eq(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        return fp2_elementwise(self, EQ, a, b)
+
+    def is_zero(self, a: torch.Tensor) -> torch.Tensor:
+        return fp2_elementwise(self, IS_ZERO, a, a)
+
+    def select(self, cond: torch.Tensor, a: torch.Tensor,
+               b: torch.Tensor) -> torch.Tensor:
+        return fp2_elementwise(self, SELECT, a, b, cond)
+
+    def natural_limbs_to_bytes_dev(self, x: torch.Tensor) -> torch.Tensor:
+        """Natural-form [..., 2, N] -> uint8 [..., 2 kBytes of the base]:
+        re's bytes, then im's (a view and a reshape)."""
+        nat = natural_bytes(x, self.f.kBytes)
+        return nat.reshape(nat.shape[:-2] + (2 * self.f.kBytes,))
+
+    def lazy_sum(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """Sum along element axis `dim` of x [..., 2, N]: the base field's
+        (K3), the two parts an axis beside it."""
+        return self.f.lazy_sum(x, dim % (x.dim() - 2))
+
+    def lazy_segment_sum(self, x: torch.Tensor, starts: torch.Tensor,
+                         ends: torch.Tensor) -> torch.Tensor:
+        """x [T, 2, N] -> [S, 2, N]: out[s] = sum of x[starts[s]:ends[s]],
+        the base field's K2 on each part."""
+        return torch.stack([self.f.lazy_segment_sum(x[:, c].contiguous(),
+                                                    starts, ends)
+                            for c in range(2)], dim=-2)
+
 
 def fp2_elementwise_plain(F2: Fp2, mode: int, a: torch.Tensor,
-                          b: torch.Tensor) -> torch.Tensor:
+                          b: torch.Tensor,
+                          cond: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain version of K5 (fp2_elementwise), on Fp256's plain ops; any
-    device.  mode MUL: re = p0 - p1, im = (a0 + a1)(b0 + b1) - p0 - p1
-    with p0 = a0 b0, p1 = a1 b1 (Karatsuba, i^2 = -1)."""
+    device.  mode MUL (and SQR, b = a): re = p0 - p1, im = (a0 + a1)(b0 +
+    b1) - p0 - p1 with p0 = a0 b0, p1 = a1 b1 (Karatsuba, i^2 = -1)."""
     F = F2.f
+    if mode in (EQ, IS_ZERO, SELECT):
+        return compare_plain(mode, a, b, cond, nelt=2)
+    if mode == SQR:
+        b = a
+    if mode == NEG:
+        return torch.stack([elementwise_plain(F, NEG, a[..., c, :], None)
+                            for c in range(2)], dim=-2)
     a0, a1 = a[..., 0, :], a[..., 1, :]
     if mode == MUL_BASE:
         return torch.stack([elementwise_plain(F, MUL, a0, b),
@@ -200,20 +260,38 @@ def fp2_elementwise_plain(F2: Fp2, mode: int, a: torch.Tensor,
     return torch.stack([re, im], dim=-2)
 
 
-def fp2_elementwise(F2: Fp2, mode: int, a: torch.Tensor,
-                    b: torch.Tensor) -> torch.Tensor:
-    """K5 wrapper: mul / add / sub of Fp2 tensors, or mul_base by a
-    base-field tensor b [..., N]; b broadcasts over a's element axes."""
-    name = route("fp2_elementwise", F2, a, b)
+def fp2_inv_plain(F2: Fp2, a: torch.Tensor) -> torch.Tensor:
+    """Plain version of K21 [fp256x2]: d = 1 / (re^2 + im^2) by the base
+    field's plain a^(p - 2), then (re d, -im d) (0 for 0)."""
+    F = F2.f
+    re, im = a[..., 0, :], a[..., 1, :]
+    d = inv_plain(F, elementwise_plain(
+        F, ADD, elementwise_plain(F, SQR, re, None),
+        elementwise_plain(F, SQR, im, None)))
+    return torch.stack([elementwise_plain(F, MUL, re, d),
+                        elementwise_plain(F, NEG, elementwise_plain(
+                            F, MUL, im, d), None)], dim=-2)
+
+
+def fp2_elementwise(F2: Fp2, mode: int, a: torch.Tensor, b: torch.Tensor,
+                    cond: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K5 wrapper: mul / add / sub / eq of Fp2 tensors, or mul_base by a
+    base-field tensor b [..., N]; b broadcasts over a's element axes.
+    sqr, neg and is_zero read a alone; select takes bool conditions
+    `cond` and broadcasts them with a and b."""
+    if mode not in _K5_MODES:
+        raise ValueError("K5 has no mode %d" % mode)
+    name = route("fp2_elementwise", F2,
+                 *[t for t in (a, b, cond) if t is not None])
     if name is None:
-        return fp2_elementwise_plain(F2, mode, a, b)
+        return fp2_elementwise_plain(F2, mode, a, b, cond)
     if mode == MUL_BASE:
         a, b, bdiv, bmod = broadcast_operands(a, b, F2.elt_shape,
                                               F2.f.elt_shape, False)
+        out, n = torch.empty_like(a), a.numel() // (2 * F2.nlimb)
     else:
-        a, b, bdiv, bmod = broadcast_operands(a, b, F2.elt_shape,
-                                              F2.elt_shape, mode != SUB)
-    out = torch.empty_like(a)
+        out, a, b, cond, n, bdiv, bmod = elementwise_operands(
+            mode, a, b, cond, F2.elt_shape)
     kernels.launch(name, 1, mode, out.data_ptr(), a.data_ptr(), b.data_ptr(),
-                   a.numel() // (2 * F2.nlimb), bdiv, bmod)
+                   0 if cond is None else cond.data_ptr(), n, bdiv, bmod)
     return out

@@ -16,12 +16,13 @@ identity, and the bytes of the words are the element's natural
 little-endian bytes.  Sums are XOR.
 
 Every tensor operation is a wrapper of fields/fp.py (K1 fp_elementwise,
-K2 fp_segment_sum, K3 fp_wire_round): for a CUDA tensor it launches the
-`[gf2_128]` instance, for a CPU tensor it runs the plain version below
-(`*_plain`, the same names as fields/fp.py's).  The plain product works
-in int64 over 16-bit halfwords with the JAX package's spaced-multiply
-carry-less product (gf2.py:290), over chunks of the element axis, so a
-layer of millions of terms builds no multi-GB temporaries.
+K2 fp_segment_sum, K3 fp_wire_round, K21 fp_inv): for a CUDA tensor it
+launches the `[gf2_128]` instance, for a CPU tensor it runs the plain
+version below (`*_plain`, the same names as fields/fp.py's).  The plain
+product works in int64 over 16-bit halfwords with the JAX package's
+spaced-multiply carry-less product (gf2.py:290), over chunks of the
+element axis, so a layer of millions of terms builds no multi-GB
+temporaries.
 """
 
 from __future__ import annotations
@@ -32,14 +33,17 @@ from typing import Optional, Sequence, Union
 import numpy as np
 import torch
 
-from .fp import (ADD, BIND, HV, MUL, SUB, _join16, _split16, fp_axis_sum,
+from .fp import (ADD, BIND, EQ, HV, IS_ZERO, MUL, NEG, SELECT, SQR, SUB,
+                 FieldOps, _join16, _split16, compare_plain, fp_axis_sum,
                  fp_elementwise, fp_segment_sum)
 
 MASK16 = 0xFFFF
 M128 = (1 << 128) - 1
 
-# elements per chunk of the plain product ([chunk, 8, 8] int64 temporaries)
-_CHUNK = 1 << 15
+# elements per chunk of the plain product ([chunk, 8, 8] int64 temporaries:
+# 16 MB on the CPU; 512 MB on the card, where a chunk's 30-odd small ops
+# cost launches rather than memory)
+_CHUNK = {"cpu": 1 << 15, "cuda": 1 << 20}
 
 
 def gf_mul_int(a: int, b: int) -> int:
@@ -60,8 +64,10 @@ def gf_mul_int(a: int, b: int) -> int:
     return r
 
 
-class GF2_128:
-    """GF(2^128) with the GF(2^16) subfield: host int and tensor ops."""
+class GF2_128(FieldOps):
+    """GF(2^128) with the GF(2^16) subfield: host int and tensor ops
+    (FieldOps: sqr, neg, mul_const, inv, eq, is_zero, select, the
+    natural bytes)."""
 
     kCharacteristicTwo = True
     kNPolyEvaluationPoints = 6
@@ -325,10 +331,35 @@ def mul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     shape = a.shape
     a2, b2 = a.reshape(-1, 4), b.reshape(-1, 4)
     out = torch.empty_like(a2)
-    for s in range(0, a2.shape[0], _CHUNK):
-        e = s + _CHUNK
+    chunk = _CHUNK.get(a2.device.type, 1 << 15)
+    for s in range(0, a2.shape[0], chunk):
+        e = s + chunk
         out[s:e] = _join16(_mul16(_split16(a2[s:e]), _split16(b2[s:e])))
     return out.reshape(shape)
+
+
+def sqr_plain(a: torch.Tensor) -> torch.Tensor:
+    """The square of int32 [..., 4] elements: each halfword's bits spread
+    to the even positions of 32 (squaring is linear over GF(2)), then the
+    fold, as the JAX package's GF2_128.sqr (gf2.py:361)."""
+    x = _split16(a)
+    for sh, m in ((8, 0x00FF00FF), (4, 0x0F0F0F0F), (2, 0x33333333),
+                  (1, 0x55555555)):
+        x = (x | (x << sh)) & m
+    T = torch.stack([x & MASK16, x >> 16], dim=-1).reshape(
+        x.shape[:-1] + (16,))
+    return _join16(_fold16(T))
+
+
+def inv_plain(F, a: torch.Tensor) -> torch.Tensor:
+    """Plain version of K21 [gf2_128]: a^(2^128 - 2) = a^2 a^4 ...
+    a^(2^127) (0 for 0)."""
+    base = sqr_plain(a)
+    r = base
+    for _ in range(126):
+        base = sqr_plain(base)
+        r = mul_plain(r, base)
+    return r
 
 
 def _one_like(r: torch.Tensor) -> torch.Tensor:
@@ -340,7 +371,14 @@ def _one_like(r: torch.Tensor) -> torch.Tensor:
 def elementwise_plain(F, mode: int, a: torch.Tensor, b: torch.Tensor,
                       h: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain version of K1[gf2_128]; any device.  In bind and hv b holds
-    one challenge per lane (lanes = b's elements), lane-major in a."""
+    one challenge per lane (lanes = b's elements), lane-major in a; in
+    select h holds the conditions (bool)."""
+    if mode in (EQ, IS_ZERO, SELECT):
+        return compare_plain(mode, a, b, h)
+    if mode == SQR:
+        return sqr_plain(a)
+    if mode == NEG:
+        return a.clone()
     if mode in (BIND, HV):
         nl = b.numel() // 4
         r = b.reshape(nl, 1, 4)

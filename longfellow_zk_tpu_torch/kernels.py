@@ -13,9 +13,10 @@ entry point) per field.  K9's mode 9 (CHOOSE) has entry points of its own,
 `fs_choose`, and so has K10's cubic mode (the copy rounds' tail),
 `sumcheck_round_tail_cubic`, so that their launches are counted apart:
 
-    K1 fp_elementwise  fp_ops.cu      P gf2_128      fields/fp.py
-    K2 fp_segment_sum  segsum.cu      P gf2_128      fields/fp.py
-    K3 fp_wire_round   wire_round.cu  P gf2_128      fields/fp.py
+    K1 fp_elementwise  fp_ops.cu      P gf2_128 fp24 fp64 p256n p256k1n
+                                                     fields/fp.py
+    K2 fp_segment_sum  segsum.cu      P gf2_128 fp24 fields/fp.py
+    K3 fp_wire_round   wire_round.cu  P gf2_128 fp24 fields/fp.py
     K4 fp_ntt          ntt.cu         fp128 fp256x2 crt
                                                      transforms/ntt.py
     K5 fp2_elementwise fp2_ops.cu     fp256x2        fields/fp2.py
@@ -41,18 +42,29 @@ entry point) per field.  K9's mode 9 (CHOOSE) has entry points of its own,
     K18 rfft_pass      rfft.cu        fp256x2        transforms/rfft.py
     K19 nb_butterfly   nussbaumer.cu  P              transforms/nussbaumer.py
     K20 nb_base_conv   nussbaumer.cu  P              transforms/nussbaumer.py
+    K21 fp_inv         inv.cu         P gf2_128 fp24 fp64 p256n p256k1n
+                                      fp256x2        fields/fp.py, gf2.py,
+                                                     fp2.py
+    K22 fp24x6_elementwise
+                       fp24x6.cu      fp24x6         fields/fp24.py
 
 (P: the prime fields fp128, fp256 and fp256k1.  fp128: p = 2^128 -
 2^108 + 1; fp256: the P-256 base field; fp256x2: Fp2 over it; fp256k1:
-the secp256k1 base field; crt: the multi-prime field of the CRT
-convolution, 32-bit residue lanes modulo the primes of csrc/mp.cuh;
-gf2_128: GF(2^128), csrc/gf2.cuh; bytes: K8 hashes bytes and knows no
-field.)  K1's bind and hv, K3, K9 (mode 9 too), K10 (its cubic mode
-too), K11 and K12 take a lane axis: the proofs of a batch (zk/batch.py) run in the
-launches of one proof.  A kernel's name here is
-"kernel[instance]".  `LAUNCHES` counts, per instance, the CUDA launches
-its wrapper made; a run sets the counts to zero with `reset_launches()`
-and reads them after.
+the secp256k1 base field; fp24: the ML-DSA prime 2^23 - 2^13 + 1, one
+word; fp24x6: its sextic extension Fp24_6; fp64: 2^64 - 2^32 + 1, two
+words; p256n and p256k1n: the P-256 and secp256k1 group orders; crt:
+the multi-prime field of the CRT convolution, 32-bit residue lanes
+modulo the primes of csrc/mp.cuh; gf2_128: GF(2^128), csrc/gf2.cuh;
+bytes: K8 hashes bytes and knows no field.)  K1's modes 5-9 (sqr, neg,
+eq, is_zero, select), K5's, K21 and K22 (Fp24_6's mul, sqr and inv; its
+per-coefficient ops are K1 [fp24] on the six words) are the field API
+that no proof path calls (the JAX package's tests drive it):
+chip_smoke.py's section 3l checks them on the card.  K1's bind and hv, K3, K9 (mode 9 too), K10
+(its cubic mode too), K11 and K12 take a lane axis: the proofs of a
+batch (zk/batch.py) run in the launches of one proof.  A kernel's name
+here is "kernel[instance]".  `LAUNCHES` counts, per instance, the CUDA
+launches its wrapper made; a run sets the counts to zero with
+`reset_launches()` and reads them after.
 """
 
 from __future__ import annotations
@@ -81,17 +93,18 @@ _LL = ctypes.c_longlong
 _SOURCES = {
     "fp_elementwise": ("fp_ops.cu", [_I, _P, _P, _P, _P, _LL, _LL, _LL, _LL,
                                      _P],
-                       ("fp128", "fp256", "fp256k1", "gf2_128")),
+                       ("fp128", "fp256", "fp256k1", "gf2_128", "fp24",
+                        "fp64", "p256n", "p256k1n")),
     "fp_segment_sum": ("segsum.cu", [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                      _P, _I, _P],
-                       ("fp128", "fp256", "fp256k1", "gf2_128")),
+                       ("fp128", "fp256", "fp256k1", "gf2_128", "fp24")),
     "fp_wire_round": ("wire_round.cu", [_I, _P, _P, _P, _P, _P, _P, _P, _LL,
                                         _LL, _LL, _LL, _I, _P],
-                      ("fp128", "fp256", "fp256k1", "gf2_128")),
+                      ("fp128", "fp256", "fp256k1", "gf2_128", "fp24")),
     "fp_ntt": ("ntt.cu", [_P, _P, _P, _LL, _I, _LL, _P],
                ("fp128", "fp256x2", "crt")),
-    "fp2_elementwise": ("fp2_ops.cu", [_I, _P, _P, _P, _LL, _LL, _LL, _P],
-                        ("fp256x2",)),
+    "fp2_elementwise": ("fp2_ops.cu", [_I, _P, _P, _P, _P, _LL, _LL, _LL,
+                                       _P], ("fp256x2",)),
     "gf2_lch14": ("lch14.cu", [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                _I, _I, _P], ("gf2_128",)),
     "fp_quad_bind": ("quad_bind.cu", [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -129,6 +142,11 @@ _SOURCES = {
                      ("fp128", "fp256", "fp256k1")),
     "nb_base_conv": ("nussbaumer.cu", [_P, _P, _P, _LL, _I, _LL, _I, _P],
                      ("fp128", "fp256", "fp256k1")),
+    "fp_inv": ("inv.cu", [_P, _P, _LL, _P],
+               ("fp24", "fp64", "fp128", "fp256", "fp256k1", "p256n",
+                "p256k1n", "gf2_128", "fp256x2")),
+    "fp24x6_elementwise": ("fp24x6.cu", [_I, _P, _P, _P, _LL, _LL, _LL, _P],
+                           ("fp24x6",)),
 }
 
 # "kernel[instance]" -> (source, C entry point, argtypes)

@@ -140,9 +140,9 @@ class LigeroProver:
         # row order [ildt, idot, iquad, iw.., iq..]
         self.tableau = torch.cat([enc_b[:, :1], enc_d, enc_b[:, 1:]], dim=1)
         # the leaves: H(nonce || natural little-endian bytes of the
-        # column), each element kBytes of its [4 N] bytes
+        # column), each element kBytes of its [4 N] bytes (a view)
         nat = F.from_mont(self.tableau[:, :, p.dblock :].contiguous())
-        cols = nat.view(torch.uint8)[..., : F.kBytes].transpose(1, 2)
+        cols = F.natural_limbs_to_bytes_dev(nat).transpose(1, 2)
         nonce_t = torch.frombuffer(
             bytearray(b"".join(n for prep in preps for n in prep[2])),
             dtype=torch.uint8).to(dev)

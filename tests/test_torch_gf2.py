@@ -115,6 +115,38 @@ def test_add_mul_match_jax():
     assert torch.equal(F.from_mont(pa), pa)
 
 
+def test_field_api_matches_jax():
+    """Twin of tests/test_fields.py:146-170 over the whole device API of
+    GF2_128 (fields/gf2.py:286 neg, :358 mul_const, :361 sqr, :378 inv,
+    batch_inverse, :392-398 eq, is_zero, select, :260
+    natural_limbs_to_bytes_dev): the port's plain versions against the
+    JAX device functions, and the inverse against the host product."""
+    J, F = jax_gf2(), gf2_128()
+    rng = np.random.default_rng(12)
+    xs = [0, 1, (1 << 128) - 1] + _ints(rng, 29)
+    ys = [1, (1 << 128) - 1, 0] + _ints(rng, 29)
+    ys[3::3] = xs[3::3]
+    ja, jb = jnp.asarray(J.to_limbs(xs)), jnp.asarray(J.to_limbs(ys))
+    pa, pb = gf2_from_jax(np.asarray(ja)), gf2_from_jax(np.asarray(jb))
+    cond = rng.random(32) < 0.5
+    c = 0x1234_5678_9ABC_DEF0_0FED_CBA9_8765_4321
+    for got, want in ((F.sqr(pa), J.sqr(ja)), (F.neg(pa), J.neg(ja)),
+                      (F.mul_const(pa, c), J.mul_const(ja, c)),
+                      (F.select(torch.as_tensor(cond), pa, pb),
+                       J.select(jnp.asarray(cond), ja, jb))):
+        assert np.array_equal(gf2_to_jax(got), np.asarray(want))
+    assert np.array_equal(F.eq(pa, pb).numpy(), np.asarray(J.eq(ja, jb)))
+    assert np.array_equal(F.is_zero(pa).numpy(), np.asarray(J.is_zero(ja)))
+    assert np.array_equal(F.natural_limbs_to_bytes_dev(F.from_mont(pa)),
+                          np.asarray(J.natural_limbs_to_bytes_dev(ja)))
+    # the inverse: the JAX scan once, on 16 elements, 0 among them
+    iv = F.inv(pa[:16])
+    assert np.array_equal(gf2_to_jax(iv), np.asarray(J.inv(ja[:, :16])))
+    assert type(F).batch_inverse is type(F).inv
+    assert [J.mul_i(int(v), x) for v, x in zip(F.from_limbs(iv), xs)] == \
+        [0] + [1] * 15
+
+
 def test_sums_match_jax():
     J, F = jax_gf2(), gf2_128()
     rng = np.random.default_rng(3)

@@ -48,7 +48,7 @@ for mod in ("fields.fp2", "ec.curves", "circuits.ecdsa.verify",
             "fields.multiprime", "transforms.crt_conv",
             "circuits.bitaddr.bitaddr", "circuits.ripemd.witness",
             "circuits.ecdsa.pk", "arrays.dense", "transforms.matmul_ntt",
-            "transforms.rfft", "transforms.nussbaumer"):
+            "transforms.rfft", "transforms.nussbaumer", "fields.fp24"):
     assert pkg.__name__ + "." + mod in names, mod
 from longfellow_zk_tpu_torch.fields.fp_instances import (
     fp128, p256_base, p256k1_base, P128_OMEGA, P128_OMEGA_ORDER, P256_FP2_ROOT_X,
@@ -70,6 +70,7 @@ from longfellow_zk_tpu_torch.transforms.rfft import (
     RFFT, RFFTExtConvolution, make_rfft_ext_convolution_factory)
 from longfellow_zk_tpu_torch.transforms.nussbaumer import (
     NussbaumerConvolution, make_nussbaumer_convolution_factory)
+from longfellow_zk_tpu_torch.fields.fp24 import Fp24_6, fp24
 OMEGA2 = (P256_FP2_ROOT_X, P256_FP2_ROOT_Y)
 for make in (lambda: SumcheckProver(fp128()),
              lambda: SumcheckProver(gf2_128()),
@@ -107,7 +108,9 @@ for make in (lambda: SumcheckProver(fp128()),
              lambda: make_nussbaumer_convolution_factory(p256k1_base()),
              lambda: rs_factory_with(p256k1_base(),
                                      make_nussbaumer_convolution_factory(
-                                         p256k1_base(), "cpu"))):
+                                         p256k1_base(), "cpu")),
+             lambda: Fp24_6(fp24()).zeros((4,)),
+             lambda: Fp24_6(fp24()).to_limbs([(1, 2, 3, 4, 5, 6)])):
     try:
         make()
     except RuntimeError as e:

@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (K1-K20, every instance) against their plain
+"""The port's CUDA kernels (K1-K22, every instance) against their plain
 PyTorch versions, on the card.  Field arithmetic, hashing and the
 Fiat-Shamir states are exact: equality, tolerance 0.
 
@@ -15,10 +15,12 @@ import torch
 from longfellow_zk_tpu_torch import kernels
 from longfellow_zk_tpu_torch.fields import fp as fpm
 from longfellow_zk_tpu_torch.fields.fp2 import (
-    MUL_BASE, Fp2, fp2_elementwise, fp2_elementwise_plain)
+    MUL_BASE, Fp2, fp2_elementwise, fp2_elementwise_plain, fp2_inv_plain)
 from longfellow_zk_tpu_torch.fields.fp_instances import (
     P128_OMEGA, P128_OMEGA_ORDER, P256_FP2_ROOT_ORDER, P256_FP2_ROOT_X,
-    P256_FP2_ROOT_Y, fp128, p256_base, p256k1_base)
+    P256_FP2_ROOT_Y, fp64, fp128, p256_base, p256_scalar, p256k1_base,
+    p256k1_scalar)
+from longfellow_zk_tpu_torch.fields import fp24 as f24m
 from longfellow_zk_tpu_torch.fields.gf2 import gf2_128
 from longfellow_zk_tpu_torch.fields import multiprime as mpm
 from longfellow_zk_tpu_torch.merkle.merkle_dev import merkle_heap
@@ -683,3 +685,152 @@ def test_nussbaumer_cyclic_on_the_card(dev, field):
     x = _elts(F, rng, 2 * 4096, dev).reshape(2, 4096, F.nlimb)
     y = _elts(F, rng, 4096, dev)
     _same(nbm.cyclic(F, x, y), nbm.cyclic(F, x.cpu(), y.cpu()))
+
+
+# the field API no proof path calls (K1 modes 5-9, K5's, K21, K22) and
+# the instances it adds
+API_FIELDS = dict(FIELDS, fp24=f24m.fp24, fp64=fp64, p256n=p256_scalar,
+                  p256k1n=p256k1_scalar)
+API_MODES = [fpm.MUL, fpm.ADD, fpm.SUB, fpm.SQR, fpm.NEG, fpm.EQ,
+             fpm.IS_ZERO, fpm.SELECT]
+
+
+def _api_operands(make, rng, n, dev):
+    """a, b (equal to a at every third element, zero at a few) and bool
+    conditions, n elements from make(rng, n, dev)."""
+    a, b = make(rng, n, dev), make(rng, n, dev)
+    b[::3] = a[::3]
+    a[5:9] = 0
+    b[7:9] = 0
+    cond = torch.as_tensor(rng.random(n) < 0.5, device=dev)
+    return a, b, cond
+
+
+@pytest.mark.parametrize("field", list(API_FIELDS))
+@pytest.mark.parametrize("mode", API_MODES)
+def test_k1_field_api(dev, mode, field):
+    F, rng = API_FIELDS[field](), np.random.default_rng(31)
+    P = fpm.plain_of(F)
+    a, b, cond = _api_operands(lambda r, n, d: _elts(F, r, n, d), rng,
+                               4000, dev)
+    _same(fpm.fp_elementwise(F, mode, a, b, cond),
+          P.elementwise_plain(F, mode, a, b, cond))
+    # broadcast: b a row over [rows, n], the conditions a column
+    m, row = a.reshape(40, 100, F.nlimb), b[:100]
+    c2 = cond[:40].reshape(40, 1)
+    _same(fpm.fp_elementwise(F, mode, m, row, c2),
+          P.elementwise_plain(F, mode, m, row, c2))
+    if mode == fpm.MUL:
+        _same(F.mul_const(a, 123456789), P.elementwise_plain(
+            F, fpm.MUL, a, F.to_limbs(123456789, dev)))
+
+
+@pytest.mark.parametrize("field", list(API_FIELDS) + ["fp256x2"])
+def test_k21_inv(dev, field):
+    rng = np.random.default_rng(32)
+    if field == "fp256x2":
+        F = Fp2(p256_base())
+        a = _elts2(F, rng, 300, dev)
+        a[3] = 0
+        want = fp2_inv_plain(F, a)
+        one = F.to_limbs((1, 0), dev)
+    else:
+        F = API_FIELDS[field]()
+        a = _elts(F, rng, 300, dev)
+        want = fpm.plain_of(F).inv_plain(F, a)
+        one = F.to_limbs(1, dev)
+    got = F.inv(a)
+    _same(got, want)
+    _same(F.batch_inverse(a), want)
+    nz = ~F.is_zero(a)
+    assert bool(F.is_zero(got[~nz]).all())
+    assert bool(F.eq(F.mul(got[nz], a[nz]), one).all())
+
+
+@pytest.mark.parametrize("mode", [fpm.SQR, fpm.NEG, fpm.EQ, fpm.IS_ZERO,
+                                  fpm.SELECT])
+def test_k5_field_api(dev, mode):
+    F2, rng = Fp2(p256_base()), np.random.default_rng(33)
+    a, b, cond = _api_operands(lambda r, n, d: _elts2(F2, r, n, d), rng,
+                               3000, dev)
+    _same(fp2_elementwise(F2, mode, a, b, cond),
+          fp2_elementwise_plain(F2, mode, a, b, cond))
+    m, row = a.reshape(30, 100, 2, F2.nlimb), b[:100]
+    c2 = cond[:30].reshape(30, 1)
+    _same(fp2_elementwise(F2, mode, m, row, c2),
+          fp2_elementwise_plain(F2, mode, m, row, c2))
+
+
+def _elts6(F6, rng, n, dev):
+    return _elts(F6.f, rng, 6 * n, dev).reshape(n, 6, 1)
+
+
+def _fp24x6_op(F6, mode, a, b, cond):
+    """Fp24_6's op in `mode` through its API."""
+    return {fpm.MUL: lambda: F6.mul(a, b), fpm.ADD: lambda: F6.add(a, b),
+            fpm.SUB: lambda: F6.sub(a, b), fpm.SQR: lambda: F6.sqr(a),
+            fpm.NEG: lambda: F6.neg(a), fpm.EQ: lambda: F6.eq(a, b),
+            fpm.IS_ZERO: lambda: F6.is_zero(a),
+            fpm.SELECT: lambda: F6.select(cond, a, b),
+            fpm.INV: lambda: F6.inv(a)}[mode]()
+
+
+@pytest.mark.parametrize("mode", API_MODES + [fpm.INV])
+def test_k22_fp24x6(dev, mode):
+    """Fp24_6's ops on the card: mul, sqr and inv by K22 against its plain
+    version, the per-coefficient ops (K1 [fp24] on the six words) against
+    the same call on the CPU."""
+    F6, rng = f24m.Fp24_6(f24m.fp24()), np.random.default_rng(34)
+    n = 200 if mode == fpm.INV else 3000
+    a, b, cond = _api_operands(lambda r, k, d: _elts6(F6, r, k, d), rng, n,
+                               dev)
+    cases = [(a, b, cond)]
+    if mode != fpm.INV:
+        cases.append((a.reshape(30, 100, 6, 1), b[:100],
+                      cond[:30].reshape(30, 1)))
+    for x, y, c in cases:
+        got = _fp24x6_op(F6, mode, x, y, c)
+        if mode in (fpm.MUL, fpm.SQR, fpm.INV):
+            want = f24m.fp24x6_elementwise_plain(F6, mode, x, y)
+        else:
+            want = _fp24x6_op(F6, mode, x.cpu(), y.cpu(), c.cpu())
+        _same(got, want)
+
+
+def test_k2_k3_fp24(dev):
+    """K2 and K3 [fp24]: sums that pass 2p (R = 2^32, p < 2^23) and
+    Fp24_6.lazy_sum."""
+    F, rng = f24m.fp24(), np.random.default_rng(35)
+    x = _elts(F, rng, 20000, dev)
+    x[:5000] = F.to_limbs(F.p - 1, dev)
+    s, e = _segments(rng, 3000, 20000, dev)
+    _same(F.lazy_segment_sum(x, s, e), fpm.segment_sum_plain(F, x, s, e))
+    for t in (x, x.reshape(20, 1000, 1)):
+        for dim in range(t.dim() - 1):
+            _same(F.lazy_sum(t, dim), fpm.axis_sum_plain(F, t, dim))
+    F6 = f24m.Fp24_6(F)
+    x6 = x[:6000].reshape(1000, 6, 1)
+    _same(F6.lazy_sum(x6, 0), fpm.axis_sum_plain(F, x6, 0))
+
+
+def test_no_kernel_raises(dev):
+    """A CUDA tensor of a field or mode that has no kernel raises; nothing
+    falls back to a plain version."""
+    F = fpm.PrimeField((1 << 61) - 1, "M61")  # no instance
+    a = F.to_limbs([1, 2, 3], dev)
+    F2 = Fp2(fp128())  # Fp2 has an instance over P-256 only
+    a2 = F2.to_limbs([(1, 2)], dev)
+    F6 = f24m.Fp24_6(f24m.fp24(), beta=3)  # K22 is compiled for beta 7
+    a6 = F6.to_limbs([(1, 2, 3, 4, 5, 6)], dev)
+    for call in (lambda: F.mul(a, a), lambda: F.sqr(a), lambda: F.inv(a),
+                 lambda: F.eq(a, a), lambda: F.lazy_sum(a, 0),
+                 lambda: F2.inv(a2), lambda: F2.sqr(a2),
+                 lambda: F6.mul(a6, a6), lambda: F6.inv(a6)):
+        with pytest.raises(NotImplementedError):
+            call()
+    G = fp128()
+    g = G.to_limbs([1, 2], dev)
+    with pytest.raises(ValueError):
+        fpm.fp_elementwise(G, 11, g, g)
+    with pytest.raises(ValueError):
+        fp2_elementwise(Fp2(p256_base()), fpm.HV, a2, a2)
