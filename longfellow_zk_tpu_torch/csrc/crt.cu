@@ -1,11 +1,22 @@
 // The CRT convolution's conversions and its per-lane products: the
 // Reed-Solomon code of a prime field without a large 2-adic root of unity
-// (secp256k1's base field) runs its NTTs over VS 32-bit primes (K4 [crt],
-// ntt.cu) between these kernels.  The residues are one Montgomery word
-// each (R = 2^32), lane-major [VS, n] (mp.cuh); the target field's
-// elements Fp<C> as everywhere (fp.cuh).
+// runs its NTTs over VS 32-bit primes (K4 [crt], ntt.cu) between these
+// kernels.  K13 and K15 have an instance for each such field, with the
+// basis size of fields/multiprime.py basis_size_for compiled in:
 //
-//   K13 crt_to[fp256k1]     x [n] (Montgomery, target field) -> its
+//   fp256k1  the secp256k1 base field   VS = 18  (the bitaddr proof)
+//   p256n    the P-256 group order      VS = 18
+//   fp256    the P-256 base field       VS = 18  (its NTT route runs over
+//            Fp2; the CRT route gives the same code, checked on the ECDSA
+//            proof)
+//   p384     the P-384 base field       VS = 26
+//   p521     the P-521 base field       VS = 35
+//
+// The residues are one Montgomery word each (R = 2^32), lane-major
+// [VS, n] (mp.cuh); the target field's elements Fp<C> as everywhere
+// (fp.cuh).  K14 and K4 [crt] take any VS up to MP_MAX.
+//
+//   K13 crt_to[<field>]     x [n] (Montgomery, target field) -> its
 //       residues [VS, n]: the natural words w_i of x (one Montgomery
 //       product by 1), then per lane sum_i mont(w_i, C_i,b) with
 //       C_i,b = 2^(32 i) * 2^64 mod p_b, which is w_i 2^(32 i) 2^32 mod p_b.
@@ -18,22 +29,25 @@
 //       the rows without being materialised.  Replaces
 //       fields/multiprime.py:233 MultiPrimeField.mul, :211 add, :220 sub
 //       (:201 _cond_sub_p inside them).
-//   K15 crt_from[fp256k1]   residues [VS, n] (Montgomery) -> x [n]: the
+//   K15 crt_from[<field>]   residues [VS, n] (Montgomery) -> x [n]: the
 //       natural residues (a product by 1), Garner's mixed-radix digits
 //       (v_i <- (v_i - v_{j-1}) * p_{j-1}^-1 mod p_i for i >= j, in
-//       registers, VS (VS - 1) / 2 = 153 products at VS = 18), then
+//       registers, VS (VS - 1) / 2 products: 153 at VS = 18, 325 at 26,
+//       595 at 35; the triangle is unrolled whole), then
 //       x = sum_j v_j * (prod_{k<j} p_k) in the target field: VS
 //       Montgomery products by G_j = (prod_{k<j} p_k) R^2 mod p.
 //       Replaces transforms/crt_conv.py:101 CRTContext.from_crt.
 //
-// Bound on the H100: bytes for K13 and K14 (K13 reads 32 bytes and writes
-// 72 an element for 144 one-word products and one reduction; K14 moves 12
-// bytes a product), operations for K15: 171 one-word products (the
-// natural residues and Garner) and the dot at its least, 18 digits times
-// 8-word constants summed before one reduction, 558 multiplies in all on
-// 104 bytes.  This K15 spends a full 8-word product on each term of the
-// dot instead (about 2,300 multiplies), several times its bound: a lazy
-// dot is the next step.  Design:
+// Bound on the H100: bytes for K13 and K14 (at secp256k1 K13 reads 32
+// bytes and writes 72 an element for 144 one-word products and one
+// reduction; K14 moves 12 bytes a product), operations for K15: VS +
+// VS (VS - 1) / 2 one-word products (the natural residues and Garner) and
+// the dot at its least, VS digits times N-word constants summed before
+// one reduction (at secp256k1 171 products and 558 multiplies in all on
+// 104 bytes; at P-521, 630 products and 2,161 multiplies on 208 bytes).
+// This K15 spends a full N-word product on each term of the dot instead
+// (about 2,300 multiplies at 8 words, 20,000 at 17), several times its
+// bound: a lazy dot is the next step.  Design:
 // one thread an element; K15 keeps its VS digits in registers (VS is a
 // template parameter, its loops unrolled), the lane constants come from
 // the __constant__ table of mp.cuh, the per-basis tables (C_i,b, the
@@ -41,10 +55,6 @@
 // alike.
 #include "fp.cuh"
 #include "mp.cuh"
-
-// The residue count of a basis for a 256-bit field
-// (fields/multiprime.py basis_size_for(256)).
-#define VS256 18
 
 template <class C, int VS>
 __global__ void k_crt_to(uint32_t* __restrict__ out,
@@ -118,13 +128,25 @@ static unsigned blocks_of(long long n, int threads) {
   return (unsigned)((n + threads - 1) / threads);
 }
 
-extern "C" int crt_to_fp256k1(void* out, const void* x, const void* ci,
-                              long long n, int vs, void* stream) {
-  if (vs != VS256) return (int)cudaErrorInvalidValue;
+// n elements of x to their vs residues; vs must be the instance's VS.
+template <class C, int VS>
+static int crt_to(void* out, const void* x, const void* ci, long long n,
+                  int vs, void* stream) {
+  if (vs != VS) return (int)cudaErrorInvalidValue;
   if (n <= 0) return 0;
-  k_crt_to<P256K1, VS256><<<blocks_of(n, 256), 256, 0,
-                            (cudaStream_t)stream>>>(
+  k_crt_to<C, VS><<<blocks_of(n, 256), 256, 0, (cudaStream_t)stream>>>(
       (uint32_t*)out, (const uint4*)x, (const uint32_t*)ci, n);
+  return (int)cudaGetLastError();
+}
+
+template <class C, int VS>
+static int crt_from(void* out, const void* z, const void* gar, const void* g,
+                    long long n, int vs, void* stream) {
+  if (vs != VS) return (int)cudaErrorInvalidValue;
+  if (n <= 0) return 0;
+  k_crt_from<C, VS><<<blocks_of(n, 128), 128, 0, (cudaStream_t)stream>>>(
+      (uint4*)out, (const uint32_t*)z, (const uint32_t*)gar,
+      (const uint4*)g, n);
   return (int)cudaGetLastError();
 }
 
@@ -140,14 +162,19 @@ extern "C" int mp_elementwise_crt(int mode, void* out, const void* a,
   return (int)cudaGetLastError();
 }
 
-extern "C" int crt_from_fp256k1(void* out, const void* z, const void* gar,
-                                const void* g, long long n, int vs,
-                                void* stream) {
-  if (vs != VS256) return (int)cudaErrorInvalidValue;
-  if (n <= 0) return 0;
-  k_crt_from<P256K1, VS256><<<blocks_of(n, 128), 128, 0,
-                              (cudaStream_t)stream>>>(
-      (uint4*)out, (const uint32_t*)z, (const uint32_t*)gar,
-      (const uint4*)g, n);
-  return (int)cudaGetLastError();
-}
+// tag, the target field, its basis size (basis_size_for(bits of p))
+#define LFZK_CRT(tag, C, VS)                                                \
+  extern "C" int crt_to_##tag(void* out, const void* x, const void* ci,    \
+                              long long n, int vs, void* stream) {         \
+    return crt_to<C, VS>(out, x, ci, n, vs, stream);                       \
+  }                                                                         \
+  extern "C" int crt_from_##tag(void* out, const void* z, const void* gar, \
+                                const void* g, long long n, int vs,        \
+                                void* stream) {                            \
+    return crt_from<C, VS>(out, z, gar, g, n, vs, stream);                 \
+  }
+LFZK_CRT(fp256k1, P256K1, 18)
+LFZK_CRT(p256n, P256N, 18)
+LFZK_CRT(fp256, P256, 18)
+LFZK_CRT(p384, P384, 26)
+LFZK_CRT(p521, P521, 35)

@@ -11,13 +11,17 @@
 //   FP64  p = 2^64 - 2^32 + 1                      N = 2 (Goldilocks)
 //   P256N   the P-256 group order                  N = 8
 //   P256K1N the secp256k1 group order              N = 8
+//   P384  p = 2^384 - 2^128 - 2^96 + 2^32 - 1      N = 12, n0inv = 1
+//   P521  p = 2^521 - 1                            N = 17, n0inv = 1
 //
 // An element Fp<C> is C::N little-endian 32-bit limbs (C::N / 4 uint4
-// vectors, 16 or 32 bytes; one uint2 at N = 2, one word at N = 1), in
-// Montgomery form with R = 2^(32 N), and every function here returns it
-// canonical (< p).  R is also the JAX package's R (2N 16-bit limbs), so
-// both hold the same integers; only n0inv differs: mod 2^32 here, mod
-// 2^16 there.  The multiply is plain CIOS with 64-bit products and
+// vectors, 16, 32 or 48 bytes; one uint2 at N = 2, one word at N = 1,
+// and 17 words read and written one by one at N = 17: 68 bytes are no
+// whole number of uint4s), in Montgomery form with R = 2^(32 N), and
+// every function here returns it canonical (< p).  Up to N = 12, R is
+// also the JAX package's R (2N 16-bit limbs), so both hold the same
+// integers; only n0inv differs: mod 2^32 here, mod 2^16 there.  At P-521
+// the JAX package's R is 2^528 (33 limbs; fields/bridge.py converts).  The multiply is plain CIOS with 64-bit products and
 // carries; it uses no special form of p.
 //
 // P-256's p exceeds 2^255, so a + b and the CIOS result can carry out of
@@ -29,8 +33,8 @@
 // sum below 2p, a CIOS sum below (a b + m p) / R < 2p for a < R, b < p).
 // Only fp_reduce_acc starts from a value that is merely below R, which
 // is below 2p only where p > R / 2 (every prime above but FP24, whose p
-// lies below 2^23 with R = 2^32: C::SMALL marks it, and that sum is
-// reduced by a product instead).
+// lies below 2^23 with R = 2^32, and P521, p < 2^521 with R = 2^544:
+// C::SMALL marks them, and that sum is reduced by a product instead).
 //
 // Sums are exact: each 32-bit limb is added into a 64-bit accumulator
 // (fewer than 2^31 addends, so no accumulator overflows) and the N
@@ -193,15 +197,79 @@ struct P256K1N {
   }
 };
 
+// the NIST P-384 base field
+struct P384 {
+  static constexpr int N = 12;
+  static constexpr uint32_t N0INV = 0x00000001u;  // p = -1 mod 2^32
+  static constexpr bool SMALL = false;
+  __device__ static __forceinline__ uint32_t p(int j) {
+    const uint32_t v[12] = {0xFFFFFFFFu, 0x00000000u, 0x00000000u,
+                            0xFFFFFFFFu, 0xFFFFFFFEu, 0xFFFFFFFFu,
+                            0xFFFFFFFFu, 0xFFFFFFFFu, 0xFFFFFFFFu,
+                            0xFFFFFFFFu, 0xFFFFFFFFu, 0xFFFFFFFFu};
+    return v[j];
+  }
+  __device__ static __forceinline__ uint32_t one(int j) {  // R mod p
+    const uint32_t v[12] = {0x00000001u, 0xFFFFFFFFu, 0xFFFFFFFFu,
+                            0x00000000u, 0x00000001u, 0x00000000u,
+                            0x00000000u, 0x00000000u, 0x00000000u,
+                            0x00000000u, 0x00000000u, 0x00000000u};
+    return v[j];
+  }
+  __device__ static __forceinline__ uint32_t r2(int j) {  // R^2 mod p
+    const uint32_t v[12] = {0x00000001u, 0xFFFFFFFEu, 0x00000000u,
+                            0x00000002u, 0x00000000u, 0xFFFFFFFEu,
+                            0x00000000u, 0x00000002u, 0x00000001u,
+                            0x00000000u, 0x00000000u, 0x00000000u};
+    return v[j];
+  }
+};
+
+// the NIST P-521 base field: p < R / 2 (R = 2^544), so fp_reduce_acc
+// reduces its low part by a product
+struct P521 {
+  static constexpr int N = 17;
+  static constexpr uint32_t N0INV = 0x00000001u;  // p = -1 mod 2^32
+  static constexpr bool SMALL = true;
+  __device__ static __forceinline__ uint32_t p(int j) {
+    const uint32_t v[17] = {0xFFFFFFFFu, 0xFFFFFFFFu, 0xFFFFFFFFu,
+                            0xFFFFFFFFu, 0xFFFFFFFFu, 0xFFFFFFFFu,
+                            0xFFFFFFFFu, 0xFFFFFFFFu, 0xFFFFFFFFu,
+                            0xFFFFFFFFu, 0xFFFFFFFFu, 0xFFFFFFFFu,
+                            0xFFFFFFFFu, 0xFFFFFFFFu, 0xFFFFFFFFu,
+                            0xFFFFFFFFu, 0x000001FFu};
+    return v[j];
+  }
+  __device__ static __forceinline__ uint32_t one(int j) {  // R mod p
+    const uint32_t v[17] = {0x00800000u, 0x00000000u, 0x00000000u,
+                            0x00000000u, 0x00000000u, 0x00000000u,
+                            0x00000000u, 0x00000000u, 0x00000000u,
+                            0x00000000u, 0x00000000u, 0x00000000u,
+                            0x00000000u, 0x00000000u, 0x00000000u,
+                            0x00000000u, 0x00000000u};
+    return v[j];
+  }
+  __device__ static __forceinline__ uint32_t r2(int j) {  // R^2 mod p
+    const uint32_t v[17] = {0x00000000u, 0x00004000u, 0x00000000u,
+                            0x00000000u, 0x00000000u, 0x00000000u,
+                            0x00000000u, 0x00000000u, 0x00000000u,
+                            0x00000000u, 0x00000000u, 0x00000000u,
+                            0x00000000u, 0x00000000u, 0x00000000u,
+                            0x00000000u, 0x00000000u};
+    return v[j];
+  }
+};
+
 template <class C>
 struct Fp {
-  static_assert(C::N == 1 || C::N == 2 || C::N % 4 == 0,
-                "an element is one word, a uint2 or uint4 vectors");
+  static_assert(C::N == 1 || C::N == 2 || C::N % 4 == 0 || C::N == 17,
+                "an element is one word, a uint2, uint4 vectors or 17 "
+                "words");
   static constexpr int V = C::N / 4;  // uint4 vectors per element
   uint32_t l[C::N];
 
   // Element i of an array of them (the pointer's type names the array,
-  // not the element: one word or a uint2 where N < 4).
+  // not the element: one word or a uint2 where N < 4, words at N = 17).
   __device__ static __forceinline__ Fp load(const uint4* a, long long i) {
     Fp r;
     if constexpr (C::N == 1) {
@@ -210,6 +278,10 @@ struct Fp {
       uint2 v = ((const uint2*)a)[i];
       r.l[0] = v.x;
       r.l[1] = v.y;
+    } else if constexpr (C::N % 4 != 0) {
+      const uint32_t* w = (const uint32_t*)a + i * C::N;
+#pragma unroll
+      for (int j = 0; j < C::N; j++) r.l[j] = w[j];
     } else {
 #pragma unroll
       for (int k = 0; k < V; k++) {
@@ -228,6 +300,10 @@ struct Fp {
       ((uint32_t*)a)[i] = l[0];
     } else if constexpr (C::N == 2) {
       ((uint2*)a)[i] = make_uint2(l[0], l[1]);
+    } else if constexpr (C::N % 4 != 0) {
+      uint32_t* w = (uint32_t*)a + i * C::N;
+#pragma unroll
+      for (int j = 0; j < C::N; j++) w[j] = l[j];
     } else {
 #pragma unroll
       for (int k = 0; k < V; k++)

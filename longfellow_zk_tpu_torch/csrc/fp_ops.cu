@@ -1,7 +1,7 @@
 // K1 fp_elementwise: field elementwise ops, one element per thread, with an
 // instance for each prime field of fp.cuh (Fp128, the P-256 and secp256k1
 // base fields, the ML-DSA prime, Goldilocks, the P-256 and secp256k1 group
-// orders) and one for GF(2^128) (gf2.cuh: add = sub = XOR, neg the
+// orders, the P-384 and P-521 base fields) and one for GF(2^128) (gf2.cuh: add = sub = XOR, neg the
 // identity, 1 - r = 1 ^ r, the square by spread and fold).
 //
 // Replaces the JAX package's limb-unrolled field ops inside its jitted
@@ -22,7 +22,8 @@
 // balance of about 5 multiplies per byte, so the design only keeps the
 // traffic minimal: uint4 loads and stores (one or two per element; one
 // word or a uint2 for the one- and two-word fields), neighbouring threads
-// on neighbouring elements.  The second operand may be broadcast by index
+// on neighbouring elements (P-384: three uint4s; P-521: 17 words, no
+// whole number of uint4s).  The second operand may be broadcast by index
 // arithmetic (i / bdiv) % bmod instead of being materialised.  The
 // GF(2^128) product of gf2.cuh spends about 2,000 32-bit operations on 48
 // bytes, so that instance is bound by its own operations: no instruction
@@ -142,6 +143,12 @@ extern "C" int fp_elementwise_p256n(LFZK_ARGS) {
 extern "C" int fp_elementwise_p256k1n(LFZK_ARGS) {
   return fp_elementwise<P256K1N>(mode, out, a, b, h, n, row, bdiv, bmod,
                                  stream);
+}
+extern "C" int fp_elementwise_p384(LFZK_ARGS) {
+  return fp_elementwise<P384>(mode, out, a, b, h, n, row, bdiv, bmod, stream);
+}
+extern "C" int fp_elementwise_p521(LFZK_ARGS) {
+  return fp_elementwise<P521>(mode, out, a, b, h, n, row, bdiv, bmod, stream);
 }
 extern "C" int fp_elementwise_gf2_128(LFZK_ARGS) {
   return fp_elementwise<G128>(mode, out, a, b, h, n, row, bdiv, bmod, stream);

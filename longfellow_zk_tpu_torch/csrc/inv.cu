@@ -21,10 +21,10 @@
 // Bound on the H100: operations.  A prime-field inverse is about 1.5
 // log2 p products of 2 N^2 32-bit multiplies each (382 products, 49,000
 // multiplies, for P-256) on 8 N bytes of traffic.  The design keeps it
-// simple: one element a thread, the exponent's words unrolled and its
-// bits looped (so the code holds N squares and N products, not 256), no
-// shared memory.  A windowed exponent, or an addition chain, would save
-// a third of the products.
+// simple: one element a thread, the exponent's words unrolled (up to 8
+// words; at 12 and 17 looped too) and its bits looped (so the code holds
+// N squares and N products, not 256), no shared memory.  A windowed
+// exponent, or an addition chain, would save a third of the products.
 #include "gf2.cuh"
 
 template <class C>
@@ -38,7 +38,10 @@ __device__ __forceinline__ Fp<C> fp_inv(const Fp<C>& a) {
     borrow = (uint32_t)(s >> 63);
   }
   Fp<C> r = fp_one<C>();
-#pragma unroll
+  // the word loop is unrolled up to 8 words; at 12 and 17 it is not (17
+  // copies of a 17-word square and product took ptxas over a minute), so
+  // e is indexed at run time there
+#pragma unroll(C::N <= 8 ? C::N : 1)
   for (int w = C::N - 1; w >= 0; w--) {
     const uint32_t ew = e[w];
 #pragma unroll 1
@@ -108,5 +111,7 @@ LFZK_INV(fp256, k_fp_inv, P256)
 LFZK_INV(fp256k1, k_fp_inv, P256K1)
 LFZK_INV(p256n, k_fp_inv, P256N)
 LFZK_INV(p256k1n, k_fp_inv, P256K1N)
+LFZK_INV(p384, k_fp_inv, P384)
+LFZK_INV(p521, k_fp_inv, P521)
 LFZK_INV(gf2_128, k_fp_inv, G128)
 LFZK_INV(fp256x2, k_fp2_inv, P256)

@@ -1,6 +1,7 @@
 // K19 nb_butterfly and K20 nb_base_conv: the two kernels of the Nussbaumer
-// convolution over a prime field (transforms/nussbaumer.py), one instance
-// per field (Fp128, P-256, secp256k1).
+// convolution (transforms/nussbaumer.py), one instance per field: the
+// prime fields Fp128, P-256 and secp256k1, and Fp2 over the P-256 base
+// field (fp256x2: an element (re, im), 64 bytes, re first).
 //
 // K19 replaces one level of the JAX package's block-axis FFT
 // (longfellow_zk_tpu/transforms/nussbaumer.py:95 _apply_rot with the
@@ -21,19 +22,32 @@
 // negated where k < j for the negacyclic product, n <= 32, batched over
 // rows; y has x's rows or fewer (row row % yrows: its leading axes were
 // broadcast).  One thread an output element, a product and a sum (or
-// difference) a term, reduced every term.
+// difference) a term, reduced every term.  Over Fp2 (k_nb_base_conv2,
+// i^2 = -1) a term is four base products, (a.re b.re - a.im b.im) +
+// (a.re b.im + a.im b.re) i, negated on the wrap: each enters its part's
+// 64-bit limb accumulators (fp_acc) as a canonical value, a subtracted
+// one as p - x (fp_neg), so 2n addends a part stay far below 2^63 a limb,
+// and each part is reduced once at the end (fp_reduce_acc).
 //
 // Bounds on the H100: K19 by bytes (a read and a write of A, an add and a
 // sub an element); K20 by operations (n products of 2 N^2 32-bit multiplies
-// an output).  The designs are the simple ones: one thread a column (K19)
+// an output; over Fp2 4 n base products).  The designs are the simple ones: one thread a column (K19)
 // or an output (K20), neighbouring threads on neighbouring columns.
 #include "fp.cuh"
 
 template <class C>
+__device__ __forceinline__ Fp2<C> fp_neg(const Fp2<C>& a) {
+  Fp2<C> r;
+  r.re = fp_neg(a.re);
+  r.im = fp_neg(a.im);
+  return r;
+}
+
+// E: the element, Fp<C> or Fp2<C>
+template <class E>
 __global__ void k_nb_butterfly(uint4* __restrict__ out,
                                const uint4* __restrict__ a, long long pairs,
                                int h, int r, long long step, int inverse) {
-  typedef Fp<C> E;
   long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= pairs) return;
   int l = (int)(idx % r);
@@ -87,49 +101,87 @@ __global__ void k_nb_base_conv(uint4* __restrict__ z,
   acc.store(z, idx);
 }
 
-// out, a: [rows, M, r] elements (out != a), 2h | M; step = +-w 2^k.
 template <class C>
+__global__ void k_nb_base_conv2(uint4* __restrict__ z,
+                                const uint4* __restrict__ x,
+                                const uint4* __restrict__ y, long long rows,
+                                int n, long long yrows, int negacyclic) {
+  typedef Fp<C> B;
+  typedef Fp2<C> E;
+  long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= rows * n) return;
+  long long row = idx / n;
+  int k = (int)(idx - row * n);
+  long long xb = row * n, yb = (row % yrows) * n;
+  u64 re[C::N], im[C::N];
+#pragma unroll
+  for (int l = 0; l < C::N; l++) re[l] = im[l] = 0;
+  for (int j = 0; j < n; j++) {
+    int i = k - j;
+    bool wrap = i < 0;
+    if (wrap) i += n;
+    const bool neg = negacyclic && wrap;
+    const E a = E::load(x, xb + j), b = E::load(y, yb + i);
+    const B rr = fp_mul(a.re, b.re), ii = fp_mul(a.im, b.im);
+    const B ri = fp_mul(a.re, b.im), ir = fp_mul(a.im, b.re);
+    fp_acc(re, neg ? fp_neg(rr) : rr);
+    fp_acc(re, neg ? ii : fp_neg(ii));
+    fp_acc(im, neg ? fp_neg(ri) : ri);
+    fp_acc(im, neg ? fp_neg(ir) : ir);
+  }
+  E out;
+  out.re = fp_reduce_acc<C>(re);
+  out.im = fp_reduce_acc<C>(im);
+  out.store(z, idx);
+}
+
+// out, a: [rows, M, r] elements E (out != a), 2h | M; step = +-w 2^k.
+template <class E>
 static int nb_butterfly(void* out, const void* a, long long rows, int M,
                         int h, int r, long long step, int inverse,
                         void* stream) {
   long long pairs = rows * (M / 2) * (long long)r;
   if (pairs <= 0) return 0;
   const int threads = 256;
-  k_nb_butterfly<C><<<(unsigned)((pairs + threads - 1) / threads), threads,
+  k_nb_butterfly<E><<<(unsigned)((pairs + threads - 1) / threads), threads,
                       0, (cudaStream_t)stream>>>(
       (uint4*)out, (const uint4*)a, pairs, h, r, step, inverse);
   return (int)cudaGetLastError();
 }
 
-// z, x: [rows, n]; y: [yrows, n] elements.
-template <class C>
-static int nb_base_conv(void* z, const void* x, const void* y,
+// z, x: [rows, n]; y: [yrows, n] elements (kernel: k_nb_base_conv<C> for
+// a prime field, k_nb_base_conv2<C> for Fp2 over it).
+template <class K>
+static int nb_base_conv(K kernel, void* z, const void* x, const void* y,
                         long long rows, int n, long long yrows,
                         int negacyclic, void* stream) {
   if (rows <= 0 || n <= 0) return 0;
   if (yrows <= 0) return (int)cudaErrorInvalidValue;
   const int threads = 256;
   long long work = rows * n;
-  k_nb_base_conv<C><<<(unsigned)((work + threads - 1) / threads), threads, 0,
-                      (cudaStream_t)stream>>>(
+  kernel<<<(unsigned)((work + threads - 1) / threads), threads, 0,
+           (cudaStream_t)stream>>>(
       (uint4*)z, (const uint4*)x, (const uint4*)y, rows, n, yrows,
       negacyclic);
   return (int)cudaGetLastError();
 }
 
-#define LFZK_NB(tag, C)                                                     \
+// tag, the element, the base case's kernel
+#define LFZK_NB(tag, E, base)                                               \
   extern "C" int nb_butterfly_##tag(void* out, const void* a,              \
                                     long long rows, int M, int h, int r,   \
                                     long long step, int inverse,           \
                                     void* stream) {                        \
-    return nb_butterfly<C>(out, a, rows, M, h, r, step, inverse, stream);  \
+    return nb_butterfly<E>(out, a, rows, M, h, r, step, inverse, stream);  \
   }                                                                         \
   extern "C" int nb_base_conv_##tag(void* z, const void* x, const void* y, \
                                     long long rows, int n, long long yrows, \
                                     int negacyclic, void* stream) {        \
-    return nb_base_conv<C>(z, x, y, rows, n, yrows, negacyclic, stream);   \
+    return nb_base_conv(base, z, x, y, rows, n, yrows, negacyclic,        \
+                        stream);                                           \
   }
 
-LFZK_NB(fp128, P128)
-LFZK_NB(fp256, P256)
-LFZK_NB(fp256k1, P256K1)
+LFZK_NB(fp128, Fp<P128>, k_nb_base_conv<P128>)
+LFZK_NB(fp256, Fp<P256>, k_nb_base_conv<P256>)
+LFZK_NB(fp256k1, Fp<P256K1>, k_nb_base_conv<P256K1>)
+LFZK_NB(fp256x2, Fp2<P256>, k_nb_base_conv2<P256>)

@@ -1,8 +1,10 @@
 // K2 fp_segment_sum: field sums over contiguous term ranges, with an instance
 // for Fp128, one each for the P-256 and secp256k1 base fields, one for
-// GF(2^128) (sums by XOR, gf2.cuh) and one for the ML-DSA prime (FP24, the
-// per-coefficient sums of Fp24_6; fp_reduce_acc reduces its sums, which
-// may pass 2p, by a product).
+// GF(2^128) (sums by XOR, gf2.cuh), one for the ML-DSA prime (FP24, the
+// per-coefficient sums of Fp24_6) and, for lazy_segment_sum alone, one
+// each for Goldilocks, the P-256 and secp256k1 group orders and the P-384
+// and P-521 base fields (FP24's and P521's sums may pass 2p below R, and
+// fp_reduce_acc reduces them by a product).
 //
 // out[s] = sum over t in [starts[s], ends[s]) of term(t), where term(t) is
 //   mode 0: x[t]                      (_contig_fold, lazy_segment_sum)
@@ -103,3 +105,14 @@ extern "C" int fp_segment_sum_gf2_128(LFZK_ARGS) {
   return fp_segment_sum<G128>(mode, out, bad, x, W, h0, h1, v, bmask, starts,
                               ends, nseg, stream);
 }
+
+#define LFZK_SEGSUM(tag, C)                                                \
+  extern "C" int fp_segment_sum_##tag(LFZK_ARGS) {                        \
+    return fp_segment_sum<C>(mode, out, bad, x, W, h0, h1, v, bmask,      \
+                             starts, ends, nseg, stream);                 \
+  }
+LFZK_SEGSUM(fp64, FP64)
+LFZK_SEGSUM(p256n, P256N)
+LFZK_SEGSUM(p256k1n, P256K1N)
+LFZK_SEGSUM(p384, P384)
+LFZK_SEGSUM(p521, P521)

@@ -1,8 +1,10 @@
 // K3 fp_wire_round: the sums of one sumcheck wire round, and field sums along
 // an axis, with an instance for Fp128, one each for the P-256 and secp256k1
-// base fields, one for GF(2^128) (sums by XOR, -1 = 1; gf2.cuh) and one
+// base fields, one for GF(2^128) (sums by XOR, -1 = 1; gf2.cuh), one
 // for the ML-DSA prime (FP24: Fp24_6.lazy_sum, fields/fp24.py:270, is
-// mode 1 over its six coefficient planes).
+// mode 1 over its six coefficient planes) and, for lazy_sum (mode 1)
+// alone, one each for Goldilocks, the P-256 and secp256k1 group orders
+// and the P-384 and P-521 base fields.
 //
 // mode 0 (wire): for one hand, with z = hv[t] * Wo[ho[t]],
 //   out[0] = a0 = sum over t with h[t] even of z * Wh[h[t]]
@@ -133,3 +135,14 @@ extern "C" int fp_wire_round_gf2_128(LFZK_ARGS) {
   return fp_wire_round<G128>(mode, out, scratch, hv, Wh, Wo, h, ho, T, A, R,
                              B, nblk, stream);
 }
+
+#define LFZK_WIRE(tag, C)                                                  \
+  extern "C" int fp_wire_round_##tag(LFZK_ARGS) {                         \
+    return fp_wire_round<C>(mode, out, scratch, hv, Wh, Wo, h, ho, T, A,  \
+                            R, B, nblk, stream);                          \
+  }
+LFZK_WIRE(fp64, FP64)
+LFZK_WIRE(p256n, P256N)
+LFZK_WIRE(p256k1n, P256K1N)
+LFZK_WIRE(p384, P384)
+LFZK_WIRE(p521, P521)

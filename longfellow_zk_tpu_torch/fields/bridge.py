@@ -1,12 +1,16 @@
 """Carrying state between the JAX package's layout and this package's.
 
-The JAX package holds a prime-field tensor as uint32[2N, ...]: 2N 16-bit
+The JAX package holds a prime-field tensor as uint32[L, ...]: L 16-bit
 limbs on the leading axis (two for the ML-DSA prime, four for Fp64,
-eight for Fp128, sixteen for P-256).  This package holds it as
-int32[..., N]: N 32-bit limbs on the trailing axis.
+eight for Fp128, sixteen for P-256, 24 for P-384, 33 for P-521).  This
+package holds it as int32[..., N]: N 32-bit limbs on the trailing axis.
 An Fp2 tensor is planar there, uint32[2, 2N, ...] (re, im leading), and
-int32[..., 2, N] here.  Both packages use Montgomery form with
-R = 2^(32N), so the conversion moves bits and changes no value.  A
+int32[..., 2, N] here.  Both packages use Montgomery form.  Where L =
+2N, both have R = 2^(32N), so the conversion moves bits and changes no
+value (limbs_from_jax, limbs_to_jax).  At P-521, L = 33 and N = 17: R is
+2^528 there and 2^544 here, so field_from_jax and field_to_jax convert
+the values through host ints (x 2^16 mod p one way, x 2^-16 mod p the
+other); the bit-moving functions refuse an odd limb count or 17 words.  A
 GF(2^128) tensor holds polynomial-basis bits on both sides: uint32[8, ...]
 halfwords there, int32[..., 4] words here.  A multi-prime (CRT) tensor
 is uint32[2, VS, ...] there (two 16-bit limbs a residue) and
@@ -29,9 +33,10 @@ from ..sumcheck.circuit import Circuit, Layer, Quad
 
 
 def limbs_from_jax(arr: np.ndarray) -> torch.Tensor:
-    """uint32[2N, ...] (16-bit limbs, leading) -> int32[..., N] (CPU)."""
+    """uint32[2N, ...] (16-bit limbs, leading) -> int32[..., N] (CPU);
+    only where both packages' R is 2^(32N) (not P-521: field_from_jax)."""
     a = np.asarray(arr, dtype=np.uint32)
-    assert a.shape[0] in (2, 4, 8, 16), a.shape
+    assert a.shape[0] in (2, 4, 8, 16, 24), a.shape
     w = (a[0::2] & np.uint32(0xFFFF)) | ((a[1::2] & np.uint32(0xFFFF))
                                          << np.uint32(16))
     w = np.ascontiguousarray(np.moveaxis(w, 0, -1)).view(np.int32)
@@ -39,14 +44,59 @@ def limbs_from_jax(arr: np.ndarray) -> torch.Tensor:
 
 
 def limbs_to_jax(t: torch.Tensor) -> np.ndarray:
-    """int32[..., N] -> uint32[2N, ...] (16-bit limbs, leading)."""
+    """int32[..., N] -> uint32[2N, ...] (16-bit limbs, leading); not at
+    17 words (field_to_jax)."""
     w = np.ascontiguousarray(t.detach().cpu().numpy()).view(np.uint32)
-    assert w.shape[-1] in (1, 2, 4, 8), w.shape
+    assert w.shape[-1] in (1, 2, 4, 8, 12), w.shape
     lo = w & np.uint32(0xFFFF)
     hi = w >> np.uint32(16)
     out = np.stack([lo, hi], axis=-1).reshape(w.shape[:-1] +
                                               (2 * w.shape[-1],))
     return np.ascontiguousarray(np.moveaxis(out, -1, 0))
+
+
+def _jax_shift(F) -> int:
+    """log2 of this package's R over the JAX package's: 32 N - 16 L."""
+    return 32 * F.nlimb - 16 * F.L
+
+
+def field_from_jax(F, arr: np.ndarray) -> torch.Tensor:
+    """A JAX tensor of prime field F, uint32[L, ...] Montgomery limbs
+    (R = 2^(16 L)) -> this package's int32[..., N] (R = 2^(32 N), CPU):
+    the limbs moved where the two R agree, else the values converted."""
+    a = np.asarray(arr, dtype=np.uint32)
+    assert a.shape[0] == F.L, (a.shape, F.L)
+    shift = _jax_shift(F)
+    if shift == 0:
+        return limbs_from_jax(a)
+    p, nb = F.p, 4 * F.nlimb
+    raw = np.ascontiguousarray(np.moveaxis(a, 0, -1)).astype("<u2")
+    raw = raw.reshape(-1, F.L).tobytes()
+    step = 2 * F.L
+    buf = b"".join(((int.from_bytes(raw[j : j + step], "little") << shift)
+                    % p).to_bytes(nb, "little")
+                   for j in range(0, len(raw), step))
+    w = np.frombuffer(buf, dtype="<i4").reshape(a.shape[1:] + (F.nlimb,))
+    return torch.from_numpy(w.copy())
+
+
+def field_to_jax(F, t: torch.Tensor) -> np.ndarray:
+    """This package's int32[..., N] of prime field F -> the JAX package's
+    uint32[L, ...] Montgomery limbs (field_from_jax's inverse)."""
+    shift = _jax_shift(F)
+    if shift == 0:
+        return limbs_to_jax(t)
+    assert t.shape[-1] == F.nlimb, tuple(t.shape)
+    p, nb = F.p, 4 * F.nlimb
+    unshift = pow(1 << shift, -1, p)
+    raw = np.ascontiguousarray(t.detach().cpu().numpy()).astype(
+        "<i4").tobytes()
+    buf = b"".join(((int.from_bytes(raw[j : j + nb], "little") * unshift)
+                    % p).to_bytes(2 * F.L, "little")
+                   for j in range(0, len(raw), nb))
+    limbs = np.frombuffer(buf, dtype="<u2").reshape(
+        tuple(t.shape[:-1]) + (F.L,)).astype(np.uint32)
+    return np.ascontiguousarray(np.moveaxis(limbs, -1, 0))
 
 
 def gf2_from_jax(arr: np.ndarray) -> torch.Tensor:

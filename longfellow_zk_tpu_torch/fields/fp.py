@@ -3,10 +3,13 @@
 Host side (plain Python ints, natural form) is the JAX package's
 `PrimeField` host API, copied.  Tensor side: an element is N
 little-endian 32-bit limbs in the last axis of an int32 tensor
-(`[..., N]`, read as uint32 by the kernels), N = 4 for p < 2^128 and
-N = 8 for p < 2^256, in Montgomery form with R = 2^(32N) and always
-canonical (< p).  R is the JAX package's R (2N 16-bit limbs), so the two
-packages hold the same integers (fields/bridge.py converts the layouts).
+(`[..., N]`, read as uint32 by the kernels), N the fewest of 1, 2, 4, 8,
+12 and 17 words that hold p (4 for p < 2^128, 8 below 2^256, 12 for
+P-384, 17 for P-521), in Montgomery form with R = 2^(32N) and always
+canonical (< p).  Up to 12 words R is the JAX package's R (2N 16-bit
+limbs), so the two packages hold the same integers
+(fields/bridge.py converts the layouts); at P-521 the JAX package's R is
+2^528 (33 limbs) and the bridge converts the values.
 
 Every tensor operation is a wrapper over one of the hand-written kernels
 (K1 fp_elementwise, K2 fp_segment_sum, K3 fp_wire_round, K16
@@ -15,13 +18,11 @@ fp_inv; see kernels.py).  For a CUDA tensor the wrapper launches its
 kernel; for a CPU tensor it runs the kernel's plain PyTorch version,
 which lives in this module too (`*_plain`) and computes in int64 over
 16-bit limbs (CPU PyTorch has no uint32 `+`, `<<` or `>>`).  The kernels
-have an instance for each field of `fp_instances.KERNEL_TAGS` (K2 and K3
-for Fp128, the P-256 and secp256k1 base fields and the ML-DSA prime; K1
-and K21 also for Goldilocks and the two group orders) and one for
-GF(2^128) (fields/gf2.py, whose plain versions the wrappers take for
-it); a CUDA tensor of another field raises.  The plain versions here take
-any odd p < 2^256.  N is 1, 2, 4 or 8: the fewest 32-bit words that hold
-p.
+have an instance for each field of `fp_instances.KERNEL_TAGS` (K1-K3
+and K21 for all of them; K16 for the sumcheck fields Fp128, P-256 and
+secp256k1) and one for GF(2^128) (fields/gf2.py, whose plain versions
+the wrappers take for it); a CUDA tensor of another field raises.  The
+plain versions here take any odd p below 2^544.
 """
 
 from __future__ import annotations
@@ -35,6 +36,9 @@ import torch
 from .. import kernels
 
 MASK16 = 0xFFFF
+# the element sizes in 32-bit words (csrc/fp.cuh's instances: 12 is
+# P-384's, 17 P-521's)
+WORDS = (1, 2, 4, 8, 12, 17)
 
 # K1 modes (csrc/fp_ops.cu); K5 and K22 take the same numbers, and K22
 # mode 10, the inverse
@@ -98,17 +102,17 @@ class FieldOps:
 
 
 class PrimeField(FieldOps):
-    """A prime field Fp, p < 2^256: host int ops and tensor ops."""
+    """A prime field Fp, p < 2^544: host int ops and tensor ops."""
 
     kCharacteristicTwo = False
     kNPolyEvaluationPoints = 6
 
     def __init__(self, p: int, name: str, nbytes: Optional[int] = None):
-        assert p % 2 == 1 and p < (1 << 256)
+        assert p % 2 == 1 and p < (1 << (32 * WORDS[-1]))
         self.p = p
         # 32-bit limbs per element (the tensor layout), 16-bit limbs (the
         # plain versions)
-        self.nlimb = next(n for n in (1, 2, 4, 8) if p < (1 << (32 * n)))
+        self.nlimb = next(n for n in WORDS if p < (1 << (32 * n)))
         self.nl16 = 2 * self.nlimb
         self.elt_shape = (self.nlimb,)
         self.char = p
@@ -131,7 +135,7 @@ class PrimeField(FieldOps):
                        for i in range(self.nl16)]
         self._one16 = [(self.mont_one_int >> (16 * i)) & MASK16
                        for i in range(self.nl16)]
-        # p < R / 2: a value below R may pass 2p (the ML-DSA prime)
+        # p < R / 2: a value below R may pass 2p (the ML-DSA prime, P-521)
         self.small = 2 * p < self.R
         # R^(k + 2) mod p for the base-R digits k of a sum's int64 carry
         # (_renorm16): one digit for N >= 2, two for N = 1
@@ -457,14 +461,24 @@ def elementwise_plain(F: PrimeField, mode: int, a: torch.Tensor,
 
 
 def inv_plain(F: PrimeField, a: torch.Tensor) -> torch.Tensor:
-    """Plain version of K21 (fp_inv): a^(p - 2) left to right over the
-    bits of p - 2, as the JAX package's scan (0 for 0)."""
+    """Plain version of K21 (fp_inv): a^(p - 2) (0 for 0), left to right
+    over the 4-bit digits of p - 2 with the powers a^0 .. a^15 at hand (a
+    third fewer products than bit by bit, as the kernel and the JAX
+    package's scan go; the inverse is unique, so the integers agree)."""
     a16 = _split16(a)
-    r = _const16(F._one16, a16).expand_as(a16)
-    for bit in bin(F.p - 2)[2:]:
-        r = _mont_mul16(F, r, r)
-        if bit == "1":
-            r = _mont_mul16(F, r, a16)
+    pw = [_const16(F._one16, a16).expand_as(a16), a16]
+    for _ in range(14):
+        pw.append(_mont_mul16(F, pw[-1], a16))
+    e = F.p - 2
+    shift = 4 * ((e.bit_length() - 1) // 4)
+    r = pw[(e >> shift) & 15]
+    while shift:
+        shift -= 4
+        for _ in range(4):
+            r = _mont_mul16(F, r, r)
+        d = (e >> shift) & 15
+        if d:
+            r = _mont_mul16(F, r, pw[d])
     return _join16(r)
 
 

@@ -4,9 +4,12 @@ lib/algebra/fft_test.cc:209), the NIST P-256 base and scalar fields
 (reference lib/algebra/fp_p256.h, lib/ec/p256.h), with the Fp2 root of
 unity that the P-256 Reed-Solomon encoder uses
 (lib/circuits/mdoc/mdoc_zk.cc:82-88), and the secp256k1 base and scalar
-fields (reference lib/algebra/fp_p256k1.h); the secp256k1 base field's
-Reed-Solomon code goes through the CRT convolution
-(transforms/crt_conv.py).  The ML-DSA prime is fields/fp24.py's.
+fields (reference lib/algebra/fp_p256k1.h), and the NIST P-384 and P-521
+base fields (reference lib/algebra/fp_p384.h, fp_p521.h; 12 and 17
+32-bit words).  The Reed-Solomon code of a field without a large 2-adic
+root of unity (secp256k1, the P-256 order, P-384, P-521) goes through the
+CRT convolution (transforms/crt_conv.py).  The ML-DSA prime is
+fields/fp24.py's.
 """
 
 from __future__ import annotations
@@ -36,6 +39,19 @@ P256_ORDER = 0xFFFFFFFF00000000FFFFFFFFFFFFFFFFBCE6FAADA7179E84F3B9CAC2FC632551
 P256K1 = (1 << 256) - (1 << 32) - 977
 P256K1_ORDER = 0xFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFEBAAEDCE6AF48A03BBFD25E8CD0364141
 
+# --- NIST P-384 / P-521 ------------------------------------------------------
+P384 = (1 << 384) - (1 << 128) - (1 << 96) + (1 << 32) - 1
+P384_ORDER = int(
+    "39402006196394479212279040100143613805079739270465446667946905279627"
+    "659399113263569398956308152294913554433653942643"
+)
+P521 = (1 << 521) - 1
+P521_ORDER = int(
+    "68647976601306097149819007990813932172694353001433054093944634591855"
+    "43183397655394245057746333217197532963996371363321113864768612440380"
+    "340372808892707005449"
+)
+
 # Root of unity of order 2^31 in Fp2 over the P-256 base field
 # (mdoc_zk.cc:83-88); element is kRootX + i*kRootY.
 P256_FP2_ROOT_X = int(
@@ -52,7 +68,7 @@ P256_FP2_ROOT_ORDER = 1 << 31
 # suffix of the kernel names in kernels.py; the ML-DSA prime's is "fp24").
 KERNEL_TAGS = {P128: "fp128", P256: "fp256", P256K1: "fp256k1",
                P64: "fp64", P256_ORDER: "p256n", P256K1_ORDER: "p256k1n",
-               FP24_P: "fp24"}
+               FP24_P: "fp24", P384: "p384", P521: "p521"}
 
 
 @functools.lru_cache(maxsize=None)
@@ -83,3 +99,13 @@ def p256_scalar() -> PrimeField:
 @functools.lru_cache(maxsize=None)
 def p256k1_scalar() -> PrimeField:
     return PrimeField(P256K1_ORDER, "Fp256k1Scalar")
+
+
+@functools.lru_cache(maxsize=None)
+def p384_base() -> PrimeField:
+    return PrimeField(P384, "Fp384Base")
+
+
+@functools.lru_cache(maxsize=None)
+def p521_base() -> PrimeField:
+    return PrimeField(P521, "Fp521Base")

@@ -14,9 +14,11 @@ entry point) per field.  K9's mode 9 (CHOOSE) has entry points of its own,
 `sumcheck_round_tail_cubic`, so that their launches are counted apart:
 
     K1 fp_elementwise  fp_ops.cu      P gf2_128 fp24 fp64 p256n p256k1n
-                                                     fields/fp.py
-    K2 fp_segment_sum  segsum.cu      P gf2_128 fp24 fields/fp.py
-    K3 fp_wire_round   wire_round.cu  P gf2_128 fp24 fields/fp.py
+                                      p384 p521      fields/fp.py
+    K2 fp_segment_sum  segsum.cu      P gf2_128 fp24 fp64 p256n p256k1n
+                                      p384 p521      fields/fp.py
+    K3 fp_wire_round   wire_round.cu  P gf2_128 fp24 fp64 p256n p256k1n
+                                      p384 p521      fields/fp.py
     K4 fp_ntt          ntt.cu         fp128 fp256x2 crt
                                                      transforms/ntt.py
     K5 fp2_elementwise fp2_ops.cu     fp256x2        fields/fp2.py
@@ -33,17 +35,20 @@ entry point) per field.  K9's mode 9 (CHOOSE) has entry points of its own,
     K11 zk_constraints constraints.cu P gf2_128      zk/fused.py
     K12 ligero_inner_product
                        ligero_a.cu    P gf2_128      zk/fused.py
-    K13 crt_to         crt.cu         fp256k1        transforms/crt_conv.py
+    K13 crt_to         crt.cu         fp256k1 p256n fp256 p384 p521
+                                                     transforms/crt_conv.py
     K14 mp_elementwise crt.cu         crt            fields/multiprime.py
-    K15 crt_from       crt.cu         fp256k1        transforms/crt_conv.py
+    K15 crt_from       crt.cu         fp256k1 p256n fp256 p384 p521
+                                                     transforms/crt_conv.py
     K16 copy_round_sums
                        copy_round.cu  P gf2_128      fields/fp.py
     K17 fp_matmul_ntt  matmul_ntt.cu  fp128          transforms/matmul_ntt.py
     K18 rfft_pass      rfft.cu        fp256x2        transforms/rfft.py
-    K19 nb_butterfly   nussbaumer.cu  P              transforms/nussbaumer.py
-    K20 nb_base_conv   nussbaumer.cu  P              transforms/nussbaumer.py
+    K19 nb_butterfly   nussbaumer.cu  P fp256x2      transforms/nussbaumer.py
+    K20 nb_base_conv   nussbaumer.cu  P fp256x2      transforms/nussbaumer.py
     K21 fp_inv         inv.cu         P gf2_128 fp24 fp64 p256n p256k1n
-                                      fp256x2        fields/fp.py, gf2.py,
+                                      p384 p521 fp256x2
+                                                     fields/fp.py, gf2.py,
                                                      fp2.py
     K22 fp24x6_elementwise
                        fp24x6.cu      fp24x6         fields/fp24.py
@@ -52,16 +57,20 @@ entry point) per field.  K9's mode 9 (CHOOSE) has entry points of its own,
 2^108 + 1; fp256: the P-256 base field; fp256x2: Fp2 over it; fp256k1:
 the secp256k1 base field; fp24: the ML-DSA prime 2^23 - 2^13 + 1, one
 word; fp24x6: its sextic extension Fp24_6; fp64: 2^64 - 2^32 + 1, two
-words; p256n and p256k1n: the P-256 and secp256k1 group orders; crt:
+words; p256n and p256k1n: the P-256 and secp256k1 group orders; p384
+and p521: the NIST P-384 and P-521 base fields, 12 and 17 words; crt:
 the multi-prime field of the CRT convolution, 32-bit residue lanes
-modulo the primes of csrc/mp.cuh; gf2_128: GF(2^128), csrc/gf2.cuh;
-bytes: K8 hashes bytes and knows no field.)  K1's modes 5-9 (sqr, neg,
-eq, is_zero, select), K5's, K21 and K22 (Fp24_6's mul, sqr and inv; its
-per-coefficient ops are K1 [fp24] on the six words) are the field API
+modulo the primes of csrc/mp.cuh, any number of lanes up to 40 (18 for
+the 256-bit fields, 26 for P-384, 35 for P-521); gf2_128: GF(2^128),
+csrc/gf2.cuh; bytes: K8 hashes bytes and knows no field.)  K1's modes
+5-9 (sqr, neg, eq, is_zero, select), K5's, K21 and K22 (Fp24_6's mul,
+sqr and inv; its per-coefficient ops are K1 [fp24] on the six words),
+and K2 and K3 at fp64, p256n, p256k1n, p384 and p521 are the field API
 that no proof path calls (the JAX package's tests drive it):
-chip_smoke.py's section 3l checks them on the card.  K1's bind and hv, K3, K9 (mode 9 too), K10
-(its cubic mode too), K11 and K12 take a lane axis: the proofs of a
-batch (zk/batch.py) run in the launches of one proof.  A kernel's name
+chip_smoke.py's sections 3l and 4l check them on the card.  K1's bind
+and hv, K3, K9 (mode 9 too), K10 (its cubic mode too), K11 and K12 take
+a lane axis: the proofs of a batch (zk/batch.py) run in the launches of
+one proof.  A kernel's name
 here is "kernel[instance]".  `LAUNCHES` counts, per instance, the CUDA
 launches its wrapper made; a run sets the counts to zero with
 `reset_launches()` and reads them after.
@@ -88,19 +97,23 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
 
+# the instances of K1-K3: every prime field of fields/fp_instances.py and
+# GF(2^128)
+_PRIME_API = ("fp128", "fp256", "fp256k1", "gf2_128", "fp24", "fp64", "p256n",
+              "p256k1n", "p384", "p521")
+# the target fields of the CRT convolution's conversions (K13, K15)
+_CRT_TARGETS = ("fp256k1", "p256n", "fp256", "p384", "p521")
+
 # kernel -> (source, argtypes, instances); the C entry point of an
 # instance is "<kernel>_<instance>"
 _SOURCES = {
     "fp_elementwise": ("fp_ops.cu", [_I, _P, _P, _P, _P, _LL, _LL, _LL, _LL,
                                      _P],
-                       ("fp128", "fp256", "fp256k1", "gf2_128", "fp24",
-                        "fp64", "p256n", "p256k1n")),
+                       _PRIME_API),
     "fp_segment_sum": ("segsum.cu", [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                     _P, _I, _P],
-                       ("fp128", "fp256", "fp256k1", "gf2_128", "fp24")),
+                                     _P, _I, _P], _PRIME_API),
     "fp_wire_round": ("wire_round.cu", [_I, _P, _P, _P, _P, _P, _P, _P, _LL,
-                                        _LL, _LL, _LL, _I, _P],
-                      ("fp128", "fp256", "fp256k1", "gf2_128", "fp24")),
+                                        _LL, _LL, _LL, _I, _P], _PRIME_API),
     "fp_ntt": ("ntt.cu", [_P, _P, _P, _LL, _I, _LL, _P],
                ("fp128", "fp256x2", "crt")),
     "fp2_elementwise": ("fp2_ops.cu", [_I, _P, _P, _P, _P, _LL, _LL, _LL,
@@ -127,10 +140,10 @@ _SOURCES = {
     "ligero_inner_product": ("ligero_a.cu", [_P, _P, _P, _P, _P, _P, _LL, _I,
                                              _I, _I, _I, _LL, _LL, _LL, _P],
                              ("fp128", "fp256", "fp256k1", "gf2_128")),
-    "crt_to": ("crt.cu", [_P, _P, _P, _LL, _I, _P], ("fp256k1",)),
+    "crt_to": ("crt.cu", [_P, _P, _P, _LL, _I, _P], _CRT_TARGETS),
     "mp_elementwise": ("crt.cu", [_I, _P, _P, _P, _LL, _I, _LL, _LL, _LL, _P],
                        ("crt",)),
-    "crt_from": ("crt.cu", [_P, _P, _P, _P, _LL, _I, _P], ("fp256k1",)),
+    "crt_from": ("crt.cu", [_P, _P, _P, _P, _LL, _I, _P], _CRT_TARGETS),
     "copy_round_sums": ("copy_round.cu", [_P, _P, _P, _P, _P, _P, _P, _LL,
                                           _LL, _I, _P],
                         ("fp128", "fp256", "fp256k1", "gf2_128")),
@@ -139,12 +152,12 @@ _SOURCES = {
     "rfft_pass": ("rfft.cu", [_I, _P, _P, _P, _P, _P, _LL, _LL, _LL, _P],
                   ("fp256x2",)),
     "nb_butterfly": ("nussbaumer.cu", [_P, _P, _LL, _I, _I, _I, _LL, _I, _P],
-                     ("fp128", "fp256", "fp256k1")),
+                     ("fp128", "fp256", "fp256k1", "fp256x2")),
     "nb_base_conv": ("nussbaumer.cu", [_P, _P, _P, _LL, _I, _LL, _I, _P],
-                     ("fp128", "fp256", "fp256k1")),
+                     ("fp128", "fp256", "fp256k1", "fp256x2")),
     "fp_inv": ("inv.cu", [_P, _P, _LL, _P],
                ("fp24", "fp64", "fp128", "fp256", "fp256k1", "p256n",
-                "p256k1n", "gf2_128", "fp256x2")),
+                "p256k1n", "p384", "p521", "gf2_128", "fp256x2")),
     "fp24x6_elementwise": ("fp24x6.cu", [_I, _P, _P, _P, _LL, _LL, _LL, _P],
                            ("fp24x6",)),
 }

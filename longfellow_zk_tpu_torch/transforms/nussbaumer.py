@@ -1,5 +1,5 @@
 """Nussbaumer negacyclic, cyclic and linear convolution over a prime
-field: no roots of unity needed.
+field or over Fp2: no roots of unity needed.
 
 Port of the JAX package's transforms/nussbaumer.py, the semantic twin of
 the reference lib/algebra/nussbaumer.h:28-399 (Knuth TAOCP 4.6.4 ex. 59).
@@ -15,16 +15,19 @@ batched over all 2m blocks.  Two kernels carry it:
       rows by y^(s_t), s_t computed in the kernel from (t, step); forward
       (DIF, output in bit-reversed block order) or inverse (DIT);
   K20 `nb_base_conv[<field>]`: the base case n <= K_SMALL = 32 (cyclic at
-      n <= 4), one thread an output element.
+      n <= 4), one thread an output element (over Fp2 its four base
+      products a term summed lazily, one reduction a part at the end).
 
-The scale by 1/M and 1/2, the wrap fold and the cyclic and linear splits
-are K1 products, sums and differences, with constants uploaded once per
-size and device (prepare_constants); the lifts are torch reshapes.  The
-second operand y may have fewer rows than x (leading axes of size 1):
-its transforms then run once, and K20 reads its rows broadcast.  Prime
-fields only (the kernels' instances: Fp128, P-256, secp256k1); the JAX
-package's Fp2 case is on no path.  Tensors are int32 [..., n, N]; for CPU
-tensors the plain versions below take the kernels' places.
+The scale by 1/M and 1/2 (products by a base-field constant: K1, or K5's
+mul_base on both parts of an Fp2 element), the wrap fold and the cyclic
+and linear splits (K1's or K5's sums and differences), with constants
+uploaded once per size and device (prepare_constants); the lifts are
+torch reshapes.  The second operand y may have fewer rows than x (leading
+axes of size 1): its transforms then run once, and K20 reads its rows
+broadcast.  The kernels' instances: Fp128, P-256, secp256k1 and Fp2 over
+P-256 (`fp256x2`; the JAX package's planar Fp2 operands, `_nlead`, are
+int32 [..., n, 2, N] here).  Tensors are int32 [..., n, *F.elt_shape];
+for CPU tensors the plain versions below take the kernels' places.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ from .. import kernels
 from ..device import resolve_device
 from ..fields.fp import (ADD, MUL, SUB, axis_sum_plain, check_elts,
                          elementwise_plain, route)
+from ..fields.fp2 import fp2_elementwise_plain
 from .ntt import _choose_padding
 
 K_SMALL = 32  # base-case size (the JAX package's; the reference's is 64)
@@ -50,13 +54,41 @@ _PLAIN_PRODUCTS = 1 << 16
 _CONSTS: dict = {}
 
 
+def _base(F):
+    """F's prime field: F itself, or the base of an Fp2."""
+    return getattr(F, "f", F)
+
+
+def _k(F) -> int:
+    """The element's axes: 1 for a prime field ([N]), 2 for Fp2 ([2, N])."""
+    return len(F.elt_shape)
+
+
 def _const(F, v: int, device) -> torch.Tensor:
-    """The natural-form constant v as Montgomery limbs [N] on `device`,
-    uploaded once per field and device."""
-    key = (F.p, v, str(device))
+    """The natural-form constant v of F's prime field as Montgomery limbs
+    [N] on `device`, uploaded once per field and device."""
+    Fb = _base(F)
+    key = (Fb.p, v, str(device))
     if key not in _CONSTS:
-        _CONSTS[key] = F.to_limbs(v, device)
+        _CONSTS[key] = Fb.to_limbs(v, device)
     return _CONSTS[key]
+
+
+def _inv_const(F, v: int, device) -> torch.Tensor:
+    """1/v in F's prime field (_const)."""
+    return _const(F, _base(F).inv_i(v), device)
+
+
+def _scale(F, a: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """a times the base-field constant c: K1's product, or K5's mul_base
+    (both parts) over Fp2."""
+    return F.mul_base(a, c) if _k(F) == 2 else F.mul(a, c)
+
+
+def _at(F, x: torch.Tensor, sl) -> torch.Tensor:
+    """x[..., sl, :] on the element position axis (the one before the
+    element's axes)."""
+    return x[(Ellipsis, sl) + (slice(None),) * _k(F)]
 
 
 def _split(n: int):
@@ -72,11 +104,11 @@ def prepare_constants(F, n: int, device) -> None:
         if k <= K_SMALL:
             return
         m, r = _split(k)
-        _const(F, F.inv_i(2 * m), device)
+        _inv_const(F, 2 * m, device)
         nega(r)
 
     while n > 4:
-        _const(F, F.inv_i(2), device)
+        _inv_const(F, 2, device)
         n //= 2
         nega(n)
 
@@ -85,19 +117,27 @@ def prepare_constants(F, n: int, device) -> None:
 # plain versions (any device)
 # ----------------------------------------------------------------------
 
+def _plain(F, mode: int, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """K1's plain product, sum or difference, or K5's over Fp2."""
+    if _k(F) == 2:
+        return fp2_elementwise_plain(F, mode, a, b)
+    return elementwise_plain(F, mode, a, b)
+
+
 def _neg_plain(F, a: torch.Tensor) -> torch.Tensor:
-    return elementwise_plain(F, SUB, torch.zeros_like(a), a)
+    return _plain(F, SUB, torch.zeros_like(a), a)
 
 
 def nb_butterfly_plain(F, A: torch.Tensor, h: int, step: int,
                        inverse: bool) -> torch.Tensor:
     """Plain version of K19: one level of the block-axis FFT on A [rows,
-    M, r, N], viewed [rows, M / 2h, 2, h, r, N] (lo, hi).  Row t of a
-    half is multiplied by y^(s_t), s_t = step t mod 2r (y^r = -1): the
+    M, r, *elt], viewed [rows, M / 2h, 2, h, r, *elt] (lo, hi).  Row t of
+    a half is multiplied by y^(s_t), s_t = step t mod 2r (y^r = -1): the
     JAX package's _apply_rot.  Forward: (lo + hi, y^s (lo - hi));
     inverse: (lo + y^s hi, lo - y^s hi)."""
-    rows, M, r, N = A.shape
-    Ar = A.reshape(rows, M // (2 * h), 2, h, r, N)
+    rows, M, r = A.shape[:3]
+    elt = tuple(A.shape[3:])
+    Ar = A.reshape((rows, M // (2 * h), 2, h, r) + elt)
     lo, hi = Ar[:, :, 0], Ar[:, :, 1]
     dev = A.device
     s = torch.remainder(step * torch.arange(h, device=dev), 2 * r)[:, None]
@@ -105,40 +145,41 @@ def nb_butterfly_plain(F, A: torch.Tensor, h: int, step: int,
     s = s % r
     ll = torch.arange(r, device=dev)[None, :]
     idx = (ll - s) % r                                   # [h, r]
-    neg = (ll < s) ^ flip
+    neg = ((ll < s) ^ flip)[(Ellipsis,) + (None,) * len(elt)]
 
     def rot(a):
         g = a[:, :, torch.arange(h, device=dev)[:, None], idx]
-        return torch.where(neg[..., None], _neg_plain(F, g), g)
+        return torch.where(neg, _neg_plain(F, g), g)
 
     if inverse:
         rh = rot(hi)
-        out = (elementwise_plain(F, ADD, lo, rh),
-               elementwise_plain(F, SUB, lo, rh))
+        out = (_plain(F, ADD, lo, rh), _plain(F, SUB, lo, rh))
     else:
-        out = (elementwise_plain(F, ADD, lo, hi),
-               rot(elementwise_plain(F, SUB, lo, hi)))
+        out = (_plain(F, ADD, lo, hi), rot(_plain(F, SUB, lo, hi)))
     return torch.stack(out, dim=2).reshape(A.shape)
 
 
 def nb_base_conv_plain(F, x: torch.Tensor, y: torch.Tensor,
                        negacyclic: bool) -> torch.Tensor:
     """Plain version of K20: z[k] = sum_j x[j] y[(k - j) mod n], negated
-    where k < j if negacyclic, for each row of x [rows, n, N] with row
-    row % yrows of y [yrows, n, N]: the JAX package's _base_conv."""
-    rows, n, N = x.shape
+    where k < j if negacyclic, for each row of x [rows, n, *elt] with row
+    row % yrows of y [yrows, n, *elt]: the JAX package's _base_conv, its
+    _sum_terms the base field's plain sum (over Fp2 the plain version of
+    its lazy_sum, both parts at once)."""
+    rows, n = x.shape[:2]
     j = torch.arange(n, device=x.device)[:, None]
     k = torch.arange(n, device=x.device)[None, :]
     idx = (k - j) % n
     neg = (k < j) if negacyclic else torch.zeros_like(idx, dtype=torch.bool)
+    neg = neg[(Ellipsis,) + (None,) * _k(F)]
     step = max(1, _PLAIN_PRODUCTS // (n * n))
     outs = []
     for s in range(0, rows, step):
         ri = torch.arange(s, min(rows, s + step), device=x.device)
-        yg = y[ri % y.shape[0]][:, idx]                  # [., j, k, N]
-        yg = torch.where(neg[..., None], _neg_plain(F, yg), yg)
-        terms = elementwise_plain(F, MUL, x[ri][:, :, None], yg)
-        outs.append(axis_sum_plain(F, terms, 1))
+        yg = y[ri % y.shape[0]][:, idx]                  # [., j, k, *elt]
+        yg = torch.where(neg, _neg_plain(F, yg), yg)
+        terms = _plain(F, MUL, x[ri][:, :, None], yg)
+        outs.append(axis_sum_plain(_base(F), terms, 1))
     return torch.cat(outs)
 
 
@@ -148,10 +189,11 @@ def nb_base_conv_plain(F, x: torch.Tensor, y: torch.Tensor,
 
 def nb_butterfly(F, A: torch.Tensor, h: int, step: int,
                  inverse: bool) -> torch.Tensor:
-    """K19 wrapper (see nb_butterfly_plain) on A [..., M, r, N], the
+    """K19 wrapper (see nb_butterfly_plain) on A [..., M, r, *elt], the
     leading axes rows, with M / h even.  Out of place."""
-    M, r = A.shape[-3], A.shape[-2]
-    A2 = A.reshape((-1,) + tuple(A.shape[-3:]))
+    k = _k(F)
+    M, r = A.shape[-2 - k], A.shape[-1 - k]
+    A2 = A.reshape((-1,) + tuple(A.shape[-2 - k:]))
     name = route("nb_butterfly", F, A)
     if name is None:
         return nb_butterfly_plain(F, A2, h, step, inverse).reshape(A.shape)
@@ -164,26 +206,26 @@ def nb_butterfly(F, A: torch.Tensor, h: int, step: int,
     return out.reshape(A.shape)
 
 
-def _rows_of(x: torch.Tensor, y: torch.Tensor):
-    """(x [rows, n, N], y [yrows, n, N]) with y's row row % yrows beside
-    x's row: y's batch axes (leading ones dropped) must be a suffix of
-    x's."""
-    xb, yb = tuple(x.shape[:-2]), tuple(y.shape[:-2])
+def _rows_of(x: torch.Tensor, y: torch.Tensor, k: int = 1):
+    """(x [rows, n, *elt], y [yrows, n, *elt]) with y's row row % yrows
+    beside x's row, the element's k axes last: y's batch axes (leading
+    ones dropped) must be a suffix of x's."""
+    xb, yb = tuple(x.shape[:-1 - k]), tuple(y.shape[:-1 - k])
     while yb and yb[0] == 1:
         yb = yb[1:]
     if len(yb) > len(xb) or xb[len(xb) - len(yb):] != yb:
         raise ValueError("y's batch axes %s must end x's %s" % (yb, xb))
-    n, N = x.shape[-2], x.shape[-1]
-    return (x.reshape(-1, n, N).contiguous(),
-            y.reshape(-1, n, N).contiguous())
+    tail = tuple(x.shape[-1 - k:])
+    return (x.reshape((-1,) + tail).contiguous(),
+            y.reshape((-1,) + tail).contiguous())
 
 
 def nb_base_conv(F, x: torch.Tensor, y: torch.Tensor,
                  negacyclic: bool) -> torch.Tensor:
     """K20 wrapper: the cyclic or negacyclic product of each row of x
-    [..., n, N] with its row of y (y broadcast over x's leading axes)."""
+    [..., n, *elt] with its row of y (y broadcast over x's leading axes)."""
     shape = x.shape
-    x2, y2 = _rows_of(x, y)
+    x2, y2 = _rows_of(x, y, _k(F))
     name = route("nb_base_conv", F, x2, y2)
     if name is None:
         return nb_base_conv_plain(F, x2, y2, negacyclic).reshape(shape)
@@ -199,12 +241,14 @@ def nb_base_conv(F, x: torch.Tensor, y: torch.Tensor,
 # the convolutions
 # ----------------------------------------------------------------------
 
-def _lift(a: torch.Tensor, m: int, r: int) -> torch.Tensor:
-    """a [..., n, N] -> the blocks X[i, j] = a[m j + i], zero-padded to
-    [..., 2m, r, N] (the leading axes kept, so that y's stay a suffix of
-    x's through the recursion)."""
-    A = a.reshape(a.shape[:-2] + (r, m, a.shape[-1])).transpose(-3, -2)
-    return torch.cat([A, torch.zeros_like(A)], dim=-3)
+def _lift(F, a: torch.Tensor, m: int, r: int) -> torch.Tensor:
+    """a [..., n, *elt] -> the blocks X[i, j] = a[m j + i], zero-padded to
+    [..., 2m, r, *elt] (the leading axes kept, so that y's stay a suffix
+    of x's through the recursion)."""
+    k = _k(F)
+    A = a.reshape(a.shape[:-1 - k] + (r, m) + a.shape[-k:]).transpose(
+        -2 - k, -1 - k)
+    return torch.cat([A, torch.zeros_like(A)], dim=-2 - k)
 
 
 def _fwd(F, A: torch.Tensor, m: int, w: int) -> torch.Tensor:
@@ -218,18 +262,19 @@ def _fwd(F, A: torch.Tensor, m: int, w: int) -> torch.Tensor:
 
 
 def negacyclic(F, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """Negacyclic convolution along the element axis of x [..., n, N]
-    (y's leading axes broadcast): z[k] = sum_{j<=k} x_j y_{k-j} -
-    sum_{j>k} x_j y_{n+k-j}."""
-    n, N = x.shape[-2], x.shape[-1]
+    """Negacyclic convolution along the element position axis of x [...,
+    n, *elt] (y's leading axes broadcast): z[k] = sum_{j<=k} x_j y_{k-j}
+    - sum_{j>k} x_j y_{n+k-j}."""
+    k = _k(F)
+    n = x.shape[-1 - k]
     assert n & (n - 1) == 0
     if n <= K_SMALL:
         return nb_base_conv(F, x, y, True)
     m, r = _split(n)
     M = 2 * m
     w = r // m  # y^w is a primitive 2m-th root of unity
-    Xf = _fwd(F, _lift(x, m, r), m, w)
-    Yf = _fwd(F, _lift(y, m, r), m, w)
+    Xf = _fwd(F, _lift(F, x, m, r), m, w)
+    Yf = _fwd(F, _lift(F, y, m, r), m, w)
     Z = negacyclic(F, Xf, Yf)  # every block of every row at once
     # the inverse DIT FFT (undoes fwd, ordering included), then 1/M
     h, sm = 1, m
@@ -237,34 +282,37 @@ def negacyclic(F, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         Z = nb_butterfly(F, Z, h, -w * sm, True)
         h *= 2
         sm //= 2
-    Z = F.mul(Z, _const(F, F.inv_i(M), Z.device))
+    Z = _scale(F, Z, _inv_const(F, M, Z.device))
     # the fold c_i = C_i + y C_(m+i), then back to [..., n]
-    lo, hi = Z[..., :m, :, :], Z[..., m:, :, :]
-    C = torch.cat([F.sub(lo[..., :1, :], hi[..., -1:, :]),
-                   F.add(lo[..., 1:, :], hi[..., :-1, :])], dim=-2)
-    return C.transpose(-3, -2).reshape(x.shape).contiguous()
+    e = (slice(None),) * (k + 1)
+    lo, hi = Z[(Ellipsis, slice(None, m)) + e], Z[(Ellipsis, slice(m, None))
+                                                  + e]
+    C = torch.cat([F.sub(_at(F, lo, slice(None, 1)),
+                         _at(F, hi, slice(-1, None))),
+                   F.add(_at(F, lo, slice(1, None)),
+                         _at(F, hi, slice(None, -1)))], dim=-1 - k)
+    return C.transpose(-2 - k, -1 - k).reshape(x.shape).contiguous()
 
 
 def _halves(F, c: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """((c + g) / 2, (c - g) / 2), concatenated along the element axis."""
-    half = _const(F, F.inv_i(2), c.device)
-    return torch.cat([F.mul(F.add(c, g), half), F.mul(F.sub(c, g), half)],
-                     dim=-2)
+    """((c + g) / 2, (c - g) / 2), concatenated along the position axis."""
+    half = _inv_const(F, 2, c.device)
+    return torch.cat([_scale(F, F.add(c, g), half),
+                      _scale(F, F.sub(c, g), half)], dim=-1 - _k(F))
 
 
 def cyclic(F, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Cyclic convolution along the element axis (nussbaumer.h
     cyclic_with_workspace, recursion instead of the iterative loop)."""
-    n = x.shape[-2]
+    n = x.shape[-1 - _k(F)]
     assert n & (n - 1) == 0
     if n <= 4:
         return nb_base_conv(F, x, y, False)
     h = n // 2
-    xs, xd = F.add(x[..., :h, :], x[..., h:, :]), F.sub(x[..., :h, :],
-                                                       x[..., h:, :])
-    ys, yd = F.add(y[..., :h, :], y[..., h:, :]), F.sub(y[..., :h, :],
-                                                       y[..., h:, :])
-    return _halves(F, cyclic(F, xs, ys), negacyclic(F, xd, yd))
+    lo, hi = slice(None, h), slice(h, None)
+    x0, x1, y0, y1 = (_at(F, t, s) for t in (x, y) for s in (lo, hi))
+    return _halves(F, cyclic(F, F.add(x0, x1), F.add(y0, y1)),
+                   negacyclic(F, F.sub(x0, x1), F.sub(y0, y1)))
 
 
 def linear(F, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -289,12 +337,13 @@ class NussbaumerConvolution:
         prepare_constants(F, self.padding, self.device)
 
     def convolution(self, x: torch.Tensor) -> torch.Tensor:
-        """x: [..., n, N] -> z: [..., m, N]."""
-        assert x.shape[-2] == self.n
-        pad = x.new_zeros(x.shape[:-2] + (self.padding - self.n,
-                                          x.shape[-1]))
-        z = cyclic(self.F, torch.cat([x, pad], dim=-2), self._y)
-        return z[..., : self.m, :]
+        """x: [..., n, *elt] -> z: [..., m, *elt]."""
+        F, k = self.F, _k(self.F)
+        assert x.shape[-1 - k] == self.n
+        pad = x.new_zeros(x.shape[:-1 - k] + (self.padding - self.n,) +
+                          x.shape[-k:])
+        z = cyclic(F, torch.cat([x, pad], dim=-1 - k), self._y)
+        return _at(F, z, slice(None, self.m))
 
 
 def make_nussbaumer_convolution_factory(F, device=None):

@@ -19,7 +19,7 @@ from longfellow_zk_tpu_torch.fields.fp2 import (
 from longfellow_zk_tpu_torch.fields.fp_instances import (
     P128_OMEGA, P128_OMEGA_ORDER, P256_FP2_ROOT_ORDER, P256_FP2_ROOT_X,
     P256_FP2_ROOT_Y, fp64, fp128, p256_base, p256_scalar, p256k1_base,
-    p256k1_scalar)
+    p256k1_scalar, p384_base, p521_base)
 from longfellow_zk_tpu_torch.fields import fp24 as f24m
 from longfellow_zk_tpu_torch.fields.gf2 import gf2_128
 from longfellow_zk_tpu_torch.fields import multiprime as mpm
@@ -226,22 +226,25 @@ def _residues(mp, rng, shape, dev):
     return mp.to_limbs(vals[:n], dev).reshape((mp.vs,) + tuple(shape) + (1,))
 
 
+@pytest.mark.parametrize("vs", [18, 26, 35])
 @pytest.mark.parametrize("n", [2, 64, 4096])
-def test_k4_ntt_crt(dev, n):
-    """K4 [crt]: every lane's rows under its own prime and twiddles."""
-    mp, rng = mpm.MultiPrimeField(18), np.random.default_rng(11)
-    x = _residues(mp, rng, (3, n), dev).reshape(18 * 3, n, 1)
+def test_k4_ntt_crt(dev, n, vs):
+    """K4 [crt]: every lane's rows under its own prime and twiddles, at
+    the bases of the 256-bit fields, P-384 and P-521."""
+    mp, rng = mpm.MultiPrimeField(vs), np.random.default_rng(11)
+    x = _residues(mp, rng, (3, n), dev).reshape(vs * 3, n, 1)
     ntt = NTT(mp, mp.omegas, mp.omega_order, dev)
     for inverse in (False, True):
         tw = ntt.twiddles(n, inverse)
         _same(fp_ntt(mp, x, tw), ntt_plain(mp, x, tw))
 
 
+@pytest.mark.parametrize("vs", [18, 26, 35])
 @pytest.mark.parametrize("mode", [mpm.MUL, mpm.ADD, mpm.SUB])
-def test_k14_mp_elementwise(dev, mode):
+def test_k14_mp_elementwise(dev, mode, vs):
     """K14 on full operands, on a per-lane table broadcast over rows (the
     convolution's product) and on one constant a lane."""
-    mp, rng = mpm.MultiPrimeField(18), np.random.default_rng(12)
+    mp, rng = mpm.MultiPrimeField(vs), np.random.default_rng(12)
     a = _residues(mp, rng, (5, 300), dev)
     for b in (_residues(mp, rng, (5, 300), dev),
               _residues(mp, rng, (300,), dev), _residues(mp, rng, (), dev)):
@@ -249,10 +252,16 @@ def test_k14_mp_elementwise(dev, mode):
               mpm.mp_elementwise_plain(mp, mode, a, b))
 
 
-def test_k13_k15_crt_conversions(dev):
-    """K13 (to_crt) and K15 (from_crt) of secp256k1 elements; from_crt
-    of to_crt is the identity."""
-    F, rng = p256k1_base(), np.random.default_rng(13)
+# the target fields of K13 and K15
+CRT_FIELDS = {"fp256k1": p256k1_base, "p256n": p256_scalar,
+              "fp256": p256_base, "p384": p384_base, "p521": p521_base}
+
+
+@pytest.mark.parametrize("field", list(CRT_FIELDS))
+def test_k13_k15_crt_conversions(dev, field):
+    """K13 (to_crt) and K15 (from_crt) of each target field's elements;
+    from_crt of to_crt is the identity."""
+    F, rng = CRT_FIELDS[field](), np.random.default_rng(13)
     ctx = crt_conv.CRTContext(F, device=dev)
     x = _elts(F, rng, 3 * 700, dev).reshape(3, 700, F.nlimb)
     z = ctx.to_crt(x)
@@ -645,16 +654,27 @@ def test_k18_rfft_pass(dev, mode, n):
 
 
 PRIMES = ["fp128", "fp256", "fp256k1"]
+# the Nussbaumer instances: the prime fields and Fp2 over P-256
+NB_FIELDS = PRIMES + ["fp256x2"]
 
 
-@pytest.mark.parametrize("field", PRIMES)
+def _nb_field(field):
+    """(F, elts(rng, n, dev) -> [n, *F.elt_shape])."""
+    if field == "fp256x2":
+        F = Fp2(p256_base())
+        return F, lambda r, n, d: _elts2(F, r, n, d)
+    F = FIELDS[field]()
+    return F, lambda r, n, d: _elts(F, r, n, d)
+
+
+@pytest.mark.parametrize("field", NB_FIELDS)
 def test_k19_nb_butterfly(dev, field):
     """Every level of both directions at the shapes of negacyclic(2048)
     (M = 64, r = 64) and of negacyclic(64) (M = 16, r = 8), with the
     steps the recursion uses and odd ones."""
-    F, rng = FIELDS[field](), np.random.default_rng(19)
+    (F, elts), rng = _nb_field(field), np.random.default_rng(19)
     for rows, M, r in ((3, 64, 64), (40, 16, 8)):
-        A = _elts(F, rng, rows * M * r, dev).reshape(rows, M, r, F.nlimb)
+        A = elts(rng, rows * M * r, dev).reshape((rows, M, r) + F.elt_shape)
         h = M // 2
         while h >= 1:
             for step in (r // h, 3, -7, -r):
@@ -665,32 +685,34 @@ def test_k19_nb_butterfly(dev, field):
 
 
 @pytest.mark.parametrize("n", [1, 4, 8, 32])
-@pytest.mark.parametrize("field", PRIMES)
+@pytest.mark.parametrize("field", NB_FIELDS)
 def test_k20_nb_base_conv(dev, field, n):
-    F, rng = FIELDS[field](), np.random.default_rng(20 + n)
-    x = _elts(F, rng, 6 * n, dev).reshape(2, 3, n, F.nlimb)
-    for y in (_elts(F, rng, 3 * n, dev).reshape(3, n, F.nlimb),
-              _elts(F, rng, 6 * n, dev).reshape(2, 3, n, F.nlimb)):
+    (F, elts), rng = _nb_field(field), np.random.default_rng(20 + n)
+    e = F.elt_shape
+    x = elts(rng, 6 * n, dev).reshape((2, 3, n) + e)
+    for y in (elts(rng, 3 * n, dev).reshape((3, n) + e),
+              elts(rng, 6 * n, dev).reshape((2, 3, n) + e)):
         for neg in (False, True):
-            x2, y2 = nbm._rows_of(x, y)
+            x2, y2 = nbm._rows_of(x, y, len(e))
             _same(nbm.nb_base_conv(F, x, y, neg).reshape(x2.shape),
                   nbm.nb_base_conv_plain(F, x2, y2, neg))
 
 
-@pytest.mark.parametrize("field", PRIMES)
+@pytest.mark.parametrize("field", NB_FIELDS)
 def test_nussbaumer_cyclic_on_the_card(dev, field):
-    """cyclic at 4,096 points (K19, K20 and K1; negacyclic(2,048)
-    recurses twice), y one row, equals the CPU's plain versions."""
-    F, rng = FIELDS[field](), np.random.default_rng(21)
-    x = _elts(F, rng, 2 * 4096, dev).reshape(2, 4096, F.nlimb)
-    y = _elts(F, rng, 4096, dev)
+    """cyclic at 4,096 points (K19, K20 and K1, or K5 over Fp2;
+    negacyclic(2,048) recurses twice), y one row, equals the CPU's plain
+    versions."""
+    (F, elts), rng = _nb_field(field), np.random.default_rng(21)
+    x = elts(rng, 2 * 4096, dev).reshape((2, 4096) + F.elt_shape)
+    y = elts(rng, 4096, dev)
     _same(nbm.cyclic(F, x, y), nbm.cyclic(F, x.cpu(), y.cpu()))
 
 
 # the field API no proof path calls (K1 modes 5-9, K5's, K21, K22) and
 # the instances it adds
 API_FIELDS = dict(FIELDS, fp24=f24m.fp24, fp64=fp64, p256n=p256_scalar,
-                  p256k1n=p256k1_scalar)
+                  p256k1n=p256k1_scalar, p384=p384_base, p521=p521_base)
 API_MODES = [fpm.MUL, fpm.ADD, fpm.SUB, fpm.SQR, fpm.NEG, fpm.EQ,
              fpm.IS_ZERO, fpm.SELECT]
 
@@ -811,6 +833,22 @@ def test_k2_k3_fp24(dev):
     F6 = f24m.Fp24_6(F)
     x6 = x[:6000].reshape(1000, 6, 1)
     _same(F6.lazy_sum(x6, 0), fpm.axis_sum_plain(F, x6, 0))
+
+
+@pytest.mark.parametrize("field", ["fp64", "p256n", "p256k1n", "p384",
+                                   "p521"])
+def test_k2_k3_field_api(dev, field):
+    """K2 and K3 at the instances that only lazy_segment_sum and lazy_sum
+    reach: sums with a run of p - 1 (at P-521 they pass 2p below R)."""
+    F, rng = API_FIELDS[field](), np.random.default_rng(36)
+    x = _elts(F, rng, 20000, dev)
+    x[:5000] = F.to_limbs(F.p - 1, dev)
+    s, e = _segments(rng, 3000, 20000, dev)
+    _same(F.lazy_segment_sum(x, s, e), fpm.segment_sum_plain(F, x, s, e))
+    for t in (x, x.reshape(20, 1000, F.nlimb),
+              x[:19992].reshape(7, 2, 1428, F.nlimb)):
+        for dim in range(t.dim() - 1):
+            _same(F.lazy_sum(t, dim), fpm.axis_sum_plain(F, t, dim))
 
 
 def test_no_kernel_raises(dev):
