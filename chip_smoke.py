@@ -140,6 +140,17 @@
       and K14 launched, K4 [fp256x2] and K5 not) held to the golden bytes
       and states under the sync check, timed, its verifier with the same
       factory accepting the golden and refusing a flip.
+   m. the multi-card paths (longfellow_zk_tpu_torch/parallel/smoke.py)
+      at world = torch.cuda.device_count(), one process a card through
+      parallel/launch.spawn and NCCL between them (one rank on one card:
+      every sharded code path and collective call still runs): the
+      sharded NTT at 2^20, the plain sumcheck over the SHA-256 circuit x
+      64 copies with the copies sharded, ZkProver with the tableau rows
+      sharded on the SHA-256, ECDSA and bitaddr goldens, BatchZkProver
+      with the lanes sharded (8 SHA-256 lanes) and sharded_rs_encode,
+      each exact against its golden and its one-card run, the launch
+      counts of each set to zero just before it and read just after
+      (every kernel of its path launched), timed beside the one-card run.
 5. Drives the port's three verifier paths on those golden proofs, each
    with the launch counts set to zero just before the first verification
    and read just after (it must accept, K7 and the path's other kernels
@@ -3209,6 +3220,22 @@ def main() -> int:
             None, timed=False):
         return 1
     print("section 4l: %.1f s" % (time.perf_counter() - t4l))
+
+    # -- 4m. the multi-card paths at world = the cards visible (one process
+    #        a card, NCCL): the sharded NTT, the sumcheck's sharded copy
+    #        rounds, ZkProver and BatchZkProver on a mesh, sharded_rs_encode
+    from longfellow_zk_tpu_torch.parallel import smoke as psmoke
+
+    t4m = time.perf_counter()
+    print("== section 4m: the multi-card paths at world %d [at %.0f s]"
+          % (count, t4m - T0))
+    torch.cuda.empty_cache()
+    ok_m, _ = psmoke.run(count, timeout_s=600)
+    print("section 4m: %.1f s" % (time.perf_counter() - t4m))
+    if not ok_m:
+        print("FAIL: a multi-card path differs from its golden or its "
+              "one-card run, or left a kernel of its path unlaunched")
+        return 1
 
     # -- 5. the verifiers on the golden proofs ------------------------------
     # the first sumcheck element of a ZK proof starts after the 32-byte root

@@ -23,6 +23,17 @@ RS kernels as one stack, their columns through one K8 launch and their
 Merkle heaps level by level in one launch a level (the jax.vmap of the
 JAX package's _commit_full_fn, zk/batch.py:124), one device-to-host copy
 brings every heap back, and each lane keeps its own MerkleCommitment.
+
+With a mesh (parallel/mesh.py; the JAX package's mesh=, ligero/prover.py
+:61-75, :185-208, which shards the block-width rows of its commit) the
+tableau's rows go over the mesh's rows axis (D ranks): each rank encodes
+its share of the block-width rows (parallel/mesh.sharded_rs_encode) and
+the encodings are all-gathered, so every rank holds the whole tableau;
+each rank hashes its share of the block_ext columns with K8, the leaves
+are all-gathered and every rank builds the heap; the responses' sums
+over rows run on each rank's share of the rows and the D partial sums
+are summed as field elements (Mesh.sum).  The proof is the one card's,
+byte for byte, on every rank.
 """
 
 from __future__ import annotations
@@ -31,21 +42,23 @@ from typing import Callable, List, Sequence
 
 import torch
 
-from ..device import resolve_device
 from ..merkle.merkle import MerkleCommitment, NONCE_LEN
 from ..merkle.merkle_dev import merkle_heap
 from ..merkle.sha256_dev import sha256_msgs
+from ..parallel.mesh import mesh_device, sharded_rs_encode
 from .param import LigeroParam, LigeroProof
 
 
 class LigeroProver:
-    def __init__(self, p: LigeroParam, F, rs_factory: Callable, device=None):
+    def __init__(self, p: LigeroParam, F, rs_factory: Callable, device=None,
+                 mesh=None):
         """rs_factory(n, m) -> encoder with .interpolate([..., n, N])
-        returning [..., m, N] on `device`."""
+        returning [..., m, N] on `device` (the mesh's, with a mesh)."""
         self.p = p
         self.F = F
         self.rs_factory = rs_factory
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh_device(mesh, device)
         self.mcs: List[MerkleCommitment] = []  # one a lane
         self.tableau = None  # [B, nrow, block_enc, N] Montgomery limbs
         self.aext_rs = None  # the dot test's (block, dblock) encoder
@@ -131,8 +144,13 @@ class LigeroProver:
             return F.to_limbs(vals, dev).reshape(
                 (B * len(preps[0][k]), width) + F.elt_shape)
 
-        enc_b = self.rs_factory(p.block, p.block_enc).interpolate(
-            rows(0, p.block)).reshape((B, -1, p.block_enc) + F.elt_shape)
+        rs_b, rows_b = self.rs_factory(p.block, p.block_enc), rows(0, p.block)
+        if self.mesh is None:
+            enc_b = rs_b.interpolate(rows_b)
+        else:
+            enc_b = self.mesh.gather(sharded_rs_encode(
+                rs_b, self.mesh, self.mesh.shard(rows_b)), rows_b.shape[0])
+        enc_b = enc_b.reshape((B, -1, p.block_enc) + F.elt_shape)
         enc_d = self.rs_factory(p.dblock, p.block_enc).interpolate(
             rows(1, p.dblock)).reshape((B, 2, p.block_enc) + F.elt_shape)
         # made here, with its uploads, so that the responses upload nothing
@@ -148,7 +166,13 @@ class LigeroProver:
             dtype=torch.uint8).to(dev)
         msgs = torch.cat([nonce_t.reshape(B, p.block_ext, NONCE_LEN),
                           cols.reshape(B, p.block_ext, -1)], dim=2)
-        leaves = sha256_msgs(msgs.reshape(B * p.block_ext, -1))
+        if self.mesh is None:
+            leaves = sha256_msgs(msgs.reshape(B * p.block_ext, -1))
+        else:
+            mine = self.mesh.shard(msgs, dim=1)
+            leaves = self.mesh.gather(
+                sha256_msgs(mine.reshape(-1, msgs.shape[2])).reshape(
+                    B, mine.shape[1], -1), p.block_ext, dim=1)
         heaps = merkle_heap(leaves.reshape(B, p.block_ext, -1)).cpu().numpy()
         self.mcs = [MerkleCommitment(p.block_ext) for _ in range(B)]
         return [mc.commit_heap(heap, prep[2])
@@ -162,25 +186,51 @@ class LigeroProver:
         [B, nwqrow, block, N], u_quad [B, nqtriples, N]): (y_ldt, y_dot,
         y_quad) tensors [B, block or dblock, N]."""
         p, F, T = self.p, self.F, self.tableau
-        wrows = T[:, p.iw : p.iw + p.nwqrow]
+        B = T.shape[0]
+        # the rows summed over: this rank's share with a mesh (the
+        # witness rows, the quadratic triples), else all
+        w0, w1 = (0, p.nwqrow) if self.mesh is None else \
+            self.mesh.bounds(p.nwqrow)
+        q0, q1 = (0, p.nqtriples) if self.mesh is None else \
+            self.mesh.bounds(p.nqtriples)
+
+        def rowsum(t, width):
+            if self.mesh is not None and t.shape[1] == 0:
+                return F.zeros((B, width), T.device)  # a rank without rows
+            return F.lazy_sum(t, 1)
+
+        wrows = T[:, p.iw + w0 : p.iw + w1]
         # low-degree test: ildt + sum_i u_i * w_i over [0, block)
-        t0 = F.mul(wrows[:, :, : p.block].contiguous(), u_ldt[:, :, None])
-        y_ldt = F.add(T[:, p.ildt, : p.block].contiguous(), F.lazy_sum(t0, 1))
+        t0 = F.mul(wrows[:, :, : p.block].contiguous(),
+                   u_ldt[:, w0:w1, None])
+        s_ldt = rowsum(t0, p.block)
         # dot test: idot + sum_i Aext_i o w_i over [0, dblock)
-        aext = self.aext_rs.interpolate(
-            A_rows.reshape((-1, p.block) + F.elt_shape)).reshape(
-                A_rows.shape[:2] + (p.dblock,) + F.elt_shape)
+        a_rows = A_rows[:, w0:w1]
+        aext = sharded_rs_encode(
+            self.aext_rs, self.mesh,
+            a_rows.reshape((-1, p.block) + F.elt_shape)).reshape(
+                a_rows.shape[:2] + (p.dblock,) + F.elt_shape)
         t1 = F.mul(aext, wrows[:, :, : p.dblock].contiguous())
-        y_dot = F.add(T[:, p.idot, : p.dblock].contiguous(),
-                      F.lazy_sum(t1, 1))
+        s_dot = rowsum(t1, p.dblock)
         # quadratic test: iquad + sum_i u_i * (z_i - x_i o y_i)
         nqt = p.nqtriples
-        xr = T[:, p.iq : p.iq + nqt, : p.dblock].contiguous()
-        yr = T[:, p.iq + nqt : p.iq + 2 * nqt, : p.dblock].contiguous()
-        zr = T[:, p.iq + 2 * nqt : p.iq + 3 * nqt, : p.dblock].contiguous()
-        t2 = F.mul(F.sub(zr, F.mul(xr, yr)), u_quad[:, :, None])
+        xr = T[:, p.iq + q0 : p.iq + q1, : p.dblock].contiguous()
+        yr = T[:, p.iq + nqt + q0 : p.iq + nqt + q1, : p.dblock].contiguous()
+        zr = T[:, p.iq + 2 * nqt + q0 : p.iq + 2 * nqt + q1,
+               : p.dblock].contiguous()
+        t2 = F.mul(F.sub(zr, F.mul(xr, yr)), u_quad[:, q0:q1, None])
+        s_quad = rowsum(t2, p.dblock)
+        if self.mesh is not None:
+            # the D ranks' partial sums, summed as field elements
+            s_ldt, s_dot, s_quad = torch.split(self.mesh.sum(
+                F, torch.cat([s_ldt, s_dot, s_quad], dim=1)),
+                [p.block, p.dblock, p.dblock], dim=1)
+        y_ldt = F.add(T[:, p.ildt, : p.block].contiguous(),
+                      s_ldt.contiguous())
+        y_dot = F.add(T[:, p.idot, : p.dblock].contiguous(),
+                      s_dot.contiguous())
         y_quad = F.add(T[:, p.iquad, : p.dblock].contiguous(),
-                       F.lazy_sum(t2, 1))
+                       s_quad.contiguous())
         return y_ldt, y_dot, y_quad
 
     def assemble(self, lane: int, y_ldt, y_dot, y_quad, idx,

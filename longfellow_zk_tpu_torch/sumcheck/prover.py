@@ -61,6 +61,21 @@ inputs of copy c are its lane c, [nc, nw, N]); lanes and copies are
 never both above 1 (the batch prover is ZK-only, and ZK refuses copies),
 so the rounds of a circuit with copies take one transcript.
 
+With a mesh (parallel/mesh.py; the JAX package's mesh= of
+zk/prover.py:117-126, tests/test_mesh_prover.py
+test_sumcheck_copy_axis_sharded_proof) the copies of a circuit whose nc
+and C = 2^logc the mesh's cols axis (D ranks) divides are sharded: the
+rank of cols index k holds copies [k C / D, (k + 1) C / D) of the padded
+C, evaluates those (the ranks' satisfaction flags are all-reduced before
+any rank returns), and runs the copy rounds on its block while it holds
+two copies or more: K16 on its block and the D partials summed
+(parallel/sumcheck_sharded.sharded_copy_round_coeffs), K10's cubic tail
+on every rank (whose transcripts stay equal), the binds on its block.
+With one copy a rank left, the D copies' EQ and W are all-gathered and
+the last log2 D copy rounds and the wire rounds run on every rank, as
+without a mesh.  Any other circuit runs replicated: every rank proves it
+whole.  Every rank ends with the same proof and transcript state.
+
 Proof bytes equal the JAX package's (tests/test_torch_sumcheck.py).
 """
 
@@ -72,9 +87,10 @@ import numpy as np
 import torch
 
 from ..arrays import dense
-from ..device import resolve_device
 from ..fields.fp import (fp_copy_round_sums, fp_eval_layer, fp_wire_sums,
                          round_consts)
+from ..parallel.mesh import mesh_device
+from ..parallel.sumcheck_sharded import sharded_copy_round_coeffs
 from ..random_oracle import device_fs as dfs
 from .circuit import KMAX_BINDINGS, Circuit, LayerProof, Proof, ProofAux
 
@@ -203,14 +219,29 @@ class SumcheckProver:
     with its own transcript, pad and challenges, in the launches of one
     proof (the circuit's tables are shared); a single proof is the lane
     axis of length 1.  A circuit with nc > 1 copies is proved one proof
-    at a time, its copies on the lane axis of the evaluation."""
+    at a time, its copies on the lane axis of the evaluation; with a
+    mesh, sharded over its cols axis where the axis divides nc and C
+    (see the module's docstring)."""
 
     # terms below this count aren't worth the merge prologue
     K_MERGE_MIN_TERMS = 4096
 
-    def __init__(self, F, device=None):
+    def __init__(self, F, device=None, mesh=None):
         self.F = F
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh_device(mesh, device)
+
+    def copy_shard(self, circ: Circuit):
+        """(lo, width): this rank's block [lo, lo + width) of the C padded
+        copies when the copies are sharded (a mesh whose cols axis divides
+        nc and C), else None."""
+        if self.mesh is None or circ.logc == 0:
+            return None
+        D, C = self.mesh.size("cols"), 1 << circ.logc
+        if circ.nc % D or C % D:
+            return None
+        width = C // D
+        return self.mesh.index("cols") * width, width
 
     def _segments(self, quad, nv: int):
         """(starts, ends) int32 [nv]: output wire g's terms in g order."""
@@ -350,8 +381,17 @@ class SumcheckProver:
         if W0.shape[0] != circ.nc:
             raise ValueError("W0 holds %d copies, the circuit %d"
                              % (W0.shape[0], circ.nc))
-        inputs, flags = self.evaluate(circ, W0)
-        if not bool(flags.all().item()):
+        shard = self.copy_shard(circ)
+        if shard is not None:
+            # this rank's copies only (none where its block is padding)
+            lo, width = shard
+            W0 = W0[lo : min(lo + width, circ.nc)]
+        if W0.shape[0]:
+            inputs, flags = self.evaluate(circ, W0)
+            ok = flags.all()
+        else:
+            inputs, ok = [None] * circ.nl, True
+        if not (bool(ok) if self.mesh is None else self.mesh.all_true(ok)):
             return None, None, None
         pads, consts = self.prepare(circ, [pad])
         fs = dfs.fs_init_from_host(ts.ts, self.device)[None]
@@ -476,16 +516,35 @@ class SumcheckProver:
             C = 1 << circ.logc
             EQ = F.zeros((1, C), dev)
             EQ[:, : circ.nc] = _eq_dev(F, circ.logc, circ.nc, bnd_q, one)
-            Wc = F.zeros((W.shape[1], C), dev)
-            Wc[:, : circ.nc] = W.transpose(0, 1)
+            shard = self.copy_shard(circ)
+            if shard is None:
+                Wc = F.zeros((W.shape[1], C), dev)
+                Wc[:, : circ.nc] = W.transpose(0, 1)
+            else:
+                # this rank's block of the copies (W: its real ones)
+                lo, width = shard
+                EQ = EQ[:, lo : lo + width].contiguous()
+                Wc = F.zeros((layer.nw, width), dev)
+                if W is not None:
+                    Wc[:, : W.shape[0]] = W.transpose(0, 1)
             for rnd in range(circ.logc):
-                c = fp_copy_round_sums(F, EQ[0], Wc, qd["h0"], qd["h1"],
-                                       hv[0])
+                if shard is not None and EQ.shape[1] == 1:
+                    EQ, Wc = self._gather_copies(EQ, Wc)
+                    shard = None
+                if shard is None:
+                    c = fp_copy_round_sums(F, EQ[0], Wc, qd["h0"], qd["h1"],
+                                           hv[0])
+                else:
+                    c = sharded_copy_round_coeffs(F, self.mesh, EQ[0], Wc,
+                                                  hv[0], qd["h0"], qd["h1"],
+                                                  axis="cols")
                 row = cp[:, rnd]
                 dfs.round_tail_cubic(F, fs, claim, row, c[None],
                                      cp_pad[:, rnd], rc)
                 EQ = dense.bind(F, EQ, row[:, 4])
                 Wc = dense.bind(F, Wc, row[:, 4])
+            if shard is not None:
+                EQ, Wc = self._gather_copies(EQ, Wc)
             eq0 = EQ[0, 0]
             W = Wc.reshape((1, -1) + F.elt_shape)
 
@@ -534,6 +593,13 @@ class SumcheckProver:
                     ok=(claim == expected).flatten(1).all(1),
                     q=cp[:, :, 4], g=[rows[:, :, 0, 3], rows[:, :, 1, 3]],
                     alpha=alpha)
+
+    def _gather_copies(self, EQ: torch.Tensor, Wc: torch.Tensor):
+        """EQ [1, 1, N] and Wc [nw, 1, N], this rank's one copy left of
+        the sharded copy rounds, joined with the other ranks' of the cols
+        axis: [1, D, N] and [nw, D, N] on every rank."""
+        return (self.mesh.all_gather(EQ, "cols", dim=1),
+                self.mesh.all_gather(Wc, "cols", dim=1))
 
     def _assemble(self, circ: Circuit, pad: Optional[Proof],
                   host: np.ndarray, host_ts):

@@ -24,16 +24,28 @@ the case B = 1:
 
 Each lane's proof is byte-identical to the scalar ZkProver's with the
 same transcript tag and the same randomness stream (tests/
-test_torch_batch.py; on the card, chip_smoke.py).  Not ported: the
-JAX package's mesh sharding of the proof axis (`_dp`, :209), its
-one-program branch (:159-206) and the per-proof fallback
-(`_scalar_fallback`), which exist for the TPU.
+test_torch_batch.py; on the card, chip_smoke.py).
+
+With a mesh (parallel/mesh.py; the JAX package's mesh= and `_dp`,
+:75-86, :209: the proof axis sharded, data parallelism) the B lanes are
+split over the mesh's rows axis, B / D a rank (B % D == 0): rank 0
+draws every lane's pad and tableau rows from the one stream, lane by
+lane (step 1, as above), and broadcasts them; each rank runs steps 2-5
+on its lanes, with no traffic between the cards; the proofs and the
+lanes' final transcript states are all-gathered, so that every rank
+returns the B proofs in lane order and every lane's transcript ends in
+its state.  The proofs are the unsharded batch's, the scalar ZkProver's
+(the JAX package's mesh path is held to nothing: its proofs differ from
+its unsharded ones, tests/test_mesh_prover.py test_batch_prover_mesh_dp).
+Not ported: the JAX package's one-program branch (:159-206) and the
+per-proof fallback (`_scalar_fallback`), which exist for the TPU.
 """
 
 from __future__ import annotations
 
 from typing import List, Optional, Sequence
 
+from ..parallel.mesh import mesh_device
 from ..sumcheck.circuit import Circuit
 from .proof import ZkProof
 from .prover import ZkProver
@@ -47,15 +59,19 @@ class BatchZkProver:
     versions)."""
 
     def __init__(self, circ: Circuit, F, rs_factory, rate: int, nreq: int,
-                 block_enc: Optional[int] = None, device=None):
+                 block_enc: Optional[int] = None, device=None, mesh=None):
         """rs_factory must encode on the same device
-        (zk.testing.rs_factory_for(..., device=...))."""
+        (zk.testing.rs_factory_for(..., device=...)); with a mesh, the
+        mesh's device."""
         self.circ = circ
         self.F = F
         self.rate = rate
         self.nreq = nreq
+        self.mesh = mesh
+        # each rank proves its lanes as one card does: no mesh below
         self.prover = ZkProver(circ, F, rs_factory, rate=rate, nreq=nreq,
-                               block_enc=block_enc, device=device)
+                               block_enc=block_enc,
+                               device=mesh_device(mesh, device))
         self.param = self.prover.param
 
     def prove_batch(self, W_list: Sequence[List], ts_list,
@@ -70,12 +86,49 @@ class BatchZkProver:
             raise ValueError("need one transcript for each of B > 0 "
                              "witnesses, got %d and %d"
                              % (B, len(ts_list)))
-        zkps = [ZkProof(rate=self.rate, nreq=self.nreq) for _ in range(B)]
-        self.prover.commit_lanes(zkps, W_list, ts_list, rng)
+        if self.mesh is None:
+            zkps = [ZkProof(rate=self.rate, nreq=self.nreq)
+                    for _ in range(B)]
+            self.prover.commit_lanes(zkps, W_list, ts_list, rng)
+            blobs, bad = self._prove(zkps, W_list, ts_list, range(B))
+            _refuse(bad)
+            return blobs
+        mesh = self.mesh
+        D = mesh.size("rows")
+        if B % D:
+            raise ValueError("a batch of %d lanes does not split over the "
+                             "%d ranks of the mesh's rows axis" % (B, D))
+        drawn = mesh.broadcast_object(self.prover.draw_lanes(W_list, rng)
+                                      if mesh.rank == 0 else None)
+        lo, hi = mesh.bounds(B)
+        zkps = [ZkProof(rate=self.rate, nreq=self.nreq)
+                for _ in range(lo, hi)]
+        self.prover.commit_drawn(zkps, ts_list[lo:hi],
+                                 *(d[lo:hi] for d in drawn))
+        mine, bad = self._prove(zkps, W_list[lo:hi], ts_list[lo:hi],
+                                range(lo, hi))
+        # every rank learns every rank's verdict before any raises
+        parts = mesh.all_gather_object(
+            (mine, bad, [ts.export_state() for ts in ts_list[lo:hi]]))
+        _refuse([b for _, bad, _ in parts for b in bad])
+        blobs = []
+        for part, _, states in parts:
+            for ts, st in zip(ts_list[len(blobs):], states):
+                ts.import_state(st)
+            blobs += part
+        return blobs
+
+    def _prove(self, zkps, W_list, ts_list, lanes):
+        """The prove of the committed lanes (numbered `lanes` in the
+        batch): (their proofs' bytes, the lanes that do not satisfy the
+        circuit); no proofs if one does not."""
         oks = self.prover.prove_lanes(zkps, W_list, ts_list)
-        bad = [b for b, ok in enumerate(oks) if not ok]
-        if bad:
-            raise ValueError("the witness of lane %s does not satisfy the "
-                             "circuit" % ", ".join(map(str, bad)))
-        return [write_zk_proof(zkp, self.circ, self.param, self.F)
-                for zkp in zkps]
+        bad = [b for b, ok in zip(lanes, oks) if not ok]
+        return [] if bad else [write_zk_proof(zkp, self.circ, self.param,
+                                              self.F) for zkp in zkps], bad
+
+
+def _refuse(bad: List[int]) -> None:
+    if bad:
+        raise ValueError("the witness of lane %s does not satisfy the "
+                         "circuit" % ", ".join(map(str, bad)))

@@ -21,6 +21,19 @@ there too, nothing read back between them: the sumcheck
 Ligero finish (K12, the responses, K9's draws, writes and column choice,
 zk/fused.py); then one fetch, from which the host assembles each lane's
 proof and each lane's transcript takes its final state.
+
+With a mesh (parallel/mesh.py; the JAX package's ZkProver(mesh=),
+zk/prover.py:34-64, :117-126) the tableau's rows go over the mesh's rows
+axis (ligero/prover.py: the encode, the column hashes and the responses'
+sums over rows sharded), and the copies of the sumcheck over its cols
+axis (sumcheck/prover.py; the ZK replay takes no copies, logc = 0, so a
+ZK proof shards only rows).  The host's draws, the pads and the tableau
+rows (`draw_lanes`), are made on rank 0 alone, in the one card's order,
+and broadcast, so that an engine with a stream of its own on each rank
+(SecureRandomEngine) commits every rank to rank 0's tableau.  The
+sumcheck, the constraint build (K11) and the Ligero finish (K12, K9)
+run on every rank, whose transcripts stay equal, and every rank returns
+the one card's proof, byte for byte.
 """
 
 from __future__ import annotations
@@ -30,10 +43,10 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from ..device import resolve_device
 from ..ligero.param import LigeroCommitment, LigeroParam
 from ..ligero.prover import LigeroProver
 from ..ligero.transcript import write_commitment
+from ..parallel.mesh import mesh_device
 from ..random_oracle import device_fs as dfs
 from ..sumcheck.circuit import Circuit, LayerProof, Proof
 from ..sumcheck.prover import SumcheckProver
@@ -44,12 +57,14 @@ from .proof import ZkProof
 
 class ZkProver:
     def __init__(self, circ: Circuit, F, rs_factory, rate: int, nreq: int,
-                 block_enc: Optional[int] = None, device=None):
+                 block_enc: Optional[int] = None, device=None, mesh=None):
         """rs_factory must encode on the same device
-        (zk.testing.rs_factory_for(..., device=...))."""
+        (zk.testing.rs_factory_for(..., device=...)); with a mesh, the
+        mesh's device."""
         self.circ = circ
         self.F = F
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh_device(mesh, device)
         self.rs_factory = rs_factory
         self.n_witness = circ.ninputs - circ.npub_in
         self.param = LigeroParam(
@@ -61,7 +76,7 @@ class ZkProver:
         self.witness: Optional[List] = None
         self.pads: List[Proof] = []  # the committed lanes' pads
         self.lp: Optional[LigeroProver] = None
-        self.sumcheck = SumcheckProver(F, self.device)
+        self.sumcheck = SumcheckProver(F, self.device, mesh)
 
     def commit(self, zkp: ZkProof, W_host: List, ts, rng) -> None:
         """(zk_prover.h:72-100).  W_host: all input wires (public first)."""
@@ -82,16 +97,35 @@ class ZkProver:
         zk/batch.py:104-116), then one device commit of every lane (the
         jax.vmap of its _commit_full_fn, :118-134) and each root written
         to its lane's transcript (:136-146)."""
-        c, F = self.circ, self.F
+        if self.mesh is None:
+            drawn = self.draw_lanes(Ws, rng)
+        else:
+            drawn = self.mesh.broadcast_object(
+                self.draw_lanes(Ws, rng) if self.mesh.rank == 0 else None)
+        self.commit_drawn(zkps, tss, *drawn)
+
+    def draw_lanes(self, Ws: List[List], rng):
+        """The host's draws of the lanes' commit, from the one stream rng
+        in lane order: (each lane's pad, each lane's _commit_prep)."""
+        c = self.circ
         subfield_boundary = max(0, c.subfield_boundary - c.npub_in)
-        self.lp = LigeroProver(self.param, F, self.rs_factory, self.device)
-        self.pads, preps = [], []
+        lp = LigeroProver(self.param, self.F, self.rs_factory, self.device)
+        pads, preps = [], []
         for W_host in Ws:
             self.witness = list(W_host[c.npub_in : c.ninputs])
             self._fill_pad(rng)
-            self.pads.append(self.pad)
-            preps.append(self.lp._commit_prep(self.witness, subfield_boundary,
-                                              self.lqc, rng))
+            pads.append(self.pad)
+            preps.append(lp._commit_prep(self.witness, subfield_boundary,
+                                         self.lqc, rng))
+        return pads, preps
+
+    def commit_drawn(self, zkps: List[ZkProof], tss, pads: List,
+                     preps: List) -> None:
+        """The device commit of the lanes drawn by draw_lanes, and each
+        root written to its lane's transcript."""
+        self.lp = LigeroProver(self.param, self.F, self.rs_factory,
+                               self.device, self.mesh)
+        self.pads = list(pads)
         for zkp, ts, root in zip(zkps, tss, self.lp.commit(preps)):
             zkp.com = LigeroCommitment(root=root)
             write_commitment(zkp.com, ts)

@@ -48,7 +48,9 @@ for mod in ("fields.fp2", "ec.curves", "circuits.ecdsa.verify",
             "fields.multiprime", "transforms.crt_conv",
             "circuits.bitaddr.bitaddr", "circuits.ripemd.witness",
             "circuits.ecdsa.pk", "arrays.dense", "transforms.matmul_ntt",
-            "transforms.rfft", "transforms.nussbaumer", "fields.fp24"):
+            "transforms.rfft", "transforms.nussbaumer", "fields.fp24",
+            "parallel.launch", "parallel.mesh", "parallel.ntt_sharded",
+            "parallel.sumcheck_sharded", "parallel.smoke"):
     assert pkg.__name__ + "." + mod in names, mod
 from longfellow_zk_tpu_torch.fields.fp_instances import (
     fp128, p256_base, p256k1_base, P128_OMEGA, P128_OMEGA_ORDER, P256_FP2_ROOT_X,
@@ -71,6 +73,8 @@ from longfellow_zk_tpu_torch.transforms.rfft import (
 from longfellow_zk_tpu_torch.transforms.nussbaumer import (
     NussbaumerConvolution, make_nussbaumer_convolution_factory)
 from longfellow_zk_tpu_torch.fields.fp24 import Fp24_6, fp24
+from longfellow_zk_tpu_torch.parallel.launch import spawn
+from longfellow_zk_tpu_torch.parallel.mesh import make_mesh
 OMEGA2 = (P256_FP2_ROOT_X, P256_FP2_ROOT_Y)
 for make in (lambda: SumcheckProver(fp128()),
              lambda: SumcheckProver(gf2_128()),
@@ -110,7 +114,8 @@ for make in (lambda: SumcheckProver(fp128()),
                                      make_nussbaumer_convolution_factory(
                                          p256k1_base(), "cpu")),
              lambda: Fp24_6(fp24()).zeros((4,)),
-             lambda: Fp24_6(fp24()).to_limbs([(1, 2, 3, 4, 5, 6)])):
+             lambda: Fp24_6(fp24()).to_limbs([(1, 2, 3, 4, 5, 6)]),
+             lambda: spawn(print, 1, "cuda")):
     try:
         make()
     except RuntimeError as e:
@@ -118,6 +123,12 @@ for make in (lambda: SumcheckProver(fp128()),
     else:
         raise AssertionError("an entry point ran without a card")
 SumcheckProver(fp128(), device="cpu")
+try:
+    make_mesh(1)
+except RuntimeError as e:
+    assert "initialised process group" in str(e)
+else:
+    raise AssertionError("a mesh without a process group")
 print("IMPORTED", len(names))
 """
 

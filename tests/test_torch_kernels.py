@@ -872,3 +872,14 @@ def test_no_kernel_raises(dev):
         fpm.fp_elementwise(G, 11, g, g)
     with pytest.raises(ValueError):
         fp2_elementwise(Fp2(p256_base()), fpm.HV, a2, a2)
+
+
+def test_parallel_paths_at_the_cards_visible(dev):
+    """parallel/smoke.py's checks (ShardedNTT at 2^20, the SHA-256 x 64
+    copies sumcheck, ZkProver on the three goldens, the batch of 8, the
+    sharded RS encode) at world = the cards visible, through NCCL: every
+    one exact and every kernel of its path launched."""
+    from longfellow_zk_tpu_torch.parallel import smoke
+
+    ok, summary = smoke.run(torch.cuda.device_count(), timeout_s=900)
+    assert ok, {k: (v["exact"], v["missing"]) for k, v in summary.items()}
