@@ -56,13 +56,19 @@
    l. the field API that no proof path calls (the JAX package's tests
       drive it), at 2^20 elements a call: K1's modes sqr, neg, eq,
       is_zero, select and mul_const at every instance and its new
-      instances fp24, fp64, p256n, p256k1n; K21 (the inverse) at every
-      instance; K5's modes; K22 (Fp24_6) in every mode; K2 and K3 [fp24];
-      each also against the host ints at 64 sampled elements, the
-      inverses (checked and timed at 2^16 elements, then held to the
-      identities at 2^20) as inv(a) a = 1 and inv(0) = 0, eq, is_zero and
-      select beside one PyTorch call (library ms); then a CUDA tensor of a
-      field or mode without a kernel must raise.
+      instances fp24, fp64, p256n, p256k1n, and add at gf2_128; K21 (the
+      inverse) at every instance; K5's modes; K22 (Fp24_6) in every mode;
+      K2 and K3 [fp24]; each also against the host ints at 64 sampled
+      elements, the inverses (checked and timed at 2^16 elements, then
+      held to the identities at 2^20) as inv(a) a = 1 and inv(0) = 0, eq,
+      is_zero and select (and GF(2^128)'s add and neg) beside one PyTorch
+      call (library ms: torch.all, torch.where, torch.bitwise_xor,
+      torch.clone), timed as the kernel's row is (cold where it is); K1
+      [fp24] (four elements a thread) in every mode against its plain
+      version where its paths split (n = 0, 1, 3, 127, 129, 65541; b
+      full, one element, a row; the conditions full, a row, a column;
+      operands at an offset, not 16-byte aligned); then a CUDA tensor of
+      a field or mode without a kernel must raise.
 4. Drives the port's three prover paths, each with the launch counts set
    to zero just before it and read just after (every kernel instance of
    the path must have launched, K8-K12 included), its bytes under
@@ -124,7 +130,8 @@
       evaluation), each a median of 5 between CUDA events.
    l. the last one-card instances, each against its plain version on
       the card as in section 3: the field API at P-384 and P-521 (K1's
-      modes at 2^20 elements, K21 at 2^16), K2 and K3 at Goldilocks, the
+      modes at 2^20 elements, K21 at 2^16; K1 [p521], a tile of elements
+      a block, also at the split shapes of 3l), K2 and K3 at Goldilocks, the
       P-256 and secp256k1 orders, P-384 and P-521 (2^20 terms, a quarter
       p - 1), K13 and K15 at the P-256 order, the P-256 base field,
       P-384 and P-521, K4 [crt] and K14 at 26 and 35 lanes (the bitaddr
@@ -168,6 +175,7 @@ Any failure exits non-zero before the result line.  Imports no JAX.
 
 import copy
 import dataclasses
+import gc
 import gzip
 import hashlib
 import json
@@ -241,20 +249,53 @@ def chain_ms(steps, clock_mhz):
     return steps * DEP_CYCLES / (clock_mhz * 1e6) * 1e3
 
 
-def call_ms(fn, iters):
-    """Time of one call, back to back, by CUDA events: what a caller
-    waits for, host-side launch overhead included."""
+class GcClock:
+    """A gc.callbacks entry that adds up the ms the interpreter's garbage
+    collector runs."""
+
+    def __init__(self):
+        self.ms, self._t0 = 0.0, 0.0
+
+    def __call__(self, phase, info):
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        else:
+            self.ms += (time.perf_counter() - self._t0) * 1e3
+
+
+class CallTime(typing.NamedTuple):
+    ms: float       # one call, back to back, by CUDA events
+    gc_ms: float    # the garbage collector's ms inside the timed loop
+    host_ms: float  # the host's ms a call to enqueue the loop
+
+
+def call_ms(fn, iters, collect=False):
+    """CallTime of fn: one call, back to back, by CUDA events (what a
+    caller waits for, host-side launch overhead included), the ms that
+    the garbage collector held the timed loop and the host's enqueue time
+    a call; with collect, gc.collect() first, so that the garbage of the
+    measurement itself (the profiler's records) is not collected inside
+    the loop."""
     for _ in range(3):
         fn()
+    if collect:
+        gc.collect()
     torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(iters):
-        fn()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / iters
+    clock = GcClock()
+    gc.callbacks.append(clock)
+    try:
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        h0 = time.perf_counter()
+        t0.record()
+        for _ in range(iters):
+            fn()
+        t1.record()
+        host = (time.perf_counter() - h0) * 1e3 / iters
+        torch.cuda.synchronize()
+    finally:
+        gc.callbacks.remove(clock)
+    return CallTime(t0.elapsed_time(t1) / iters, clock.ms, host)
 
 
 def kernels_mod():
@@ -427,13 +468,43 @@ class Rows:
         # another for K9 and K10): one profiled call (the check just
         # before warmed it)
         plain = plain or device_ms(plain_fn, 1, warmup=0)
-        lib = None if library_fn is None else device_ms(library_fn, iters)
+        # the library call timed as the kernel's row was: cold where the
+        # row is (its warm time printed beside)
+        lib = None
+        if library_fn is not None:
+            lib = device_ms(library_fn, iters)
+            if "cold" in k.by:
+                print("  (%s: library %.5f ms back to back)"
+                      % (kname, lib.ms))
+                lib = device_ms(library_fn, iters, cold=True)
+        first = call_ms(fn, 4 * iters)
         row = dict(name=kname, route="cuda", source=source,
                    replaces=replaces, launches=0, max_abs_err=err, ms=k.ms,
                    plain_ms=plain.ms, bound_ms=b, bound_by=by,
                    library_ms=None if lib is None else lib.ms,
-                   call_ms=call_ms(fn, 4 * iters), ms_by=k.by,
-                   plain_ms_by=plain.by)
+                   call_ms=first.ms, ms_by=k.by, plain_ms_by=plain.by)
+        if first.gc_ms > 0 or first.ms > 3 * k.ms + 0.1:
+            # a call far above its device time, or a loop that the
+            # garbage collector held: timed again after a collection, with
+            # the caching allocator's cudaMalloc and retry counts; where
+            # the collector held the first loop, the row keeps the second
+            s0 = torch.cuda.memory_stats()
+            again = call_ms(fn, 4 * iters, collect=True)
+            s1 = torch.cuda.memory_stats()
+            print("  (%s: call %.5f ms, the garbage collector %.3f ms of its "
+                  "loop, host %.5f ms a call; after a collection %.5f ms "
+                  "(%.3f, host %.5f); %d cudaMalloc, %d retries; %.1f GB "
+                  "reserved)"
+                  % (kname, first.ms, first.gc_ms, first.host_ms, again.ms,
+                     again.gc_ms, again.host_ms,
+                     s1.get("num_device_alloc", 0) -
+                     s0.get("num_device_alloc", 0),
+                     s1.get("num_alloc_retries", 0) -
+                     s0.get("num_alloc_retries", 0),
+                     torch.cuda.memory_reserved() / 1e9))
+            if first.gc_ms > 0:
+                row.update(call_ms=again.ms, call_ms_first=first.ms,
+                           call_gc_ms=first.gc_ms)
         if lib is not None:
             row["library_ms_by"] = lib.by
         self.rows[kname] = row
@@ -814,7 +885,8 @@ def check_fs_oracle(rows, F, dev, tag, rng, clock_mhz):
         return dfs.dev_sample_elts(F, prf, 80, fs=fs)
 
     print("K9[%s] begin_circuit (a squeeze and 80 samples): device %.5f ms "
-          "(call %.5f ms)" % (tag, device_ms(begin, 20).ms, call_ms(begin, 50)))
+          "(call %.5f ms)" % (tag, device_ms(begin, 20).ms,
+                              call_ms(begin, 50).ms))
 
     def plain():
         dfs.fs_squeeze_plain(F, fs2, prf2)
@@ -1360,7 +1432,7 @@ INV_N = 1 << 16
 # Fp24_6), files under longfellow_zk_tpu/fields
 API_REPLACES = {
     "mul": ("fp.py:443", None, None, "fp24.py:227"),
-    "add": ("fp.py:245", None, None, "fp24.py:218"),
+    "add": ("fp.py:245", "gf2.py:281", None, "fp24.py:218"),
     "sub": ("fp.py:255", None, None, "fp24.py:221"),
     "sqr": ("fp.py:457", "gf2.py:361", "fp2.py:175", "fp24.py:242"),
     "neg": ("fp.py:274", "gf2.py:286", "fp2.py:156", "fp24.py:224"),
@@ -1559,7 +1631,14 @@ class FieldApi:
                                 host, one, idx)
         k = len(F.elt_shape)
         lib = None
-        if mode == fpm.EQ:
+        gf = getattr(F, "kCharacteristicTwo", False)
+        if gf and mode == fpm.ADD:
+            def lib():
+                return torch.bitwise_xor(a, b)
+        elif gf and mode == fpm.NEG:
+            def lib():
+                return torch.clone(a)
+        elif mode == fpm.EQ:
             def lib():
                 return torch.all((a == b).flatten(-k), -1)
         elif mode == fpm.IS_ZERO:
@@ -1585,10 +1664,53 @@ class FieldApi:
                 fpm.INV: 2}[mode] * eb * n + \
             (n if mode in (fpm.EQ, fpm.IS_ZERO, fpm.SELECT) else 0)
 
+    def split_shapes(self, F, tag):
+        """K1 [tag] (the one-word path, four elements a thread, or the
+        17-word one, a tile of TILE17 elements a block; csrc/fp_ops.cu)
+        in every mode of the field API against its plain version on the
+        card where the paths split: n = 0, 1, 3, TILE17 - 1, TILE17 + 1
+        and 2^16 + 5 elements; b full, one element and a row over two
+        rows; the conditions full, a row and a column; operands that are
+        views one element into their tensors (not 16-byte aligned), alone
+        and beside aligned ones.  A mismatch fails the run."""
+        from longfellow_zk_tpu_torch.fields import fp as fpm
+
+        tile = kernels_mod().k1_tile()
+        elts, nl, bad, calls = self.fast_elts(F), F.nlimb, [], 0
+        for n in (0, 1, 3, tile - 1, tile + 1, (1 << 16) + 5):
+            a, b, cond = self.operands(elts, 2 * n + 2)
+            x, y, c = a[:n], b[:n], cond[:n]
+            xo, yo, co = a[1 : n + 1], b[1 : n + 1], cond[1 : n + 1]
+            rows = a[: 2 * n].reshape(2, n, nl)
+            cases = [(x, y, c), (xo, yo, co), (x, yo, c), (xo, y, co),
+                     (x, b[n + 1], c), (xo, b[n + 1], co), (rows, yo, co),
+                     (rows, y, cond[:2].reshape(2, 1))]
+            for mode in (fpm.MUL, fpm.ADD, fpm.SUB, fpm.SQR, fpm.NEG,
+                         fpm.EQ, fpm.IS_ZERO, fpm.SELECT):
+                for k, (xx, yy, cc) in enumerate(cases):
+                    got = fpm.fp_elementwise(F, mode, xx, yy, cc)
+                    want = fpm.plain_of(F).elementwise_plain(F, mode, xx,
+                                                             yy, cc)
+                    calls += 1
+                    if got.shape != want.shape or (
+                            got.numel() and max_err(got, want)):
+                        bad.append("n=%d %s case %d"
+                                   % (n, self.names[mode], k))
+        print("  fp_elementwise[%s] at the split shapes (n = 0, 1, 3, %d, "
+              "%d, 65541; b full, one, a row; conditions full, a row, a "
+              "column; views at an offset): %d of %d calls differ from the "
+              "plain version%s [at %.0f s]"
+              % (tag, tile - 1, tile + 1, len(bad), calls,
+                 (": " + ", ".join(bad[:8])) if bad else "",
+                 time.perf_counter() - T0))
+        if bad:
+            self.rows.failures.append("fp_elementwise[%s] split shapes"
+                                      % tag)
+
     def prime_rows(self, F, tag, arith):
-        """K1's modes sqr, neg, eq, is_zero, select (and mul, add, sub
-        where `arith`), mul_const, and K21 of field F (instance `tag`; its
-        row at INV_N elements, inv_row)."""
+        """K1's modes `arith` (of mul, add, sub), sqr, neg, eq, is_zero,
+        select, mul_const, and K21 of field F (instance `tag`; its row at
+        INV_N elements, inv_row)."""
         from longfellow_zk_tpu_torch.fields import fp as fpm
 
         n, names, dev = self.n, self.names, self.dev
@@ -1599,8 +1721,8 @@ class FieldApi:
         zero = 0
         a, b, cond = self.operands(self.fast_elts(F))
         src = "longfellow_zk_tpu_torch/csrc/fp_ops.cu"
-        modes = ([fpm.MUL, fpm.ADD, fpm.SUB] if arith else []) + \
-            [fpm.SQR, fpm.NEG, fpm.EQ, fpm.IS_ZERO, fpm.SELECT]
+        modes = list(arith) + [fpm.SQR, fpm.NEG, fpm.EQ, fpm.IS_ZERO,
+                               fpm.SELECT]
         for mode in modes:
             bb = a if mode in fpm.UNARY else b
             name = "fp_elementwise[%s]" % tag
@@ -1666,8 +1788,11 @@ def check_field_api(rows, dev, rng):
               (fi.p256_scalar(), "p256n"), (fi.p256k1_scalar(), "p256k1n")]
     print("== section 3l: the field API at %d elements [at %.0f s]"
           % (n, time.perf_counter() - T0))
+    arith = [fpm.MUL, fpm.ADD, fpm.SUB]
     for F, tag in fields:
-        api.prime_rows(F, tag, tag in new_tags)
+        api.prime_rows(F, tag, arith if tag in new_tags else
+                       [fpm.ADD] if tag == "gf2_128" else [])
+    api.split_shapes(f24m.fp24(), "fp24")
 
     # Fp2 over the P-256 base field: K5's modes and K21 [fp256x2]
     F2 = fp2m.Fp2(fi.p256_base())
@@ -1947,6 +2072,7 @@ def run_section_4l(rows, kernels, dev, rng, nrows, n, m, smi):
     Fp2 tableau (14 rows of 2,048); then the path: the CRT encode
     (n, m) over the P-256 order, P-384 and P-521 (run_crt_route).
     Returns False on a failure."""
+    from longfellow_zk_tpu_torch.fields import fp as fpm
     from longfellow_zk_tpu_torch.fields import fp_instances as fi
     from longfellow_zk_tpu_torch.fields.fp2 import Fp2
 
@@ -1955,7 +2081,8 @@ def run_section_4l(rows, kernels, dev, rng, nrows, n, m, smi):
     api = FieldApi(rows, dev, rng)
     wide = [(fi.p384_base(), "p384"), (fi.p521_base(), "p521")]
     for F, tag in wide:
-        api.prime_rows(F, tag, True)
+        api.prime_rows(F, tag, [fpm.MUL, fpm.ADD, fpm.SUB])
+    api.split_shapes(fi.p521_base(), "p521")
     for F, tag in [(fi.fp64(), "fp64"), (fi.p256_scalar(), "p256n"),
                    (fi.p256k1_scalar(), "p256k1n")] + wide:
         check_wide_sums(rows, api, F, tag)

@@ -17,7 +17,8 @@
 // An element Fp<C> is C::N little-endian 32-bit limbs (C::N / 4 uint4
 // vectors, 16, 32 or 48 bytes; one uint2 at N = 2, one word at N = 1,
 // and 17 words read and written one by one at N = 17: 68 bytes are no
-// whole number of uint4s), in Montgomery form with R = 2^(32 N), and
+// whole number of uint4s; K1 moves 17-word elements through shared
+// memory instead, fp_ops.cu), in Montgomery form with R = 2^(32 N), and
 // every function here returns it canonical (< p).  Up to N = 12, R is
 // also the JAX package's R (2N 16-bit limbs), so both hold the same
 // integers; only n0inv differs: mod 2^32 here, mod 2^16 there.  At P-521

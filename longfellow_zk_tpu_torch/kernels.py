@@ -81,6 +81,7 @@ from __future__ import annotations
 import ctypes
 import glob
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -176,6 +177,14 @@ _fns = {}
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def k1_tile() -> int:
+    """TILE17 of csrc/fp_ops.cu: the elements of a block of K1's 17-word
+    path, where it splits into whole tiles and a ragged one."""
+    with open(os.path.join(CSRC, "fp_ops.cu")) as f:
+        return int(re.search(r"constexpr int TILE17 = (\d+);",
+                             f.read()).group(1))
 
 
 def nvcc_path() -> str:

@@ -110,7 +110,11 @@ def test_k1_arith(dev, mode, field):
 
 @pytest.mark.parametrize("field", list(FIELDS))
 def test_k1_bind_hv(dev, field):
-    F, rng = FIELDS[field](), np.random.default_rng(2)
+    _check_bind_hv(FIELDS[field](), dev)
+
+
+def _check_bind_hv(F, dev):
+    rng = np.random.default_rng(2)
     P = fpm.plain_of(F)
     x = _elts(F, rng, 4096, dev)
     r = _elts(F, rng, 7, dev)[5]
@@ -745,6 +749,45 @@ def test_k1_field_api(dev, mode, field):
     if mode == fpm.MUL:
         _same(F.mul_const(a, 123456789), P.elementwise_plain(
             F, fpm.MUL, a, F.to_limbs(123456789, dev)))
+
+
+# K1's one-word path (four elements a thread) and 17-word path (a tile
+# of TILE17 elements a block through shared memory), csrc/fp_ops.cu, at
+# the sizes where they split: none, a ragged quad or tile, a tile less
+# or more one, many tiles and a ragged one
+K1_TILE = kernels.k1_tile()
+
+
+@pytest.mark.parametrize("n", [0, 1, 3, K1_TILE - 1, K1_TILE + 1,
+                               (1 << 16) + 5])
+@pytest.mark.parametrize("mode", API_MODES)
+@pytest.mark.parametrize("field", ["fp24", "p521"])
+def test_k1_split_shapes(dev, field, mode, n):
+    """K1 [fp24] and [p521] against the plain versions: b full, one
+    element and a row over two rows; the conditions full, a row and a
+    column; operands that are views one element into their tensors (not
+    16-byte aligned), alone and beside aligned ones."""
+    F, rng = API_FIELDS[field](), np.random.default_rng(33 + n)
+    P = fpm.plain_of(F)
+    a, b, cond = _api_operands(lambda r, m, d: _elts(F, r, m, d), rng,
+                               2 * n + 2, dev)
+    x, y, c = a[:n], b[:n], cond[:n]
+    xo, yo, co = a[1 : n + 1], b[1 : n + 1], cond[1 : n + 1]
+    rows = a[: 2 * n].reshape(2, n, F.nlimb)
+    cases = [(x, y, c), (xo, yo, co), (x, yo, c), (xo, y, co),
+             (x, b[n + 1], c), (xo, b[n + 1], co), (rows, yo, co),
+             (rows, y, cond[:2].reshape(2, 1))]
+    for k, (xx, yy, cc) in enumerate(cases):
+        got = fpm.fp_elementwise(F, mode, xx, yy, cc)
+        want = P.elementwise_plain(F, mode, xx, yy, cc)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want.cpu()), "case %d" % k
+
+
+@pytest.mark.parametrize("field", ["fp24", "p521"])
+def test_k1_bind_hv_one_and_17_words(dev, field):
+    """bind and hv keep one element a thread at one and 17 words."""
+    _check_bind_hv(API_FIELDS[field](), dev)
 
 
 @pytest.mark.parametrize("field", list(API_FIELDS) + ["fp256x2"])
