@@ -17,7 +17,11 @@
       proof's shapes;
    c. the GF(2^128) instances of K1-K3 and K6 at the mdoc hash proof's
       shapes (K1 at 266 x 3,230, K2 and K3 on its 3,578,789-term layer,
-      K6 on the 266-row tableau at (461, 4151) and (921, 4151));
+      K6 on the 266-row tableau at (461, 4151) and (921, 4151)); K2's
+      evaluation at hash layers 17, 18 and 20 and its merge folds at
+      the stages of layer 18's plan (a segment of 525,422 terms), rows
+      "fp_segment_sum[gf2_128] eval layer L" and "... fold layer 18
+      stage S";
    d. K7 at the largest layer of the SHA-256 circuit (Fp128), of the
       mdoc signature circuit (P-256) and of the mdoc hash circuit
       (GF(2^128), 3,578,789 terms);
@@ -78,7 +82,9 @@
    its device chain, from the
    sumcheck's first round to the one fetch (the rounds, the constraints,
    the Ligero finish), under torch.cuda.set_sync_debug_mode("error")
-   (any host synchronisation there fails the run):
+   (any host synchronisation there fails the run); each proof's profile
+   ends with a line of its device ms and launches a port kernel, the
+   sums that rank the kernels for redesign:
    a. the Fp128 SHA-256 one-block proof (the JAX package's bytes);
    b. the batched SHA-256 proofs (B = 8, zk/batch.py BatchZkProver, as
       bench.py's phase_sha_batch): lane 0 the golden's witness and tag,
@@ -232,6 +238,21 @@ AES_KEY_CHAIN = 52 * 2
 AES_BLOCK_CHAIN = 14 * 4
 PROD_CHAIN = {"fp128": 32, "fp256": 128, "fp256k1": 128, "gf2_128": 3 * 128,
               "crt": 2}
+# K10's GF(2^128) product (csrc/rt_mul.cuh) takes b a byte a step: 16
+# dependent steps of about 4 (the shift, the fold, the XOR); its eight
+# masked sums a step do not depend on the last
+
+
+def k10_chain_products(tag, cubic):
+    """(products on K10's chain, steps a product): before the absorb the
+    copy weight's (a hand-round) and, at a prime field, the natural form
+    (its points 0-3 make the Horner steps adds) or, at GF(2^128), the
+    Horner steps at x_2; after the draw its Montgomery form (a prime
+    field) and the Newton steps."""
+    prime = tag != "gf2_128"
+    before = (0 if cubic else 1) + (1 if prime else (3 if cubic else 2))
+    after = prime + (3 if cubic else 2)
+    return before + after, (PROD_CHAIN[tag] if prime else 16 * 4)
 
 
 def redc_ops(nwords):
@@ -619,6 +640,71 @@ def check_fp_kernels(rows, F, circ, dev, tag, k1_n, k1_table, rng,
                 mops * (2 * T + n_even))
 
 
+# the mdoc hash circuit's layers whose K2 launches the proof's K2 time
+# is made of: mode 1 (the evaluation) at each, mode 0 (the term-merge
+# folds) at the merge plan's stages of layer 18, whose first stage holds
+# a segment of 525,422 terms
+K2_MDOC_LAYERS = (17, 18, 20)
+K2_MDOC_FOLDS = 18
+
+
+def check_k2_mdoc(rows, F, circ, dev, rng):
+    """K2 [gf2_128] at the mdoc hash circuit's shapes: rows "fp_segment_sum
+    [gf2_128] eval layer L" (mode 1) and "... fold layer 18 stage S" (mode
+    0 over the plan's segments), each against its plain version.  Bound:
+    the bytes (a GF(2^128) product counts no operation: see MUL_OPS)."""
+    from longfellow_zk_tpu_torch.fields import fp as fpm
+    from longfellow_zk_tpu_torch.sumcheck.prover import (
+        SumcheckProver, quad_tensors)
+
+    pm = fpm.plain_of(F)
+    eb = 4 * F.nlimb
+    elts = elts_of(F, rng, dev)
+    sp = SumcheckProver(F, dev)
+    src = "longfellow_zk_tpu_torch/csrc/segsum.cu"
+    for ly in K2_MDOC_LAYERS:
+        layer = circ.layers[ly]
+        nv = circ.layers[ly - 1].nw if ly > 0 else circ.nv
+        qd = quad_tensors(F, layer.quad, dev)
+        starts, ends = sp._segments(layer.quad, nv)
+        T = layer.nterms
+        args = (elts(layer.nw), qd["h0"], qd["h1"], qd["v"], qd["bmask"],
+                starts, ends)
+        V, ok = fpm.fp_eval_layer(F, *args)
+        V2, ok2 = pm.eval_layer_plain(F, *args)
+        print("K2[gf2_128] eval layer %d: %d terms, %d segments (longest "
+              "%d), v one at %d terms" % (
+                  ly, T, nv, int((ends - starts).max()),
+                  int((qd["v"] == F.to_limbs(1, dev)).all(-1).sum())))
+        rows.record("fp_segment_sum[gf2_128] eval layer %d" % ly, src,
+                    "longfellow_zk_tpu/sumcheck/prover_device.py:383",
+                    max_err(V, V2) + int(bool(ok) != bool(ok2)),
+                    lambda: fpm.fp_eval_layer(F, *args),
+                    lambda: pm.eval_layer_plain(F, *args),
+                    T * (eb + 4 + 4 + 1) + eb * layer.nw + nv * (eb + 8) + 4,
+                    0, iters=20)
+        if ly != K2_MDOC_FOLDS:
+            continue
+        plan = sp._wm_for(layer.quad, layer.logw)
+        n = T
+        for si, ((_, s0, e0, _, _), most) in enumerate(
+                zip(plan["stages"], plan["longest"])):
+            x = elts(n)
+            print("K2[gf2_128] fold layer %d stage %d: %d terms, %d "
+                  "segments (longest %d)" % (ly, si, n, len(s0), most))
+            rows.record("fp_segment_sum[gf2_128] fold layer %d stage %d"
+                        % (ly, si), src,
+                        "longfellow_zk_tpu/sumcheck/prover_device.py:167",
+                        max_err(F.lazy_segment_sum(x, s0, e0, most),
+                                pm.segment_sum_plain(F, x, s0, e0)),
+                        lambda x=x, s0=s0, e0=e0, m=most:
+                        F.lazy_segment_sum(x, s0, e0, m),
+                        lambda x=x, s0=s0, e0=e0: pm.segment_sum_plain(
+                            F, x, s0, e0),
+                        eb * n + (eb + 8) * len(s0), 0, iters=20)
+            n = len(s0)
+
+
 def check_ntt(rows, F, ntt, tag, nrows, n, elts):
     """K4 instance `tag` at [nrows, n] against its plain version."""
     from longfellow_zk_tpu_torch.transforms.ntt import fp_ntt, ntt_plain
@@ -935,8 +1021,9 @@ def check_round_tail(rows, F, dev, tag, rng, clock_mhz, cubic=False):
                   max_err(row, row2))
     off = _fs_off(fs)
     absorbed = (npts - 1) * (1 + F.kBytes)
+    nprod, chain = k10_chain_products(tag, cubic)
     steps = ((off + absorbed) // 64 + 1 + ((off + absorbed) % 64 >= 56)) * \
-        SHA_CHAIN + AES_KEY_CHAIN + AES_BLOCK_CHAIN + 7 * PROD_CHAIN[tag]
+        SHA_CHAIN + AES_KEY_CHAIN + AES_BLOCK_CHAIN + nprod * chain
     kname = "sumcheck_round_tail%s[%s]" % ("_cubic" if cubic else "", tag)
     print("K10%s[%s] chain of a round: %d steps"
           % (" cubic" if cubic else "", tag, steps))
@@ -1193,8 +1280,9 @@ def check_lanes(rows, F, circ, param, lqc, n_witness, dev, rng, clock_mhz):
     k10_plain()
     err = max(max_err(fs, fs2), max_err(claim, claim2),
               max_err(rrow, rrow2))
+    nprod, chain = k10_chain_products(tag, False)
     steps = max(o // 64 + 1 + (o % 64 >= 56) for o in offs) * SHA_CHAIN + \
-        AES_KEY_CHAIN + AES_BLOCK_CHAIN + 7 * PROD_CHAIN[tag]
+        AES_KEY_CHAIN + AES_BLOCK_CHAIN + nprod * chain
     rows.record("sumcheck_round_tail[%s]%s" % (tag, sfx),
                 src + "round_tail.cu", "longfellow_zk_tpu/zk/batch.py:301",
                 err, lambda: dfs.round_tail(F, fs, claim, rrow[:, 1, 0], a,
@@ -2206,10 +2294,29 @@ def profile_one(run):
               "(busy share %.4f)" % (wall_ms, busy_ms, busy_ms / wall_ms))
         for kname, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
             print("  device %9.3f ms  %s" % (ms, kname[:90]))
+        print("port kernels of the profiled call (device ms, launches):",
+              json.dumps(port_kernel_sums(prof)))
     else:
         print("profiled call: %.1f ms wall, device busy share not "
               "measured (the profiler recorded no device time)" % wall_ms)
     return copies
+
+
+def port_kernel_sums(prof):
+    """{port kernel instance: [device ms, launches]} over a profile's
+    device records, by the kernel's name up to its arguments ("void
+    k_round_tail<G128>(...)" -> "k_round_tail<G128>"), largest first."""
+    cuda = torch.autograd.DeviceType.CUDA
+    sums = {}
+    for e in prof.events():
+        if e.device_type != cuda or not PORT_KERNEL.search(e.name):
+            continue
+        k = e.name.split("(")[0].replace("void ", "").strip()
+        v = sums.setdefault(k, [0.0, 0])
+        v[0] += e.device_time / 1e3
+        v[1] += 1
+    return {k: [round(v[0], 3), v[1]] for k, v in
+            sorted(sums.items(), key=lambda kv: -kv[1][0])}
 
 
 def check_prove_syncs():
@@ -2971,6 +3078,7 @@ def main() -> int:
     c_sig, c_hash = mdoc_api.load_circuits(circuit_bytes)
     check_fp_kernels(rows, GF, c_hash, dev, "gf2_128", 266 * 3230,
                      (266, 3230), rng, dblock=921)
+    check_k2_mdoc(rows, GF, c_hash, dev, rng)
     check_lch14(rows, GF, dev, 266, 4151, rng)
 
     # -- 3d. K7 at the largest layer each verifier binds ------------------

@@ -33,12 +33,14 @@
 //
 // Bound on the H100: the chain of dependent instructions of one thread.
 // A SHA-256 compression is 64 rounds of about 30 dependent 32-bit
-// operations; an AES-256 block 14 rounds of S-box loads from constant
+// operations; an AES-256 block 14 rounds of table loads from shared
 // memory and XORs; a Montgomery product 2 N^2 dependent 64-bit
 // multiply-adds.  Nothing is parallel across threads: the oracle is one
-// hash chain.  One thread a lane, the states in local memory, one launch
-// a step; with lanes, the jax.vmap of the batch prover over these steps
-// (zk/batch.py:301, :344).
+// hash chain.  One thread a lane runs it on the states in registers
+// (fs.cuh: an absorb takes up to 64 bytes at a time), the block's 32
+// threads fill the AES table first; one launch a step; with lanes, the
+// jax.vmap of the batch prover over these steps (zk/batch.py:301,
+// :344).
 #include "fs.cuh"
 
 template <class C>
@@ -48,58 +50,73 @@ __global__ void k_fs_oracle(int mode, FsState* __restrict__ fs,
                             uint8_t* __restrict__ out, long long n,
                             long long in_stride, long long out_stride) {
   typedef Fp<C> E;
+  __shared__ uint32_t T[256], RK[60];
   const long long lane = blockIdx.x;
-  fs += lane;
-  prf += lane;
-  in += lane * in_stride;
-  out += lane * out_stride;
-  FsState s;
-  PrfState p;
   const bool read_fs = mode == 0 || mode == 1 || mode == 3 || mode == 5 ||
                        mode == 6 || mode == 8;
   const bool write_fs = mode == 0 || mode == 5 || mode == 6;
   const bool read_prf = mode == 4 || mode == 7;
   const bool write_prf = mode >= 2 && mode != 5 && mode != 6;
-  if (read_fs) s = *fs;
-  if (read_prf) p = *prf;
+  if (write_prf) {  // the modes that run AES
+    aes_tables(T);
+    __syncwarp();
+  }
+  if (threadIdx.x != 0) return;
+  fs += lane;
+  prf += lane;
+  in += lane * in_stride;
+  out += lane * out_stride;
+  FsW s;
+  PrfW p;
+  p.rk = RK;
+  uint32_t key[8];
+  if (read_fs) fsw_load(s, fs);
+  if (read_prf) prfw_load(p, prf);
   const uint4* elts = (const uint4*)in;
   switch (mode) {
     case 0:
-      for (long long i = 0; i < n; i++) fs_absorb_byte(s, in[i]);
+      for (long long i = 0; i < n; i += 64)
+        fsw_absorb_bytes(s, in + i, (int)(n - i < 64 ? n - i : 64));
       break;
     case 1:
-      fs_getkey(s, out);
+      fsw_getkey(s, key);
+#pragma unroll
+      for (int i = 0; i < 32; i++) out[i] = (uint8_t)(key[i >> 2] >> (8 * (i & 3)));
       break;
     case 2:
-      prf_fresh(p, in);
+#pragma unroll
+      for (int i = 0; i < 8; i++)
+        key[i] = (uint32_t)in[4 * i] | ((uint32_t)in[4 * i + 1] << 8) |
+                 ((uint32_t)in[4 * i + 2] << 16) |
+                 ((uint32_t)in[4 * i + 3] << 24);
+      prfw_fresh(p, key, T);
       break;
     case 3:
-      fs_squeeze(s, p);
+      fsw_getkey(s, key);
+      prfw_fresh(p, key, T);
       break;
     case 4:
-      for (long long i = 0; i < n; i++) out[i] = prf_byte(p);
+      for (long long i = 0; i < n; i++) out[i] = (uint8_t)prfw_byte(p, T);
       break;
     case 5:
-      fs_absorb_byte(s, TAG_ARRAY);
-      fs_absorb_le8(s, (u64)n);
-      for (long long i = 0; i < n; i++) fs_absorb_elt(s, E::load(elts, i));
+      fsw_absorb_array_header(s, (u64)n);
+      for (long long i = 0; i < n; i++) fsw_absorb_elt(s, E::load(elts, i));
       break;
     case 6:
-      for (long long i = 0; i < n; i++) {
-        fs_absorb_byte(s, TAG_FIELD_ELEM);
-        fs_absorb_elt(s, E::load(elts, i));
-      }
+      for (long long i = 0; i < n; i++)
+        fsw_absorb_tagged(s, E::load(elts, i));
       break;
     case 8:
-      fs_squeeze(s, p);
+      fsw_getkey(s, key);
+      prfw_fresh(p, key, T);
       // fall through
     case 7:
       for (long long i = 0; i < n; i++)
-        prf_sample<C>(p).store((uint4*)out, i);
+        prfw_sample<C>(p, T).store((uint4*)out, i);
       break;
   }
-  if (write_fs) *fs = s;
-  if (write_prf) *prf = p;
+  if (write_fs) fsw_store(fs, s);
+  if (write_prf) prfw_store(prf, p);
 }
 
 // Mode 9 CHOOSE: a fresh squeeze of fs into prf, then the partial
@@ -109,12 +126,13 @@ __global__ void k_fs_oracle(int mode, FsState* __restrict__ fs,
 // m < 256^l (recomputed each step: it shrinks when m crosses a power of
 // 256), little-endian, masked to the bits of m; then swaps A[i] and
 // A[i + r] and outputs the new A[i].  The block's threads fill A = 0..n-1
-// (in shared memory when it fits, else in out[k..k+n)); thread 0 walks,
-// every step depending on the last.  The chain: the squeeze, the key
-// schedule, one AES block (the counter blocks do not depend on each
-// other), then a few instructions and two dependent accesses of A a step.
-// Lanes: block b walks lane b's own stream (fs[b], prf[b]) into out + b (k
-// + n), each with its array in its own shared memory.
+// (in shared memory when it fits, else in out[k..k+n)) and the AES table;
+// thread 0 walks, every step depending on the last.  The chain: the
+// squeeze, the key schedule, one AES block (the counter blocks do not
+// depend on each other), then a few instructions and two dependent
+// accesses of A a step.  Lanes: block b walks lane b's own stream (fs[b],
+// prf[b]) into out + b (k + n), each with its array in its own shared
+// memory.
 constexpr long long CHOOSE_SMEM_MAX = 12288;  // 48 KB of int
 
 template <class C>
@@ -122,17 +140,23 @@ __global__ void k_fs_choose(const FsState* __restrict__ fs,
                             PrfState* __restrict__ prf, int* __restrict__ out,
                             long long k, long long n) {
   extern __shared__ int smem[];
+  __shared__ uint32_t T[256], RK[60];
   const long long lane = blockIdx.x;
   fs += lane;
   prf += lane;
   out += lane * (k + n);
   int* A = n <= CHOOSE_SMEM_MAX ? smem : out + k;
   for (long long j = threadIdx.x; j < n; j += blockDim.x) A[j] = (int)j;
+  aes_tables(T);
   __syncthreads();
   if (threadIdx.x != 0) return;
-  FsState s = *fs;
-  PrfState p;
-  fs_squeeze(s, p);
+  FsW s;
+  PrfW p;
+  p.rk = RK;
+  uint32_t key[8];
+  fsw_load(s, fs);
+  fsw_getkey(s, key);
+  prfw_fresh(p, key, T);
   for (long long i = 0; i < k; i++) {
     const uint32_t m = (uint32_t)(n - i);
     const int bits = 32 - __clz(m);
@@ -141,7 +165,7 @@ __global__ void k_fs_choose(const FsState* __restrict__ fs,
     uint32_t r;
     do {
       r = 0u;
-      for (int b = 0; b < l; b++) r |= (uint32_t)prf_byte(p) << (8 * b);
+      for (int b = 0; b < l; b++) r |= prfw_byte(p, T) << (8 * b);
       r &= msk;
     } while (r >= m);
     const long long j = i + r;
@@ -150,7 +174,7 @@ __global__ void k_fs_choose(const FsState* __restrict__ fs,
     A[j] = ai;
     out[i] = aj;
   }
-  *prf = p;
+  prfw_store(prf, p);
 }
 
 // out: nlanes x (k + n) ints.
@@ -170,7 +194,7 @@ static int fs_oracle(int mode, void* fs, void* prf, const void* in,
                      void* out, long long n, int nlanes, long long in_stride,
                      long long out_stride, void* stream) {
   if (mode < 0 || mode > 8 || nlanes <= 0) return (int)cudaErrorInvalidValue;
-  k_fs_oracle<C><<<nlanes, 1, 0, (cudaStream_t)stream>>>(
+  k_fs_oracle<C><<<nlanes, 32, 0, (cudaStream_t)stream>>>(
       mode, (FsState*)fs, (PrfState*)prf, (const uint8_t*)in, (uint8_t*)out,
       n, in_stride, out_stride);
   return (int)cudaGetLastError();

@@ -1,16 +1,17 @@
 // The Fiat-Shamir oracle on the card, byte-exact twin of the host
 // Transcript / FSPRF (random_oracle/transcript.py; reference
 // lib/random/transcript.h:33-193).  Shared by K9 (fs.cu) and K10
-// (round_tail.cu); both run it in one thread, because every step of the
-// oracle depends on the one before.
+// (round_tail.cu); each runs the oracle in one thread, because every step
+// of it depends on the one before.
 //
 //   FsState   the host Transcript's export_state blob (104 bytes): the
 //             SHA-256 midstate h (native words), the absorbed byte count
 //             cnt and the partial block buf (bytes at cnt % 64 and above
 //             are zero);
-//   PrfState  an FSPRF stream (272 bytes): the AES-256 round keys rk, the
-//             current counter block's output saved, the next counter nb
-//             and the read pointer ptr into saved.  A read that ends a
+//   PrfState  an FSPRF stream (272 bytes): the AES-256 round keys rk (60
+//             little-endian words: the 240 key-schedule bytes in order),
+//             the current counter block's output saved, the next counter
+//             nb and the read pointer ptr into saved.  A read that ends a
 //             block computes the next one at once (as the JAX package's
 //             prf_bytes does), so ptr < 16.
 //
@@ -18,6 +19,27 @@
 // (fs_absorb, fs_getkey, aes256_expand, aes256_block, prf_fresh,
 // fs_squeeze, prf_bytes, fs_write_elts, dev_elt_bytes, dev_sample_elt(s))
 // and sumcheck/prover_device.py:248 _write_tagged_elts.
+//
+// The oracle works on 32-bit words in registers.  A kernel loads an
+// FsState into an FsW: the partial block as 16 big-endian words, as
+// SHA-256 reads them.  An absorb places a message of at most 64 bytes,
+// given as big-endian words, at the byte offset cnt % 64 with funnel
+// shifts and a 4-stage barrel shift over a 32-word window (no register
+// is indexed at run time), and compresses once when the block fills.
+// AES-256 runs on the state's four columns as little-endian words with
+// one table T in shared memory, T[x] = (2 S(x), S(x), S(x), 3 S(x)) as a
+// word (MixColumns of a column's row-0 byte; rows 1-3 are its rotations,
+// S(x) is its byte 1), filled by the block's threads from AES_SBOX in
+// global memory (aes_tables); the key schedule's 60 words go to shared
+// memory, the middle rounds run as a loop.  K10 draws whole 16-byte
+// blocks from a fresh stream (fresh_sample); K9's PRF reads keep the
+// byte stream's pointer (PrfW).
+//
+// One thread runs the oracle, once a launch: its time is set by the
+// instructions it issues and fetches, not by the card's throughput.  So
+// the code is kept short where it repeats (the compression and the AES
+// rounds as loops, long products as calls), and K10 compresses its
+// blocks in one loop (the queue, fsw_run_queue).
 //
 // The typed writes take field elements as the kernels hold them
 // (Montgomery limbs for a prime field, polynomial bits for GF(2^128))
@@ -36,8 +58,8 @@ struct FsState {
 };
 
 struct PrfState {
-  uint8_t rk[240];
-  uint8_t saved[16];
+  uint32_t rk[60];
+  uint32_t saved[4];
   u64 nb;
   uint32_t ptr;
   uint32_t pad;
@@ -49,8 +71,9 @@ static_assert(sizeof(PrfState) == 272, "PrfState layout");
 enum { TAG_BSTR = 0, TAG_FIELD_ELEM = 1, TAG_ARRAY = 2 };
 
 // Per field: the bytes of an element (kBytes) and the bits of a draw
-// (exact_bits); RAW for GF(2^128), whose draws are kBytes raw bytes with
-// no rejection and no Montgomery form.
+// (exact_bits, a whole number of bytes, kBytes of them); RAW for
+// GF(2^128), whose draws are kBytes raw bytes with no rejection and no
+// Montgomery form.
 template <class C>
 struct Oracle;
 template <>
@@ -78,52 +101,224 @@ struct Oracle<G128> {
 // SHA-256 absorb and the fork-and-finalize key
 // ---------------------------------------------------------------------
 
-__device__ __forceinline__ void fs_absorb_byte(FsState& s, uint8_t b) {
-  uint32_t off = (uint32_t)(s.cnt & 63u);
-  s.buf[off] = b;
-  s.cnt++;
-  if (off == 63u) {
-    sha256_compress_bytes(s.h, s.buf);
-#pragma unroll
-    for (int i = 0; i < 64; i++) s.buf[i] = 0;
-  }
-}
-
-__device__ __forceinline__ void fs_absorb_le8(FsState& s, u64 v) {
-  for (int i = 0; i < 8; i++) fs_absorb_byte(s, (uint8_t)(v >> (8 * i)));
-}
-
-// The digest of a copy of the state: one compression, or two when the
-// padding does not fit (cnt % 64 >= 56).
-__device__ __forceinline__ void fs_getkey(const FsState& s, uint8_t key[32]) {
+struct FsW {
   uint32_t h[8];
-  uint8_t blk[64];
+  u64 cnt;
+  uint32_t w[16];  // the partial block, big-endian words
+};
+
+__device__ __forceinline__ void fsw_load(FsW& s, const FsState* f) {
+  const uint2* b = (const uint2*)f->buf;
 #pragma unroll
-  for (int i = 0; i < 8; i++) h[i] = s.h[i];
-  uint32_t off = (uint32_t)(s.cnt & 63u);
-  for (int i = 0; i < 64; i++) blk[i] = (uint32_t)i < off ? s.buf[i] : 0;
-  blk[off] = 0x80;
-  if (off >= 56u) {
-    sha256_compress_bytes(h, blk);
-    for (int i = 0; i < 64; i++) blk[i] = 0;
-  }
-  u64 bits = s.cnt << 3;
-  for (int i = 0; i < 8; i++) blk[56 + i] = (uint8_t)(bits >> (56 - 8 * i));
-  sha256_compress_bytes(h, blk);
+  for (int i = 0; i < 8; i++) s.h[i] = f->h[i];
+  s.cnt = f->cnt;
 #pragma unroll
   for (int i = 0; i < 8; i++) {
-    key[4 * i] = (uint8_t)(h[i] >> 24);
-    key[4 * i + 1] = (uint8_t)(h[i] >> 16);
-    key[4 * i + 2] = (uint8_t)(h[i] >> 8);
-    key[4 * i + 3] = (uint8_t)h[i];
+    const uint2 v = b[i];
+    s.w[2 * i] = be32(v.x);
+    s.w[2 * i + 1] = be32(v.y);
   }
+}
+
+__device__ __forceinline__ void fsw_store(FsState* f, const FsW& s) {
+  uint2* b = (uint2*)f->buf;
+#pragma unroll
+  for (int i = 0; i < 8; i++) f->h[i] = s.h[i];
+  f->cnt = s.cnt;
+#pragma unroll
+  for (int i = 0; i < 8; i++)
+    b[i] = make_uint2(be32(s.w[2 * i]), be32(s.w[2 * i + 1]));
+}
+
+// One SHA-256 round: the working variables v = (a, b, ..., h) move by one
+// (v[(8 - r) & 7] is a at round r: the caller unrolls by 8 or 16, so no
+// register is indexed at run time).
+#define FS_ROUND(a, b, c, d, e, f, g, h, kw)                             \
+  {                                                                     \
+    const uint32_t t1 = h + (sha_rotr(e, 6) ^ sha_rotr(e, 11) ^         \
+                             sha_rotr(e, 25)) + ((e & f) ^ (~e & g)) +  \
+                        (kw);                                           \
+    d += t1;                                                            \
+    h = t1 + (sha_rotr(a, 2) ^ sha_rotr(a, 13) ^ sha_rotr(a, 22)) +     \
+        ((a & b) ^ (a & c) ^ (b & c));                                  \
+  }
+
+// h <- compress(h, w), w the 16 big-endian words of one block: the first
+// 16 rounds unrolled, the other 48 as a loop of 3 over 16 unrolled ones
+// (the schedule's ring of 16 words indexed by constants), so that the
+// oracle's one thread runs about 800 instructions from the instruction
+// cache, not 1,600 unrolled ones streamed for each of its compressions
+// (sha256.cuh's unrolled compression is K8's, many messages a launch).
+__device__ __forceinline__ void fs_compress(uint32_t h[8],
+                                            const uint32_t* win) {
+  uint32_t w[16], v[8];
+#pragma unroll
+  for (int i = 0; i < 16; i++) w[i] = win[i];
+#pragma unroll
+  for (int i = 0; i < 8; i++) v[i] = h[i];
+#pragma unroll
+  for (int j = 0; j < 16; j++)
+    FS_ROUND(v[(8 - j) & 7], v[(9 - j) & 7], v[(10 - j) & 7],
+             v[(11 - j) & 7], v[(12 - j) & 7], v[(13 - j) & 7],
+             v[(14 - j) & 7], v[(15 - j) & 7], SHA256_K[j] + w[j]);
+#pragma unroll 1
+  for (int it = 1; it < 4; it++) {
+    const uint32_t* K = SHA256_K + 16 * it;
+#pragma unroll
+    for (int j = 0; j < 16; j++) {
+      const uint32_t w15 = w[(j + 1) & 15], w2 = w[(j + 14) & 15];
+      w[j] += (sha_rotr(w15, 7) ^ sha_rotr(w15, 18) ^ (w15 >> 3)) +
+              w[(j + 9) & 15] +
+              (sha_rotr(w2, 17) ^ sha_rotr(w2, 19) ^ (w2 >> 10));
+      FS_ROUND(v[(8 - j) & 7], v[(9 - j) & 7], v[(10 - j) & 7],
+               v[(11 - j) & 7], v[(12 - j) & 7], v[(13 - j) & 7],
+               v[(14 - j) & 7], v[(15 - j) & 7], K[j] + w[j]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 8; i++) h[i] += v[i];
+}
+#undef FS_ROUND
+
+// K10 defers its compressions: the blocks its absorbs and its key fill go
+// to a queue in shared memory, which one loop compresses (fsw_run_queue),
+// so that the compression's code runs from one place.  FS_QUEUE blocks of
+// 16 words: at most 2 absorbed (99 bytes after at most 63) and 2 final,
+// and fsw_key_blocks writes a second final block's words even where the
+// key takes one.
+constexpr int FS_QUEUE = 5;
+
+// s absorbs the first L bytes (L <= 64) of the big-endian words m[0..M),
+// whose bytes past L are zero.  With DEFER a block it fills goes to
+// Q[*nq] (every thread of the warp writes the same words) and s.h is left
+// as it was.
+template <int M, bool DEFER = false>
+__device__ __forceinline__ void fsw_absorb(FsW& s, const uint32_t (&m)[M],
+                                           int L, uint32_t* Q = nullptr,
+                                           int* nq = nullptr) {
+  static_assert(M <= 16, "a message of at most 64 bytes");
+  const uint32_t off = (uint32_t)s.cnt & 63u;
+  const uint32_t sh = (off & 3u) * 8u, q = off >> 2;
+  // m moved by off bytes into a 32-word window: by sh bits, then by q
+  // words
+  uint32_t v[32];
+#pragma unroll
+  for (int k = 0; k < 32; k++) {
+    if (k < M)
+      v[k] = __funnelshift_r(m[k], k > 0 ? m[k - 1] : 0u, sh);
+    else if (k == M)
+      v[k] = __funnelshift_r(0u, m[M - 1], sh);
+    else
+      v[k] = 0u;
+  }
+#pragma unroll
+  for (int b = 1; b < 16; b <<= 1) {
+    const bool on = (q & (uint32_t)b) != 0u;
+#pragma unroll
+    for (int j = 31; j >= 0; j--)
+      v[j] = on ? (j >= b ? v[j - b] : 0u) : v[j];
+  }
+#pragma unroll
+  for (int j = 0; j < 16; j++) s.w[j] |= v[j];
+  if (off + (uint32_t)L >= 64u) {
+    if constexpr (DEFER) {
+#pragma unroll
+      for (int j = 0; j < 16; j++) Q[16 * *nq + j] = s.w[j];
+      ++*nq;
+    } else {
+      fs_compress(s.h, s.w);
+    }
+#pragma unroll
+    for (int j = 0; j < 16; j++) s.w[j] = v[16 + j];
+  }
+  s.cnt += (u64)L;
+}
+
+// s absorbs the L <= 64 bytes at src (global memory, any alignment).
+__device__ __forceinline__ void fsw_absorb_bytes(FsW& s,
+                                                 const uint8_t* src, int L) {
+  uint32_t m[16];
+#pragma unroll
+  for (int w = 0; w < 16; w++) {
+    uint32_t x = 0u;
+#pragma unroll
+    for (int b = 0; b < 4; b++)
+      x = (x << 8) | (4 * w + b < L ? (uint32_t)src[4 * w + b] : 0u);
+    m[w] = x;
+  }
+  fsw_absorb<16>(s, m, L);
+}
+
+// The tag byte of an array and its length n as 8 little-endian bytes
+// (Transcript.write_elts' header).
+__device__ __forceinline__ void fsw_absorb_array_header(FsW& s, u64 n) {
+  const uint32_t e0 = be32((uint32_t)n), e1 = be32((uint32_t)(n >> 32));
+  const uint32_t m[3] = {__funnelshift_r(e0, (uint32_t)TAG_ARRAY, 8),
+                         __funnelshift_r(e1, e0, 8), e1 << 24};
+  fsw_absorb<3>(s, m, 9);
+}
+
+// The padded final block(s) of the state (one, or two when the padding
+// does not fit: cnt % 64 >= 56) to the queue Q after *nq: the fork and
+// finalize of fsw_getkey.
+__device__ __forceinline__ void fsw_key_blocks(const FsW& s, uint32_t* Q,
+                                               int* nq) {
+  const uint32_t off = (uint32_t)s.cnt & 63u, q = off >> 2;
+  const uint32_t bit = 0x80000000u >> (8u * (off & 3u));
+  const u64 bits = s.cnt << 3;
+  const bool two = off >= 56u;
+  uint32_t* b = Q + 16 * *nq;
+#pragma unroll
+  for (int j = 0; j < 16; j++) {
+    const uint32_t w = s.w[j] | ((uint32_t)j == q ? bit : 0u);
+    const uint32_t len = j == 14 ? (uint32_t)(bits >> 32)
+                                 : j == 15 ? (uint32_t)bits : 0u;
+    b[j] = two ? w : w | len;
+    b[16 + j] = len;
+  }
+  *nq += two ? 2 : 1;
+}
+
+// The digest of a copy of the state as the key: its 32 bytes as 8
+// little-endian words (AES's form).
+__device__ __forceinline__ void fsw_getkey(const FsW& s, uint32_t key[8]) {
+  uint32_t b[32], h[8];
+  int n = 0;
+  fsw_key_blocks(s, b, &n);
+#pragma unroll
+  for (int i = 0; i < 8; i++) h[i] = s.h[i];
+  fs_compress(h, b);
+  if (n == 2) fs_compress(h, b + 16);
+#pragma unroll
+  for (int i = 0; i < 8; i++) key[i] = be32(h[i]);
+}
+
+// Compresses the queue's nq blocks from s.h: s.h becomes the midstate
+// after its first nabs (the absorbs' blocks), key the digest after all
+// of them (fsw_getkey's key, where the last blocks are fsw_key_blocks').
+__device__ __forceinline__ void fsw_run_queue(FsW& s, const uint32_t* Q,
+                                              int nq, int nabs,
+                                              uint32_t key[8]) {
+  uint32_t h[8];
+#pragma unroll
+  for (int i = 0; i < 8; i++) h[i] = s.h[i];
+#pragma unroll 1
+  for (int b = 0; b < nq; b++) {
+    fs_compress(h, Q + 16 * b);
+    if (b == nabs - 1) {
+#pragma unroll
+      for (int i = 0; i < 8; i++) s.h[i] = h[i];
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 8; i++) key[i] = be32(h[i]);
 }
 
 // ---------------------------------------------------------------------
 // AES-256 (encryption only) in counter mode: the FSPRF
 // ---------------------------------------------------------------------
 
-__constant__ uint8_t AES_SBOX[256] = {
+__device__ const uint8_t AES_SBOX[256] = {
     0x63, 0x7C, 0x77, 0x7B, 0xF2, 0x6B, 0x6F, 0xC5, 0x30, 0x01, 0x67, 0x2B,
     0xFE, 0xD7, 0xAB, 0x76, 0xCA, 0x82, 0xC9, 0x7D, 0xFA, 0x59, 0x47, 0xF0,
     0xAD, 0xD4, 0xA2, 0xAF, 0x9C, 0xA4, 0x72, 0xC0, 0xB7, 0xFD, 0x93, 0x26,
@@ -147,101 +342,149 @@ __constant__ uint8_t AES_SBOX[256] = {
     0x8C, 0xA1, 0x89, 0x0D, 0xBF, 0xE6, 0x42, 0x68, 0x41, 0x99, 0x2D, 0x0F,
     0xB0, 0x54, 0xBB, 0x16};
 
-__device__ __forceinline__ uint8_t aes_xt(uint8_t a) {
-  return (uint8_t)((a << 1) ^ ((a >> 7) * 0x1B));
+// T[x] from the S-box word sw (S(4i) .. S(4i + 3), little-endian), x = 4i
+// + k.
+__device__ __forceinline__ uint32_t aes_t_entry(uint32_t sw, int k) {
+  const uint32_t s = (sw >> (8 * k)) & 0xFFu;
+  const uint32_t s2 = ((s << 1) ^ ((s >> 7) * 0x1Bu)) & 0xFFu;
+  return s2 | (s << 8) | (s << 16) | ((s2 ^ s) << 24);
 }
 
-// The 15 round keys of a 32-byte key (FIPS-197 5.2, Nk = 8).
-__device__ __forceinline__ void aes256_expand(const uint8_t key[32],
-                                              uint8_t rk[240]) {
-  for (int i = 0; i < 32; i++) rk[i] = key[i];
-  uint8_t rcon = 1;
+// Fills T[256] from AES_SBOX; every thread of the block calls it, and the
+// block synchronises before the first use.
+__device__ __forceinline__ void aes_tables(uint32_t* T) {
+  const uint32_t* sb = (const uint32_t*)AES_SBOX;
+  for (int i = threadIdx.x; i < 64; i += blockDim.x) {
+    const uint32_t sw = __ldg(sb + i);
+#pragma unroll
+    for (int k = 0; k < 4; k++) T[4 * i + k] = aes_t_entry(sw, k);
+  }
+}
+
+// S(x) in byte r of a word, from T.
+__device__ __forceinline__ uint32_t aes_s(const uint32_t* T, uint32_t x,
+                                          int r) {
+  const uint32_t t = T[x & 0xFFu];
+  return r == 0 ? (t >> 8) & 0xFFu
+                : r == 1 ? t & 0xFF00u
+                         : r == 2 ? (t << 8) & 0xFF0000u
+                                  : (t << 16) & 0xFF000000u;
+}
+
+__device__ __forceinline__ uint32_t aes_subword(const uint32_t* T,
+                                                uint32_t w) {
+  return aes_s(T, w, 0) | aes_s(T, w >> 8, 1) | aes_s(T, w >> 16, 2) |
+         aes_s(T, w >> 24, 3);
+}
+
+// The 60 round-key words of a 32-byte key (FIPS-197 5.2, Nk = 8) into rk
+// (shared memory, which the rounds index by their number; every thread
+// that calls it writes the same words).
+__device__ __forceinline__ void aes_expand(const uint32_t key[8],
+                                           uint32_t* rk, const uint32_t* T) {
+  uint32_t w[8];
+#pragma unroll
+  for (int i = 0; i < 8; i++) {
+    w[i] = key[i];
+    rk[i] = w[i];
+  }
+#pragma unroll
   for (int i = 8; i < 60; i++) {
-    uint8_t t0 = rk[4 * i - 4], t1 = rk[4 * i - 3], t2 = rk[4 * i - 2],
-            t3 = rk[4 * i - 1];
-    if (i % 8 == 0) {
-      uint8_t u = t0;
-      t0 = AES_SBOX[t1] ^ rcon;
-      t1 = AES_SBOX[t2];
-      t2 = AES_SBOX[t3];
-      t3 = AES_SBOX[u];
-      rcon = aes_xt(rcon);
-    } else if (i % 8 == 4) {
-      t0 = AES_SBOX[t0];
-      t1 = AES_SBOX[t1];
-      t2 = AES_SBOX[t2];
-      t3 = AES_SBOX[t3];
-    }
-    rk[4 * i] = rk[4 * i - 32] ^ t0;
-    rk[4 * i + 1] = rk[4 * i - 31] ^ t1;
-    rk[4 * i + 2] = rk[4 * i - 30] ^ t2;
-    rk[4 * i + 3] = rk[4 * i - 29] ^ t3;
+    uint32_t t = w[(i - 1) & 7];
+    if (i % 8 == 0)
+      t = aes_subword(T, __funnelshift_r(t, t, 8)) ^ (1u << (i / 8 - 1));
+    else if (i % 8 == 4)
+      t = aes_subword(T, t);
+    w[i & 7] ^= t;
+    rk[i] = w[i & 7];
   }
 }
 
-// Encrypts the counter block LE64(ctr) || 0^8; the state is column-major
-// (byte 4c + r is row r of column c).
-__device__ __forceinline__ void aes256_block(const uint8_t rk[240], u64 ctr,
-                                             uint8_t out[16]) {
-  uint8_t s[16];
+__device__ __forceinline__ uint32_t aes_col(const uint32_t* T, uint32_t a,
+                                            uint32_t b, uint32_t c,
+                                            uint32_t d) {
+  const uint32_t ta = T[a & 0xFFu], tb = T[(b >> 8) & 0xFFu],
+                 tc = T[(c >> 16) & 0xFFu], td = T[d >> 24];
+  return ta ^ __funnelshift_l(tb, tb, 8) ^ __funnelshift_l(tc, tc, 16) ^
+         __funnelshift_l(td, td, 24);
+}
+
+__device__ __forceinline__ uint32_t aes_last_col(const uint32_t* T,
+                                                 uint32_t a, uint32_t b,
+                                                 uint32_t c, uint32_t d) {
+  return aes_s(T, a, 0) | aes_s(T, b >> 8, 1) | aes_s(T, c >> 16, 2) |
+         aes_s(T, d >> 24, 3);
+}
+
+// out[4 b + c] = the encryption of the counter block LE64(ctr + b) || 0^8
+// for b < NB, as four little-endian words (column c, rows 0-3 from its low
+// byte up): the NB blocks side by side through a loop over the 13 middle
+// rounds (one round's code; rk in shared memory).
+template <int NB>
+__device__ __forceinline__ void aes_ctr(const uint32_t* rk, u64 ctr,
+                                        uint32_t* out, const uint32_t* T) {
+  uint32_t s[NB][4];
 #pragma unroll
-  for (int i = 0; i < 16; i++)
-    s[i] = (i < 8 ? (uint8_t)(ctr >> (8 * i)) : (uint8_t)0) ^ rk[i];
+  for (int b = 0; b < NB; b++) {
+    const u64 c = ctr + (u64)b;
+    s[b][0] = (uint32_t)c ^ rk[0];
+    s[b][1] = (uint32_t)(c >> 32) ^ rk[1];
+    s[b][2] = rk[2];
+    s[b][3] = rk[3];
+  }
+#pragma unroll 1
   for (int r = 1; r < 14; r++) {
-    uint8_t t[16];
+    const uint32_t k0 = rk[4 * r], k1 = rk[4 * r + 1], k2 = rk[4 * r + 2],
+                   k3 = rk[4 * r + 3];
 #pragma unroll
-    for (int c = 0; c < 4; c++)
-#pragma unroll
-      for (int rr = 0; rr < 4; rr++)
-        t[4 * c + rr] = AES_SBOX[s[4 * ((c + rr) & 3) + rr]];
-#pragma unroll
-    for (int c = 0; c < 4; c++) {
-      uint8_t a0 = t[4 * c], a1 = t[4 * c + 1], a2 = t[4 * c + 2],
-              a3 = t[4 * c + 3];
-      s[4 * c] = aes_xt(a0) ^ aes_xt(a1) ^ a1 ^ a2 ^ a3 ^ rk[16 * r + 4 * c];
-      s[4 * c + 1] =
-          a0 ^ aes_xt(a1) ^ aes_xt(a2) ^ a2 ^ a3 ^ rk[16 * r + 4 * c + 1];
-      s[4 * c + 2] =
-          a0 ^ a1 ^ aes_xt(a2) ^ aes_xt(a3) ^ a3 ^ rk[16 * r + 4 * c + 2];
-      s[4 * c + 3] =
-          aes_xt(a0) ^ a0 ^ a1 ^ a2 ^ aes_xt(a3) ^ rk[16 * r + 4 * c + 3];
+    for (int b = 0; b < NB; b++) {
+      const uint32_t t0 = aes_col(T, s[b][0], s[b][1], s[b][2], s[b][3]) ^ k0;
+      const uint32_t t1 = aes_col(T, s[b][1], s[b][2], s[b][3], s[b][0]) ^ k1;
+      const uint32_t t2 = aes_col(T, s[b][2], s[b][3], s[b][0], s[b][1]) ^ k2;
+      const uint32_t t3 = aes_col(T, s[b][3], s[b][0], s[b][1], s[b][2]) ^ k3;
+      s[b][0] = t0;
+      s[b][1] = t1;
+      s[b][2] = t2;
+      s[b][3] = t3;
     }
   }
 #pragma unroll
-  for (int c = 0; c < 4; c++)
-#pragma unroll
-    for (int rr = 0; rr < 4; rr++)
-      out[4 * c + rr] =
-          AES_SBOX[s[4 * ((c + rr) & 3) + rr]] ^ rk[224 + 4 * c + rr];
-}
-
-__device__ __forceinline__ void prf_fresh(PrfState& p, const uint8_t key[32]) {
-  aes256_expand(key, p.rk);
-  aes256_block(p.rk, 0, p.saved);
-  p.nb = 1;
-  p.ptr = 0;
-  p.pad = 0;
-}
-
-__device__ __forceinline__ void fs_squeeze(const FsState& s, PrfState& p) {
-  uint8_t key[32];
-  fs_getkey(s, key);
-  prf_fresh(p, key);
-}
-
-__device__ __forceinline__ uint8_t prf_byte(PrfState& p) {
-  uint8_t b = p.saved[p.ptr];
-  if (++p.ptr == 16u) {
-    aes256_block(p.rk, p.nb, p.saved);
-    p.nb++;
-    p.ptr = 0;
+  for (int b = 0; b < NB; b++) {
+    out[4 * b] = aes_last_col(T, s[b][0], s[b][1], s[b][2], s[b][3]) ^ rk[56];
+    out[4 * b + 1] =
+        aes_last_col(T, s[b][1], s[b][2], s[b][3], s[b][0]) ^ rk[57];
+    out[4 * b + 2] =
+        aes_last_col(T, s[b][2], s[b][3], s[b][0], s[b][1]) ^ rk[58];
+    out[4 * b + 3] =
+        aes_last_col(T, s[b][3], s[b][0], s[b][1], s[b][2]) ^ rk[59];
   }
-  return b;
+}
+
+__device__ __forceinline__ void aes_block(const uint32_t* rk, u64 ctr,
+                                          uint32_t out[4],
+                                          const uint32_t* T) {
+  aes_ctr<1>(rk, ctr, out, T);
 }
 
 // ---------------------------------------------------------------------
 // field elements: serialization and rejection sampling
 // ---------------------------------------------------------------------
+
+// The oracle's products: fp.cuh's fp_mul, a call of one copy of it where
+// its unrolled code is long (8 words and more: about 500 instructions),
+// for the instruction cache's sake (see fs_compress).
+template <class C>
+__device__ __noinline__ Fp<C> fs_mul_call(Fp<C> a, Fp<C> b) {
+  return fp_mul(a, b);
+}
+
+template <class C>
+__device__ __forceinline__ Fp<C> fs_mul(const Fp<C>& a, const Fp<C>& b) {
+  if constexpr (C::N >= 8)
+    return fs_mul_call<C>(a, b);
+  else
+    return fp_mul(a, b);
+}
 
 // The natural value of an element as the kernels hold it.
 template <class C>
@@ -251,41 +494,156 @@ __device__ __forceinline__ Fp<C> fs_natural(const Fp<C>& x) {
   } else {
     Fp<C> one = fp_zero<C>();
     one.l[0] = 1u;
-    return fp_mul(x, one);
+    return fs_mul(x, one);
+  }
+}
+
+// s absorbs x's natural kBytes, after the tag byte of a field element
+// where `tagged` (Transcript.write_elt; an array's elements are not).
+template <class C, bool tagged, bool DEFER = false>
+__device__ __forceinline__ void fsw_absorb_natural(FsW& s, const Fp<C>& v,
+                                                   uint32_t* Q = nullptr,
+                                                   int* nq = nullptr) {
+  constexpr int KW = Oracle<C>::KBYTES / 4;
+  if constexpr (tagged) {
+    uint32_t m[KW + 1];
+    uint32_t prev = TAG_FIELD_ELEM;
+#pragma unroll
+    for (int k = 0; k < KW; k++) {
+      const uint32_t e = be32(v.l[k]);
+      m[k] = __funnelshift_r(e, prev, 8);
+      prev = e;
+    }
+    m[KW] = prev << 24;
+    fsw_absorb<KW + 1, DEFER>(s, m, Oracle<C>::KBYTES + 1, Q, nq);
+  } else {
+    uint32_t m[KW];
+#pragma unroll
+    for (int k = 0; k < KW; k++) m[k] = be32(v.l[k]);
+    fsw_absorb<KW, DEFER>(s, m, Oracle<C>::KBYTES, Q, nq);
   }
 }
 
 template <class C>
-__device__ __forceinline__ void fs_absorb_elt(FsState& s, const Fp<C>& x) {
-  Fp<C> v = fs_natural(x);
-  for (int j = 0; j < Oracle<C>::KBYTES; j++)
-    fs_absorb_byte(s, (uint8_t)(v.l[j >> 2] >> (8 * (j & 3))));
+__device__ __forceinline__ void fsw_absorb_tagged(FsW& s, const Fp<C>& x) {
+  fsw_absorb_natural<C, true>(s, fs_natural(x));
+}
+
+// The same with its block deferred to the queue (K10).
+template <class C>
+__device__ __forceinline__ void fsw_absorb_tagged_q(FsW& s, const Fp<C>& x,
+                                                    uint32_t* Q, int* nq) {
+  fsw_absorb_natural<C, true, true>(s, fs_natural(x), Q, nq);
+}
+
+template <class C>
+__device__ __forceinline__ void fsw_absorb_elt(FsW& s, const Fp<C>& x) {
+  fsw_absorb_natural<C, false>(s, fs_natural(x));
+}
+
+// A draw x of exact_bits bits (kBytes little-endian): the element in the
+// kernels' form, or false where a prime field rejects it (x >= p).
+template <class C>
+__device__ __forceinline__ bool fs_accept(Fp<C>& x) {
+  if constexpr (Oracle<C>::RAW) {
+    return true;
+  } else {
+    uint32_t borrow = 0;
+#pragma unroll
+    for (int j = 0; j < C::N; j++) {
+      u64 d = (u64)x.l[j] - C::p(j) - borrow;
+      borrow = (uint32_t)(d >> 63);
+    }
+    if (borrow) x = fs_mul(x, fp_r2<C>());
+    return borrow != 0u;
+  }
+}
+
+// One element from a fresh stream keyed by rk (K10): the draws are whole
+// counter blocks from counter 0 (kBytes is 16 or 32), computed side by
+// side.
+template <class C>
+__device__ __forceinline__ Fp<C> fresh_sample(const uint32_t* rk,
+                                              const uint32_t* T) {
+  constexpr int NBLK = Oracle<C>::KBYTES / 16;
+  static_assert(Oracle<C>::EXACT_BITS == 8 * Oracle<C>::KBYTES &&
+                    C::N == 4 * NBLK,
+                "a draw is NBLK whole blocks");
+#pragma unroll 1
+  for (u64 d = 0;; d++) {
+    Fp<C> x;
+    aes_ctr<NBLK>(rk, d * NBLK, x.l, T);
+    if (fs_accept(x)) return x;
+  }
+}
+
+// An FSPRF stream (K9): its round keys in shared memory, the rest in
+// registers; the bytes are read one at a time from the pointer on.
+struct PrfW {
+  uint32_t* rk;  // 60 words of shared memory
+  uint32_t saved[4];
+  u64 nb;
+  uint32_t ptr;
+};
+
+__device__ __forceinline__ void prfw_load(PrfW& p, const PrfState* f) {
+  for (int i = 0; i < 60; i++) p.rk[i] = f->rk[i];
+#pragma unroll
+  for (int i = 0; i < 4; i++) p.saved[i] = f->saved[i];
+  p.nb = f->nb;
+  p.ptr = f->ptr;
+}
+
+__device__ __forceinline__ void prfw_store(PrfState* f, const PrfW& p) {
+  for (int i = 0; i < 60; i++) f->rk[i] = p.rk[i];
+#pragma unroll
+  for (int i = 0; i < 4; i++) f->saved[i] = p.saved[i];
+  f->nb = p.nb;
+  f->ptr = p.ptr;
+  f->pad = 0u;
+}
+
+__device__ __forceinline__ void prfw_fresh(PrfW& p, const uint32_t key[8],
+                                           const uint32_t* T) {
+  aes_expand(key, p.rk, T);
+  aes_block(p.rk, 0, p.saved, T);
+  p.nb = 1;
+  p.ptr = 0;
+}
+
+__device__ __forceinline__ uint32_t prfw_byte(PrfW& p, const uint32_t* T) {
+  const uint32_t q = p.ptr >> 2;
+  const uint32_t w = q == 0 ? p.saved[0]
+                            : q == 1 ? p.saved[1]
+                                     : q == 2 ? p.saved[2] : p.saved[3];
+  const uint32_t b = (w >> (8u * (p.ptr & 3u))) & 0xFFu;
+  if (++p.ptr == 16u) {
+    aes_block(p.rk, p.nb, p.saved, T);
+    p.nb++;
+    p.ptr = 0;
+  }
+  return b;
 }
 
 // One element from the stream: draws of exact_bits bits until one is
 // below p (prime fields, then to Montgomery form by R^2), or kBytes raw
-// bytes (GF(2^128)).
+// bytes (GF(2^128)).  The bytes shift in from the top, so the first ends
+// lowest.
 template <class C>
-__device__ __forceinline__ Fp<C> prf_sample(PrfState& p) {
-  constexpr int NB = (Oracle<C>::EXACT_BITS + 7) / 8;
-  constexpr int REM = Oracle<C>::EXACT_BITS % 8;
+__device__ __forceinline__ Fp<C> prfw_sample(PrfW& p, const uint32_t* T) {
+  constexpr int NB = Oracle<C>::KBYTES;
+  static_assert(Oracle<C>::EXACT_BITS == 8 * NB && C::N * 4 == NB,
+                "a draw is N whole words");
   for (;;) {
     Fp<C> x = fp_zero<C>();
+#pragma unroll 1
     for (int i = 0; i < NB; i++) {
-      uint32_t b = prf_byte(p);
-      if (REM != 0 && i == NB - 1) b &= (1u << REM) - 1u;
-      x.l[i >> 2] |= b << (8 * (i & 3));
-    }
-    if constexpr (Oracle<C>::RAW) {
-      return x;
-    } else {
-      uint32_t borrow = 0;
+      const uint32_t b = prfw_byte(p, T);
 #pragma unroll
-      for (int j = 0; j < C::N; j++) {
-        u64 d = (u64)x.l[j] - C::p(j) - borrow;
-        borrow = (uint32_t)(d >> 63);
-      }
-      if (borrow) return fp_mul(x, fp_r2<C>());
+      for (int j = 0; j < C::N - 1; j++)
+        x.l[j] = __funnelshift_r(x.l[j], x.l[j + 1], 8);
+      x.l[C::N - 1] = (x.l[C::N - 1] >> 8) | (b << 24);
     }
+    if (fs_accept(x)) return x;
   }
 }

@@ -1,7 +1,8 @@
 // SHA-256 compression for the port's kernels: the 64 rounds on eight
 // 32-bit registers, the message schedule in a 16-word ring, the round
-// constants in constant memory.  Shared by K8 (sha256.cu: one message a
-// thread) and the Fiat-Shamir oracle (fs.cuh: one running midstate).
+// constants in constant memory: K8's (sha256.cu: one message a thread).
+// The Fiat-Shamir oracle (fs.cuh: one running midstate) shares the
+// constants and the helpers and rolls its compression into a loop.
 //
 // Replaces the JAX package's merkle/sha256_jax.py:41 _compress (the
 // rounds and the schedule as lax.scan over uint32 lanes).  The words of a
@@ -89,15 +90,4 @@ __device__ __forceinline__ void sha256_compress(uint32_t h[8],
   h[5] += f;
   h[6] += g;
   h[7] += hh;
-}
-
-// The same on a block of 64 bytes in memory order.
-__device__ __forceinline__ void sha256_compress_bytes(uint32_t h[8],
-                                                      const uint8_t blk[64]) {
-  uint32_t w[16];
-#pragma unroll
-  for (int i = 0; i < 16; i++)
-    w[i] = ((uint32_t)blk[4 * i] << 24) | ((uint32_t)blk[4 * i + 1] << 16) |
-           ((uint32_t)blk[4 * i + 2] << 8) | (uint32_t)blk[4 * i + 3];
-  sha256_compress(h, w);
 }

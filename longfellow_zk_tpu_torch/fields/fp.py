@@ -283,9 +283,10 @@ class PrimeField(FieldOps):
         return fp_axis_sum(self, x, dim)
 
     def lazy_segment_sum(self, x: torch.Tensor, starts: torch.Tensor,
-                         ends: torch.Tensor) -> torch.Tensor:
-        """x [T, N] -> [S, N]: out[s] = sum of x[starts[s]:ends[s]]."""
-        return fp_segment_sum(self, x, starts, ends)
+                         ends: torch.Tensor, longest=None) -> torch.Tensor:
+        """x [T, N] -> [S, N]: out[s] = sum of x[starts[s]:ends[s]]
+        (`longest`: see fp_segment_sum)."""
+        return fp_segment_sum(self, x, starts, ends, longest)
 
 
 def round_consts(F, device) -> torch.Tensor:
@@ -494,7 +495,8 @@ def segment_sum_plain(F: PrimeField, x: torch.Tensor, starts: torch.Tensor,
                       ends: torch.Tensor) -> torch.Tensor:
     """Plain version of K2 mode 0: prefix sums of the limb columns."""
     x16 = _split16(x)
-    cs = torch.cat([torch.zeros_like(x16[:1]), torch.cumsum(x16, dim=0)])
+    cs = torch.cat([x16.new_zeros((1,) + tuple(x16.shape[1:])),
+                    torch.cumsum(x16, dim=0)])
     return _join16(_renorm16(F, cs[ends.long()] - cs[starts.long()]))
 
 
@@ -763,14 +765,55 @@ def fp_inv(F, a: torch.Tensor, plain=None) -> torch.Tensor:
     return out
 
 
+# about the threads an H100 holds (132 SMs x 2,048): K2's scan gives a
+# thread n / K2_THREADS terms, so that a small table still fills the card
+K2_THREADS = 1 << 18
+# K2's warp a segment where one lane's mode-1 table is smaller than this,
+# or a mode-0 caller knows no segment longer than K2_WARP_LONGEST
+K2_TERMS_MIN = 1 << 16
+K2_WARP_LONGEST = 4096
+
+
+def _k2_route(n: int, nseg: int, scan: bool):
+    """(k, launches) of a K2 call over n terms and nseg segments: k = 0,
+    a warp a segment (one launch), or the terms a thread of its scan
+    (k_seg_scan where there are terms, then k_seg_gather;
+    csrc/segsum.cu); no launch for no segment."""
+    if not scan:
+        return 0, 1 if nseg else 0
+    k = min(kernels.k2_chunks()[0], max(1, n // K2_THREADS))
+    return k, (1 + (n > 0)) if nseg else 0
+
+
+def _segsum_scratch(F, mode: int, n: int, k: int, device) -> torch.Tensor:
+    """K2's scratch for n terms, k a thread (k = 0: none): the chunk and
+    block prefixes of N words, 4 bytes each for GF(2^128) and 8 for a
+    prime field, the scan's block counter, then mode 1's terms 16-byte
+    aligned (csrc/segsum.cu fp_segment_sum).  A call's own scratch, on
+    its own stream, so that scans on several streams do not share a
+    counter."""
+    if k == 0:
+        return torch.empty(0, dtype=torch.int64, device=device)
+    nt = kernels.k2_chunks()[1]
+    nchunk = -(-n // k)
+    nblk = -(-nchunk // nt)
+    word = 4 if F.kCharacteristicTwo else 8
+    nbytes = word * F.nlimb * (nchunk + 2 * nblk) + 32 + \
+        (4 * F.nlimb * n if mode else 0)
+    return torch.empty(-(-nbytes // 8), dtype=torch.int64, device=device)
+
+
 def _i32(t: torch.Tensor, name: str) -> None:
     if t.dtype != torch.int32 or not t.is_contiguous():
         raise ValueError("%s must be a contiguous int32 tensor" % name)
 
 
 def fp_segment_sum(F: PrimeField, x: torch.Tensor, starts: torch.Tensor,
-                   ends: torch.Tensor) -> torch.Tensor:
-    """K2 wrapper, mode 0: out[s] = sum of x[starts[s]:ends[s]]."""
+                   ends: torch.Tensor, longest=None) -> torch.Tensor:
+    """K2 wrapper, mode 0: out[s] = sum of x[starts[s]:ends[s]].  `longest`
+    (an int the caller knows, or None): no segment is longer; past
+    K2_WARP_LONGEST the kernel's scan takes the table, else a warp a
+    segment."""
     name = route("fp_segment_sum", F, x, starts, ends)
     if name is None:
         return plain_of(F).segment_sum_plain(F, x, starts, ends)
@@ -778,17 +821,25 @@ def fp_segment_sum(F: PrimeField, x: torch.Tensor, starts: torch.Tensor,
     _i32(starts, "starts")
     _i32(ends, "ends")
     nseg = starts.numel()
+    n = x.numel() // F.nlimb
     out = torch.empty((nseg, F.nlimb), dtype=torch.int32, device=x.device)
-    kernels.launch(name, 1, 0, out.data_ptr(), 0, x.data_ptr(),
-                   0, 0, 0, 0, 0, starts.data_ptr(), ends.data_ptr(), nseg)
+    k, nl = _k2_route(n, nseg, longest is not None and
+                      longest > K2_WARP_LONGEST)
+    scratch = _segsum_scratch(F, 0, n, k, x.device)
+    kernels.launch(name, nl, 0, out.data_ptr(), 0, x.data_ptr(), 0, 0, 0,
+                   0, 0, starts.data_ptr(), ends.data_ptr(), nseg, n, k,
+                   scratch.data_ptr())
     return out
 
 
 def fp_eval_layer(F: PrimeField, W: torch.Tensor, h0: torch.Tensor,
                   h1: torch.Tensor, v: torch.Tensor, bmask: torch.Tensor,
-                  starts: torch.Tensor, ends: torch.Tensor):
+                  starts: torch.Tensor, ends: torch.Tensor, lanes: int = 1):
     """K2 wrapper, mode 1: (V [S, N], ok) for one circuit layer; ok is a
-    0-dim bool tensor on W's device (no host sync)."""
+    0-dim bool tensor on W's device (no host sync).  `lanes`: the terms
+    are those of so many lanes of one layer (sumcheck/prover.py
+    _lane_terms), and the route is one lane's, so that a batch launches
+    what one proof launches."""
     name = route("fp_segment_sum", F, W, h0, h1, v, bmask, starts, ends)
     if name is None:
         return plain_of(F).eval_layer_plain(F, W, h0, h1, v, bmask, starts,
@@ -801,11 +852,17 @@ def fp_eval_layer(F: PrimeField, W: torch.Tensor, h0: torch.Tensor,
     if bmask.dtype != torch.bool or not bmask.is_contiguous():
         raise ValueError("bmask must be a contiguous bool tensor")
     nseg = starts.numel()
+    n = h0.numel()
+    if h1.numel() != n or v.numel() != n * F.nlimb or bmask.numel() != n:
+        raise ValueError("h0, h1, v and bmask must hold one entry a term")
     out = torch.empty((nseg, F.nlimb), dtype=torch.int32, device=W.device)
     bad = torch.zeros(1, dtype=torch.int32, device=W.device)
-    kernels.launch(name, 1, 1, out.data_ptr(), bad.data_ptr(), 0,
+    k, nl = _k2_route(n, nseg, n // lanes >= K2_TERMS_MIN)
+    scratch = _segsum_scratch(F, 1, n, k, W.device)
+    kernels.launch(name, nl, 1, out.data_ptr(), bad.data_ptr(), 0,
                    W.data_ptr(), h0.data_ptr(), h1.data_ptr(), v.data_ptr(),
-                   bmask.data_ptr(), starts.data_ptr(), ends.data_ptr(), nseg)
+                   bmask.data_ptr(), starts.data_ptr(), ends.data_ptr(),
+                   nseg, n, k, scratch.data_ptr())
     return out, bad[0] == 0
 
 

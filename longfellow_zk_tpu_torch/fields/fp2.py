@@ -220,11 +220,11 @@ class Fp2:
         return self.f.lazy_sum(x, dim % (x.dim() - 2))
 
     def lazy_segment_sum(self, x: torch.Tensor, starts: torch.Tensor,
-                         ends: torch.Tensor) -> torch.Tensor:
+                         ends: torch.Tensor, longest=None) -> torch.Tensor:
         """x [T, 2, N] -> [S, 2, N]: out[s] = sum of x[starts[s]:ends[s]],
         the base field's K2 on each part."""
         return torch.stack([self.f.lazy_segment_sum(x[:, c].contiguous(),
-                                                    starts, ends)
+                                                    starts, ends, longest)
                             for c in range(2)], dim=-2)
 
 

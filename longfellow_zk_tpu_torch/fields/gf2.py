@@ -268,9 +268,10 @@ class GF2_128(FieldOps):
         return fp_axis_sum(self, x, dim)
 
     def lazy_segment_sum(self, x: torch.Tensor, starts: torch.Tensor,
-                         ends: torch.Tensor) -> torch.Tensor:
-        """x [T, 4] -> [S, 4]: out[s] = XOR of x[starts[s]:ends[s]]."""
-        return fp_segment_sum(self, x, starts, ends)
+                         ends: torch.Tensor, longest=None) -> torch.Tensor:
+        """x [T, 4] -> [S, 4]: out[s] = XOR of x[starts[s]:ends[s]]
+        (`longest`: see fields/fp.py fp_segment_sum)."""
+        return fp_segment_sum(self, x, starts, ends, longest)
 
 
 @functools.lru_cache(maxsize=None)
@@ -400,7 +401,7 @@ def elementwise_plain(F, mode: int, a: torch.Tensor, b: torch.Tensor,
 def _prefix_xor(x: torch.Tensor) -> torch.Tensor:
     """[T, 4] -> [T + 1, 4]: P[t] = x[0] ^ ... ^ x[t - 1] (a log-depth
     scan)."""
-    y = torch.cat([torch.zeros_like(x[:1]), x])
+    y = torch.cat([x.new_zeros((1,) + tuple(x.shape[1:])), x])
     k = 1
     while k < y.shape[0]:
         y[k:] = y[k:] ^ y[:-k]

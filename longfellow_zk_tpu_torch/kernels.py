@@ -6,9 +6,9 @@ package's ignored build directory `_build/`, at first use; the libraries
 are loaded with ctypes.  Nothing here runs when the package is imported.
 The sources share the field arithmetic of `csrc/fp.cuh`, templated on the
 field (K3, K7 and K16 also the two-pass sum of `csrc/reduce.cuh`, K8-K10
-the SHA-256 compression of `csrc/sha256.cuh`, K9 and K10 the
-Fiat-Shamir oracle of `csrc/fs.cuh`, K4 [crt] and K13-K15 the 32-bit
-prime lanes of `csrc/mp.cuh`); each kernel has one instance (and one C
+the SHA-256 of `csrc/sha256.cuh`, K9 and K10 the Fiat-Shamir oracle of
+`csrc/fs.cuh`, K10 alone its products of `csrc/rt_mul.cuh`, K4 [crt]
+and K13-K15 the 32-bit prime lanes of `csrc/mp.cuh`); each kernel has one instance (and one C
 entry point) per field.  K9's mode 9 (CHOOSE) has entry points of its own,
 `fs_choose`, and so has K10's cubic mode (the copy rounds' tail),
 `sumcheck_round_tail_cubic`, so that their launches are counted apart:
@@ -72,13 +72,14 @@ and hv, K3, K9 (mode 9 too), K10 (its cubic mode too), K11 and K12 take
 a lane axis: the proofs of a batch (zk/batch.py) run in the launches of
 one proof.  A kernel's name
 here is "kernel[instance]".  `LAUNCHES` counts, per instance, the CUDA
-launches its wrapper made; a run sets the counts to zero with
+launches its wrapper made (K2: one a call, its route one kernel or two); a run sets the counts to zero with
 `reset_launches()` and reads them after.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import glob
 import os
 import re
@@ -112,7 +113,8 @@ _SOURCES = {
                                      _P],
                        _PRIME_API),
     "fp_segment_sum": ("segsum.cu", [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                     _P, _I, _P], _PRIME_API),
+                                     _P, _I, _LL, _I, _P, _P],
+                       _PRIME_API),
     "fp_wire_round": ("wire_round.cu", [_I, _P, _P, _P, _P, _P, _P, _P, _LL,
                                         _LL, _LL, _LL, _I, _P], _PRIME_API),
     "fp_ntt": ("ntt.cu", [_P, _P, _P, _LL, _I, _LL, _P],
@@ -185,6 +187,16 @@ def k1_tile() -> int:
     with open(os.path.join(CSRC, "fp_ops.cu")) as f:
         return int(re.search(r"constexpr int TILE17 = (\d+);",
                              f.read()).group(1))
+
+
+@functools.lru_cache(maxsize=None)
+def k2_chunks() -> tuple:
+    """(SEG_K, SEG_NT) of csrc/segsum.cu: the most terms a thread of
+    K2's scan takes and its threads a block, which size its scratch."""
+    with open(os.path.join(CSRC, "segsum.cu")) as f:
+        src = f.read()
+    return tuple(int(re.search(r"constexpr int %s = (\d+);" % k,
+                               src).group(1)) for k in ("SEG_K", "SEG_NT"))
 
 
 def nvcc_path() -> str:

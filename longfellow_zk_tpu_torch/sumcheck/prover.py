@@ -297,20 +297,26 @@ class SumcheckProver:
                 def t(a):
                     return torch.as_tensor(a, device=dev)
 
+                # each stage's longest fold (K2 takes its scan past a
+                # warp's reach: the first stages hold segments of 10^5
+                # terms)
                 cache[key] = dict(
                     perm=t(perm.astype(np.int64)),
                     stages=[(nr, t(s), t(e), t(h0r), t(h1r))
-                            for nr, s, e, h0r, h1r in stages])
+                            for nr, s, e, h0r, h1r in stages],
+                    longest=[int((e - s).max()) for _, s, e, _, _ in stages])
         return cache[key]
 
     # ------------------------------------------------------------------
     # circuit evaluation
     # ------------------------------------------------------------------
 
-    def _eval(self, circ: Circuit, W0: torch.Tensor):
+    def _eval(self, circ: Circuit, W0: torch.Tensor, lanes: int = 1):
         """(inputs per layer [B, nw, N], final V [B, nv, N], ok) for the
-        lanes' inputs W0 [B, ninputs, N] (or the copies' [nc, ninputs,
-        N]), one K2 launch a layer for all lanes; ok is a 0-dim bool
+        lanes' inputs W0 [B, ninputs, N] (lanes = B: K2 takes one lane's
+        route, so that a batch launches what one proof launches) or the
+        copies' [nc, ninputs, N] (lanes = 1: the route of the whole
+        table), one K2 call a layer for all of them; ok is a 0-dim bool
         tensor, false if an assert-zero term of any lane fails."""
         F = self.F
         B = W0.shape[0]
@@ -322,7 +328,8 @@ class SumcheckProver:
         for l in range(nl - 1, -1, -1):
             nv = circ.layers[l - 1].nw if l > 0 else circ.nv
             terms = self._lane_terms(circ.layers[l].quad, nv, W.shape[1], B)
-            V, ok = fp_eval_layer(F, W.reshape((-1,) + F.elt_shape), *terms)
+            V, ok = fp_eval_layer(F, W.reshape((-1,) + F.elt_shape), *terms,
+                                  lanes=lanes)
             W = V.reshape((B, nv) + F.elt_shape)
             oks.append(ok)
             if l > 0:
@@ -348,7 +355,7 @@ class SumcheckProver:
         failing; the latter is one flag for all lanes, so a failing one
         clears every lane's: the caller finds the lane by evaluating it
         alone).  Reading flags back is the one wait before the rounds."""
-        inputs, V, ok = self._eval(circ, W0)
+        inputs, V, ok = self._eval(circ, W0, W0.shape[0])
         return inputs, (V == 0).flatten(1).all(1) & ok
 
     # ------------------------------------------------------------------
@@ -554,20 +561,21 @@ class SumcheckProver:
         plan = self._wm_for(layer.quad, layer.logw)
         if plan is None:
             stages = [(layer.logw, None, None, qd["h0"], qd["h1"])]
+            longest = [None]
         else:
             hv = hv[:, plan["perm"]]
-            stages = plan["stages"]
+            stages, longest = plan["stages"], plan["longest"]
 
         rnd = 0
         lane = torch.arange(B, dtype=torch.int32, device=dev)[:, None]
-        for nr, starts, ends, h0, h1 in stages:
+        for (nr, starts, ends, h0, h1), most in zip(stages, longest):
             if starts is not None:
                 # the lanes' segments, one after another
                 T = hv.shape[1]
                 hv = F.lazy_segment_sum(
                     hv.reshape((-1,) + F.elt_shape),
                     (starts[None] + lane * T).reshape(-1),
-                    (ends[None] + lane * T).reshape(-1)).reshape(
+                    (ends[None] + lane * T).reshape(-1), most).reshape(
                         (B, -1) + F.elt_shape)
             h = [h0, h1]
             for _ in range(nr):

@@ -121,6 +121,54 @@ def test_lazy_segment_sum_matches_jax():
     _eq(got, _contig_fold(J, ja, jnp.asarray(starts), jnp.asarray(ends)))
 
 
+def test_k2_counts_the_launches_of_its_route(monkeypatch):
+    """K2's wrappers count the CUDA launches that csrc/segsum.cu makes on
+    the route they pick: one for a warp a segment, two for the scan (one
+    over an empty table), none for no segment; and a mode-1 call over B
+    lanes (lanes=B) takes one lane's route, so that a batch launches what
+    one proof launches.  The kernel's C entry is replaced by a recorder
+    (kernels.launch's argument 13 after the count is k, 0 on the warp
+    route)."""
+    from longfellow_zk_tpu_torch.fields import fp as pfm
+    F = fp128()
+    got = []
+    monkeypatch.setattr(pfm, "route", lambda *a: "fp_segment_sum[fp128]")
+    monkeypatch.setattr(pfm.kernels, "launch",
+                        lambda name, nl, *args: got.append((nl, args[13] > 0)))
+
+    def seg(ns, n):
+        return (torch.zeros(ns, dtype=torch.int32),
+                torch.full((ns,), n, dtype=torch.int32))
+
+    x = F.zeros((100,), "cpu")
+    for xs, ns, most, want in ((x, 3, None, (1, False)),
+                               (x, 3, 4096, (1, False)),
+                               (x, 3, 4097, (2, True)),
+                               (x[:0], 4, 1 << 19, (1, True)),
+                               (x, 0, 1 << 19, (0, True))):
+        got.clear()
+        pfm.fp_segment_sum(F, xs, *seg(ns, xs.shape[0]), most)
+        assert got == [want]
+    W = F.zeros((8,), "cpu")
+    for lane_terms, lanes, want in ((pfm.K2_TERMS_MIN, 1, (2, True)),
+                                    (pfm.K2_TERMS_MIN, 8, (2, True)),
+                                    (pfm.K2_TERMS_MIN - 1, 1, (1, False)),
+                                    (pfm.K2_TERMS_MIN - 1, 8, (1, False))):
+        n = lane_terms * lanes
+        h = torch.zeros(n, dtype=torch.int32)
+        got.clear()
+        pfm.fp_eval_layer(F, W, h, h, F.zeros((n,), "cpu"),
+                          torch.zeros(n, dtype=torch.bool), *seg(lanes, n),
+                          lanes=lanes)
+        assert got == [want]
+    got.clear()
+    n = 8 * (pfm.K2_TERMS_MIN - 1)
+    h = torch.zeros(n, dtype=torch.int32)
+    pfm.fp_eval_layer(F, W, h, h, F.zeros((n,), "cpu"),
+                      torch.zeros(n, dtype=torch.bool), *seg(8, n))
+    assert got == [(2, True)]   # the copies of one circuit: the whole table
+
+
 def test_bridge_round_trip():
     J = jax_fp128()
     vals, ja, pa = _pair(100, 12)

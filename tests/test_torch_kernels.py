@@ -28,6 +28,7 @@ from longfellow_zk_tpu_torch.merkle.sha256_dev import (
     sha256_msgs, sha256_msgs_plain)
 from longfellow_zk_tpu_torch.random_oracle import device_fs as dfs
 from longfellow_zk_tpu_torch.random_oracle.transcript import Transcript
+from longfellow_zk_tpu_torch.utils.crypto import SHA256
 from longfellow_zk_tpu_torch.sumcheck import verifier
 from longfellow_zk_tpu_torch.transforms import crt_conv, lch14
 from longfellow_zk_tpu_torch.transforms import matmul_ntt as mnt
@@ -892,6 +893,237 @@ def test_k2_k3_field_api(dev, field):
               x[:19992].reshape(7, 2, 1428, F.nlimb)):
         for dim in range(t.dim() - 1):
             _same(F.lazy_sum(t, dim), fpm.axis_sum_plain(F, t, dim))
+
+
+# K2 at segment lengths around a warp (32), a thread's chunk of the scan
+# and a block of it, a long one and empty ones, in that order and mixed
+K2_LENGTHS = [0, 1, 2, 31, 32, 33, 0, 7, 8, 9, 255, 256, 257, 2047, 2048,
+              2049, 1 << 19, 0, 0, 3, 1]
+
+
+def _k2_segments(rng, dev):
+    """(starts, ends, n): K2_LENGTHS, then 3,000 random lengths of 0-40,
+    laid end to end from an odd start (so that segments straddle the
+    chunk, warp and block edges of the scan)."""
+    lens = np.array(K2_LENGTHS + list(rng.integers(0, 41, 3000)),
+                    dtype=np.int64)
+    starts = 5 + np.concatenate([[0], np.cumsum(lens)[:-1]])
+    ends = starts + lens
+    n = int(ends[-1]) + 3
+    return (torch.as_tensor(starts.astype(np.int32), device=dev),
+            torch.as_tensor(ends.astype(np.int32), device=dev), n)
+
+
+@pytest.mark.parametrize("field", list(API_FIELDS))
+@pytest.mark.parametrize("scan", [False, True])
+def test_k2_segment_lengths(dev, scan, field):
+    """K2 mode 0 at every instance over segments of 0, 1, 2, 31-33,
+    255-257, 2047-2049 and 2^19 terms and mixed short ones across the
+    scan's chunk, warp and block edges, over ranges in no order that
+    overlap, and over no term at all; through the scan (`scan`: the
+    longest segment given) and a warp a segment (none given)."""
+    F, rng = API_FIELDS[field](), np.random.default_rng(37)
+    P = fpm.plain_of(F)
+    s, e, n = _k2_segments(rng, dev)
+    most = (1 << 19,) if scan else ()
+    x = _elts(F, rng, n, dev)
+    x[: n // 3] = F.to_limbs(F.p - 1 if not F.kCharacteristicTwo
+                             else (1 << 128) - 1, dev)
+    _same(F.lazy_segment_sum(x, s, e, *most),
+          P.segment_sum_plain(F, x, s, e))
+    a = torch.as_tensor(rng.integers(0, n, 500, dtype=np.int32), device=dev)
+    b = torch.as_tensor(rng.integers(0, n, 500, dtype=np.int32), device=dev)
+    lo, hi = torch.minimum(a, b), torch.maximum(a, b)
+    _same(F.lazy_segment_sum(x, lo, hi, *((n,) if scan else ())),
+          P.segment_sum_plain(F, x, lo, hi))
+    z = x[:0]
+    zs = torch.zeros(4, dtype=torch.int32, device=dev)
+    _same(F.lazy_segment_sum(z, zs, zs, *most),
+          P.segment_sum_plain(F, z, zs, zs))
+
+
+@pytest.mark.parametrize("field", list(API_FIELDS))
+@pytest.mark.parametrize("bad", [False, True])
+def test_k2_eval_layer_lengths(dev, bad, field):
+    """K2 mode 1 at every instance over the segments of
+    test_k2_segment_lengths (over 2^16 terms: the scan; test_k2_eval_layer
+    takes a warp a segment), v one at a third of the terms (the skipped
+    product), beta-masked terms that read a zero product, and with `bad`
+    one that does not."""
+    F, rng = API_FIELDS[field](), np.random.default_rng(38)
+    P = fpm.plain_of(F)
+    s, e, n = _k2_segments(rng, dev)
+    nw = 1 << 12
+    W = _elts(F, rng, nw, dev)
+    W[7] = 0
+    h0 = torch.as_tensor(rng.integers(0, nw, n, dtype=np.int32), device=dev)
+    h1 = torch.as_tensor(rng.integers(0, nw, n, dtype=np.int32), device=dev)
+    bm = torch.as_tensor(rng.random(n) < 0.1, device=dev)
+    h0[bm] = 7
+    if bad:
+        h0[int(torch.nonzero(bm)[-1])] = 8
+    v = _elts(F, rng, n, dev)
+    v[torch.as_tensor(rng.random(n) < 0.33, device=dev)] = \
+        F.to_limbs(1, dev)
+    V, ok = fpm.fp_eval_layer(F, W, h0, h1, v, bm, s, e)
+    V2, ok2 = P.eval_layer_plain(F, W, h0, h1, v, bm, s, e)
+    _same(V, V2)
+    assert bool(ok) == bool(ok2) == (not bad)
+
+
+@pytest.mark.parametrize("field", ["fp128", "gf2_128"])
+def test_k2_large_table(dev, field):
+    """K2 in both modes over 2^21 + 12,345 terms (its scan takes 8 terms
+    a thread there; 1 or 2 in the tests above; mode 0 also a warp a
+    segment): short segments, a long one and empty ones across the
+    table."""
+    F, rng = FIELDS[field](), np.random.default_rng(45)
+    P = fpm.plain_of(F)
+    n = (1 << 21) + 12345
+    lens = rng.integers(0, 41, n // 10)
+    lens[100] = 1 << 19
+    lens[5:9] = 0
+    ends = np.minimum(np.cumsum(lens), n).astype(np.int32)
+    starts = np.concatenate([[0], ends[:-1]]).astype(np.int32)
+    s, e = (torch.as_tensor(x, device=dev) for x in (starts, ends))
+    x = _elts(F, rng, n, dev)
+    for most in ((), (1 << 19,)):
+        _same(F.lazy_segment_sum(x, s, e, *most),
+              P.segment_sum_plain(F, x, s, e))
+    nw = 1 << 12
+    W = _elts(F, rng, nw, dev)
+    h0 = torch.as_tensor(rng.integers(0, nw, n, dtype=np.int32), device=dev)
+    h1 = torch.as_tensor(rng.integers(0, nw, n, dtype=np.int32), device=dev)
+    bm = torch.zeros(n, dtype=torch.bool, device=dev)
+    V, ok = fpm.fp_eval_layer(F, W, h0, h1, x, bm, s, e)
+    V2, ok2 = P.eval_layer_plain(F, W, h0, h1, x, bm, s, e)
+    _same(V, V2)
+    assert bool(ok) and bool(ok2)
+
+
+@pytest.mark.parametrize("field", ["fp128", "gf2_128"])
+def test_k2_scans_on_two_streams(dev, field):
+    """K2's scan on two streams at once and on the default one, four
+    times over (each call counts its blocks in its own scratch,
+    csrc/segsum.cu), against the plain version."""
+    F, rng = FIELDS[field](), np.random.default_rng(46)
+    P = fpm.plain_of(F)
+    s, e, n = _k2_segments(rng, dev)
+    xs = [_elts(F, rng, n, dev) for _ in range(3)]
+    streams = [torch.cuda.Stream() for _ in range(2)]
+    outs = [None] * 3
+    torch.cuda.synchronize()
+    for _ in range(4):
+        for i, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                outs[i] = F.lazy_segment_sum(xs[i], s, e, 1 << 19)
+        outs[2] = F.lazy_segment_sum(xs[2], s, e, 1 << 19)
+    torch.cuda.synchronize()
+    for x, out in zip(xs, outs):
+        _same(out, P.segment_sum_plain(F, x, s, e))
+
+
+def _fs_at(rng, off, dev):
+    """A random host transcript state whose absorbed count is off mod
+    64, on the card."""
+    ts = Transcript(rng.bytes(5))
+    cnt = int.from_bytes(ts.export_state()[32:40], "little")
+    # a byte string absorbs 9 + L bytes (the tag, the length, the bytes)
+    ts.write_bytes(rng.bytes((off - cnt - 9) % 64 + 64 * int(
+        rng.integers(0, 3))))
+    fs = dfs.fs_init_from_host(ts, dev)
+    assert int.from_bytes(bytes(fs[32:40].tolist()), "little") % 64 == off
+    return fs
+
+
+@pytest.mark.parametrize("field", list(FIELDS))
+@pytest.mark.parametrize("cubic", [False, True])
+@pytest.mark.parametrize("lanes", [1, 2, 8])
+def test_k10_every_offset(dev, lanes, cubic, field):
+    """K10 in both modes at every starting offset cnt % 64 (0-63, one
+    lane each), `lanes` lanes a launch, against the plain version lane
+    by lane: fs, the claim and the row compared."""
+    F, rng = FIELDS[field](), np.random.default_rng(39 + lanes)
+    N, npts = F.nlimb, 4 if cubic else 3
+    consts = fpm.round_consts(F, dev)
+    tail = dfs.round_tail_cubic if cubic else dfs.round_tail
+    plain = dfs.round_tail_cubic_plain if cubic else dfs.round_tail_plain
+    cpu = torch.device("cpu")
+    consts2 = consts.cpu()
+    for first in range(0, 64, lanes):
+        # the plain version runs on the CPU (its thousands of small ops
+        # are faster there than launched one by one)
+        fs2 = torch.stack([_fs_at(rng, off, cpu)
+                           for off in range(first, first + lanes)])
+        x = _elts(F, rng, lanes * (2 * npts + 1) + 3, cpu)[3:]
+        x = x.reshape(lanes, 2 * npts + 1, N)
+        claim2 = x[:, 0].clone()
+        a2 = x[:, 1:npts].contiguous()
+        pad2 = x[:, npts + 1:].contiguous()
+        eq02 = x[0, npts].contiguous()
+        row2 = torch.zeros((lanes, npts + 1, N), dtype=torch.int32)
+        fs, claim, a, pad, eq0, row = (t.to(dev) for t in (
+            fs2, claim2, a2, pad2, eq02, row2))
+        args = (a,) if cubic else (a, eq0)
+        tail(F, fs, claim, row, *args, pad, consts)
+        for b in range(lanes):
+            plain(F, fs2[b], claim2[b], row2[b],
+                  *((a2[b],) + ((eq02,) if not cubic else ())), pad2[b],
+                  consts2)
+        _same(fs, fs2)
+        _same(claim, claim2)
+        _same(row, row2)
+
+
+# From the empty transcript state (the SHA-256 initial value, nothing
+# absorbed), a hand-round that absorbs ev_0 = K10_REJECT_EV0 and ev_2 = 0
+# (natural values) draws a first Fp128 block of 0xffff f412 ... 48 >= p:
+# K10 [fp128] rejects it and samples the second block.
+K10_REJECT_EV0 = 64395
+
+
+def test_k10_forced_rejection(dev):
+    """K10 [fp128] through a rejected draw, in one lane and as lane 1 of
+    4, against the plain version and the host transcript."""
+    import struct
+    F = fp128()
+    rng = np.random.default_rng(40)
+    consts = fpm.round_consts(F, dev)
+    iv = (0x6A09E667, 0xBB67AE85, 0x3C6EF372, 0xA54FF53A, 0x510E527F,
+          0x9B05688C, 0x1F83D9AB, 0x5BE0CD19)
+    empty = torch.frombuffer(bytearray(struct.pack("<8IQ", *iv, 0) +
+                                       bytes(64)), dtype=torch.uint8)
+    x = _elts(F, rng, 16, dev)[3:]
+    claim, eq0, a = x[0].clone(), x[1], x[2:4].contiguous()
+    # the pads that make ev_0 and ev_2 the values above
+    row = torch.zeros((4, F.nlimb), dtype=torch.int32, device=dev)
+    dfs.round_tail_plain(F, empty.clone().to(dev), claim.clone(), row, a,
+                         eq0, F.zeros((3,), dev), consts)
+    want = F.to_limbs([K10_REJECT_EV0, 0, 0], dev)
+    pad = F.sub(row[:3], want).contiguous()
+    for lanes, at in ((1, 0), (4, 1)):
+        fs = torch.stack([empty.to(dev) if b == at else _fs_at(rng, b, dev)
+                          for b in range(lanes)])
+        fs2 = fs.clone()
+        cl = claim.repeat(lanes, 1)
+        cl2 = cl.clone()
+        aa = a.repeat(lanes, 1, 1)
+        pp = pad.repeat(lanes, 1, 1)
+        r1 = torch.zeros((lanes, 4, F.nlimb), dtype=torch.int32, device=dev)
+        r2 = r1.clone()
+        dfs.round_tail(F, fs, cl, r1, aa, eq0, pp, consts)
+        for b in range(lanes):
+            dfs.round_tail_plain(F, fs2[b], cl2[b], r2[b], aa[b], eq0, pp[b],
+                                 consts)
+        _same(fs, fs2)
+        _same(cl, cl2)
+        _same(r1, r2)
+        assert F.from_limbs(r1[at, 0].cpu()) == K10_REJECT_EV0
+        # the host transcript draws the same challenge past its rejection
+        ts = Transcript(b"", _sha=SHA256())
+        ts.write_elt(K10_REJECT_EV0, F)
+        ts.write_elt(0, F)
+        assert F.from_limbs(r1[at, 3].cpu()) == ts.elt(F)
 
 
 def test_no_kernel_raises(dev):
