@@ -21,7 +21,10 @@
       evaluation at hash layers 17, 18 and 20 and its merge folds at
       the stages of layer 18's plan (a segment of 525,422 terms), rows
       "fp_segment_sum[gf2_128] eval layer L" and "... fold layer 18
-      stage S";
+      stage S"; K1's products by one element at the largest layer, rows
+      "fp_elementwise[gf2_128] hv" (its terms) and "... bind" (its
+      wires; bound: the bytes or the reads of the element's table of
+      multiples, g128_table_ms);
    d. K7 at the largest layer of the SHA-256 circuit (Fp128), of the
       mdoc signature circuit (P-256) and of the mdoc hash circuit
       (GF(2^128), 3,578,789 terms);
@@ -211,17 +214,47 @@ INT32_OPS_PER_S = 67e12 / 4
 # base products for an Fp2 product, 2 for a one-word Montgomery product
 # of the CRT lanes ("crt"); a Montgomery reduction alone (a product by
 # 1) N^2 + N (redc_ops) and a product of one word by N words N: the
-# conversions of the CRT route.  A GF(2^128) product counts none: no
-# instruction of the card computes a carry-less product, so its bound is
-# the bytes bound (the kernels' shift-and-XOR spends about 2,000 32-bit
-# operations a product, GF2_OPS_PER_MUL, printed beside it).
+# conversions of the CRT route.  A GF(2^128) product: no instruction of
+# the card computes a carry-less product, so it counts the integer
+# multiplies of the cheapest product known here, gf2.cuh's spaced-multiply
+# Karatsuba: 9 32 x 32 carry-less products of 16 multiplies each (its
+# squares, a spread of the bits, count none).  A product by one element
+# that a whole launch or lane shares (K1's bind, hv and products by one
+# element) counts instead its reads of that element's table of multiples
+# in shared memory (g128_table_ms).
 MUL_OPS = {"fp128": 32, "fp256": 128, "fp256k1": 128, "fp256x2": 3 * 128,
-           "gf2_128": 0, "crt": 2, "fp24": 2, "fp64": 8, "p256n": 128,
+           "gf2_128": 9 * 16, "crt": 2, "fp24": 2, "fp64": 8, "p256n": 128,
            "p256k1n": 128, "p384": 2 * 12 ** 2, "p521": 2 * 17 ** 2}
 # an Fp24_6 product in K22: 36 word products summed lazily and 6
 # one-word Montgomery reductions of 2 multiplies each
 FP24X6_MUL_OPS = 36 + 6 * 2
-GF2_OPS_PER_MUL = 128 * 16
+# a GF(2^128) inverse a^(2^128 - 2) by Itoh and Tsujii: 2^127 - 1 in
+# floor(log2 127) + popcount(127) - 1 = 12 products (and 127 squares)
+G128_INV_PRODUCTS = 12
+# K1's table product (csrc/fp_ops.cu k_g128_lane): 16 reads of 16 bytes
+# from shared memory a product, at 128 bytes a clock an SM, on the H100
+# SXM's 132 SMs at the card's top SM clock (TOP_CLOCK_MHZ, read from
+# nvidia-smi by main; 1,980 MHz until then)
+G128_TAB_READ_BYTES = 16 * 16
+SMEM_BYTES_PER_CLK = 128
+N_SM = 132
+TOP_CLOCK_MHZ = 1980.0
+
+
+def g128_table_ms(nprod):
+    """The least time of nprod products by one element through its table
+    of multiples in shared memory."""
+    return nprod * G128_TAB_READ_BYTES / (
+        SMEM_BYTES_PER_CLK * N_SM * TOP_CLOCK_MHZ * 1e6) * 1e3
+
+
+def table_bound(nbytes, nprod):
+    """(ms, by) of a call that moves nbytes and makes nprod products by
+    one element through the table."""
+    tb, tt = bound_ms(nbytes, 0)[0], g128_table_ms(nprod)
+    return max(tb, tt), ("bytes" if tb >= tt else "operations")
+
+
 # 32-bit operations of one SHA-256 compression (K8): 64 rounds of about
 # 17 (three funnel-shift rotations and a LOP3 for each sigma, the
 # choice, the majority, 7 adds) and 48 schedule words of about 11
@@ -231,13 +264,14 @@ SHA_OPS_PER_BLOCK = 64 * 17 + 48 * 11
 # model that charges no memory latency): a SHA-256 compression 6 a
 # round, the AES-256 key schedule 2 a word (52 words), an AES block 4 a
 # round (14 rounds; the other counter blocks do not depend on it), a
-# field product 2 N^2 dependent multiply-adds (GF(2^128): 3 a bit)
+# field product 2 N^2 dependent multiply-adds (GF(2^128): gf2.cuh's 144
+# independent multiplies, which one thread starts one a cycle: 36 steps)
 DEP_CYCLES = 4
 SHA_CHAIN = 64 * 6
 AES_KEY_CHAIN = 52 * 2
 AES_BLOCK_CHAIN = 14 * 4
-PROD_CHAIN = {"fp128": 32, "fp256": 128, "fp256k1": 128, "gf2_128": 3 * 128,
-              "crt": 2}
+PROD_CHAIN = {"fp128": 32, "fp256": 128, "fp256k1": 128,
+              "gf2_128": MUL_OPS["gf2_128"] // DEP_CYCLES, "crt": 2}
 # K10's GF(2^128) product (csrc/rt_mul.cuh) takes b a byte a step: 16
 # dependent steps of about 4 (the shift, the fold, the XOR); its eight
 # masked sums a step do not depend on the last
@@ -608,6 +642,8 @@ def check_fp_kernels(rows, F, circ, dev, tag, k1_n, k1_table, rng,
     x = elts(T)
     err = max(err, max_err(F.lazy_segment_sum(x, starts, ends),
                            pm.segment_sum_plain(F, x, starts, ends)))
+    # a product a term, and one more where the term's v is not one
+    v_one = int((qd["v"] == F.to_limbs(1, dev)).all(-1).sum())
     rows.record("fp_segment_sum[%s]" % tag,
                 "longfellow_zk_tpu_torch/csrc/segsum.cu",
                 "longfellow_zk_tpu/sumcheck/prover_device.py:372", err,
@@ -618,7 +654,7 @@ def check_fp_kernels(rows, F, circ, dev, tag, k1_n, k1_table, rng,
                     F, W, qd["h0"], qd["h1"], qd["v"], qd["bmask"], starts,
                     ends),
                 T * (eb + 4 + 4 + 1) + eb * layer.nw + nv * (eb + 8) + 4,
-                2 * mops * T)
+                mops * (2 * T - v_one))
 
     N = 1 << layer.logw
     hv, Wh, Wo = elts(T), elts(N), elts(N)
@@ -652,7 +688,8 @@ def check_k2_mdoc(rows, F, circ, dev, rng):
     """K2 [gf2_128] at the mdoc hash circuit's shapes: rows "fp_segment_sum
     [gf2_128] eval layer L" (mode 1) and "... fold layer 18 stage S" (mode
     0 over the plan's segments), each against its plain version.  Bound:
-    the bytes (a GF(2^128) product counts no operation: see MUL_OPS)."""
+    the bytes, or the products of mode 1 (one a term, and one more where
+    the term's v is not one)."""
     from longfellow_zk_tpu_torch.fields import fp as fpm
     from longfellow_zk_tpu_torch.sumcheck.prover import (
         SumcheckProver, quad_tensors)
@@ -672,17 +709,17 @@ def check_k2_mdoc(rows, F, circ, dev, rng):
                 starts, ends)
         V, ok = fpm.fp_eval_layer(F, *args)
         V2, ok2 = pm.eval_layer_plain(F, *args)
+        v_one = int((qd["v"] == F.to_limbs(1, dev)).all(-1).sum())
         print("K2[gf2_128] eval layer %d: %d terms, %d segments (longest "
               "%d), v one at %d terms" % (
-                  ly, T, nv, int((ends - starts).max()),
-                  int((qd["v"] == F.to_limbs(1, dev)).all(-1).sum())))
+                  ly, T, nv, int((ends - starts).max()), v_one))
         rows.record("fp_segment_sum[gf2_128] eval layer %d" % ly, src,
                     "longfellow_zk_tpu/sumcheck/prover_device.py:383",
                     max_err(V, V2) + int(bool(ok) != bool(ok2)),
                     lambda: fpm.fp_eval_layer(F, *args),
                     lambda: pm.eval_layer_plain(F, *args),
                     T * (eb + 4 + 4 + 1) + eb * layer.nw + nv * (eb + 8) + 4,
-                    0, iters=20)
+                    MUL_OPS["gf2_128"] * (2 * T - v_one), iters=20)
         if ly != K2_MDOC_FOLDS:
             continue
         plan = sp._wm_for(layer.quad, layer.logw)
@@ -703,6 +740,41 @@ def check_k2_mdoc(rows, F, circ, dev, rng):
                             F, x, s0, e0),
                         eb * n + (eb + 8) * len(s0), 0, iters=20)
             n = len(s0)
+
+
+def check_k1_gf2_mdoc(rows, F, circ, dev, rng):
+    """K1 [gf2_128]'s products by one element at the mdoc hash circuit's
+    largest layer: rows "fp_elementwise[gf2_128] hv" (its T terms, h its
+    terms' h0) and "... bind" (its 2^logw wires to half), each against
+    its plain version.  Bound: the bytes, or the table reads of one
+    product an output (g128_table_ms)."""
+    from longfellow_zk_tpu_torch.fields import fp as fpm
+    from longfellow_zk_tpu_torch.sumcheck.prover import quad_tensors
+
+    pm = fpm.plain_of(F)
+    elts = elts_of(F, rng, dev)
+    ly = max(range(circ.nl), key=lambda i: circ.layers[i].nterms)
+    layer = circ.layers[ly]
+    T, nw = layer.nterms, 1 << layer.logw
+    h = quad_tensors(F, layer.quad, dev)["h0"]
+    hv, W, r = elts(T), elts(nw).reshape(1, nw, 4), elts(1)
+    print("K1[gf2_128] hv and bind at layer %d: %d terms, %d wires"
+          % (ly, T, nw))
+    src = "longfellow_zk_tpu_torch/csrc/fp_ops.cu"
+    rows.record("fp_elementwise[gf2_128] hv", src,
+                "longfellow_zk_tpu/sumcheck/prover_device.py:595",
+                max_err(F.hv_update(hv, h, r[0]),
+                        pm.elementwise_plain(F, fpm.HV, hv, r[0], h)),
+                lambda: F.hv_update(hv, h, r[0]),
+                lambda: pm.elementwise_plain(F, fpm.HV, hv, r[0], h),
+                36 * T, 0, bound=table_bound(36 * T, T), iters=20)
+    rows.record("fp_elementwise[gf2_128] bind", src,
+                "longfellow_zk_tpu/sumcheck/prover_device.py:139",
+                max_err(F.bind(W, r), pm.elementwise_plain(F, fpm.BIND, W,
+                                                           r)),
+                lambda: F.bind(W, r),
+                lambda: pm.elementwise_plain(F, fpm.BIND, W, r),
+                24 * nw, 0, bound=table_bound(24 * nw, nw // 2), iters=20)
 
 
 def check_ntt(rows, F, ntt, tag, nrows, n, elts):
@@ -820,13 +892,12 @@ def check_lch14(rows, F, dev, nrows, m, rng):
         nbf = sched.bf.shape[0]
         nbytes = 16 * nrows * (n + m) + sched.bf.numel() * 4 + \
             sched.tw.numel() * 4 + sched.passes.numel() * 4
+        ops = MUL_OPS["gf2_128"] * nbf * nrows  # a product a butterfly
         print("K6[gf2_128] (%d, %d) x %d rows: %d butterflies a row in %d "
-              "passes (%d ops a row at %d a product), device %.5f ms, "
-              "bound %.5f ms (bytes)" % (
+              "passes, device %.5f ms, bound %.5f ms (%s)" % (
                   n, m, nrows, nbf, sched.passes.shape[0],
-                  nbf * GF2_OPS_PER_MUL, GF2_OPS_PER_MUL,
                   device_ms(lambda: rs.interpolate(y), 20).ms,
-                  bound_ms(nbytes, 0)[0]))
+                  *bound_ms(nbytes, ops)))
         if n == 461:
             rows.record("gf2_lch14[gf2_128]",
                         "longfellow_zk_tpu_torch/csrc/lch14.cu",
@@ -834,7 +905,7 @@ def check_lch14(rows, F, dev, nrows, m, rng):
                         lambda: rs.interpolate(y),
                         lambda: lch14.lch14_plain(F, lch14.EXTEND, y,
                                                   rs.sched, m),
-                        nbytes, 0)
+                        nbytes, ops)
 
 
 def check_quad_bind(rows, F, circ, dev, tag, rng):
@@ -1710,9 +1781,9 @@ class FieldApi:
             self.rows.failures.append(kname + " at %d" % a.shape[0])
 
     def run(self, kname, source, where, F, zero, kfn, pfn, a, b, cond, mode,
-            nbytes, ops, host=None, one=None, idx=None):
+            nbytes, ops, host=None, one=None, idx=None, bound=None):
         """One row: check(), then the timings (an inverse's over 5 calls,
-        the others' over 20)."""
+        the others' over 20); bound as Rows.record's."""
         from longfellow_zk_tpu_torch.fields import fp as fpm
 
         err, plain = self.check(kname, F, zero, kfn, pfn, a, b, cond, mode,
@@ -1736,7 +1807,7 @@ class FieldApi:
             def lib():
                 return torch.where(cond.reshape(cond.shape + (1,) * k), a, b)
         self.rows.record(kname, source, "longfellow_zk_tpu/fields/" + where,
-                         err, kfn, None, nbytes, ops, plain=plain,
+                         err, kfn, None, nbytes, ops, bound=bound, plain=plain,
                          library_fn=lib,
                          iters=5 if mode == fpm.INV else 20)
 
@@ -1816,25 +1887,29 @@ class FieldApi:
             name = "fp_elementwise[%s]" % tag
             if mode != fpm.MUL:
                 name += " " + names[mode]
+            # (a GF(2^128) square spreads bits: no multiply)
+            prods = mode == fpm.MUL or (mode == fpm.SQR and not gf)
             self.run(name, src, API_REPLACES[names[mode]][col], F, zero,
                      lambda m=mode, y=bb: fpm.fp_elementwise(F, m, a, y, cond),
                      lambda m=mode, y=bb: pm.elementwise_plain(F, m, a, y,
                                                                cond),
                      a, b, cond, mode, self.mode_bytes(mode, eb),
-                     mops * n if mode in (fpm.MUL, fpm.SQR) else 0)
+                     mops * n if prods else 0)
         c = (0xC0FFEE << 100) % F.p if not gf else 0xC0FFEE << 100
         cl = F.to_limbs(c, dev)
+        # GF(2^128): a product by one element reads its table
         self.run("fp_elementwise[%s] mul_const" % tag, src,
                  API_REPLACES["mul_const"][col], F, zero,
                  lambda: F.mul_const(a, c),
                  lambda: pm.elementwise_plain(F, fpm.MUL, a, cl), a, b, cond,
                  fpm.MUL, 2 * eb * n, mops * n,
-                 host=lambda x, y, t: F.mul_i(x, c))
+                 host=lambda x, y, t: F.mul_i(x, c),
+                 bound=table_bound(2 * eb * n, n) if gf else None)
         self.inv_row("fp_inv[%s]" % tag, "longfellow_zk_tpu_torch/csrc/inv.cu",
                      API_REPLACES["inv"][col], F, zero, F.inv,
                      lambda x: pm.inv_plain(F, x), a, b, cond, eb,
-                     lambda xs: 0 if gf else inv_ops(F, tag, xs),
-                     F.to_limbs(1, dev))
+                     lambda xs: G128_INV_PRODUCTS * mops if gf else
+                     inv_ops(F, tag, xs), F.to_limbs(1, dev))
 
 
 def check_field_api(rows, dev, rng):
@@ -1854,8 +1929,9 @@ def check_field_api(rows, dev, rng):
     equals a at every third.  Bound: inputs read and outputs written
     once (mode_bytes: a select reads the chosen operand), or the
     products (2 N^2 multiplies; an Fp24_6 product FP24X6_MUL_OPS; an
-    inverse by the cheapest known method, inv_ops and fp24x6_inv_ops);
-    GF(2^128) counts no operations.  Last, a CUDA
+    inverse by the cheapest known method, inv_ops and fp24x6_inv_ops;
+    GF(2^128): MUL_OPS a product, its mul_const the table reads of
+    g128_table_ms, its inverse G128_INV_PRODUCTS products).  Last, a CUDA
     tensor of a field or mode without a kernel must raise."""
     from longfellow_zk_tpu_torch.fields import fp as fpm
     from longfellow_zk_tpu_torch.fields import fp2 as fp2m
@@ -3012,6 +3088,13 @@ def main() -> int:
         timeout=60).stdout.strip().splitlines()[0]
     print("device:", name, "count:", count, "|", smi)
     print("torch", torch.__version__, "cuda", torch.version.cuda)
+    global TOP_CLOCK_MHZ
+    TOP_CLOCK_MHZ = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0])
+    print("top SM clock %.0f MHz (the one-thread chain bounds, the "
+          "GF(2^128) table reads)" % TOP_CLOCK_MHZ)
     from longfellow_zk_tpu_torch.native import get_lib
     print("host SHA-256/AES:", "native C" if get_lib() is not None
           else "pure Python (no C compiler)")
@@ -3079,6 +3162,7 @@ def main() -> int:
     check_fp_kernels(rows, GF, c_hash, dev, "gf2_128", 266 * 3230,
                      (266, 3230), rng, dblock=921)
     check_k2_mdoc(rows, GF, c_hash, dev, rng)
+    check_k1_gf2_mdoc(rows, GF, c_hash, dev, rng)
     check_lch14(rows, GF, dev, 266, 4151, rng)
 
     # -- 3d. K7 at the largest layer each verifier binds ------------------
@@ -3107,12 +3191,7 @@ def main() -> int:
         ("a Merkle level", lp_hash.block_ext // 2, 64)])
 
     # -- 3f. K9 and K10 of each field -----------------------------------------
-    clock = subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm",
-         "--format=csv,noheader,nounits"], capture_output=True, text=True,
-        timeout=60).stdout.strip().splitlines()[0]
-    clock_mhz = float(clock)
-    print("top SM clock %.0f MHz (the one-thread chain bounds)" % clock_mhz)
+    clock_mhz = TOP_CLOCK_MHZ
     for Fx, tag in ((F, "fp128"), (FB, "fp256"), (GF, "gf2_128")):
         check_fs_oracle(rows, Fx, dev, tag, rng, clock_mhz)
         check_round_tail(rows, Fx, dev, tag, rng, clock_mhz)

@@ -39,9 +39,9 @@
 // operand or one element (b_index); the 64-bit division that every
 // mode reading b used to run cost the one-word add 1.4 us of 5.0 at
 // 2^20 elements (tools/k1_diag.cu).
-// The GF(2^128) product of gf2.cuh spends about 2,000 32-bit operations
-// on 48 bytes, so that instance is bound by its own operations: no
-// instruction of the card computes a carry-less product.
+// GF(2^128) has kernels of its own (k_g128_ew, k_g128_lane, below): a
+// product there is bound by its own operations, since no instruction of
+// the card computes a carry-less product (gf2.cuh).
 //
 // Modes:
 //   0 mul   out[i] = a[i] * b[(i / bdiv) % bmod]
@@ -62,6 +62,9 @@
 // bdiv reads r = b[(i / bdiv) * bmod], bmod being the lane stride of b in
 // elements, and in mode 4 the lanes share h.  The lanes add no launch: a
 // batch of proofs binds in the one launch of a single proof.
+#include <algorithm>
+#include <type_traits>
+
 #include "gf2.cuh"
 
 enum { M_MUL, M_ADD, M_SUB, M_BIND, M_HV, M_SQR, M_NEG, M_EQ, M_IS_ZERO,
@@ -421,6 +424,225 @@ __global__ void __launch_bounds__(TILE17)
   }
 }
 
+// -- GF(2^128): a kernel a mode ----------------------------------------
+//
+// A GF(2^128) product is bound by its own operations (gf2.cuh), a copy
+// (neg) reaches torch.clone only with several elements a thread, and the
+// binds and hv updates of a proof run at every size from one element to
+// millions.  So:
+//   - k_g128_ew<MODE, E>: mul by a full or broadcast b (gf2.cuh's
+//     Karatsuba product), add, sub, sqr, neg, eq, is_zero and select, E
+//     elements a thread (1 for mul, 2 for sqr, 4 for the memory-bound
+//     modes), all of a thread's loads made before its stores, each warp
+//     access 512 contiguous bytes;
+//   - k_g128_lane<MODE, TAB>: the products by one element r a lane (bind:
+//     lo + (hi - lo) r = lo ^ (lo ^ hi) r; hv: x (1 - r) = x ^ x r where
+//     h is even; mul by one element, or by one element a row of at least
+//     G128_LANE_MIN elements).  The grid is cut at lanes (blockIdx.y), so
+//     no index is divided: bind's pair of output i is a[2i], a[2i + 1] in
+//     every row layout.  From G128_TAB_MIN elements (TAB) each block first
+//     builds its lane's table of r's multiples in shared memory (gf2.cuh
+//     g128_tab_build) and the grid holds the blocks that the card keeps
+//     resident, each taking many elements; below it each thread splits r
+//     once and multiplies by Karatsuba, where building the table would
+//     cost more than it saves (tools/gf2_bench.py's hv and bind rows at
+//     2^8-2^19 elements).
+constexpr int G128_THREADS = 256;
+constexpr long long G128_LANE_MIN = 1024;  // elements a row for the lane path
+constexpr long long G128_TAB_MIN = 131072;  // elements for the table
+
+template <int MODE>
+constexpr int g128_ept() {
+  return MODE == M_MUL ? 1 : MODE == M_SQR ? 2 : 4;
+}
+
+__device__ __forceinline__ Fp<G128> g128_of(const uint4& v) {
+  Fp<G128> r;
+  r.l[0] = v.x;
+  r.l[1] = v.y;
+  r.l[2] = v.z;
+  r.l[3] = v.w;
+  return r;
+}
+
+template <int MODE, int E>
+__global__ void __launch_bounds__(G128_THREADS)
+    k_g128_ew(uint4* __restrict__ out, const uint4* __restrict__ a,
+              const uint4* __restrict__ b,
+              const unsigned char* __restrict__ cond, long long n,
+              long long bdiv, long long bmod, int bkind) {
+  typedef Fp<G128> F;
+  const long long i0 =
+      (long long)blockIdx.x * (E * G128_THREADS) + threadIdx.x;
+  uint4 x[E], y[E];
+#pragma unroll
+  for (int e = 0; e < E; e++) {
+    const long long i = i0 + (long long)e * G128_THREADS;
+    if (i < n) {
+      if constexpr (MODE == M_SELECT) {
+        x[e] = cond[i] ? a[i] : b[b_index(i, bdiv, bmod, bkind)];
+      } else {
+        x[e] = a[i];
+        if constexpr (reads_b(MODE))
+          y[e] = b[b_index(i, bdiv, bmod, bkind)];
+      }
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < E; e++) {
+    const long long i = i0 + (long long)e * G128_THREADS;
+    if (i >= n) continue;
+    if constexpr (MODE == M_EQ) {
+      ((unsigned char*)out)[i] = x[e].x == y[e].x && x[e].y == y[e].y &&
+                                 x[e].z == y[e].z && x[e].w == y[e].w;
+    } else if constexpr (MODE == M_IS_ZERO) {
+      ((unsigned char*)out)[i] = (x[e].x | x[e].y | x[e].z | x[e].w) == 0u;
+    } else if constexpr (MODE == M_SELECT || MODE == M_NEG) {
+      out[i] = x[e];
+    } else if constexpr (MODE == M_ADD || MODE == M_SUB) {
+      out[i] = make_uint4(x[e].x ^ y[e].x, x[e].y ^ y[e].y, x[e].z ^ y[e].z,
+                          x[e].w ^ y[e].w);
+    } else {
+      const F ex = g128_of(x[e]);
+      if constexpr (MODE == M_SQR)
+        fp_sqr(ex).store(out, i);
+      else
+        fp_mul(ex, g128_of(y[e])).store(out, i);
+    }
+  }
+}
+
+// grid (blocks a lane, lanes): lane l's L outputs, its r at b[l * bmod]
+// (bind, hv: bmod the lanes' stride in b) or b[l % bmod] (mul); hv's h is
+// shared by the lanes.  Dynamic shared memory: the table (TAB).
+template <int MODE, bool TAB>
+__global__ void __launch_bounds__(G128_THREADS)
+    k_g128_lane(uint4* __restrict__ out, const uint4* __restrict__ a,
+                const uint4* __restrict__ b, const int* __restrict__ h,
+                long long L, long long bmod) {
+  typedef Fp<G128> F;
+  extern __shared__ __align__(16) uint4 g128_tab[];
+  const long long lane = blockIdx.y;
+  const F r = F::load(b, MODE == M_MUL ? lane % bmod : lane * bmod);
+  G128Split rs;
+  if constexpr (TAB)
+    g128_tab_build(r, g128_tab);
+  else
+    g128_split(r, rs);
+  const long long o0 = lane * L;
+  for (long long j = (long long)blockIdx.x * G128_THREADS + threadIdx.x;
+       j < L; j += (long long)gridDim.x * G128_THREADS) {
+    F x, lo;
+    if constexpr (MODE == M_BIND) {
+      lo = F::load(a, 2 * (o0 + j));
+      const F hi = F::load(a, 2 * (o0 + j) + 1);
+      x = fp_add(lo, hi);
+    } else {
+      x = F::load(a, o0 + j);
+    }
+    F p;
+    if constexpr (TAB) {
+      p = g128_tab_mul(g128_tab, x);
+    } else {
+      uint32_t t[8];
+      g128_clmul(rs, x, t);
+      p = g128_fold(t);
+    }
+    if constexpr (MODE == M_BIND)
+      p = fp_add(lo, p);
+    else if constexpr (MODE == M_HV)
+      p = (h[j] & 1) ? p : fp_add(x, p);
+    p.store(out, o0 + j);
+  }
+}
+
+// The SMs and the resident blocks of KERNEL with `smem` bytes, once.
+template <class K>
+static int g128_resident(K kernel, size_t smem) {
+  int dev = 0, nsm = 0, per = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev);
+  if (smem > 48 * 1024)
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)smem);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, kernel, G128_THREADS,
+                                                smem);
+  return std::max(1, nsm * per);
+}
+
+template <int MODE>
+static void g128_lane_launch(void* out, const void* a, const void* b,
+                             const void* h, long long lanes, long long L,
+                             long long bmod, cudaStream_t s) {
+  const long long need = (L + G128_THREADS - 1) / G128_THREADS;
+  if (lanes * L >= G128_TAB_MIN) {
+    static const int resident =
+        g128_resident(k_g128_lane<MODE, true>, G128_TAB_BYTES);
+    const long long per = std::max(1ll, (long long)resident / lanes);
+    k_g128_lane<MODE, true>
+        <<<dim3((unsigned)std::min(need, per), (unsigned)lanes), G128_THREADS,
+           G128_TAB_BYTES, s>>>((uint4*)out, (const uint4*)a,
+                                (const uint4*)b, (const int*)h, L, bmod);
+  } else {
+    k_g128_lane<MODE, false>
+        <<<dim3((unsigned)need, (unsigned)lanes), G128_THREADS, 0, s>>>(
+            (uint4*)out, (const uint4*)a, (const uint4*)b, (const int*)h, L,
+            bmod);
+  }
+}
+
+template <int MODE>
+static void g128_ew_launch(void* out, const void* a, const void* b,
+                           const void* h, long long n, long long bdiv,
+                           long long bmod, int bkind, cudaStream_t s) {
+  constexpr int E = g128_ept<MODE>();
+  const long long blocks = (n + E * G128_THREADS - 1) / (E * G128_THREADS);
+  k_g128_ew<MODE, E><<<(unsigned)blocks, G128_THREADS, 0, s>>>(
+      (uint4*)out, (const uint4*)a, (const uint4*)b,
+      (const unsigned char*)h, n, bdiv, bmod, bkind);
+}
+
+// K1 at GF(2^128): the route of a call (bdiv, bmod as in the header; in
+// bind and hv bdiv is a lane's outputs and bmod the lanes' stride in b).
+static int g128_elementwise(int mode, void* out, const void* a,
+                            const void* b, const void* h, long long n,
+                            long long bdiv, long long bmod, int bkind,
+                            cudaStream_t s) {
+  if (mode == M_BIND || mode == M_HV) {
+    const long long lanes = n / bdiv;
+    if (lanes > 65535) return (int)cudaErrorInvalidValue;
+    if (mode == M_BIND)
+      g128_lane_launch<M_BIND>(out, a, b, h, lanes, bdiv, bmod, s);
+    else
+      g128_lane_launch<M_HV>(out, a, b, h, lanes, bdiv, bmod, s);
+    return (int)cudaGetLastError();
+  }
+  if (mode == M_MUL && (bkind == B_ONE || (bkind != B_FULL &&
+                                            bdiv >= G128_LANE_MIN &&
+                                            n / bdiv <= 65535))) {
+    const long long lanes = bkind == B_ONE ? 1 : n / bdiv;
+    g128_lane_launch<M_MUL>(out, a, b, h, lanes, n / lanes, bmod, s);
+    return (int)cudaGetLastError();
+  }
+#define LFZK_G128(M)                                            \
+  case M:                                                       \
+    g128_ew_launch<M>(out, a, b, h, n, bdiv, bmod, bkind, s);   \
+    return (int)cudaGetLastError();
+  switch (mode) {
+    LFZK_G128(M_MUL)
+    LFZK_G128(M_ADD)
+    LFZK_G128(M_SUB)
+    LFZK_G128(M_SQR)
+    LFZK_G128(M_NEG)
+    LFZK_G128(M_EQ)
+    LFZK_G128(M_IS_ZERO)
+    LFZK_G128(M_SELECT)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef LFZK_G128
+}
+
 // Launches MODE's kernel of the one- or 17-word instance; vec: every
 // pointer that the vector loads and stores read is aligned for them.
 template <class C, int MODE>
@@ -462,31 +684,35 @@ static int fp_elementwise(int mode, void* out, const void* a, const void* b,
                     : bmod == 1            ? B_ONE
                     : n <= 0xFFFFFFFFll    ? B_DIV32
                                            : B_DIV64;
-  if constexpr (C::N == 1 || C::N == 17) {
+  if constexpr (std::is_same<C, G128>::value) {
+    return g128_elementwise(mode, out, a, b, h, n, bdiv, bmod, bkind, s);
+  } else {
+    if constexpr (C::N == 1 || C::N == 17) {
 #define LFZK_MODE(M)                                                \
   case M:                                                           \
     launch_mode<C, M>(out, a, b, h, n, bdiv, bmod, bkind, s);       \
     return (int)cudaGetLastError();
-    switch (mode) {
-      LFZK_MODE(M_MUL)
-      LFZK_MODE(M_ADD)
-      LFZK_MODE(M_SUB)
-      LFZK_MODE(M_SQR)
-      LFZK_MODE(M_NEG)
-      LFZK_MODE(M_EQ)
-      LFZK_MODE(M_IS_ZERO)
-      LFZK_MODE(M_SELECT)
-      default:
-        break;  // bind and hv: one element a thread, below
-    }
+      switch (mode) {
+        LFZK_MODE(M_MUL)
+        LFZK_MODE(M_ADD)
+        LFZK_MODE(M_SUB)
+        LFZK_MODE(M_SQR)
+        LFZK_MODE(M_NEG)
+        LFZK_MODE(M_EQ)
+        LFZK_MODE(M_IS_ZERO)
+        LFZK_MODE(M_SELECT)
+        default:
+          break;  // bind and hv: one element a thread, below
+      }
 #undef LFZK_MODE
+    }
+    const int threads = 256;
+    long long blocks = (n + threads - 1) / threads;
+    k_fp_elementwise<C><<<(unsigned)blocks, threads, 0, s>>>(
+        mode, (uint4*)out, (const uint4*)a, (const uint4*)b, (const int*)h,
+        n, row, bdiv, bmod, bkind);
+    return (int)cudaGetLastError();
   }
-  const int threads = 256;
-  long long blocks = (n + threads - 1) / threads;
-  k_fp_elementwise<C><<<(unsigned)blocks, threads, 0, s>>>(
-      mode, (uint4*)out, (const uint4*)a, (const uint4*)b, (const int*)h, n,
-      row, bdiv, bmod, bkind);
-  return (int)cudaGetLastError();
 }
 
 #define LFZK_ARGS                                                          \

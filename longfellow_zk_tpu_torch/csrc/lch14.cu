@@ -29,8 +29,8 @@
 //
 // Bound on the H100: operations.  The bytes are one read of the rows and
 // one write of the code words; each row's roughly (1 + ncos) (fftn / 2)
-// log2(fftn) butterflies cost a shift-and-XOR product (about 2,000 32-bit
-// operations) each.  266 rows give 266 CTAs on 132 SMs.
+// log2(fftn) butterflies cost a product (gf2.cuh's Karatsuba: 144
+// integer multiplies) each.  266 rows give 266 CTAs on 132 SMs.
 #include "gf2.cuh"
 
 typedef Fp<G128> E;

@@ -77,29 +77,12 @@ __device__ __forceinline__ void g128_lane_part(const Fp<G128>& a,
   }
 }
 
-// The 256-bit carry-less product t mod x^128 + x^7 + x^2 + x + 1: the
-// high half H folds back as H (1 + x + x^2 + x^7), and the at most 7 bits
-// that spill past x^127 fold once more (as gf2.cuh's fp_sqr).
-__device__ __forceinline__ Fp<G128> g128_fold(const uint32_t t[8]) {
-  const uint32_t* h = t + 4;
-  Fp<G128> r;
-#pragma unroll
-  for (int j = 0; j < 4; j++) {
-    uint32_t x = t[j] ^ h[j] ^ (h[j] << 1) ^ (h[j] << 2) ^ (h[j] << 7);
-    if (j > 0)
-      x ^= (h[j - 1] >> 31) ^ (h[j - 1] >> 30) ^ (h[j - 1] >> 25);
-    r.l[j] = x;
-  }
-  const uint32_t spill = (h[3] >> 31) ^ (h[3] >> 30) ^ (h[3] >> 25);
-  r.l[0] ^= spill ^ (spill << 1) ^ (spill << 2) ^ (spill << 7);
-  return r;
-}
-
 // a b at GF(2^128) by the warp: every lane of it calls this with the same
 // a and b, lane l multiplies by 4 bits of b (g128_lane_part), an XOR over
 // the lanes (5 shuffle steps) sums the 256-bit product, and each lane
-// folds it; about 200 instructions a lane and a chain of about 400
-// cycles, against gf2.cuh's 2,000 instructions in one thread.  Compiled
+// folds it (gf2.cuh's g128_fold); about 200 instructions a lane and a
+// chain of about 400 cycles, against about 1,400 cycles for gf2.cuh's
+// product in one thread (tools/gf2_diag.cu).  Compiled
 // for the host (tests/test_torch_fs_words.py), one thread sums the 32
 // lanes' parts itself.
 template <>

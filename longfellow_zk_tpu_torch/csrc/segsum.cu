@@ -65,8 +65,8 @@
 // hash circuit's terms); it branches on nothing of W.
 //
 // Bound on the H100: the bytes of the terms (mode 0; mode 1 at prime
-// fields) or the shift-and-XOR products of GF(2^128) (about 2,000
-// operations each, gf2.cuh).
+// fields) or the products of GF(2^128) (gf2.cuh's Karatsuba: 144
+// integer multiplies each).
 #include <type_traits>
 
 #include "gf2.cuh"

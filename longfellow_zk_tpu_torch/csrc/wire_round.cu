@@ -23,10 +23,44 @@
 // (zk/batch.py:301, :344).
 //
 // Bound on the H100: bytes (per term three indices' worth of gathers and
-// one hv read), at sizes where launch latency dominates.  The reduction
-// is the two-pass one of reduce.cuh (per-block partials, then k_finish):
-// exact and without atomics.
+// one hv read), at sizes where launch latency dominates; at GF(2^128) the
+// products (below).  The reduction is the two-pass one of reduce.cuh
+// (per-block partials, then k_finish): exact and without atomics.
+//
+// GF(2^128), mode 0 (k_wire_g128): -1 = 1, so with u = Wh[h] and its
+// sibling v = Wh[h ^ 1], a2 sums z (u ^ v) over every term and a0 sums
+// z u over the terms whose h is even.  A term takes z = hv[t] Wo[ho[t]],
+// the one product that is reduced, and splits z once (gf2.cuh
+// g128_split) for the two products z Wh[h & ~1] and z Wh[h | 1], which
+// stay unreduced (8 words) in the thread's XOR accumulators: a0 gets the
+// first where h is even, a2 both.  Each thread folds its two sums once at
+// the end (the fold is GF(2)-linear), then the block sums them.  The
+// even-h product runs for every term: where a warp's terms mix even and
+// odd h, a branch would run it all the same.  Two blocks an SM (128
+// registers a thread): the wrapper's nblk of 264 fills the card.
+#include <type_traits>
+
 #include "reduce.cuh"
+
+// One term of k_wire_g128 into the unreduced sums s0 (a0) and s2 (a2).
+__device__ __forceinline__ void g128_wire_term(const Fp<G128>& hv,
+                                               const Fp<G128>& wo,
+                                               const Fp<G128>& wlo,
+                                               const Fp<G128>& whi, int hh,
+                                               uint32_t s0[8],
+                                               uint32_t s2[8]) {
+  G128Split zs;
+  g128_split(fp_mul(hv, wo), zs);
+  uint32_t plo[8], phi[8];
+  g128_clmul(zs, wlo, plo);
+  g128_clmul(zs, whi, phi);
+  const uint32_t even = (hh & 1) ? 0u : 0xFFFFFFFFu;
+#pragma unroll
+  for (int j = 0; j < 8; j++) {
+    s0[j] ^= plo[j] & even;
+    s2[j] ^= plo[j] ^ phi[j];
+  }
+}
 
 // grid (nblk, lanes): block (x, lane) takes a slice of lane's terms.
 template <class C>
@@ -65,6 +99,37 @@ __global__ void k_wire_partial(const uint4* __restrict__ hv,
   block_sum<C>(a2, partial + N * (o + gridDim.x + blockIdx.x));
 }
 
+// grid (nblk, lanes), as k_wire_partial at GF(2^128)
+__global__ void __launch_bounds__(NT, 2)
+    k_wire_g128(const uint4* __restrict__ hv, const uint4* __restrict__ Wh,
+                const uint4* __restrict__ Wo, const int* __restrict__ h,
+                const int* __restrict__ ho, long long T, long long nh,
+                long long no, u64* __restrict__ partial) {
+  typedef Fp<G128> E;
+  const long long lane = blockIdx.y;
+  const long long hv0 = lane * T, wh0 = lane * nh, wo0 = lane * no;
+  uint32_t s0[8], s2[8];
+#pragma unroll
+  for (int j = 0; j < 8; j++) s0[j] = s2[j] = 0u;
+  for (long long t = (long long)blockIdx.x * NT + threadIdx.x; t < T;
+       t += (long long)gridDim.x * NT) {
+    const int hh = h[t];
+    g128_wire_term(E::load(hv, hv0 + t), E::load(Wo, wo0 + ho[t]),
+                   E::load(Wh, wh0 + (hh & ~1)), E::load(Wh, wh0 + (hh | 1)),
+                   hh, s0, s2);
+  }
+  const E f0 = g128_fold(s0), f2 = g128_fold(s2);
+  u64 a0[4], a2[4];
+#pragma unroll
+  for (int j = 0; j < 4; j++) {
+    a0[j] = f0.l[j];
+    a2[j] = f2.l[j];
+  }
+  const long long o = 2 * lane * gridDim.x;
+  block_sum<G128>(a0, partial + 4 * (o + blockIdx.x));
+  block_sum<G128>(a2, partial + 4 * (o + gridDim.x + blockIdx.x));
+}
+
 // grid (A * B, nblk): output o = a * B + b, block y takes a slice of R.
 template <class C>
 __global__ void k_sum_partial(const uint4* __restrict__ x, long long R,
@@ -95,10 +160,16 @@ static int fp_wire_round(int mode, void* out, void* scratch, const void* hv,
   if (mode == 0) {
     nout = 2 * A;
     if (A <= 0 || A > 65535) return (int)cudaErrorInvalidValue;
-    dim3 grid((unsigned)nblk, (unsigned)A);
-    k_wire_partial<C><<<grid, NT, 0, st>>>(
-        (const uint4*)hv, (const uint4*)Wh, (const uint4*)Wo, (const int*)h,
-        (const int*)ho, T, R, B, partial);
+    if constexpr (std::is_same<C, G128>::value) {
+      k_wire_g128<<<dim3((unsigned)nblk, (unsigned)A), NT, 0, st>>>(
+          (const uint4*)hv, (const uint4*)Wh, (const uint4*)Wo,
+          (const int*)h, (const int*)ho, T, R, B, partial);
+    } else {
+      dim3 grid((unsigned)nblk, (unsigned)A);
+      k_wire_partial<C><<<grid, NT, 0, st>>>(
+          (const uint4*)hv, (const uint4*)Wh, (const uint4*)Wo,
+          (const int*)h, (const int*)ho, T, R, B, partial);
+    }
   } else {
     nout = A * B;
     if (nout == 0) return 0;

@@ -189,6 +189,18 @@ def k1_tile() -> int:
                              f.read()).group(1))
 
 
+def k1_g128_splits() -> tuple:
+    """(G128_LANE_MIN, G128_TAB_MIN) of csrc/fp_ops.cu: the elements a row
+    from which K1 [gf2_128] multiplies by one element a row on its lane
+    path, and the elements of a call from which that path reads a table
+    of the element's multiples."""
+    with open(os.path.join(CSRC, "fp_ops.cu")) as f:
+        src = f.read()
+    return tuple(int(re.search(r"constexpr long long %s = (\d+);" % k,
+                               src).group(1))
+                 for k in ("G128_LANE_MIN", "G128_TAB_MIN"))
+
+
 @functools.lru_cache(maxsize=None)
 def k2_chunks() -> tuple:
     """(SEG_K, SEG_NT) of csrc/segsum.cu: the most terms a thread of

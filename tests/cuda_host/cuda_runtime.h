@@ -4,7 +4,8 @@
 // intrinsics are their definitions in C++, and a "block" is one thread
 // (threadIdx 0, blockDim 1).  tests/test_torch_fs_words.py builds the
 // Fiat-Shamir oracle of K9 and K10 with it and holds it to the host
-// transcript on the CPU.
+// transcript on the CPU; tests/test_torch_gf2_mul.py the GF(2^128)
+// products of gf2.cuh and K3's term.
 #pragma once
 #include <stdint.h>
 #include <string.h>
@@ -29,9 +30,11 @@ inline uint32_t __byte_perm(uint32_t x, uint32_t y, uint32_t s) {
   for (int i = 0; i < 4; i++) { uint32_t sel = (s >> (4 * i)) & 7; r |= (uint32_t)((v >> (8 * sel)) & 0xFF) << (8 * i); }
   return r; }
 template <class T> inline T __ldg(const T* p) { return *p; }
+template <class T> inline T __ldcg(const T* p) { return *p; }
 template <class T> inline T __shfl_down_sync(unsigned, T v, int) { return v; }
 struct Dim3 { unsigned x, y, z; };
-static Dim3 threadIdx = {0, 0, 0}, blockIdx = {0, 0, 0}, blockDim = {1, 1, 1};
+static Dim3 threadIdx = {0, 0, 0}, blockIdx = {0, 0, 0}, blockDim = {1, 1, 1},
+    gridDim = {1, 1, 1};
 inline void __syncwarp() {}
 inline void __syncthreads() {}
 typedef int cudaError_t;

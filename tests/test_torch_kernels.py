@@ -1158,3 +1158,118 @@ def test_parallel_paths_at_the_cards_visible(dev):
 
     ok, summary = smoke.run(torch.cuda.device_count(), timeout_s=900)
     assert ok, {k: (v["exact"], v["missing"]) for k, v in summary.items()}
+
+
+# K1 [gf2_128] (csrc/fp_ops.cu): a kernel a mode, E elements a thread
+# (k_g128_ew), and the products by one element a lane (k_g128_lane: the
+# Karatsuba product below G128_TAB_MIN elements, a table of the
+# element's multiples from there on); sizes on both sides of each split
+G128_LANE_MIN, G128_TAB_MIN = kernels.k1_g128_splits()
+G128_SIZES = [1, 3, 255, 257, 1023, 4097, G128_TAB_MIN - 1, G128_TAB_MIN + 5,
+              70001]
+
+
+@pytest.mark.parametrize("n", G128_SIZES)
+@pytest.mark.parametrize("mode", API_MODES)
+def test_k1_gf2_modes(dev, mode, n):
+    """Every mode of K1 [gf2_128] at ragged sizes: b full, one element, a
+    row over rows and a column over rows (one element a row: the lane
+    path where rows are long enough), views one element into their
+    tensors; mul_const; all against the plain version."""
+    F, rng = gf2_128(), np.random.default_rng(160 + n)
+    P = fpm.plain_of(F)
+    a, b, cond = _api_operands(lambda r, m, d: _elts(F, r, m, d), rng,
+                               2 * n + 2, dev)
+    x, y, c = a[:n], b[:n], cond[:n]
+    xo, yo = a[1 : n + 1], b[1 : n + 1]
+    rows = a[: 2 * n].reshape(2, n, 4)
+    cases = [(x, y, c), (xo, yo, c), (x, b[n + 1], c), (rows, yo, c),
+             (rows, b[:2].reshape(2, 1, 4), cond[:2].reshape(2, 1))]
+    for k, (xx, yy, cc) in enumerate(cases):
+        got = fpm.fp_elementwise(F, mode, xx, yy, cc)
+        want = P.elementwise_plain(F, mode, xx, yy, cc)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want.cpu()), "case %d" % k
+    if mode == fpm.MUL:
+        c = (1 << 127) | 0xC0FFEE
+        _same(F.mul_const(x, c),
+              P.elementwise_plain(F, fpm.MUL, x, F.to_limbs(c, dev)))
+
+
+@pytest.mark.parametrize("lanes,n", [(1, 8), (1, 4096), (2, 300),
+                                     (2, G128_TAB_MIN // 2 + 256),
+                                     (3, 70000), (2, 1 << 16)])
+def test_k1_gf2_bind_hv_lanes(dev, lanes, n):
+    """K1 [gf2_128] bind and hv with `lanes` lanes, each its own challenge
+    read from a strided view (as the sumcheck passes them), on both
+    sides of the table's split; lanes whose length is no multiple of a
+    block; bind over several rows a lane; edge challenges (0, 1, x^127,
+    all ones)."""
+    F, rng = gf2_128(), np.random.default_rng(170 + n)
+    P = fpm.plain_of(F)
+    rows = _elts(F, rng, lanes * 12, dev).reshape(lanes, 3, 4, 4)
+    rows[0, 1, 2] = F.to_limbs(1 << 127, dev)
+    r = rows[:, 1, 2]
+    x = _elts(F, rng, lanes * 2 * n, dev).reshape(lanes, 2 * n, 4)
+    _same(F.bind(x, r), P.elementwise_plain(F, fpm.BIND, x, r))
+    x4 = x.reshape(lanes, 2, n, 4)
+    _same(F.bind(x4, r), P.elementwise_plain(F, fpm.BIND, x4, r))
+    h = torch.as_tensor(rng.integers(0, 1 << 20, n, dtype=np.int32),
+                        device=dev)
+    hv = x[:, :n].contiguous()
+    _same(F.hv_update(hv, h, r), P.elementwise_plain(F, fpm.HV, hv, r, h))
+    for v in (0, 1, 1 << 127, (1 << 128) - 1):
+        rv = F.to_limbs(v, dev)
+        _same(F.hv_update(hv[0], h, rv),
+              P.elementwise_plain(F, fpm.HV, hv[0], rv, h))
+        _same(F.bind(x[0], rv), P.elementwise_plain(F, fpm.BIND, x[0], rv))
+
+
+@pytest.mark.parametrize("lanes", [1, 2])
+@pytest.mark.parametrize("parity", ["mixed", "even", "odd"])
+@pytest.mark.parametrize("T", [1, 300, 70000, 400000])
+def test_k3_gf2_wire(dev, T, parity, lanes):
+    """K3 [gf2_128] (k_wire_g128: z split once, two unreduced products a
+    term, the sums folded once a thread) with odd and even h mixed, all
+    even and all odd, 1 and 2 lanes, against the plain version."""
+    F, rng = gf2_128(), np.random.default_rng(180 + T)
+    P = fpm.plain_of(F)
+    N = 1 << 12
+    hv, Wh, Wo = (_elts(F, rng, lanes * m, dev).reshape(lanes, m, 4)
+                  for m in (T, N, N))
+    h = rng.integers(0, N, T, dtype=np.int32)
+    if parity == "even":
+        h &= ~1
+    elif parity == "odd":
+        h |= 1
+    h = torch.as_tensor(h, device=dev)
+    ho = torch.as_tensor(rng.integers(0, N, T, dtype=np.int32), device=dev)
+    if lanes == 1:
+        hv, Wh, Wo = hv[0], Wh[0], Wo[0]
+    _same(fpm.fp_wire_sums(F, hv, Wh, Wo, h, ho),
+          P.wire_sums_plain(F, hv, Wh, Wo, h, ho))
+
+
+def test_gf2_product_in_k2_k7(dev):
+    """K2's layer evaluation and K7 at GF(2^128), which take gf2.cuh's
+    product, on edge elements (0, 1, x^127, all ones) among random ones."""
+    F, rng = gf2_128(), np.random.default_rng(190)
+    P = fpm.plain_of(F)
+    T, nw, nv, nseg = 30000, 1 << 12, 1 << 9, 1 << 10
+    W = _elts(F, rng, nw, dev)
+    W[3:7] = F.to_limbs([1 << 127, (1 << 128) - 1, 1 << 127, 0x87], dev)
+    h0 = torch.as_tensor(rng.integers(0, nw, T, dtype=np.int32), device=dev)
+    h1 = torch.as_tensor(rng.integers(0, nw, T, dtype=np.int32), device=dev)
+    h0[:2000] = 4
+    bm = torch.zeros(T, dtype=torch.bool, device=dev)
+    v = _elts(F, rng, T, dev)
+    s, e = _segments(rng, nseg, T, dev)
+    V, ok = fpm.fp_eval_layer(F, W, h0, h1, v, bm, s, e)
+    V2, ok2 = P.eval_layer_plain(F, W, h0, h1, v, bm, s, e)
+    _same(V, V2)
+    assert bool(ok) and bool(ok2)
+    g = torch.as_tensor(np.sort(rng.integers(0, nv, T)), device=dev)
+    dot, eqh0, eqh1 = (_elts(F, rng, m, dev) for m in (nv, nw, nw))
+    eqh0[4] = F.to_limbs((1 << 128) - 1, dev)
+    args = (g, h0, h1, v, bm, dot, eqh0, eqh1, F.to_limbs(1 << 127, dev))
+    _same(verifier.fp_quad_bind(F, *args), verifier.quad_bind_plain(F, *args))
