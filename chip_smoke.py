@@ -75,7 +75,17 @@
       version where its paths split (n = 0, 1, 3, 127, 129, 65541; b
       full, one element, a row; the conditions full, a row, a column;
       operands at an offset, not 16-byte aligned); then a CUDA tensor of
-      a field or mode without a kernel must raise.
+      a field or mode without a kernel must raise;
+   m. K9 at each proof's Ligero finish (the SHA-256, ECDSA, mdoc hash,
+      mdoc signature and bitaddr proofs' ZkProver.param), from random
+      states: its four response writes held to the host Transcript and
+      timed against the chain of their compressions (printed), the
+      y_quad[:r] write as row "fs_oracle[<tag>] <proof> responses" and
+      its squeeze and samples as row "... draw", each against its plain
+      version and its chain;
+      K1 [fp256]'s bind, hv and bind_hv at the mdoc signature circuit's
+      largest layer (rows "fp_elementwise[fp256] bind", "... hv", "...
+      bind_hv").
 4. Drives the port's three prover paths, each with the launch counts set
    to zero just before it and read just after (every kernel instance of
    the path must have launched, K8-K12 included), its bytes under
@@ -87,7 +97,8 @@
    the Ligero finish), under torch.cuda.set_sync_debug_mode("error")
    (any host synchronisation there fails the run); each proof's profile
    ends with a line of its device ms and launches a port kernel, the
-   sums that rank the kernels for redesign:
+   sums that rank the kernels for redesign, and the same by wrapper
+   instance (K1's and K9's kernels of every mode together):
    a. the Fp128 SHA-256 one-block proof (the JAX package's bytes);
    b. the batched SHA-256 proofs (B = 8, zk/batch.py BatchZkProver, as
       bench.py's phase_sha_batch): lane 0 the golden's witness and tag,
@@ -1064,6 +1075,135 @@ def check_fs_oracle(rows, F, dev, tag, rng, clock_mhz):
                 bound=(chain_ms(steps, clock_mhz), "operations"))
 
 
+def check_k9_ligero(rows, F, tag, label, zp, dev, rng, clock_mhz):
+    """K9 [tag] at a proof's Ligero finish (zk/fused.py ligero_finish_dev,
+    zp its ZkProver), from random states: its four response writes
+    (y_ldt, y_dot, y_quad[:r], y_quad[block:dblock], an array each), each
+    held to the host Transcript and timed against the chain of its
+    compressions (a conversion too: fs.cu), printed; row "fs_oracle[tag]
+    <label> responses" is the y_quad[:r] write (the smallest: the plain
+    version takes about 55 ms a SHA-256 block on the card, minutes for
+    the four), against its plain version, which is checked and timed in
+    one call between CUDA events; row "... draw", its squeeze and samples
+    (u_ldt, alphal, alphaq, u_quad: one launch) against its plain version
+    (whole states compared) and the chain of the squeeze's compressions
+    and key schedule."""
+    from longfellow_zk_tpu_torch.random_oracle import device_fs as dfs
+    from longfellow_zk_tpu_torch.random_oracle.transcript import Transcript
+    from longfellow_zk_tpu_torch.zk import fused
+
+    p = zp.param
+    stat = fused.fused_static(zp.circ, p, zp.lqc, zp.n_witness)
+    elts = elts_of(F, rng, dev)
+    prod = 0 if F.kCharacteristicTwo else PROD_CHAIN[tag]
+    src = "longfellow_zk_tpu_torch/csrc/fs.cu"
+
+    def chain(fs, n):
+        nblk = (_fs_off(fs) + 9 + n * F.kBytes) // 64
+        return nblk, chain_ms(nblk * SHA_CHAIN + prod, clock_mhz)
+
+    err, out = 0, []
+    for n in (p.block, p.dblock, p.r, p.dblock - p.block):
+        fs, _ = _fs_states(F, rng, dev)
+        ts = Transcript(b"")
+        dfs.fs_state_to_host(ts, fs.cpu())
+        y = elts(n)
+        nblk, bound = chain(fs, n)
+        dfs.fs_write_elts(F, fs, y)
+        ts.write_elts(list(F.from_limbs(y.cpu())), F)
+        err = max(err, int(bytes(fs.cpu().tolist()) != ts.export_state()))
+        t = device_ms(lambda: dfs.fs_write_elts(F, fs, y), 20)
+        out.append("%d elements %.5f ms (%d blocks, chain %.5f ms, %.2fx)"
+                   % (n, t.ms, nblk, bound, t.ms / bound))
+    print("K9[%s] %s response writes, held to the host Transcript (%s): %s"
+          % (tag, label, "equal" if err == 0 else "DIFFERENT",
+             "; ".join(out)))
+    y = elts(p.r)
+    fs, fs2 = _fs_states(F, rng, dev)
+    bound = chain(fs, p.r)[1]
+    dfs.fs_write_elts(F, fs, y)
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    dfs.fs_write_elts_plain(F, fs2, y)
+    t1.record()
+    t1.synchronize()
+    rows.record("fs_oracle[%s] %s responses" % (tag, label), src,
+                "longfellow_zk_tpu/random_oracle/device_fs.py:254",
+                max(err, max_err(fs, fs2)),
+                lambda: dfs.fs_write_elts(F, fs, y),
+                lambda: dfs.fs_write_elts_plain(F, fs2, y), 0, 0,
+                bound=(bound, "operations"),
+                plain=Timing(t0.elapsed_time(t1), "events", fs2), iters=20)
+
+    m = p.nwqrow + stat.nl_constraints + 3 * p.nq + p.nqtriples
+    fs, fs2 = _fs_states(F, rng, dev)
+    prf, prf2 = dfs.new_prf(dev), dfs.new_prf(dev)
+
+    def draw():
+        return dfs.dev_sample_elts(F, prf, m, fs=fs)
+
+    def dplain():
+        dfs.fs_squeeze_plain(F, fs2, prf2)
+        return dfs.dev_sample_elts_plain(F, prf2, m)
+
+    err = max(max_err(draw(), dplain()), max_err(prf, prf2))
+    steps = (1 + (_fs_off(fs) >= 56)) * SHA_CHAIN + AES_KEY_CHAIN + \
+        AES_BLOCK_CHAIN + prod
+    rows.record("fs_oracle[%s] %s draw" % (tag, label), src,
+                "longfellow_zk_tpu/random_oracle/device_fs.py:339", err,
+                draw, dplain, 0, 0,
+                bound=(chain_ms(steps, clock_mhz), "operations"), iters=20)
+
+
+def check_k1_hand_round(rows, F, tag, circ, dev, rng):
+    """K1 [tag]'s updates of a hand-round at the largest layer of `circ`
+    (the mdoc signature circuit's for [fp256]): rows "fp_elementwise[tag]
+    bind" (its 2^logw wires to half), "... hv" (its T terms, h its terms'
+    h0) and "... bind_hv" (both in one launch), each against its plain
+    version."""
+    from longfellow_zk_tpu_torch.fields import fp as fpm
+    from longfellow_zk_tpu_torch.sumcheck.prover import quad_tensors
+
+    pm = fpm.plain_of(F)
+    eb, mops = 4 * F.nlimb, MUL_OPS[tag]
+    elts = elts_of(F, rng, dev)
+    ly = max(range(circ.nl), key=lambda i: circ.layers[i].nterms)
+    layer = circ.layers[ly]
+    T, nw = layer.nterms, 1 << layer.logw
+    h = quad_tensors(F, layer.quad, dev)["h0"]
+    hv, W, r = elts(T), elts(nw).reshape(1, nw, F.nlimb), elts(1)[0]
+    print("K1[%s] bind, hv and bind_hv at layer %d: %d terms, %d wires"
+          % (tag, ly, T, nw))
+    src = "longfellow_zk_tpu_torch/csrc/fp_ops.cu"
+    nb_bind, nb_hv = eb * (nw + nw // 2 + 1), eb * (2 * T + 1) + 4 * T
+    rows.record("fp_elementwise[%s] bind" % tag, src,
+                "longfellow_zk_tpu/sumcheck/prover_device.py:139",
+                max_err(F.bind(W, r), pm.elementwise_plain(F, fpm.BIND, W,
+                                                           r)),
+                lambda: F.bind(W, r),
+                lambda: pm.elementwise_plain(F, fpm.BIND, W, r),
+                nb_bind, mops * nw // 2, iters=20)
+    rows.record("fp_elementwise[%s] hv" % tag, src,
+                "longfellow_zk_tpu/sumcheck/prover_device.py:595",
+                max_err(F.hv_update(hv, h, r),
+                        pm.elementwise_plain(F, fpm.HV, hv, r, h)),
+                lambda: F.hv_update(hv, h, r),
+                lambda: pm.elementwise_plain(F, fpm.HV, hv, r, h),
+                nb_hv, mops * T, iters=20)
+    got, want = F.bind_hv(W, hv, h, r), fpm.fp_bind_hv(F, W.cpu(), hv.cpu(),
+                                                        h.cpu(), r.cpu())
+    rows.record("fp_elementwise[%s] bind_hv" % tag, src,
+                "longfellow_zk_tpu/sumcheck/prover_device.py:593",
+                max(max_err(got[0], want[0].to(dev)),
+                    max_err(got[1], want[1].to(dev))),
+                lambda: F.bind_hv(W, hv, h, r),
+                lambda: (pm.elementwise_plain(F, fpm.BIND, W, r),
+                         pm.elementwise_plain(F, fpm.HV, hv, r, h)),
+                nb_bind + nb_hv - eb, mops * (nw // 2 + T), iters=20)
+
+
 def check_round_tail(rows, F, dev, tag, rng, clock_mhz, cubic=False):
     """K10 instance `tag` (with `cubic`, its cubic mode, the copy rounds'
     tail) against its plain version on random rounds (fs, the claim and
@@ -1825,9 +1965,10 @@ class FieldApi:
 
     def split_shapes(self, F, tag):
         """K1 [tag] (the one-word path, four elements a thread, or the
-        17-word one, a tile of TILE17 elements a block; csrc/fp_ops.cu)
-        in every mode of the field API against its plain version on the
-        card where the paths split: n = 0, 1, 3, TILE17 - 1, TILE17 + 1
+        12- and 17-word one, a tile of TILE_ELTS elements a block;
+        csrc/fp_ops.cu) in every mode of the field API against its plain
+        version on the card where the paths split: n = 0, 1, 3,
+        TILE_ELTS - 1, TILE_ELTS + 1
         and 2^16 + 5 elements; b full, one element and a row over two
         rows; the conditions full, a row and a column; operands that are
         views one element into their tensors (not 16-byte aligned), alone
@@ -2246,7 +2387,8 @@ def run_section_4l(rows, kernels, dev, rng, nrows, n, m, smi):
     wide = [(fi.p384_base(), "p384"), (fi.p521_base(), "p521")]
     for F, tag in wide:
         api.prime_rows(F, tag, [fpm.MUL, fpm.ADD, fpm.SUB])
-    api.split_shapes(fi.p521_base(), "p521")
+    for F, tag in wide:
+        api.split_shapes(F, tag)
     for F, tag in [(fi.fp64(), "fp64"), (fi.p256_scalar(), "p256n"),
                    (fi.p256k1_scalar(), "p256k1n")] + wide:
         check_wide_sums(rows, api, F, tag)
@@ -2370,8 +2512,11 @@ def profile_one(run):
               "(busy share %.4f)" % (wall_ms, busy_ms, busy_ms / wall_ms))
         for kname, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
             print("  device %9.3f ms  %s" % (ms, kname[:90]))
+        sums = port_kernel_sums(prof)
         print("port kernels of the profiled call (device ms, launches):",
-              json.dumps(port_kernel_sums(prof)))
+              json.dumps(sums))
+        print("port kernels by wrapper instance (device ms, launches):",
+              json.dumps(wrapper_sums(sums)))
     else:
         print("profiled call: %.1f ms wall, device busy share not "
               "measured (the profiler recorded no device time)" % wall_ms)
@@ -2393,6 +2538,34 @@ def port_kernel_sums(prof):
         v[1] += 1
     return {k: [round(v[0], 3), v[1]] for k, v in
             sorted(sums.items(), key=lambda kv: -kv[1][0])}
+
+
+# a port kernel's record name (up to its arguments) -> its wrapper's
+# kernel and instance: K1's and K9's kernels of each mode together
+WRAPPER_OF = ((re.compile(r"k_(?:fp_ew|fp_lane|fp_elementwise|fp_quad|"
+                          r"fp_tile)<(\w+)"), "fp_elementwise<%s>"),
+              (re.compile(r"k_g128_(?:ew|lane)<"), "fp_elementwise<G128>"),
+              (re.compile(r"k_fs_(?:write|draw|step)<(\w+)"),
+               "fs_oracle<%s>"))
+
+
+def wrapper_sums(sums):
+    """port_kernel_sums grouped by wrapper instance ("fp_elementwise<P256>"
+    for K1's kernels of every mode at P-256, "fs_oracle<P256>" for K9's
+    modes 0-8), largest first; other kernels as they are."""
+    out = {}
+    for k, (ms, n) in sums.items():
+        key = k
+        for rx, fmt in WRAPPER_OF:
+            m = rx.search(k)
+            if m:
+                key = fmt % m.groups() if m.groups() else fmt
+                break
+        v = out.setdefault(key, [0.0, 0])
+        v[0] += ms
+        v[1] += n
+    return {k: [round(v[0], 3), v[1]] for k, v in
+            sorted(out.items(), key=lambda kv: -kv[1][0])}
 
 
 def check_prove_syncs():
@@ -3255,6 +3428,19 @@ def main() -> int:
     #        modes 5-9 and new instances, K21, K5's modes, K22, K2 and K3
     #        [fp24] ---------------------------------------------------------
     check_field_api(rows, dev, rng)
+
+    # -- 3m. K9 at each proof's Ligero finish (its four response writes,
+    #        its draw), K1 [fp256]'s bind, hv and bind_hv at the mdoc
+    #        signature circuit's largest layer ---------------------------
+    zp_sig = ZkProver(c_sig, FB, None, rate=rate, nreq=nreq,
+                      block_enc=spec.block_enc_sig, device=dev)
+    for Fx, tag, label, zp in ((F, "fp128", "sha", zp_sha),
+                               (FB, "fp256", "ecdsa", zp_ecdsa),
+                               (GF, "gf2_128", "mdoc hash", zp_hash),
+                               (FB, "fp256", "mdoc sig", zp_sig),
+                               (FK, "fp256k1", "bitaddr", zp_bit)):
+        check_k9_ligero(rows, Fx, tag, label, zp, dev, rng, clock_mhz)
+    check_k1_hand_round(rows, FB, "fp256", c_sig, dev, rng)
     if rows.failures:
         print("FAIL: kernels disagree with their plain versions:",
               rows.failures)

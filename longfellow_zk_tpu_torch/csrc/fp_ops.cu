@@ -24,17 +24,16 @@
 // add, sub, neg, eq, is_zero and select do no multiply.  So the design
 // keeps the traffic minimal and each load and store of a warp on
 // neighbouring addresses, in three layouts:
-//   - 2, 4, 8 and 12 words (and GF(2^128)): one element a thread, a
-//     uint2 or one to three uint4s an element (k_fp_elementwise, every
-//     mode);
+//   - 2, 4 and 8 words: one element a thread, a uint2 or one or two
+//     uint4s an element, a kernel a mode (k_fp_ew, k_fp_lane, below);
 //   - one word (the ML-DSA prime): four elements a thread, uint4 loads
 //     and stores (k_fp_quad, below);
-//   - 17 words (P-521; 68 bytes are no whole number of uint4s, and a
-//     thread's own words at a 68-byte stride scatter a warp's stores):
-//     a tile of elements a block through shared memory (k_fp_tile17,
-//     below).
-// The one- and 17-word paths have a kernel a mode (a template argument)
-// for the modes other than bind and hv, which take the first layout.
+//   - 12 and 17 words (P-384, P-521; 68 bytes are no whole number of
+//     uint4s, and a thread's own words at a 48- or 68-byte stride
+//     scatter a warp's accesses): a tile of elements a block through
+//     shared memory (k_fp_tile, below), a kernel a mode; P-384's bind
+//     and hv take k_fp_lane.
+// The one- and 17-word instances' bind and hv take k_fp_elementwise.
 // In every layout b's index needs no division where b is the full
 // operand or one element (b_index); the 64-bit division that every
 // mode reading b used to run cost the one-word add 1.4 us of 5.0 at
@@ -57,18 +56,22 @@
 //   8 is_zero  outb[i] = (a[i] == 0), one byte
 //   9 select   out[i] = cond[i] ? a[i] : b[...], cond one byte an element
 //           (passed as h)
-// In modes 3 and 4 the outputs come in lanes of bdiv elements (one proof
-// of a batch each, or one lane), each with its own challenge: lane i /
-// bdiv reads r = b[(i / bdiv) * bmod], bmod being the lane stride of b in
-// elements, and in mode 4 the lanes share h.  The lanes add no launch: a
-// batch of proofs binds in the one launch of a single proof.
+//  11 bind_hv  a hand-round's bind of a (mode 3, into out) and hv update
+//           of a2 (mode 4, into out2, n2 elements) by the same r, one
+//           launch (the 2-12-word instances; the others take the two
+//           modes)
+// In modes 3, 4 and 11 the outputs come in lanes of bdiv elements (one
+// proof of a batch each, or one lane), each with its own challenge: lane
+// i / bdiv reads r = b[(i / bdiv) * bmod], bmod being the lane stride of
+// b in elements, and in mode 4 the lanes share h.  The lanes add no
+// launch: a batch of proofs binds in the one launch of a single proof.
 #include <algorithm>
 #include <type_traits>
 
 #include "gf2.cuh"
 
 enum { M_MUL, M_ADD, M_SUB, M_BIND, M_HV, M_SQR, M_NEG, M_EQ, M_IS_ZERO,
-       M_SELECT };
+       M_SELECT, M_BIND_HV = 11 };
 
 // Where b's element of flat index i lies (bkind, from the host): b is
 // the full operand (its element i: no division), one element (element
@@ -90,6 +93,8 @@ __device__ __forceinline__ long long b_index(long long i, long long bdiv,
   }
 }
 
+// Bind and hv at the one- and 17-word instances: one element a thread
+// under a run-time mode.
 template <class C>
 __global__ void k_fp_elementwise(int mode, uint4* __restrict__ out,
                                  const uint4* __restrict__ a,
@@ -154,7 +159,8 @@ __global__ void k_fp_elementwise(int mode, uint4* __restrict__ out,
 // The paths of one mode each (a template argument, so that a mode's
 // kernel holds the registers of its own arithmetic only) for the modes
 // other than bind and hv: the one-word instance four elements a thread,
-// the 17-word one a tile of elements a block through shared memory.
+// the 12- and 17-word ones a tile of elements a block through shared
+// memory.
 // ---------------------------------------------------------------------
 
 __host__ __device__ constexpr bool reads_b(int mode) {
@@ -262,7 +268,7 @@ __global__ void __launch_bounds__(QUAD_THREADS)
   }
 }
 
-// -- P-521 (N = 17): a tile of TILE17 elements a block -----------------
+// -- P-384 and P-521 (N = 12, 17): a tile of TILE_ELTS elements a block -
 //
 // Profiled in the layout of the other instances (one element a thread,
 // its 17 words loaded and stored one by one at a 68-byte stride), the
@@ -275,12 +281,19 @@ __global__ void __launch_bounds__(QUAD_THREADS)
 // tiles both ways 0.049, the bytes bound 0.043.  The stores are the
 // cost: a warp store writes 32 words into 32 different 32-byte sectors,
 // while the L1 takes in the scattered reads.  So a block moves whole
-// tiles: TILE17 is a multiple of 4, 4 x 68 = 272 bytes, so a tile starts
-// on a 16-byte boundary, and a block copies a, and a full b, into shared
-// memory with coalesced uint4 loads; each thread then reads its element
-// there at a word stride of 17 (odd: the 32 lanes hit 32 banks),
+// tiles: TILE_ELTS is a multiple of 4, 4 x 68 = 272 bytes, so a tile
+// starts on a 16-byte boundary, and a block copies a, and a full b, into
+// shared memory with coalesced uint4 loads; each thread then reads its
+// element there at a word stride of 17 (odd: the 32 lanes hit 32 banks),
 // computes, writes the result back over its a, and the block stores the
-// tile with coalesced uint4 stores.  Plain cooperative loads, not a bulk
+// tile with coalesced uint4 stores.  P-384's elements, three uint4s each
+// at a 48-byte stride, took one a thread (k_fp_ew) 6-21 % longer in its
+// memory-bound modes than one kernel of every mode whose registers held
+// fewer blocks on an SM (H100 80GB HBM3, 700 W, tools/k9k1_bench.py, in
+// turns), so they take tiles too, each thread's element read and written
+// there as uint4s (no bank conflict at that stride): every mode within
+// 4 % of that kernel, neg and add 18 % and 12 % faster than one element
+// a thread.  Plain cooperative loads, not a bulk
 // copy (cp.async.bulk): select chooses its operand for each 16 bytes,
 // which a copy of the whole tile cannot; the memory-bound modes compute
 // nothing that an asynchronous copy could overlap, and the blocks
@@ -292,28 +305,30 @@ __global__ void __launch_bounds__(QUAD_THREADS)
 // memory: it is small and stays in the L1.  The ragged last tile and an
 // operand that is not 16-byte aligned (a view at an offset) go word by
 // word, still coalesced.
-constexpr int TILE17 = 128;  // elements a tile, and threads a block
+constexpr int TILE_ELTS = 128;  // elements a tile, and threads a block
 
-// Copies nw words of a tile from src to dst (one of them in shared
-// memory), as uint4s where vec (the device memory side 16-byte aligned,
-// a whole tile): every load of a thread is issued before its stores.
+// Copies nw words of a tile of N-word elements from src to dst (one of
+// them in shared memory), as uint4s where vec (the device memory side
+// 16-byte aligned, a whole tile): every load of a thread is issued
+// before its stores.
+template <int N>
 __device__ __forceinline__ void tile_copy(uint32_t* dst, const uint32_t* src,
                                           int nw, bool vec) {
-  constexpr int NV = TILE17 * 17 / 4, R = (NV + TILE17 - 1) / TILE17;
+  constexpr int NV = TILE_ELTS * N / 4, R = (NV + TILE_ELTS - 1) / TILE_ELTS;
   if (vec) {
     uint4 v[R];
 #pragma unroll
     for (int r = 0; r < R; r++) {
-      const int k = r * TILE17 + threadIdx.x;
+      const int k = r * TILE_ELTS + threadIdx.x;
       if (k < NV) v[r] = ((const uint4*)src)[k];
     }
 #pragma unroll
     for (int r = 0; r < R; r++) {
-      const int k = r * TILE17 + threadIdx.x;
+      const int k = r * TILE_ELTS + threadIdx.x;
       if (k < NV) ((uint4*)dst)[k] = v[r];
     }
   } else {
-    for (int k = threadIdx.x; k < nw; k += TILE17) dst[k] = src[k];
+    for (int k = threadIdx.x; k < nw; k += TILE_ELTS) dst[k] = src[k];
   }
 }
 
@@ -321,25 +336,26 @@ __device__ __forceinline__ void tile_copy(uint32_t* dst, const uint32_t* src,
 // (tc, the tile's conditions in shared memory) holds, else from b; as
 // uint4s where vec, each read from the operand its elements choose, or
 // from both where they choose differently.
+template <int N>
 __device__ __forceinline__ void select_tile_in(uint32_t* s,
                                                const uint32_t* ga,
                                                const uint32_t* gb,
                                                const unsigned char* tc,
                                                int nw, bool vec) {
-  constexpr int NV = TILE17 * 17 / 4, R = (NV + TILE17 - 1) / TILE17;
+  constexpr int NV = TILE_ELTS * N / 4, R = (NV + TILE_ELTS - 1) / TILE_ELTS;
   if (vec) {
     uint4 v[R];
 #pragma unroll
     for (int r = 0; r < R; r++) {
-      const int k = r * TILE17 + threadIdx.x;
+      const int k = r * TILE_ELTS + threadIdx.x;
       if (k < NV) {
-        // words 4k .. 4k + 3: elements e0 and e1, 17 e1 the first of e1
-        const int e0 = 4 * k / 17, e1 = (4 * k + 3) / 17;
+        // words 4k .. 4k + 3: elements e0 and e1, N e1 the first of e1
+        const int e0 = 4 * k / N, e1 = (4 * k + 3) / N;
         const bool c0 = tc[e0], c1 = tc[e1];
         v[r] = ((const uint4*)(c0 ? ga : gb))[k];
         if (c0 != c1) {
           const uint4 v1 = ((const uint4*)(c1 ? ga : gb))[k];
-          const int cut = 17 * e1 - 4 * k;  // words of e0 here: 1 to 3
+          const int cut = N * e1 - 4 * k;  // words of e0 here: 1 to 3
           if (cut < 2) v[r].y = v1.y;
           if (cut < 3) v[r].z = v1.z;
           v[r].w = v1.w;
@@ -348,62 +364,82 @@ __device__ __forceinline__ void select_tile_in(uint32_t* s,
     }
 #pragma unroll
     for (int r = 0; r < R; r++) {
-      const int k = r * TILE17 + threadIdx.x;
+      const int k = r * TILE_ELTS + threadIdx.x;
       if (k < NV) ((uint4*)s)[k] = v[r];
     }
   } else {
-    for (int w = threadIdx.x; w < nw; w += TILE17)
-      s[w] = tc[w / 17] ? ga[w] : gb[w];
+    for (int w = threadIdx.x; w < nw; w += TILE_ELTS)
+      s[w] = tc[w / N] ? ga[w] : gb[w];
+  }
+}
+
+// A thread's element in the tile (word by word at 17 words, as uint4s at
+// 12).
+template <class C>
+__device__ __forceinline__ Fp<C> tile_elt(const uint32_t* sx) {
+  if constexpr (C::N % 4 == 0) {
+    return Fp<C>::load((const uint4*)sx, 0);
+  } else {
+    Fp<C> x;
+#pragma unroll
+    for (int j = 0; j < C::N; j++) x.l[j] = sx[j];
+    return x;
+  }
+}
+
+template <class C>
+__device__ __forceinline__ void tile_put(uint32_t* sx, const Fp<C>& x) {
+  if constexpr (C::N % 4 == 0) {
+    x.store((uint4*)sx, 0);
+  } else {
+#pragma unroll
+    for (int j = 0; j < C::N; j++) sx[j] = x.l[j];
   }
 }
 
 template <class C, int MODE>
-__global__ void __launch_bounds__(TILE17)
-    k_fp_tile17(uint32_t* __restrict__ out, const uint32_t* __restrict__ a,
-                const uint32_t* __restrict__ b,
-                const unsigned char* __restrict__ cond, long long n,
-                long long bdiv, long long bmod, int bkind, int vec) {
-  static_assert(C::N == 17, "17 words an element");
-  constexpr int N = 17;
+__global__ void __launch_bounds__(TILE_ELTS)
+    k_fp_tile(uint32_t* __restrict__ out, const uint32_t* __restrict__ a,
+              const uint32_t* __restrict__ b,
+              const unsigned char* __restrict__ cond, long long n,
+              long long bdiv, long long bmod, int bkind, int vec) {
+  static_assert(C::N == 12 || C::N == 17, "12 or 17 words an element");
+  constexpr int N = C::N;
   typedef Fp<C> E;
   extern __shared__ __align__(16) uint32_t tile[];
-  __shared__ unsigned char tc[TILE17];
-  uint32_t* ta = tile;               // a's elements, then the results
-  uint32_t* tb = tile + TILE17 * N;  // b's, where b is full
+  __shared__ unsigned char tc[TILE_ELTS];
+  uint32_t* ta = tile;                  // a's elements, then the results
+  uint32_t* tb = tile + TILE_ELTS * N;  // b's, where b is full
   const int t = threadIdx.x;
-  const long long e0 = (long long)blockIdx.x * TILE17;
-  const int ne = (int)min((long long)TILE17, n - e0), nw = ne * N;
-  const bool v = vec && ne == TILE17;
+  const long long e0 = (long long)blockIdx.x * TILE_ELTS;
+  const int ne = (int)min((long long)TILE_ELTS, n - e0), nw = ne * N;
+  const bool v = vec && ne == TILE_ELTS;
   const bool bfull = bkind == B_FULL;
   if constexpr (MODE == M_SELECT) {
     if (t < ne) tc[t] = cond[e0 + t];
     __syncthreads();
     if (bfull)
-      select_tile_in(ta, a + e0 * N, b + e0 * N, tc, nw, v);
+      select_tile_in<N>(ta, a + e0 * N, b + e0 * N, tc, nw, v);
     else
-      tile_copy(ta, a + e0 * N, nw, v);
+      tile_copy<N>(ta, a + e0 * N, nw, v);
   } else {
-    tile_copy(ta, a + e0 * N, nw, v);
-    if (reads_b(MODE) && bfull) tile_copy(tb, b + e0 * N, nw, v);
+    tile_copy<N>(ta, a + e0 * N, nw, v);
+    if (reads_b(MODE) && bfull) tile_copy<N>(tb, b + e0 * N, nw, v);
   }
   __syncthreads();
   if (t < ne) {
     uint32_t* sx = ta + t * N;
     if constexpr (MODE == M_SELECT) {
       if (!bfull && !tc[t]) {
-        const E y =
-            E::load((const uint4*)b, b_index(e0 + t, bdiv, bmod, bkind));
-#pragma unroll
-        for (int j = 0; j < N; j++) sx[j] = y.l[j];
+        tile_put<C>(sx, E::load((const uint4*)b,
+                                b_index(e0 + t, bdiv, bmod, bkind)));
       }
     } else {
-      E x, y;
-#pragma unroll
-      for (int j = 0; j < N; j++) x.l[j] = sx[j];
+      const E x = tile_elt<C>(sx);
+      E y;
       if constexpr (reads_b(MODE)) {
         if (bfull) {
-#pragma unroll
-          for (int j = 0; j < N; j++) y.l[j] = tb[t * N + j];
+          y = tile_elt<C>(tb + t * N);
         } else {
           y = E::load((const uint4*)b, b_index(e0 + t, bdiv, bmod, bkind));
         }
@@ -412,15 +448,13 @@ __global__ void __launch_bounds__(TILE17)
         ((unsigned char*)out)[e0 + t] =
             MODE == M_EQ ? fp_eq(x, y) : fp_is_zero(x);
       } else {
-        const E r = fp_op<C, MODE>(x, y);
-#pragma unroll
-        for (int j = 0; j < N; j++) sx[j] = r.l[j];
+        tile_put<C>(sx, fp_op<C, MODE>(x, y));
       }
     }
   }
   if constexpr (!bool_out(MODE)) {
     __syncthreads();
-    tile_copy(out + e0 * N, ta, nw, v);
+    tile_copy<N>(out + e0 * N, ta, nw, v);
   }
 }
 
@@ -643,7 +677,7 @@ static int g128_elementwise(int mode, void* out, const void* a,
 #undef LFZK_G128
 }
 
-// Launches MODE's kernel of the one- or 17-word instance; vec: every
+// Launches MODE's kernel of the one-, 12- or 17-word instance; vec: every
 // pointer that the vector loads and stores read is aligned for them.
 template <class C, int MODE>
 static void launch_mode(void* out, const void* a, const void* b,
@@ -666,18 +700,167 @@ static void launch_mode(void* out, const void* a, const void* b,
     const uintptr_t al16 = (uintptr_t)a | (rb ? (uintptr_t)b : 0) |
                            (bool_out(MODE) ? 0 : (uintptr_t)out);
     const bool two = rb && MODE != M_SELECT;  // b's tile too
-    const size_t smem = (two ? 2 : 1) * TILE17 * C::N * sizeof(uint32_t);
-    k_fp_tile17<C, MODE><<<(unsigned)((n + TILE17 - 1) / TILE17), TILE17,
-                           smem, stream>>>(
+    const size_t smem = (two ? 2 : 1) * TILE_ELTS * C::N * sizeof(uint32_t);
+    k_fp_tile<C, MODE><<<(unsigned)((n + TILE_ELTS - 1) / TILE_ELTS),
+                         TILE_ELTS, smem, stream>>>(
         (uint32_t*)out, (const uint32_t*)a, (const uint32_t*)b,
         (const unsigned char*)h, n, bdiv, bmod, bkind, (al16 & 15) == 0);
+  }
+}
+
+// -- 2, 4, 8 and 12 words: a kernel a mode ------------------------------
+//
+// These instances (Fp128, the P-256 and secp256k1 base fields and
+// orders, Goldilocks, P-384) took one kernel for every mode, a run-time
+// switch over ten: it held the registers of every mode's arithmetic,
+// and bind and hv split the flat index by 64-bit software divisions (i /
+// half, (i / bdiv) * bmod, i % bdiv).  Now:
+//   - k_fp_ew<C, MODE>: mul, add, sub, sqr, neg, eq, is_zero and select,
+//     one element a thread, each mode its own kernel (P-384: k_fp_tile,
+//     above);
+//   - k_fp_lane<C, MODE>: bind, hv and bind_hv on a grid cut at lanes
+//     (blockIdx.y), an output's index within its lane in 32 bits, so no
+//     index is divided: bind's pair of output i is a[2i], a[2i + 1] in
+//     every row layout, hv's index into h is the index within the lane,
+//     a lane's r is b[lane * bmod].  bind_hv runs a hand-round's two
+//     updates by one r (sumcheck/prover.py): a lane's first nbw blocks
+//     bind W, the rest update hv.
+constexpr int EW_THREADS = 256;
+
+template <class C, int MODE>
+__global__ void __launch_bounds__(EW_THREADS)
+    k_fp_ew(uint4* __restrict__ out, const uint4* __restrict__ a,
+            const uint4* __restrict__ b,
+            const unsigned char* __restrict__ cond, long long n,
+            long long bdiv, long long bmod, int bkind) {
+  typedef Fp<C> E;
+  const long long i = (long long)blockIdx.x * EW_THREADS + threadIdx.x;
+  if (i >= n) return;
+  if constexpr (bool_out(MODE)) {
+    const E x = E::load(a, i);
+    ((unsigned char*)out)[i] =
+        MODE == M_EQ ? fp_eq(x, E::load(b, b_index(i, bdiv, bmod, bkind)))
+                     : fp_is_zero(x);
+  } else if constexpr (MODE == M_SELECT) {
+    (cond[i] ? E::load(a, i) : E::load(b, b_index(i, bdiv, bmod, bkind)))
+        .store(out, i);
+  } else {
+    const E x = E::load(a, i);
+    const E y = reads_b(MODE) ? E::load(b, b_index(i, bdiv, bmod, bkind))
+                              : x;
+    fp_op<C, MODE>(x, y).store(out, i);
+  }
+}
+
+// grid (blocks a lane, lanes): bind's LW outputs a lane from w into
+// outw, hv's LH from hv into outh (h shared by the lanes); in M_BIND_HV
+// blocks [0, nbw) of a lane bind, the others update hv.
+template <class C, int MODE>
+__global__ void __launch_bounds__(EW_THREADS)
+    k_fp_lane(uint4* __restrict__ outw, const uint4* __restrict__ w,
+              uint4* __restrict__ outh, const uint4* __restrict__ hv,
+              const int* __restrict__ h, const uint4* __restrict__ r,
+              uint32_t LW, uint32_t LH, uint32_t nbw, long long bmod) {
+  typedef Fp<C> E;
+  const uint32_t lane = blockIdx.y;
+  const E rr = E::load(r, (long long)lane * bmod);
+  const bool bind =
+      MODE == M_BIND || (MODE == M_BIND_HV && blockIdx.x < nbw);
+  if (bind) {
+    const uint32_t j = blockIdx.x * EW_THREADS + threadIdx.x;
+    if (j >= LW) return;
+    const u64 i = (u64)lane * LW + j;
+    const E lo = E::load(w, (long long)(2 * i));
+    const E hi = E::load(w, (long long)(2 * i + 1));
+    fp_add(lo, fp_mul(fp_sub(hi, lo), rr)).store(outw, (long long)i);
+  } else {
+    const uint32_t j =
+        (blockIdx.x - (MODE == M_BIND_HV ? nbw : 0u)) * EW_THREADS +
+        threadIdx.x;
+    if (j >= LH) return;
+    const u64 i = (u64)lane * LH + j;
+    const E f = (h[j] & 1) ? rr : fp_sub(fp_one<C>(), rr);
+    fp_mul(E::load(hv, (long long)i), f).store(outh, (long long)i);
+  }
+}
+
+template <class C, int MODE>
+static int lane_launch(void* outw, const void* w, void* outh,
+                       const void* hv, const void* h, const void* r,
+                       long long lanes, long long LW, long long LH,
+                       long long bmod, cudaStream_t s) {
+  if (lanes <= 0 || lanes > 65535 || LW >= (1ll << 32) ||
+      LH >= (1ll << 32))
+    return (int)cudaErrorInvalidValue;
+  const long long nbw = MODE == M_HV ? 0 : (LW + EW_THREADS - 1) / EW_THREADS;
+  const long long nbh =
+      MODE == M_BIND ? 0 : (LH + EW_THREADS - 1) / EW_THREADS;
+  if (nbw + nbh == 0) return 0;
+  k_fp_lane<C, MODE><<<dim3((unsigned)(nbw + nbh), (unsigned)lanes),
+                       EW_THREADS, 0, s>>>(
+      (uint4*)outw, (const uint4*)w, (uint4*)outh, (const uint4*)hv,
+      (const int*)h, (const uint4*)r, (uint32_t)LW, (uint32_t)LH,
+      (uint32_t)nbw, bmod);
+  return (int)cudaGetLastError();
+}
+
+template <class C, int MODE>
+static int ew_launch(void* out, const void* a, const void* b,
+                     const void* h, long long n, long long bdiv,
+                     long long bmod, int bkind, cudaStream_t s) {
+  if constexpr (C::N == 12)
+    launch_mode<C, MODE>(out, a, b, h, n, bdiv, bmod, bkind, s);
+  else
+    k_fp_ew<C, MODE><<<(unsigned)((n + EW_THREADS - 1) / EW_THREADS),
+                       EW_THREADS, 0, s>>>(
+        (uint4*)out, (const uint4*)a, (const uint4*)b,
+        (const unsigned char*)h, n, bdiv, bmod, bkind);
+  return (int)cudaGetLastError();
+}
+
+// K1 at 2-12 words: the kernel of a call's mode (bind, hv, bind_hv: bdiv
+// a lane's outputs of bind, or of hv, bmod the lanes' stride in b).
+template <class C>
+static int words_elementwise(int mode, void* out, const void* a,
+                             const void* b, const void* h, long long n,
+                             long long bdiv, long long bmod, int bkind,
+                             void* out2, const void* a2, long long n2,
+                             cudaStream_t s) {
+  const long long lanes = (mode == M_BIND || mode == M_HV ||
+                           mode == M_BIND_HV) ? n / bdiv : 0;
+  switch (mode) {
+    case M_BIND:
+      return lane_launch<C, M_BIND>(out, a, nullptr, nullptr, nullptr, b,
+                                    lanes, bdiv, 0, bmod, s);
+    case M_HV:
+      return lane_launch<C, M_HV>(nullptr, nullptr, out, a, h, b, lanes, 0,
+                                  bdiv, bmod, s);
+    case M_BIND_HV:
+      if (n2 % lanes) return (int)cudaErrorInvalidValue;
+      return lane_launch<C, M_BIND_HV>(out, a, out2, a2, h, b, lanes, bdiv,
+                                       n2 / lanes, bmod, s);
+#define LFZK_EW(M) \
+  case M:          \
+    return ew_launch<C, M>(out, a, b, h, n, bdiv, bmod, bkind, s);
+    LFZK_EW(M_MUL)
+    LFZK_EW(M_ADD)
+    LFZK_EW(M_SUB)
+    LFZK_EW(M_SQR)
+    LFZK_EW(M_NEG)
+    LFZK_EW(M_EQ)
+    LFZK_EW(M_IS_ZERO)
+    LFZK_EW(M_SELECT)
+#undef LFZK_EW
+    default:
+      return (int)cudaErrorInvalidValue;
   }
 }
 
 template <class C>
 static int fp_elementwise(int mode, void* out, const void* a, const void* b,
                           const void* h, long long n, long long row,
-                          long long bdiv, long long bmod, void* stream) {
+                          long long bdiv, long long bmod, void* out2,
+                          const void* a2, long long n2, void* stream) {
   if (n <= 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   const int bkind = bdiv == 1 && bmod >= n ? B_FULL
@@ -686,67 +869,72 @@ static int fp_elementwise(int mode, void* out, const void* a, const void* b,
                                            : B_DIV64;
   if constexpr (std::is_same<C, G128>::value) {
     return g128_elementwise(mode, out, a, b, h, n, bdiv, bmod, bkind, s);
-  } else {
-    if constexpr (C::N == 1 || C::N == 17) {
+  } else if constexpr (C::N == 1 || C::N == 17) {
 #define LFZK_MODE(M)                                                \
   case M:                                                           \
     launch_mode<C, M>(out, a, b, h, n, bdiv, bmod, bkind, s);       \
     return (int)cudaGetLastError();
-      switch (mode) {
-        LFZK_MODE(M_MUL)
-        LFZK_MODE(M_ADD)
-        LFZK_MODE(M_SUB)
-        LFZK_MODE(M_SQR)
-        LFZK_MODE(M_NEG)
-        LFZK_MODE(M_EQ)
-        LFZK_MODE(M_IS_ZERO)
-        LFZK_MODE(M_SELECT)
-        default:
-          break;  // bind and hv: one element a thread, below
-      }
-#undef LFZK_MODE
+    switch (mode) {
+      LFZK_MODE(M_MUL)
+      LFZK_MODE(M_ADD)
+      LFZK_MODE(M_SUB)
+      LFZK_MODE(M_SQR)
+      LFZK_MODE(M_NEG)
+      LFZK_MODE(M_EQ)
+      LFZK_MODE(M_IS_ZERO)
+      LFZK_MODE(M_SELECT)
+      case M_BIND:
+      case M_HV:
+        break;  // one element a thread, below
+      default:
+        return (int)cudaErrorInvalidValue;
     }
+#undef LFZK_MODE
     const int threads = 256;
     long long blocks = (n + threads - 1) / threads;
     k_fp_elementwise<C><<<(unsigned)blocks, threads, 0, s>>>(
         mode, (uint4*)out, (const uint4*)a, (const uint4*)b, (const int*)h,
         n, row, bdiv, bmod, bkind);
     return (int)cudaGetLastError();
+  } else {
+    return words_elementwise<C>(mode, out, a, b, h, n, bdiv, bmod, bkind,
+                                out2, a2, n2, s);
   }
 }
 
 #define LFZK_ARGS                                                          \
   int mode, void *out, const void *a, const void *b, const void *h,       \
       long long n, long long row, long long bdiv, long long bmod,         \
-      void *stream
+      void *out2, const void *a2, long long n2, void *stream
+#define LFZK_PASS \
+  mode, out, a, b, h, n, row, bdiv, bmod, out2, a2, n2, stream
 extern "C" int fp_elementwise_fp128(LFZK_ARGS) {
-  return fp_elementwise<P128>(mode, out, a, b, h, n, row, bdiv, bmod, stream);
+  return fp_elementwise<P128>(LFZK_PASS);
 }
 extern "C" int fp_elementwise_fp256(LFZK_ARGS) {
-  return fp_elementwise<P256>(mode, out, a, b, h, n, row, bdiv, bmod, stream);
+  return fp_elementwise<P256>(LFZK_PASS);
 }
 extern "C" int fp_elementwise_fp256k1(LFZK_ARGS) {
-  return fp_elementwise<P256K1>(mode, out, a, b, h, n, row, bdiv, bmod, stream);
+  return fp_elementwise<P256K1>(LFZK_PASS);
 }
 extern "C" int fp_elementwise_fp24(LFZK_ARGS) {
-  return fp_elementwise<FP24>(mode, out, a, b, h, n, row, bdiv, bmod, stream);
+  return fp_elementwise<FP24>(LFZK_PASS);
 }
 extern "C" int fp_elementwise_fp64(LFZK_ARGS) {
-  return fp_elementwise<FP64>(mode, out, a, b, h, n, row, bdiv, bmod, stream);
+  return fp_elementwise<FP64>(LFZK_PASS);
 }
 extern "C" int fp_elementwise_p256n(LFZK_ARGS) {
-  return fp_elementwise<P256N>(mode, out, a, b, h, n, row, bdiv, bmod, stream);
+  return fp_elementwise<P256N>(LFZK_PASS);
 }
 extern "C" int fp_elementwise_p256k1n(LFZK_ARGS) {
-  return fp_elementwise<P256K1N>(mode, out, a, b, h, n, row, bdiv, bmod,
-                                 stream);
+  return fp_elementwise<P256K1N>(LFZK_PASS);
 }
 extern "C" int fp_elementwise_p384(LFZK_ARGS) {
-  return fp_elementwise<P384>(mode, out, a, b, h, n, row, bdiv, bmod, stream);
+  return fp_elementwise<P384>(LFZK_PASS);
 }
 extern "C" int fp_elementwise_p521(LFZK_ARGS) {
-  return fp_elementwise<P521>(mode, out, a, b, h, n, row, bdiv, bmod, stream);
+  return fp_elementwise<P521>(LFZK_PASS);
 }
 extern "C" int fp_elementwise_gf2_128(LFZK_ARGS) {
-  return fp_elementwise<G128>(mode, out, a, b, h, n, row, bdiv, bmod, stream);
+  return fp_elementwise<G128>(LFZK_PASS);
 }

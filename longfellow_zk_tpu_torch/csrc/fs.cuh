@@ -1,8 +1,7 @@
 // The Fiat-Shamir oracle on the card, byte-exact twin of the host
 // Transcript / FSPRF (random_oracle/transcript.py; reference
 // lib/random/transcript.h:33-193).  Shared by K9 (fs.cu) and K10
-// (round_tail.cu); each runs the oracle in one thread, because every step
-// of it depends on the one before.
+// (round_tail.cu).
 //
 //   FsState   the host Transcript's export_state blob (104 bytes): the
 //             SHA-256 midstate h (native words), the absorbed byte count
@@ -13,7 +12,8 @@
 //             the current counter block's output saved, the next counter
 //             nb and the read pointer ptr into saved.  A read that ends a
 //             block computes the next one at once (as the JAX package's
-//             prf_bytes does), so ptr < 16.
+//             prf_bytes does), so ptr < 16: the stream position is
+//             16 (nb - 1) + ptr and saved is block nb - 1.
 //
 // Replaces the JAX package's random_oracle/device_fs.py:53-357
 // (fs_absorb, fs_getkey, aes256_expand, aes256_block, prf_fresh,
@@ -25,21 +25,20 @@
 // SHA-256 reads them.  An absorb places a message of at most 64 bytes,
 // given as big-endian words, at the byte offset cnt % 64 with funnel
 // shifts and a 4-stage barrel shift over a 32-word window (no register
-// is indexed at run time), and compresses once when the block fills.
+// is indexed at run time), and queues the block when it fills.
 // AES-256 runs on the state's four columns as little-endian words with
 // one table T in shared memory, T[x] = (2 S(x), S(x), S(x), 3 S(x)) as a
 // word (MixColumns of a column's row-0 byte; rows 1-3 are its rotations,
 // S(x) is its byte 1), filled by the block's threads from AES_SBOX in
 // global memory (aes_tables); the key schedule's 60 words go to shared
 // memory, the middle rounds run as a loop.  K10 draws whole 16-byte
-// blocks from a fresh stream (fresh_sample); K9's PRF reads keep the
-// byte stream's pointer (PrfW).
-//
-// One thread runs the oracle, once a launch: its time is set by the
-// instructions it issues and fetches, not by the card's throughput.  So
+// blocks from a fresh stream (fresh_sample), in one thread, once a
+// launch: its time is set by the instructions it issues and fetches, so
 // the code is kept short where it repeats (the compression and the AES
 // rounds as loops, long products as calls), and K10 compresses its
-// blocks in one loop (the queue, fsw_run_queue).
+// blocks in one loop (the queue, fsw_run_queue).  K9 spreads its writes
+// and draws over a block of threads (the K9 section at the end): one
+// thread runs only the SHA-256 rounds and the key schedule, the chains.
 //
 // The typed writes take field elements as the kernels hold them
 // (Montgomery limbs for a prime field, polynomial bits for GF(2^128))
@@ -178,7 +177,6 @@ __device__ __forceinline__ void fs_compress(uint32_t h[8],
 #pragma unroll
   for (int i = 0; i < 8; i++) h[i] += v[i];
 }
-#undef FS_ROUND
 
 // K10 defers its compressions: the blocks its absorbs and its key fill go
 // to a queue in shared memory, which one loop compresses (fsw_run_queue),
@@ -189,13 +187,12 @@ __device__ __forceinline__ void fs_compress(uint32_t h[8],
 constexpr int FS_QUEUE = 5;
 
 // s absorbs the first L bytes (L <= 64) of the big-endian words m[0..M),
-// whose bytes past L are zero.  With DEFER a block it fills goes to
-// Q[*nq] (every thread of the warp writes the same words) and s.h is left
-// as it was.
-template <int M, bool DEFER = false>
+// whose bytes past L are zero; a block it fills goes to Q[*nq] (every
+// thread of the warp writes the same words) and s.h is left as it was
+// (K10 compresses its queue in one loop, fsw_run_queue).
+template <int M>
 __device__ __forceinline__ void fsw_absorb(FsW& s, const uint32_t (&m)[M],
-                                           int L, uint32_t* Q = nullptr,
-                                           int* nq = nullptr) {
+                                           int L, uint32_t* Q, int* nq) {
   static_assert(M <= 16, "a message of at most 64 bytes");
   const uint32_t off = (uint32_t)s.cnt & 63u;
   const uint32_t sh = (off & 3u) * 8u, q = off >> 2;
@@ -221,41 +218,13 @@ __device__ __forceinline__ void fsw_absorb(FsW& s, const uint32_t (&m)[M],
 #pragma unroll
   for (int j = 0; j < 16; j++) s.w[j] |= v[j];
   if (off + (uint32_t)L >= 64u) {
-    if constexpr (DEFER) {
 #pragma unroll
-      for (int j = 0; j < 16; j++) Q[16 * *nq + j] = s.w[j];
-      ++*nq;
-    } else {
-      fs_compress(s.h, s.w);
-    }
+    for (int j = 0; j < 16; j++) Q[16 * *nq + j] = s.w[j];
+    ++*nq;
 #pragma unroll
     for (int j = 0; j < 16; j++) s.w[j] = v[16 + j];
   }
   s.cnt += (u64)L;
-}
-
-// s absorbs the L <= 64 bytes at src (global memory, any alignment).
-__device__ __forceinline__ void fsw_absorb_bytes(FsW& s,
-                                                 const uint8_t* src, int L) {
-  uint32_t m[16];
-#pragma unroll
-  for (int w = 0; w < 16; w++) {
-    uint32_t x = 0u;
-#pragma unroll
-    for (int b = 0; b < 4; b++)
-      x = (x << 8) | (4 * w + b < L ? (uint32_t)src[4 * w + b] : 0u);
-    m[w] = x;
-  }
-  fsw_absorb<16>(s, m, L);
-}
-
-// The tag byte of an array and its length n as 8 little-endian bytes
-// (Transcript.write_elts' header).
-__device__ __forceinline__ void fsw_absorb_array_header(FsW& s, u64 n) {
-  const uint32_t e0 = be32((uint32_t)n), e1 = be32((uint32_t)(n >> 32));
-  const uint32_t m[3] = {__funnelshift_r(e0, (uint32_t)TAG_ARRAY, 8),
-                         __funnelshift_r(e1, e0, 8), e1 << 24};
-  fsw_absorb<3>(s, m, 9);
 }
 
 // The padded final block(s) of the state (one, or two when the padding
@@ -498,47 +467,23 @@ __device__ __forceinline__ Fp<C> fs_natural(const Fp<C>& x) {
   }
 }
 
-// s absorbs x's natural kBytes, after the tag byte of a field element
-// where `tagged` (Transcript.write_elt; an array's elements are not).
-template <class C, bool tagged, bool DEFER = false>
-__device__ __forceinline__ void fsw_absorb_natural(FsW& s, const Fp<C>& v,
-                                                   uint32_t* Q = nullptr,
-                                                   int* nq = nullptr) {
-  constexpr int KW = Oracle<C>::KBYTES / 4;
-  if constexpr (tagged) {
-    uint32_t m[KW + 1];
-    uint32_t prev = TAG_FIELD_ELEM;
-#pragma unroll
-    for (int k = 0; k < KW; k++) {
-      const uint32_t e = be32(v.l[k]);
-      m[k] = __funnelshift_r(e, prev, 8);
-      prev = e;
-    }
-    m[KW] = prev << 24;
-    fsw_absorb<KW + 1, DEFER>(s, m, Oracle<C>::KBYTES + 1, Q, nq);
-  } else {
-    uint32_t m[KW];
-#pragma unroll
-    for (int k = 0; k < KW; k++) m[k] = be32(v.l[k]);
-    fsw_absorb<KW, DEFER>(s, m, Oracle<C>::KBYTES, Q, nq);
-  }
-}
-
-template <class C>
-__device__ __forceinline__ void fsw_absorb_tagged(FsW& s, const Fp<C>& x) {
-  fsw_absorb_natural<C, true>(s, fs_natural(x));
-}
-
-// The same with its block deferred to the queue (K10).
+// s absorbs x's natural kBytes after the tag byte of a field element
+// (Transcript.write_elt), its block deferred to the queue (K10).
 template <class C>
 __device__ __forceinline__ void fsw_absorb_tagged_q(FsW& s, const Fp<C>& x,
                                                     uint32_t* Q, int* nq) {
-  fsw_absorb_natural<C, true, true>(s, fs_natural(x), Q, nq);
-}
-
-template <class C>
-__device__ __forceinline__ void fsw_absorb_elt(FsW& s, const Fp<C>& x) {
-  fsw_absorb_natural<C, false>(s, fs_natural(x));
+  constexpr int KW = Oracle<C>::KBYTES / 4;
+  const Fp<C> v = fs_natural(x);
+  uint32_t m[KW + 1];
+  uint32_t prev = TAG_FIELD_ELEM;
+#pragma unroll
+  for (int k = 0; k < KW; k++) {
+    const uint32_t e = be32(v.l[k]);
+    m[k] = __funnelshift_r(e, prev, 8);
+    prev = e;
+  }
+  m[KW] = prev << 24;
+  fsw_absorb<KW + 1>(s, m, Oracle<C>::KBYTES + 1, Q, nq);
 }
 
 // A draw x of exact_bits bits (kBytes little-endian): the element in the
@@ -577,73 +522,313 @@ __device__ __forceinline__ Fp<C> fresh_sample(const uint32_t* rk,
   }
 }
 
-// An FSPRF stream (K9): its round keys in shared memory, the rest in
-// registers; the bytes are read one at a time from the pointer on.
-struct PrfW {
-  uint32_t* rk;  // 60 words of shared memory
-  uint32_t saved[4];
-  u64 nb;
-  uint32_t ptr;
-};
 
-__device__ __forceinline__ void prfw_load(PrfW& p, const PrfState* f) {
-  for (int i = 0; i < 60; i++) p.rk[i] = f->rk[i];
+// ---------------------------------------------------------------------
+// K9: writes and draws spread over a block of threads (fs.cu)
+// ---------------------------------------------------------------------
+//
+// Of a write only the SHA-256 rounds are a chain: the bytes it absorbs
+// (the state's partial block, then the array header or the tags and the
+// elements' natural bytes) are all known before the first round, and a
+// block's message schedule depends on its own 16 words alone.  So K9's
+// producers (every warp but the first) convert the elements, lay the
+// byte stream out as big-endian words and expand each block's schedule
+// into K[t] + W[t] (k9w_produce, K9_CHUNK blocks a stage), while one
+// thread runs the rounds of the stage before from those words
+// (k9w_chain, fs_compress_kw); two stages alternate in shared memory.
+// Of a draw only the key schedule is a chain: every attempt takes the
+// same kBytes, so candidate j lies at stream byte P + j kBytes, and the
+// counter blocks (k9d_blocks), the tests x < p and the products into
+// Montgomery form are independent; an ordered count keeps the first n
+// accepted (fs.cu k_fs_draw).  These functions take a thread's index
+// among those that share the work and their number, so that
+// tests/test_torch_fs_words.py runs them in one host thread, in turn.
+
+constexpr int K9_THREADS = 256;  // a block, for every write and draw
+constexpr int K9_PRODUCERS = K9_THREADS - 32;  // warps 1-7
+constexpr int K9_CHUNK = 8;      // SHA-256 blocks a stage
+// elements whose bytes a stage's 512 bytes touch, at most (16 a byte)
+constexpr int K9_NAT = K9_CHUNK * 64 / 16 + 2;
+
+__device__ __forceinline__ u64 k9_min(u64 a, u64 b) { return a < b ? a : b; }
+
+// h <- compress(h, block) from the block's kw[t] = K[t] + W[t]
+// (sha_schedule_kw): the rounds alone, 16 unrolled in a loop of 4.
+__device__ __forceinline__ void fs_compress_kw(uint32_t h[8],
+                                               const uint32_t* kw) {
+  uint32_t v[8];
 #pragma unroll
-  for (int i = 0; i < 4; i++) p.saved[i] = f->saved[i];
-  p.nb = f->nb;
-  p.ptr = f->ptr;
+  for (int i = 0; i < 8; i++) v[i] = h[i];
+#pragma unroll 1
+  for (int it = 0; it < 4; it++) {
+    const uint32_t* k = kw + 16 * it;
+#pragma unroll
+    for (int j = 0; j < 16; j++)
+      FS_ROUND(v[(8 - j) & 7], v[(9 - j) & 7], v[(10 - j) & 7],
+               v[(11 - j) & 7], v[(12 - j) & 7], v[(13 - j) & 7],
+               v[(14 - j) & 7], v[(15 - j) & 7], k[j]);
+  }
+#pragma unroll
+  for (int i = 0; i < 8; i++) h[i] += v[i];
+}
+#undef FS_ROUND
+
+// kw[t] = K[t] + W[t], t < 64, of the block of big-endian words m[16].
+__device__ __forceinline__ void sha_schedule_kw(const uint32_t* m,
+                                                uint32_t* kw) {
+  uint32_t w[16];
+#pragma unroll
+  for (int t = 0; t < 16; t++) {
+    w[t] = m[t];
+    kw[t] = SHA256_K[t] + w[t];
+  }
+#pragma unroll
+  for (int t = 16; t < 64; t++) {
+    const uint32_t w15 = w[(t + 1) & 15], w2 = w[(t + 14) & 15];
+    w[t & 15] += (sha_rotr(w15, 7) ^ sha_rotr(w15, 18) ^ (w15 >> 3)) +
+                 w[(t + 9) & 15] +
+                 (sha_rotr(w2, 17) ^ sha_rotr(w2, 19) ^ (w2 >> 10));
+    kw[t] = SHA256_K[t] + w[t & 15];
+  }
 }
 
-__device__ __forceinline__ void prfw_store(PrfState* f, const PrfW& p) {
-  for (int i = 0; i < 60; i++) f->rk[i] = p.rk[i];
+// A write's byte stream, from the start of the state's partial block:
+// its off = cnt % 64 bytes, the body of L bytes, then zeros to the end of
+// block nfull (the new partial block).  The body of MODE 0 is the n bytes
+// of in, of 5 the array header (TAG_ARRAY, n as 8 little-endian bytes)
+// and each element's natural kBytes, of 6 each element after its tag.
+struct K9Write {
+  uint32_t off;
+  u64 n, L, nfull;
+};
+
+template <class C, int MODE>
+struct K9Body {
+  static constexpr int HDR = MODE == 5 ? 9 : 0;
+  static constexpr int TAG = MODE == 6 ? 1 : 0;
+  static constexpr int STRIDE = MODE == 0 ? 1 : Oracle<C>::KBYTES + TAG;
+};
+
+template <class C, int MODE>
+__device__ __forceinline__ K9Write k9w_plan(u64 cnt, u64 n) {
+  typedef K9Body<C, MODE> B;
+  K9Write w;
+  w.off = (uint32_t)cnt & 63u;
+  w.n = n;
+  w.L = B::HDR + n * B::STRIDE;
+  w.nfull = (w.off + w.L) / 64;
+  return w;
+}
+
+// A write's shared memory: the old partial block (little-endian words,
+// as FsState.buf holds it), the natural words of a stage's elements, a
+// stage's blocks as big-endian words, the schedules of two stages and
+// the new partial block.
+template <class C>
+struct K9WriteSmem {
+  uint32_t old[16];
+  uint32_t nat[K9_NAT * C::N];
+  uint32_t wt[K9_CHUNK * 16];
+  uint32_t kw[2][K9_CHUNK][64];
+  uint32_t part[16];
+};
+
+// The elements [e0, e1) whose bytes lie in blocks [b0, b1).
+template <class C, int MODE>
+__device__ __forceinline__ void k9w_elts(const K9Write& w, u64 b0, u64 b1,
+                                         u64& e0, u64& e1) {
+  typedef K9Body<C, MODE> B;
+  const u64 base = w.off + B::HDR;
+  const u64 lo = 64 * b0 > base ? 64 * b0 - base : 0;
+  const u64 hi = 64 * b1 > base ? 64 * b1 - base : 0;
+  e0 = lo / B::STRIDE;
+  e1 = k9_min(w.n, (hi + B::STRIDE - 1) / B::STRIDE);
+  if (e1 < e0) e1 = e0;
+}
+
+// Byte q of the stream: from the old partial block, the header, a tag,
+// the natural words nat of the stage's elements from e0 on, or the input
+// bytes (MODE 0); zero past the body.  The body is below 2^32 bytes.
+template <class C, int MODE>
+__device__ __forceinline__ uint32_t k9w_byte(const K9Write& w,
+                                             const uint32_t* old,
+                                             const uint32_t* nat, u64 e0,
+                                             const uint8_t* in, u64 q) {
+  typedef K9Body<C, MODE> B;
+  if (q < w.off) return (old[q >> 2] >> (8 * (q & 3))) & 0xFFu;
+  uint32_t u = (uint32_t)(q - w.off);
+  if (q - w.off >= w.L) return 0u;
+  if constexpr (MODE == 0) {
+    return in[u];
+  } else {
+    if constexpr (B::HDR > 0) {
+      if (u < (uint32_t)B::HDR)
+        return u == 0 ? (uint32_t)TAG_ARRAY
+                      : (uint32_t)(w.n >> (8 * (u - 1))) & 0xFFu;
+      u -= B::HDR;
+    }
+    const uint32_t e = u / B::STRIDE;
+    uint32_t j = u - e * B::STRIDE;
+    if constexpr (B::TAG > 0) {
+      if (j == 0) return (uint32_t)TAG_FIELD_ELEM;
+      j--;
+    }
+    return (nat[(e - (uint32_t)e0) * C::N + (j >> 2)] >> (8 * (j & 3))) &
+           0xFFu;
+  }
+}
+
+// The producers' barrier: named barrier 1 over their warps (a host
+// build runs one thread: nothing to wait for).
+struct K9ProducerSync {
+  __device__ __forceinline__ void operator()() const {
+#ifdef __CUDA_ARCH__
+    asm volatile("bar.sync 1, %0;" ::"r"(K9_PRODUCERS) : "memory");
+#endif
+  }
+};
+
+// Stage c of a write, by producer p of np: the blocks [K9_CHUNK c,
+// K9_CHUNK c + K9_CHUNK) up to block nfull laid out; each whole block's
+// schedule into kw[c % 2], the partial block nfull's words into part.
+// The elements' loads for the stage are issued here while the chain
+// thread hashes the stage before.
+template <class C, int MODE, class Sync>
+__device__ __forceinline__ void k9w_produce(const K9Write& w,
+                                            K9WriteSmem<C>& sm, u64 c,
+                                            int p, int np,
+                                            const uint8_t* in, Sync sync) {
+  const u64 b0 = K9_CHUNK * c, b1 = k9_min(b0 + K9_CHUNK, w.nfull + 1);
+  const int nb = (int)(b1 - b0);
+  u64 e0 = 0, e1 = 0;
+  if constexpr (MODE != 0) {
+    k9w_elts<C, MODE>(w, b0, b1, e0, e1);
+    for (int k = p; k < (int)(e1 - e0); k += np) {
+      const Fp<C> x = fs_natural(Fp<C>::load((const uint4*)in, e0 + k));
 #pragma unroll
-  for (int i = 0; i < 4; i++) f->saved[i] = p.saved[i];
-  f->nb = p.nb;
-  f->ptr = p.ptr;
+      for (int j = 0; j < C::N; j++) sm.nat[k * C::N + j] = x.l[j];
+    }
+    sync();
+  }
+  for (int i = p; i < 16 * nb; i += np) {
+    const u64 q = 64 * b0 + 4 * (u64)i;
+    uint32_t x = 0u;
+#pragma unroll
+    for (int k = 0; k < 4; k++)
+      x = (x << 8) |
+          k9w_byte<C, MODE>(w, sm.old, sm.nat, e0, in, q + (u64)k);
+    sm.wt[i] = x;
+  }
+  sync();
+  for (int k = p; k < nb; k += np) {
+    if (b0 + k < w.nfull) {
+      sha_schedule_kw(sm.wt + 16 * k, sm.kw[c & 1][k]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 16; j++) sm.part[j] = sm.wt[16 * k + j];
+    }
+  }
+}
+
+// Stage c's rounds: its whole blocks, by the chain thread.
+template <class C>
+__device__ __forceinline__ void k9w_chain(const K9Write& w,
+                                          const K9WriteSmem<C>& sm, u64 c,
+                                          uint32_t h[8]) {
+  const u64 b0 = K9_CHUNK * c;
+  const int nb = (int)(w.nfull > b0 ? k9_min(K9_CHUNK, w.nfull - b0) : 0);
+#pragma unroll 1
+  for (int k = 0; k < nb; k++) fs_compress_kw(h, sm.kw[c & 1][k]);
+}
+
+// fs after a write: the chain's midstate, the count, the partial block.
+__device__ __forceinline__ void k9w_store(FsState* f, const uint32_t h[8],
+                                          u64 cnt, const K9Write& w,
+                                          const uint32_t* part) {
+  uint32_t* b = (uint32_t*)f->buf;
+#pragma unroll
+  for (int i = 0; i < 8; i++) f->h[i] = h[i];
+  f->cnt = cnt + w.L;
+#pragma unroll
+  for (int j = 0; j < 16; j++) b[j] = be32(part[j]);
+}
+
+// The stream position of a prf state: bytes read from the stream's start.
+__device__ __forceinline__ u64 prf_pos(const PrfState* f) {
+  return 16 * (f->nb - 1) + f->ptr;
+}
+
+// Counter blocks b0 .. b0 + nblk - 1 of the stream keyed by rk as the
+// little-endian words of S (16 bytes each, in stream order), by thread t
+// of nt.
+__device__ __forceinline__ void k9d_blocks(const uint32_t* rk, u64 b0,
+                                           int nblk, uint32_t* S, int t,
+                                           int nt, const uint32_t* T) {
+  for (int i = t; i < nblk; i += nt) aes_block(rk, b0 + (u64)i, S + 4 * i, T);
+}
+
+// The draw that starts at byte q of the words S: kBytes little-endian
+// bytes, the first lowest (S holds a word past them).
+template <class C>
+__device__ __forceinline__ Fp<C> k9d_candidate(const uint32_t* S,
+                                               uint32_t q) {
+  static_assert(Oracle<C>::EXACT_BITS == 8 * Oracle<C>::KBYTES &&
+                    C::N * 4 == Oracle<C>::KBYTES,
+                "a draw is N whole words");
+  const uint32_t w0 = q >> 2, sh = 8 * (q & 3);
+  Fp<C> x;
+#pragma unroll
+  for (int i = 0; i < C::N; i++)
+    x.l[i] = __funnelshift_r(S[w0 + i], S[w0 + i + 1], sh);
+  return x;
+}
+
+// The prf state at stream position P under the round keys rk: saved is
+// block P / 16 (from S, the blocks b0 .. b0 + nblk - 1, where it is one
+// of them), nb = P / 16 + 1, ptr = P % 16.
+__device__ __forceinline__ void k9d_settle(PrfState* f, u64 P,
+                                           const uint32_t* S, u64 b0,
+                                           int nblk, const uint32_t* rk,
+                                           const uint32_t* T) {
+  const u64 b = P >> 4;
+  uint32_t saved[4];
+  if (b >= b0 && b - b0 < (u64)nblk) {
+#pragma unroll
+    for (int k = 0; k < 4; k++) saved[k] = S[4 * (b - b0) + k];
+  } else {
+    aes_block(rk, b, saved, T);
+  }
+  for (int i = 0; i < 60; i++) f->rk[i] = rk[i];
+#pragma unroll
+  for (int k = 0; k < 4; k++) f->saved[k] = saved[k];
+  f->nb = b + 1;
+  f->ptr = (uint32_t)(P & 15);
   f->pad = 0u;
 }
 
-__device__ __forceinline__ void prfw_fresh(PrfW& p, const uint32_t key[8],
-                                           const uint32_t* T) {
-  aes_expand(key, p.rk, T);
-  aes_block(p.rk, 0, p.saved, T);
-  p.nb = 1;
-  p.ptr = 0;
-}
+// Stream bytes from position pos on: from the blocks 0 .. npre - 1 in S
+// while they last, then a block at a time (K9 mode 9's walk).
+struct K9Reader {
+  const uint32_t *S, *rk, *T;
+  int npre;
+  u64 pos, cur;
+  uint32_t blk[4];
 
-__device__ __forceinline__ uint32_t prfw_byte(PrfW& p, const uint32_t* T) {
-  const uint32_t q = p.ptr >> 2;
-  const uint32_t w = q == 0 ? p.saved[0]
-                            : q == 1 ? p.saved[1]
-                                     : q == 2 ? p.saved[2] : p.saved[3];
-  const uint32_t b = (w >> (8u * (p.ptr & 3u))) & 0xFFu;
-  if (++p.ptr == 16u) {
-    aes_block(p.rk, p.nb, p.saved, T);
-    p.nb++;
-    p.ptr = 0;
-  }
-  return b;
-}
-
-// One element from the stream: draws of exact_bits bits until one is
-// below p (prime fields, then to Montgomery form by R^2), or kBytes raw
-// bytes (GF(2^128)).  The bytes shift in from the top, so the first ends
-// lowest.
-template <class C>
-__device__ __forceinline__ Fp<C> prfw_sample(PrfW& p, const uint32_t* T) {
-  constexpr int NB = Oracle<C>::KBYTES;
-  static_assert(Oracle<C>::EXACT_BITS == 8 * NB && C::N * 4 == NB,
-                "a draw is N whole words");
-  for (;;) {
-    Fp<C> x = fp_zero<C>();
-#pragma unroll 1
-    for (int i = 0; i < NB; i++) {
-      const uint32_t b = prfw_byte(p, T);
-#pragma unroll
-      for (int j = 0; j < C::N - 1; j++)
-        x.l[j] = __funnelshift_r(x.l[j], x.l[j + 1], 8);
-      x.l[C::N - 1] = (x.l[C::N - 1] >> 8) | (b << 24);
+  __device__ __forceinline__ uint32_t byte() {
+    const u64 b = pos >> 4;
+    uint32_t w;
+    if (b < (u64)npre) {
+      w = S[pos >> 2];
+    } else {
+      if (b != cur) {
+        aes_block(rk, b, blk, T);
+        cur = b;
+      }
+      const uint32_t q = (uint32_t)(pos >> 2) & 3u;
+      w = q == 0 ? blk[0] : q == 1 ? blk[1] : q == 2 ? blk[2] : blk[3];
     }
-    if (fs_accept(x)) return x;
+    const uint32_t r = (w >> (8 * (pos & 3))) & 0xFFu;
+    pos++;
+    return r;
   }
-}
+};

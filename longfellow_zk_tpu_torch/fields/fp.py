@@ -41,8 +41,12 @@ MASK16 = 0xFFFF
 WORDS = (1, 2, 4, 8, 12, 17)
 
 # K1 modes (csrc/fp_ops.cu); K5 and K22 take the same numbers, and K22
-# mode 10, the inverse
-MUL, ADD, SUB, BIND, HV, SQR, NEG, EQ, IS_ZERO, SELECT, INV = range(11)
+# mode 10, the inverse; K1 mode 11, a hand-round's bind and hv update
+# (fp_bind_hv)
+MUL, ADD, SUB, BIND, HV, SQR, NEG, EQ, IS_ZERO, SELECT, INV, BIND_HV = \
+    range(12)
+# the element sizes (words) at which K1 runs bind_hv in one launch
+BIND_HV_WORDS = (2, 4, 8, 12)
 # modes of one operand; modes whose output is one bool an element
 UNARY = (SQR, NEG, IS_ZERO, INV)
 BOOL_OUT = (EQ, IS_ZERO)
@@ -94,6 +98,13 @@ class FieldOps:
                b: torch.Tensor) -> torch.Tensor:
         """cond ? a : b, cond a bool tensor over the element axes."""
         return fp_elementwise(self, SELECT, a, b, h=cond)
+
+    def bind_hv(self, W: torch.Tensor, hv: torch.Tensor, h: torch.Tensor,
+                r: torch.Tensor):
+        """A hand-round's two updates by its challenge r: (bind(W, r),
+        hv_update(hv, h, r)), one K1 launch where K1 has the mode
+        (fp_bind_hv)."""
+        return fp_bind_hv(self, W, hv, h, r)
 
     def natural_limbs_to_bytes_dev(self, x: torch.Tensor) -> torch.Tensor:
         """Natural-form limbs [..., N] -> their little-endian bytes, uint8
@@ -717,37 +728,76 @@ def fp_elementwise(F: PrimeField, mode: int, a: torch.Tensor, b: torch.Tensor,
     if name is None:
         return plain_of(F).elementwise_plain(F, mode, a, b, h)
     if mode in (BIND, HV):
-        check_elts(a, "a", F.elt_shape)
         lanes, rstride = _lane_challenges(F, b)
-        na = a.numel() // F.nlimb
-        if na % lanes:
-            raise ValueError("a's %d elements do not split into %d lanes"
-                             % (na, lanes))
-        hp, row = 0, 1
         if mode == BIND:
-            row = a.shape[-2]
-            if row % 2:
-                raise ValueError("bind needs an even length, got %d" % row)
-            out = torch.empty(a.shape[:-2] + (row // 2,) + F.elt_shape,
-                              dtype=torch.int32, device=a.device)
+            out, row = _bind_out(F, a, lanes), a.shape[-2]
+            hp = 0
         else:
-            if h is None or h.dtype != torch.int32 or \
-                    h.numel() != na // lanes or not h.is_contiguous() or \
-                    h.device != a.device:
-                raise ValueError("hv needs int32 indices h of a lane's "
-                                 "length")
+            out, row = _hv_out(F, a, h, lanes), 1
             hp = h.data_ptr()
-            out = torch.empty_like(a)
         n = out.numel() // F.nlimb
         kernels.launch(name, 1, mode, out.data_ptr(), a.data_ptr(),
-                       b.data_ptr(), hp, n, row, n // lanes, rstride)
+                       b.data_ptr(), hp, n, row, n // lanes, rstride, 0, 0, 0)
         return out
     # the full operand goes first (sub and select do not commute)
     out, a, b, cond, n, bdiv, bmod = elementwise_operands(
         mode, a, b, h, F.elt_shape)
     kernels.launch(name, 1, mode, out.data_ptr(), a.data_ptr(), b.data_ptr(),
-                   0 if cond is None else cond.data_ptr(), n, 1, bdiv, bmod)
+                   0 if cond is None else cond.data_ptr(), n, 1, bdiv, bmod,
+                   0, 0, 0)
     return out
+
+
+def _bind_out(F, a: torch.Tensor, lanes: int) -> torch.Tensor:
+    """bind's output for a [..., row, N] in `lanes` lanes (checked)."""
+    check_elts(a, "a", F.elt_shape)
+    if (a.numel() // F.nlimb) % lanes:
+        raise ValueError("a's %d elements do not split into %d lanes"
+                         % (a.numel() // F.nlimb, lanes))
+    row = a.shape[-2]
+    if row % 2:
+        raise ValueError("bind needs an even length, got %d" % row)
+    return torch.empty(a.shape[:-2] + (row // 2,) + F.elt_shape,
+                       dtype=torch.int32, device=a.device)
+
+
+def _hv_out(F, a: torch.Tensor, h, lanes: int) -> torch.Tensor:
+    """hv's output for a [..., N] in `lanes` lanes sharing the indices h
+    (checked)."""
+    check_elts(a, "a", F.elt_shape)
+    na = a.numel() // F.nlimb
+    if na % lanes:
+        raise ValueError("a's %d elements do not split into %d lanes"
+                         % (na, lanes))
+    if h is None or h.dtype != torch.int32 or h.numel() != na // lanes or \
+            not h.is_contiguous() or h.device != a.device:
+        raise ValueError("hv needs int32 indices h of a lane's length")
+    return torch.empty_like(a)
+
+
+def fp_bind_hv(F, W: torch.Tensor, hv: torch.Tensor, h: torch.Tensor,
+               r: torch.Tensor):
+    """K1 wrapper, a hand-round's two updates by its challenge r (one
+    element [N], or one a lane [B, N]): (bind(W, r), hv_update(hv, h, r)),
+    W [..., row, N] and hv [..., T, N] lane-major as in fp_elementwise.
+    One launch (mode BIND_HV) at the 2-12-word prime instances; at the
+    others (GF(2^128), the one- and 17-word primes) the launches of bind
+    and hv.  The plain version composes the plain bind and hv."""
+    name = route("fp_elementwise", F, W, hv, h, r)
+    if name is None:
+        pm = plain_of(F)
+        return (pm.elementwise_plain(F, BIND, W, r),
+                pm.elementwise_plain(F, HV, hv, r, h))
+    if F.kCharacteristicTwo or F.nlimb not in BIND_HV_WORDS:
+        return (fp_elementwise(F, BIND, W, r),
+                fp_elementwise(F, HV, hv, r, h=h))
+    lanes, rstride = _lane_challenges(F, r)
+    outw, outh = _bind_out(F, W, lanes), _hv_out(F, hv, h, lanes)
+    n, n2 = outw.numel() // F.nlimb, outh.numel() // F.nlimb
+    kernels.launch(name, 1, BIND_HV, outw.data_ptr(), W.data_ptr(),
+                   r.data_ptr(), h.data_ptr(), n, W.shape[-2], n // lanes,
+                   rstride, outh.data_ptr(), hv.data_ptr(), n2)
+    return outw, outh
 
 
 def fp_inv(F, a: torch.Tensor, plain=None) -> torch.Tensor:

@@ -110,7 +110,7 @@ _CRT_TARGETS = ("fp256k1", "p256n", "fp256", "p384", "p521")
 # instance is "<kernel>_<instance>"
 _SOURCES = {
     "fp_elementwise": ("fp_ops.cu", [_I, _P, _P, _P, _P, _LL, _LL, _LL, _LL,
-                                     _P],
+                                     _P, _P, _LL, _P],
                        _PRIME_API),
     "fp_segment_sum": ("segsum.cu", [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                      _P, _I, _LL, _I, _P, _P],
@@ -182,10 +182,11 @@ def reset_launches() -> None:
 
 
 def k1_tile() -> int:
-    """TILE17 of csrc/fp_ops.cu: the elements of a block of K1's 17-word
-    path, where it splits into whole tiles and a ragged one."""
+    """TILE_ELTS of csrc/fp_ops.cu: the elements of a block of K1's 12-
+    and 17-word path, where it splits into whole tiles and a ragged
+    one."""
     with open(os.path.join(CSRC, "fp_ops.cu")) as f:
-        return int(re.search(r"constexpr int TILE17 = (\d+);",
+        return int(re.search(r"constexpr int TILE_ELTS = (\d+);",
                              f.read()).group(1))
 
 

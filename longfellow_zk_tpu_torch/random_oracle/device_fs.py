@@ -35,8 +35,11 @@ rejection-sampled naturals, with an entry point of its own
 Each function takes the field F first: it picks the kernel instance
 (`fs_oracle[F.tag]`), and the field-free steps (absorb, getkey, the PRF
 bytes) run through it too.  For a CUDA tensor a function launches its
-kernel (one launch, one thread a lane: csrc/fs.cu, csrc/round_tail.cu;
-the lanes are the transcripts of a batch of proofs, zk/batch.py); for a
+kernel (one launch, a block a lane: csrc/fs.cu spreads a write's layout
+and schedules and a draw's counter blocks and tests over the block and
+keeps the SHA-256 rounds and the key schedule in one thread;
+csrc/round_tail.cu runs a round in one warp; the lanes are the
+transcripts of a batch of proofs, zk/batch.py); for a
 CPU tensor it runs its plain version (`*_plain`, int64 torch ops; the
 SHA-256 compression is merkle/sha256_dev.compress_plain).  The plain
 versions read counts and rejection results on the host: they are the

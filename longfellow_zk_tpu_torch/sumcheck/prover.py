@@ -39,7 +39,8 @@ transcript on the card for the constraint build), `words` and
     in K3 (fp_wire_sums); then K10 (device_fs.round_tail): the round
     polynomial, the pad, its absorb, the challenge r and the new claim,
     into the layer's row tensor; then the bind of W_h and the hv update
-    in K1, reading r from that row;
+    by one K1 launch (F.bind_hv; two at GF(2^128)), reading r from that
+    row;
   - wire-round term merging (terms with equal (h0, h1) summed into one,
     a host schedule from _wire_merge_plan): K2 (contiguous folds);
   - bound_quad, the sum of the fully bound hv: K3; the closing check
@@ -588,8 +589,7 @@ class SumcheckProver:
                     r_t = row[:, 3]
                     # the bound half: the hands' indices are shifted
                     # right each round, so the zero tail is never read
-                    WH[hand] = F.bind(WH[hand], r_t)
-                    hv = F.hv_update(hv, h[hand], r_t)
+                    WH[hand], hv = F.bind_hv(WH[hand], hv, h[hand], r_t)
                     h[hand] = h[hand] >> 1
                 rnd += 1
 

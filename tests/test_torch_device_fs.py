@@ -207,6 +207,58 @@ def test_forced_rejection_fp128():
             for i in range(2)] == list(F.from_limbs(x))
 
 
+# a 32-byte key whose FSPRF stream's first Fp128 draw is >= p (the test
+# checks it; tests/test_torch_fs_words.py and the card's K9 tests draw
+# from it too)
+REJECT_KEY = bytes.fromhex(
+    "b2b7ec6f3f4f538ce55603547b6d9e9ec516e965a7d1db5e1c2118eb7e0edd66")
+
+
+@pytest.mark.parametrize("n", [1, 5])
+def test_rejecting_key_matches_jax_host(n):
+    """A fresh stream under REJECT_KEY (K9 mode 2 PRF_FRESH's plain
+    version) and n plain samples (its first draw rejected) against the
+    JAX package's host Transcript.elt from the same stream: the same
+    elements, and the stream where the host's stands after them."""
+    from longfellow_zk_tpu.random_oracle.transcript import FSPRF as JaxFSPRF
+    F, J = fp128(), jax_fp128()
+    assert int.from_bytes(JaxFSPRF(REJECT_KEY).bytes(16), "little") >= F.p
+    prf = dfs.new_prf("cpu")
+    dfs.prf_fresh(F, prf, _u8(REJECT_KEY))
+    got = list(F.from_limbs(dfs.dev_sample_elts(F, prf, n)))
+    jts = JaxTranscript(b"")
+    jts._prf = JaxFSPRF(REJECT_KEY)
+    assert got == [jts.elt(J) for _ in range(n)]
+    assert _blob(dfs.prf_bytes(F, prf, 21)) == jts.bytes(21)
+
+
+@pytest.mark.parametrize("off", [0, 1, 23, 55, 56, 63])
+@pytest.mark.parametrize("field", list(FIELDS))
+def test_writes_match_jax_host(field, off):
+    """The plain array write and tagged writes (K9 modes 5 and 6) of 5
+    elements, which cross a SHA-256 block, from the offset cnt % 64 =
+    off, against the JAX package's host Transcript.write_elts and
+    write_elt: the whole state."""
+    mk, jmk = FIELDS[field]
+    F, J = mk(), jmk()
+    rng = np.random.default_rng(100 + off)
+    ts = Transcript(b"dfs")
+    cnt = int.from_bytes(ts.export_state()[32:40], "little")
+    ts.write_bytes(rng.bytes((off - cnt - 9) % 64))
+    jts = JaxTranscript(b"")
+    jts.import_state(ts.export_state())
+    fs = dfs.fs_init_from_host(ts, "cpu")
+    assert int.from_bytes(_blob(fs)[32:40], "little") % 64 == off
+    vals = _elts(F, rng, 5)
+    dfs.fs_write_elts(F, fs, F.to_limbs(vals, "cpu"))
+    jts.write_elts(vals, J)
+    assert _blob(fs) == jts.export_state()
+    dfs.write_tagged_elts(F, fs, F.to_limbs(vals, "cpu"))
+    for v in vals:
+        jts.write_elt(v, J)
+    assert _blob(fs) == jts.export_state()
+
+
 @pytest.mark.parametrize("field", list(FIELDS))
 def test_round_tail_matches_host_round(field):
     """K10's plain version against the host round: the polynomial from

@@ -15,6 +15,7 @@ from longfellow_zk_tpu.fields import fp_instances as jfi
 from longfellow_zk_tpu.fields.fp2 import Fp2 as JaxFp2
 from longfellow_zk_tpu.fields.fp24 import fp24 as jax_fp24
 from longfellow_zk_tpu.fields.fp_instances import fp128 as jax_fp128
+from longfellow_zk_tpu.fields.gf2 import gf2_128 as jax_gf2_128
 from longfellow_zk_tpu.sumcheck.prover_device import _bind_fixed, _contig_fold
 from longfellow_zk_tpu_torch.fields import fp_instances as pfi
 from longfellow_zk_tpu_torch.fields.bridge import (
@@ -22,6 +23,7 @@ from longfellow_zk_tpu_torch.fields.bridge import (
 from longfellow_zk_tpu_torch.fields.fp2 import Fp2
 from longfellow_zk_tpu_torch.fields.fp24 import fp24
 from longfellow_zk_tpu_torch.fields.fp_instances import fp128
+from longfellow_zk_tpu_torch.fields.gf2 import gf2_128
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -87,6 +89,49 @@ def test_bind_and_hv_update_match_jax():
     want = J.mul(jx, J.select(odd, jnp.broadcast_to(r_j[:, None], jx.shape),
                               jnp.broadcast_to(one_minus[:, None], jx.shape)))
     _eq(F.hv_update(px, torch.as_tensor(h), r_p), want)
+
+
+# the sumcheck fields of bind_hv: the three prime fields of the proofs
+# and GF(2^128)
+BIND_HV_FIELDS = {"fp128": (jfi.fp128, pfi.fp128),
+                  "p256_base": (jfi.p256_base, pfi.p256_base),
+                  "p256k1_base": (jfi.p256k1_base, pfi.p256k1_base),
+                  "gf2_128": (jax_gf2_128, gf2_128)}
+
+
+@pytest.mark.parametrize("lanes", [1, 3])
+@pytest.mark.parametrize("field", list(BIND_HV_FIELDS))
+def test_bind_hv_matches_jax(field, lanes):
+    """The plain bind_hv (a hand-round's bind of W and hv update by one
+    challenge a lane) against the JAX package's _bind_fixed and its hv
+    update (prover_device.py:139, :590-595) over the same lanes, as
+    canonical integers."""
+    jmk, pmk = BIND_HV_FIELDS[field]
+    J, F = jmk(), pmk()
+    rng = np.random.default_rng(12 + lanes)
+    p = (1 << 128) if F.kCharacteristicTwo else F.p
+    nw, T = 16, 24
+    w, hv, r = ([int.from_bytes(rng.bytes(F.kBytes), "little") % p
+                 for _ in range(lanes * m)] for m in (nw, T, 1))
+    h = rng.integers(0, 1 << 10, T).astype(np.int32)
+    Wp = F.to_limbs(w, "cpu").reshape(lanes, nw, F.nlimb)
+    hvp = F.to_limbs(hv, "cpu").reshape(lanes, T, F.nlimb)
+    rp = F.to_limbs(r, "cpu")
+    w2, hv2 = F.bind_hv(Wp, hvp, torch.as_tensor(h),
+                        rp if lanes > 1 else rp[0])
+    # JAX: limbs first, the lanes a batch axis
+    L = J.to_limbs(1).shape[0]
+    jw = jnp.asarray(J.to_limbs(w)).reshape(L, lanes, nw)
+    jhv = jnp.asarray(J.to_limbs(hv)).reshape(L, lanes, T)
+    jr = jnp.asarray(J.to_limbs(r))
+    bound = _bind_fixed(J, jw, jr, axis=-1)[:, :, : nw // 2]
+    odd = jnp.asarray((h & 1) == 1)
+    one_minus = J.sub(jnp.asarray(J.to_limbs(1))[:, None], jr)
+    upd = J.mul(jhv, J.select(odd, jr[..., None], one_minus[..., None]))
+    assert list(F.from_limbs(w2).reshape(-1)) == \
+        list(np.asarray(J.from_limbs(bound)).reshape(-1))
+    assert list(F.from_limbs(hv2).reshape(-1)) == \
+        list(np.asarray(J.from_limbs(upd)).reshape(-1))
 
 
 def test_from_mont_matches_jax():

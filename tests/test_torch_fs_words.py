@@ -7,9 +7,12 @@ product.
 The device headers build with a host C++ compiler through
 tests/cuda_host/cuda_runtime.h (the CUDA qualifiers empty, the intrinsics
 in C++, one thread).  A small harness program reads commands on stdin and prints
-its results; the test skips where no C++ compiler is found.  The kernels
-themselves (the warp that fills the AES table, the launches) are held to
-their plain versions on the card by tests/test_torch_kernels.py.
+its results; the test skips where no C++ compiler is found.  K9's writes
+and draws run there as fs.cu's kernels run them, their producers' and
+their draws' work done by one thread in turn; the kernels themselves (the
+warps that share that work, the barriers, the ordered count, the
+launches) are held to their plain versions on the card by
+tests/test_torch_kernels.py.
 """
 
 import os
@@ -65,28 +68,85 @@ template <class C>
 static void elt_out(const Fp<C>& x) {
   hex_out((const uint8_t*)x.l, 4 * C::N);
 }
-template <class C>
-static void absorb(FsW& s, int tagged, const char* h) {
-  const Fp<C> x = elt_in<C>(h);
-  if (tagged)
-    fsw_absorb_tagged<C>(s, x);
-  else
-    fsw_absorb_elt<C>(s, x);
+// K9's write of mode MODE (fs.cu k_fs_write) on the state f: the
+// producers' stages and the chain's, one after another.
+template <class C, int MODE>
+static void write(FsState& f, long long n, const uint8_t* in) {
+  static K9WriteSmem<C> sm;
+  const u64 cnt = f.cnt;
+  const K9Write w = k9w_plan<C, MODE>(cnt, (u64)n);
+  memcpy(sm.old, f.buf, 64);
+  uint32_t h[8];
+  memcpy(h, f.h, 32);
+  const u64 nstage = (w.nfull + K9_CHUNK) / K9_CHUNK;
+  for (u64 c = 0; c <= nstage; c++) {
+    if (c > 0) k9w_chain(w, sm, c - 1, h);
+    if (c < nstage)
+      k9w_produce<C, MODE>(w, sm, c, 0, 1, in, K9ProducerSync());
+  }
+  k9w_store(&f, h, cnt, w, sm.part);
 }
 template <class C>
-static void sample(const uint32_t key[8], int skip) {
-  static uint32_t RK[60], rk[60];
-  PrfW p;
-  p.rk = RK;
-  prfw_fresh(p, key, T);
-  for (int i = 0; i < skip; i++) prfw_byte(p, T);
-  const Fp<C> x = prfw_sample<C>(p, T);
+static void write_mode(FsState& f, int mode, long long n,
+                       const uint8_t* in) {
+  if (mode == 0)
+    write<C, 0>(f, n, in);
+  else if (mode == 5)
+    write<C, 5>(f, n, in);
+  else
+    write<C, 6>(f, n, in);
+}
+// K9's draw (fs.cu k_fs_draw) of n elements from the stream keyed by key
+// after `skip` bytes, in windows of `win` candidates; prints the
+// elements, then ptr, nb and the saved block of the state it leaves.
+template <class C>
+static void draw(const uint32_t key[8], u64 skip, long long n, int win) {
+  static uint32_t RK[60], S[4 * 1100 + 4];
+  static uint4 out[4096];
+  constexpr uint32_t L = Oracle<C>::KBYTES;
+  aes_expand(key, RK, T);
+  u64 P = skip, done = 0, b0 = 0;
+  int nblk = 0;
+  while (done < (u64)n) {
+    const int M = (int)k9_min((u64)win, (u64)n - done);
+    const uint32_t q0 = (uint32_t)(P & 15);
+    b0 = P >> 4;
+    nblk = (int)((q0 + (uint32_t)M * L + 15) / 16) + 1;
+    k9d_blocks(RK, b0, nblk, S, 0, 1, T);
+    int last = -1;
+    u64 acc = 0;
+    for (int j = 0; j < M; j++) {
+      Fp<C> x = k9d_candidate<C>(S, q0 + (uint32_t)j * L);
+      if (!fs_accept(x)) continue;
+      if (done + acc < (u64)n) x.store(out, (long long)(done + acc));
+      if (done + acc == (u64)n - 1) last = j;
+      acc++;
+    }
+    if (done + acc >= (u64)n) {
+      P += (u64)(last + 1) * L;
+      done = n;
+    } else {
+      P += (u64)M * L;
+      done += acc;
+    }
+  }
+  static PrfState f;
+  k9d_settle(&f, P, S, b0, nblk, RK, T);
+  for (long long i = 0; i < n; i++) {
+    elt_out(Fp<C>::load(out, i));
+    printf(" ");
+  }
+  printf("%u %llu ", f.ptr, (unsigned long long)f.nb);
+  hex_out((const uint8_t*)f.saved, 16);
+  printf("\n");
+}
+// K10's draw: one element from a fresh stream by whole blocks.
+template <class C>
+static void fresh(const uint32_t key[8]) {
+  static uint32_t rk[60];
   aes_expand(key, rk, T);
-  const Fp<C> y = fresh_sample<C>(rk, T);
-  elt_out(x);
-  printf(" ");
-  elt_out(y);
-  printf(" %u %llu\n", p.ptr, (unsigned long long)p.nb);
+  elt_out(fresh_sample<C>(rk, T));
+  printf("\n");
 }
 // one K10 round of one lane: inputs fs | claim | a (npts - 1) | eq0 |
 // pad (npts) | consts (10); prints fs | claim | row (npts + 1)
@@ -122,42 +182,39 @@ static void rtail(int npts, const char* h) {
 int main() {
   aes_tables(T);
   static char line[1 << 16], a[1 << 15], b[1 << 15], f[16];
-  FsW s;
+  static uint8_t buf[1 << 14];
+  FsState st;
   while (fgets(line, sizeof line, stdin)) {
-    int t = 0, n = 0;
+    int t = 0, n = 0, w = 0;
     if (line[0] == 'S') {  // S <blob>: the state from a 104-byte blob
-      FsState blob;
       sscanf(line + 2, "%s", a);
-      hex_in(a, (uint8_t*)&blob, 104);
-      fsw_load(s, &blob);
-    } else if (line[0] == 'B') {  // B <n> <bytes>: absorb n <= 64 bytes
-      uint8_t buf[64];
-      sscanf(line + 2, "%d %s", &n, a);
-      hex_in(a, buf, n);
-      fsw_absorb_bytes(s, buf, n);
-    } else if (line[0] == 'H') {  // H <n>: an array's header
-      unsigned long long m;
-      sscanf(line + 2, "%llu", &m);
-      fsw_absorb_array_header(s, m);
-    } else if (line[0] == 'E') {  // E <field> <tagged> <limbs>
-      sscanf(line + 2, "%s %d %s", f, &t, a);
-#define ABSORB(C) absorb<C>(s, t, a)
-      FIELD(f, ABSORB)
+      hex_in(a, (uint8_t*)&st, 104);
+    } else if (line[0] == 'W') {  // W <field> <mode> <n> <input hex>
+      sscanf(line + 2, "%s %d %d %s", f, &t, &n, a);
+      hex_in(a, buf, (int)(strlen(a) / 2));
+#define WRITE(C) write_mode<C>(st, t, n, buf)
+      FIELD(f, WRITE)
     } else if (line[0] == 'K') {  // K: the key and the state's blob
       uint32_t key[8];
+      FsW s;
+      fsw_load(s, &st);
       fsw_getkey(s, key);
-      FsState blob;
-      fsw_store(&blob, s);
       hex_out((const uint8_t*)key, 32);
       printf(" ");
-      hex_out((const uint8_t*)&blob, 104);
+      hex_out((const uint8_t*)&st, 104);
       printf("\n");
-    } else if (line[0] == 'P') {  // P <field> <key> <skip>: samples
+    } else if (line[0] == 'D') {  // D <field> <key> <skip> <n> <window>
       uint32_t key[8];
-      sscanf(line + 2, "%s %s %d", f, a, &n);
+      sscanf(line + 2, "%s %s %d %d %d", f, a, &t, &n, &w);
       hex_in(a, (uint8_t*)key, 32);
-#define SAMPLE(C) sample<C>(key, n)
-      FIELD(f, SAMPLE)
+#define DRAW(C) draw<C>(key, (u64)t, n, w)
+      FIELD(f, DRAW)
+    } else if (line[0] == 'F') {  // F <field> <key>: K10's fresh sample
+      uint32_t key[8];
+      sscanf(line + 2, "%s %s", f, a);
+      hex_in(a, (uint8_t*)key, 32);
+#define FRESH(C) fresh<C>(key)
+      FIELD(f, FRESH)
     } else if (line[0] == 'R') {  // R <field> <npts> <inputs>: K10
       sscanf(line + 2, "%s %d %s", f, &n, a);
 #define RTAIL(C) rtail<C>(n, a)
@@ -209,39 +266,37 @@ def _limbs_hex(F, x):
 
 
 def test_absorbs_and_key(harness):
-    """Byte strings of 0-64 bytes, tagged and untagged elements of each
-    field and arrays' headers at every offset, then the key and the whole
-    state, against the host Transcript."""
+    """K9's writes (fs.cu's stages in turn): byte strings (mode 0),
+    arrays (5) and tagged elements (6) of each field, from 0 to a few
+    blocks long, at every offset, then the key and the whole state,
+    against the host Transcript."""
     rng = np.random.default_rng(41)
-    for trial in range(60):
+    for trial in range(40):
         ts = Transcript(rng.bytes(int(rng.integers(0, 90))))
         blob = ts.export_state()
         cnt = struct.unpack("<Q", blob[32:40])[0]
         blob = blob[:40 + cnt % 64] + bytes(64 - cnt % 64)
         cmds = ["S " + blob.hex()]
         keys = []
-        for _ in range(int(rng.integers(1, 12))):
+        for _ in range(int(rng.integers(1, 10))):
             kind = int(rng.integers(0, 3))
+            name = list(FIELDS)[int(rng.integers(0, 4))]
+            F = FIELDS[name]()
             if kind == 0:
-                data = rng.bytes(int(rng.integers(0, 65)))
-                cmds.append("B %d %s" % (len(data), data.hex() or "00"))
+                data = rng.bytes(int(rng.integers(0, 200)))
+                cmds.append("W %s 0 %d %s" % (name, len(data),
+                                              data.hex() or "00"))
                 ts._write_untyped(data)
-            elif kind == 1:
-                name = list(FIELDS)[int(rng.integers(0, 4))]
-                F = FIELDS[name]()
-                x = int.from_bytes(rng.bytes(F.kBytes), "little")
-                x = x if F.kCharacteristicTwo else x % F.p
-                tagged = int(rng.integers(0, 2))
-                cmds.append("E %s %d %s" % (name, tagged, _limbs_hex(F, x)))
-                if tagged:
-                    ts.write_elt(x, F)
-                else:
-                    ts._write_untyped(F.to_bytes(x))
             else:
-                m = int(rng.integers(0, 1 << 62))
-                cmds.append("H %d" % m)
-                ts._tag(2)
-                ts._length(m)
+                xs = _rand_ints(F, rng, int(rng.integers(0, 20)))
+                hexs = "".join(_limbs_hex(F, x) for x in xs) or "00"
+                cmds.append("W %s %d %d %s" % (name, 5 if kind == 1 else 6,
+                                               len(xs), hexs))
+                if kind == 1:
+                    ts.write_elts(xs, F)
+                else:
+                    for x in xs:
+                        ts.write_elt(x, F)
             cmds.append("K")
             want = ts.export_state()
             off = struct.unpack("<Q", want[32:40])[0] % 64
@@ -253,29 +308,40 @@ def test_absorbs_and_key(harness):
             assert bytes.fromhex(b) == state
 
 
+def _rand_ints(F, rng, n):
+    p = (1 << 128) if F.kCharacteristicTwo else F.p
+    return [int.from_bytes(rng.bytes(F.kBytes), "little") % p
+            for _ in range(n)]
+
+
 @pytest.mark.parametrize("name", list(FIELDS))
 def test_samples(harness, name):
-    """A sample after 0-40 PRF bytes (K9's reads) and one from a fresh
-    stream by whole blocks (K10's) against FSPRF and Field.sample; at
+    """K9's draws (fs.cu's windows in turn) of 1-40 elements after 0-40
+    stream bytes, in windows of 1, 3 and 256 candidates, and K10's draw
+    from a fresh stream by whole blocks, against FSPRF and Field.sample:
+    the elements, the stream position and the saved block after them; at
     Fp128 also from a key whose first draw is rejected."""
     F, rng = FIELDS[name](), np.random.default_rng(42)
-    keys = [rng.bytes(32) for _ in range(20)] + [REJECT_KEY]
-    skips = [int(rng.integers(0, 41)) for _ in keys[:-1]] + [0]
-    out = harness(["P %s %s %d" % (name, k.hex(), n)
-                  for k, n in zip(keys, skips)])
-    for key, skip, line in zip(keys, skips, out):
-        x, y, ptr, nb = line.split()
+    keys = [rng.bytes(32) for _ in range(12)] + [REJECT_KEY]
+    cases = [(k, int(rng.integers(0, 41)), int(rng.integers(1, 41)),
+              (1, 3, 256)[i % 3]) for i, k in enumerate(keys[:-1])]
+    cases += [(REJECT_KEY, 0, 1, 256), (REJECT_KEY, 0, 3, 1)]
+    out = harness(["D %s %s %d %d %d" % (name, k.hex(), skip, n, win)
+                   for k, skip, n, win in cases] +
+                  ["F %s %s" % (name, k.hex()) for k in keys])
+    used = F.kBytes
+    for (key, skip, n, win), line in zip(cases, out):
+        *xs, ptr, nb, saved = line.split()
         prf = FSPRF(key)
         prf.bytes(skip)
-        n0 = F.sample(prf.bytes)
-        used = len(F.to_bytes(0))
-        fresh = F.sample(FSPRF(key).bytes)
-        assert F.from_limbs(_parse(F, x)) == n0
-        assert F.from_limbs(_parse(F, y)) == fresh
-        # the device reads a block ahead: the pointer is in the block
-        # after the bytes read, its counter the blocks made
-        total = skip + used * (1 + _rejections(F, key, skip))
+        want = [F.sample(prf.bytes) for _ in range(n)]
+        assert [F.from_limbs(_parse(F, x)) for x in xs] == want
+        total = skip + used * (n + _rejections(F, key, skip, n))
         assert (int(ptr), int(nb)) == (total % 16, total // 16 + 1)
+        assert bytes.fromhex(saved) == FSPRF(key).bytes(
+            16 * (total // 16 + 1))[-16:]
+    for key, line in zip(keys, out[len(cases):]):
+        assert F.from_limbs(_parse(F, line)) == F.sample(FSPRF(key).bytes)
     if name == "p128":
         first = int.from_bytes(FSPRF(REJECT_KEY).bytes(16), "little")
         assert first >= F.p
@@ -287,16 +353,19 @@ def _parse(F, h):
                             .copy())
 
 
-def _rejections(F, key, skip):
-    """The draws the host sampling rejected after `skip` bytes."""
+def _rejections(F, key, skip, n):
+    """The draws the host sampling rejected in n samples after `skip`
+    bytes."""
     prf = FSPRF(key)
     prf.bytes(skip)
-    n, nb = 0, len(F.to_bytes(0))
-    while True:
+    rej, nb = 0, F.kBytes
+    while n:
         v = int.from_bytes(prf.bytes(nb), "little")
         if F.kCharacteristicTwo or v < F.p:
-            return n
-        n += 1
+            n -= 1
+        else:
+            rej += 1
+    return rej
 
 
 def test_k10_gf2_product(harness):

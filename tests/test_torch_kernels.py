@@ -752,19 +752,19 @@ def test_k1_field_api(dev, mode, field):
             F, fpm.MUL, a, F.to_limbs(123456789, dev)))
 
 
-# K1's one-word path (four elements a thread) and 17-word path (a tile
-# of TILE17 elements a block through shared memory), csrc/fp_ops.cu, at
-# the sizes where they split: none, a ragged quad or tile, a tile less
-# or more one, many tiles and a ragged one
+# K1's one-word path (four elements a thread) and 12- and 17-word path
+# (a tile of TILE_ELTS elements a block through shared memory),
+# csrc/fp_ops.cu, at the sizes where they split: none, a ragged quad or
+# tile, a tile less or more one, many tiles and a ragged one
 K1_TILE = kernels.k1_tile()
 
 
 @pytest.mark.parametrize("n", [0, 1, 3, K1_TILE - 1, K1_TILE + 1,
                                (1 << 16) + 5])
 @pytest.mark.parametrize("mode", API_MODES)
-@pytest.mark.parametrize("field", ["fp24", "p521"])
+@pytest.mark.parametrize("field", ["fp24", "p384", "p521"])
 def test_k1_split_shapes(dev, field, mode, n):
-    """K1 [fp24] and [p521] against the plain versions: b full, one
+    """K1 [fp24], [p384] and [p521] against the plain versions: b full, one
     element and a row over two rows; the conditions full, a row and a
     column; operands that are views one element into their tensors (not
     16-byte aligned), alone and beside aligned ones."""
@@ -1273,3 +1273,200 @@ def test_gf2_product_in_k2_k7(dev):
     eqh0[4] = F.to_limbs((1 << 128) - 1, dev)
     args = (g, h0, h1, v, bm, dot, eqh0, eqh1, F.to_limbs(1 << 127, dev))
     _same(verifier.fp_quad_bind(F, *args), verifier.quad_bind_plain(F, *args))
+
+
+# K9's writes and draws spread over a block (csrc/fs.cu k_fs_write,
+# k_fs_draw): around a SHA-256 block and a stage of K9_CHUNK blocks
+K9_SMALL = (1, 63, 64, 65, 130)
+# the response writes of zk/fused.py ligero_finish_dev (block, dblock, r,
+# dblock - block) at the SHA-256 and ECDSA, bitaddr, mdoc hash and mdoc
+# signature proofs' ZkProver.param
+K9_RESPONSES = {"fp128": (341, 681, 128, 340),
+                "fp256": (341, 681, 128, 340, 455, 909, 132, 454),
+                "fp256k1": (682, 1363, 128, 681),
+                "gf2_128": (461, 921, 132, 460)}
+# K9 [fp128]'s PRF_FRESH key whose first draw is >= p
+# (tests/test_torch_fs_words.py)
+REJECT_KEY = bytes.fromhex(
+    "b2b7ec6f3f4f538ce55603547b6d9e9ec516e965a7d1db5e1c2118eb7e0edd66")
+
+
+def _host_of(fs):
+    ts = Transcript(b"", _sha=SHA256())
+    dfs.fs_state_to_host(ts, fs.cpu())
+    return ts
+
+
+@pytest.mark.parametrize("field", list(FIELDS))
+@pytest.mark.parametrize("lanes", [1, 8])
+def test_k9_writes_and_draws(dev, lanes, field):
+    """K9's modes 0 and 4-8 at K9_SMALL elements (bytes for modes 0 and
+    4) against the plain versions on the CPU, whole fs and prf states
+    compared; 8 lanes, lane 1 rejecting its first Fp128 draw."""
+    F, rng = FIELDS[field](), np.random.default_rng(60)
+    N = F.nlimb
+    for n in K9_SMALL:
+        fs, fs2 = _fs_lanes(rng, dev, lanes)
+        if lanes == 1:
+            fs, fs2 = fs[0], fs2[0]
+        lead = () if lanes == 1 else (lanes,)
+        data = torch.as_tensor(rng.integers(0, 256, lead + (n,),
+                                            dtype=np.uint8))
+        dfs.fs_absorb(F, fs, data.to(dev))
+        dfs.fs_absorb(F, fs2, data)
+        _same(fs, fs2)
+        xs = _elts(F, rng, lanes * n, dev).reshape(lead + (n, N))
+        dfs.fs_write_elts(F, fs, xs)
+        dfs.fs_write_elts(F, fs2, xs.cpu())
+        _same(fs, fs2)
+        dfs.write_tagged_elts(F, fs, xs)
+        dfs.write_tagged_elts(F, fs2, xs.cpu())
+        _same(fs, fs2)
+        prf, prf2 = dfs.new_prf(dev, *lead), dfs.new_prf("cpu", *lead)
+        _same(dfs.dev_sample_elts(F, prf, n, fs=fs),
+              dfs.dev_sample_elts(F, prf2, n, fs=fs2))
+        _same(prf, prf2)
+        _same(dfs.prf_bytes(F, prf, n), dfs.prf_bytes(F, prf2, n))
+        _same(prf, prf2)
+        _same(dfs.dev_sample_elts(F, prf, n),
+              dfs.dev_sample_elts(F, prf2, n))
+        _same(prf, prf2)
+
+
+@pytest.mark.parametrize("field", list(FIELDS))
+def test_k9_response_sizes(dev, field):
+    """K9 at the proofs' response writes (arrays and tagged elements)
+    and a draw of as many samples, against the host Transcript (the
+    plain versions' reference, tests/test_torch_device_fs.py; they take
+    minutes on the card at these sizes): the whole fs state, the samples
+    and the stream after them."""
+    F, rng = FIELDS[field](), np.random.default_rng(61)
+    for n in K9_RESPONSES[field]:
+        fs, _ = _fs_pair(rng, dev)
+        ts = _host_of(fs)
+        xs = _elts(F, rng, n, dev)
+        vals = list(F.from_limbs(xs.cpu()))
+        dfs.fs_write_elts(F, fs, xs)
+        ts.write_elts(vals, F)
+        assert bytes(fs.cpu().tolist()) == ts.export_state()
+        dfs.write_tagged_elts(F, fs, xs)
+        for v in vals:
+            ts.write_elt(v, F)
+        assert bytes(fs.cpu().tolist()) == ts.export_state()
+        prf = dfs.new_prf(dev)
+        got = dfs.dev_sample_elts(F, prf, n, fs=fs)
+        assert list(F.from_limbs(got.cpu())) == ts.elts(n, F)
+        assert bytes(dfs.prf_bytes(F, prf, 37).cpu().tolist()) == \
+            ts.bytes(37)
+
+
+@pytest.mark.parametrize("field", list(FIELDS))
+def test_k9_every_offset(dev, field):
+    """K9's array and tagged writes of 65 elements, and an absorb of 130
+    bytes, from each of the 64 offsets cnt % 64, against the host
+    Transcript."""
+    F, rng = FIELDS[field](), np.random.default_rng(62)
+    for off in range(64):
+        ts = Transcript(rng.bytes(5))
+        cnt = int.from_bytes(ts.export_state()[32:40], "little")
+        ts.write_bytes(rng.bytes((off - cnt - 9) % 64))
+        fs = dfs.fs_init_from_host(ts, dev)
+        xs = _elts(F, rng, 65, dev)
+        vals = list(F.from_limbs(xs.cpu()))
+        dfs.fs_write_elts(F, fs, xs)
+        ts.write_elts(vals, F)
+        dfs.write_tagged_elts(F, fs, xs)
+        for v in vals:
+            ts.write_elt(v, F)
+        data = rng.bytes(130)
+        dfs.fs_absorb(F, fs, torch.frombuffer(bytearray(data),
+                                              dtype=torch.uint8).to(dev))
+        ts._write_untyped(data)
+        assert bytes(fs.cpu().tolist()) == ts.export_state(), off
+
+
+@pytest.mark.parametrize("n", [1, 3, 300])
+def test_k9_rejecting_key(dev, n):
+    """K9 [fp128] from REJECT_KEY's stream (PRF_FRESH), whose first draw
+    is rejected: n samples (300: more than a window) in one lane and as
+    lane 0 of 8, against the plain version, whole prf states compared."""
+    F = fp128()
+    rng = np.random.default_rng(63)
+    for lanes in (1, 8):
+        keys = torch.stack([torch.frombuffer(bytearray(REJECT_KEY),
+                                             dtype=torch.uint8)] +
+                           [torch.as_tensor(rng.integers(0, 256, 32,
+                                                         dtype=np.uint8))
+                            for _ in range(lanes - 1)])
+        if lanes == 1:
+            keys = keys[0]
+        lead = () if lanes == 1 else (lanes,)
+        prf, prf2 = dfs.new_prf(dev, *lead), dfs.new_prf("cpu", *lead)
+        dfs.prf_fresh(F, prf, keys.to(dev))
+        dfs.prf_fresh(F, prf2, keys)
+        _same(prf, prf2)
+        _same(dfs.dev_sample_elts(F, prf, n),
+              dfs.dev_sample_elts(F, prf2, n))
+        _same(prf, prf2)
+
+
+# K1 at the 2-12-word instances (csrc/fp_ops.cu k_fp_ew, k_fp_lane): the
+# sizes of a warp's and a block's edges, a wire round's, the ECDSA
+# tableau's and 2^20
+K1_WORDS = ("fp128", "fp256", "fp256k1", "fp64", "p256n", "p256k1n", "p384")
+K1_WORD_SIZES = (1, 255, 256, 257, 1 << 13, (1 << 16) + 3, 1 << 20)
+
+
+@pytest.mark.parametrize("n", K1_WORD_SIZES)
+@pytest.mark.parametrize("field", K1_WORDS)
+def test_k1_words_every_mode(dev, field, n):
+    """K1's modes (bind of n pairs, hv of n terms) against the plain
+    versions; bind and hv with 3 lanes, each its own challenge (a strided
+    view, as the prover passes them)."""
+    F, rng = API_FIELDS[field](), np.random.default_rng(64)
+    P = fpm.plain_of(F)
+    a, b, cond = _api_operands(lambda r, m, d: _elts(F, r, m, d), rng, n,
+                               dev)
+    for mode in API_MODES:
+        _same(fpm.fp_elementwise(F, mode, a, b, cond),
+              P.elementwise_plain(F, mode, a, b, cond))
+    r = _elts(F, rng, 12, dev).reshape(3, 4, F.nlimb)[:, 2]
+    h = torch.as_tensor(rng.integers(0, 1 << 20, n, dtype=np.int32),
+                        device=dev)
+    W = torch.cat([a, b]).reshape(1, 2 * n, F.nlimb)
+    _same(F.bind(W, r[0]), P.elementwise_plain(F, fpm.BIND, W, r[0]))
+    _same(F.hv_update(a, h, r[0]), P.elementwise_plain(F, fpm.HV, a, r[0],
+                                                       h))
+    if n <= 1 << 16:
+        W3 = _elts(F, rng, 6 * n, dev).reshape(3, 2 * n, F.nlimb)
+        hv3 = _elts(F, rng, 3 * n, dev).reshape(3, n, F.nlimb)
+        _same(F.bind(W3, r), P.elementwise_plain(F, fpm.BIND, W3, r))
+        _same(F.hv_update(hv3, h, r),
+              P.elementwise_plain(F, fpm.HV, hv3, r, h))
+
+
+@pytest.mark.parametrize("lanes", [1, 3])
+@pytest.mark.parametrize("field", list(API_FIELDS))
+def test_k1_bind_hv_one_launch(dev, field, lanes):
+    """bind_hv (one K1 launch at the 2-12-word instances, two elsewhere)
+    against the separate bind and hv launches and the plain versions, at
+    a wire round's sizes and at W's last rounds (1 and 2 pairs)."""
+    F, rng = API_FIELDS[field](), np.random.default_rng(65)
+    P = fpm.plain_of(F)
+    r = _elts(F, rng, 4 * lanes, dev).reshape(lanes, 4, F.nlimb)[:, 1]
+    if lanes == 1:
+        r = r[0]
+    for nw, T in ((4096, 3000), (2, 70000), (4, 1)):
+        W = _elts(F, rng, lanes * nw, dev).reshape(lanes, nw, F.nlimb)
+        hv = _elts(F, rng, lanes * T, dev).reshape(lanes, T, F.nlimb)
+        h = torch.as_tensor(rng.integers(0, 1 << 15, T, dtype=np.int32),
+                            device=dev)
+        n0 = kernels.LAUNCHES["fp_elementwise[%s]" % field]
+        w2, h2 = F.bind_hv(W, hv, h, r)
+        one = fpm.BIND_HV_WORDS.count(F.nlimb) and not F.kCharacteristicTwo
+        assert kernels.LAUNCHES["fp_elementwise[%s]" % field] - n0 == \
+            (1 if one else 2)
+        _same(w2, F.bind(W, r))
+        _same(h2, F.hv_update(hv, h, r))
+        _same(w2, P.elementwise_plain(F, fpm.BIND, W, r))
+        _same(h2, P.elementwise_plain(F, fpm.HV, hv, r, h))
