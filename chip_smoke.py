@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 1. Prints the card (name, count, power limit).
-2. Builds the kernels K1-K22 from longfellow_zk_tpu_torch/csrc with nvcc.
+2. Builds the kernels K1-K23 from longfellow_zk_tpu_torch/csrc with nvcc.
 3. Runs each kernel instance at the shapes of the proofs below, holds
    it against its plain PyTorch version on the same inputs (field
    arithmetic, hashing and the transcript states are exact: tolerance 0)
@@ -12,7 +12,10 @@
    below the bound because back-to-back calls found their inputs in the
    L2, by CUDA events with the L2 flushed before each call; the kernel's
    call time, back to back, by CUDA events):
-   a. the Fp128 instances of K1-K4 at the SHA-256 proof's shapes;
+   a. the Fp128 instances of K1-K4 at the SHA-256 proof's shapes (K3's
+      wire mode also at 1-158,231 terms, the round's shifts 0-3, 1 and 8
+      lanes, twice back to back, and K1's hv update by the same shifts,
+      as at each instance of b, c and i);
    b. the P-256 instances of K1-K3, K4 over Fp2 and K5 at the ECDSA
       proof's shapes;
    c. the GF(2^128) instances of K1-K3 and K6 at the mdoc hash proof's
@@ -85,7 +88,13 @@
       version and its chain;
       K1 [fp256]'s bind, hv and bind_hv at the mdoc signature circuit's
       largest layer (rows "fp_elementwise[fp256] bind", "... hv", "...
-      bind_hv").
+      bind_hv");
+   n. K23 (layer_hv, the layer prologue) at every layer of the SHA-256,
+      mdoc signature, ECDSA, mdoc hash and bitaddr circuits, in the order
+      of their wire rounds, 1 and 8 lanes, against its plain version; a
+      row "layer_hv[<tag>]" at the largest layer of the SHA-256, mdoc
+      signature, mdoc hash and bitaddr circuits, with one index_select
+      of dot by g as its library call.
 4. Drives the port's three prover paths, each with the launch counts set
    to zero just before it and read just after (every kernel instance of
    the path must have launched, K8-K12 included), its bytes under
@@ -308,6 +317,13 @@ def redc_ops(nwords):
 def bound_ms(nbytes, ops):
     tb, to = nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
     return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
+
+
+def layer_hv_bytes(eb, T, nd, lanes):
+    """K23's bytes: a lane's hv written (T elements of eb bytes), its
+    beta and its dot read once at each of the nd distinct output wires
+    that the terms' g name; g (int32), v and bmask read once."""
+    return lanes * (T + nd + 1) * eb + T * (4 + eb + 1)
 
 
 def chain_ms(steps, clock_mhz):
@@ -596,6 +612,22 @@ def elts_of(F, rng, dev):
     return elts
 
 
+def bulk_elts(F, rng, dev):
+    """elts(n): n random canonical elements of F on the card, made in
+    bulk: uniform words, the top one below p's top word (GF(2^128): any
+    words)."""
+    N = F.nlimb
+    ptop = None if F.kCharacteristicTwo else F.p >> (32 * (N - 1))
+
+    def elts(m):
+        w = rng.integers(0, 1 << 32, (m, N), dtype=np.uint64)
+        if ptop is not None:
+            w[:, -1] %= ptop
+        return torch.as_tensor(w.astype(np.uint32).view(np.int32),
+                               device=dev)
+    return elts
+
+
 def check_fp_kernels(rows, F, circ, dev, tag, k1_n, k1_table, rng,
                      dblock=681):
     """K1-K3 of field F (instance `tag`) against their plain versions at
@@ -672,6 +704,7 @@ def check_fp_kernels(rows, F, circ, dev, tag, k1_n, k1_table, rng,
     h0, h1 = qd["h0"], qd["h1"]
     err = max_err(fpm.fp_wire_sums(F, hv, Wh, Wo, h0, h1),
                   pm.wire_sums_plain(F, hv, Wh, Wo, h0, h1))
+    err = max(err, check_k3_shapes(F, tag, dev, rng))
     err = max(err, max_err(F.lazy_sum(hv, 0), pm.axis_sum_plain(F, hv, 0)))
     # the Ligero row sums: the tableau's rows over the dblock width
     rws = elts(k1_table[0] * dblock).reshape(k1_table[0], dblock, F.nlimb)
@@ -1202,6 +1235,124 @@ def check_k1_hand_round(rows, F, tag, circ, dev, rng):
                 lambda: (pm.elementwise_plain(F, fpm.BIND, W, r),
                          pm.elementwise_plain(F, fpm.HV, hv, r, h)),
                 nb_bind + nb_hv - eb, mops * (nw // 2 + T), iters=20)
+
+
+# K3's wire mode at the term counts around a block and its grid (one block
+# a lane up to 256 terms, which writes its sums directly), a mid and a
+# large layer (8 lanes of the last two take the wide prime body); at
+# GF(2^128) also the mdoc hash circuit's largest layer.  From
+# K3_PLAIN_SHIFT0 terms the plain version runs at shift 0 only
+K3_SIZES = (1, 255, 256, 257, 1000, 4097, (1 << 16) + 3, 158231)
+K3_G128_LARGE = 3578789
+K3_PLAIN_SHIFT0 = 158231
+
+
+def check_k3_shapes(F, tag, dev, rng):
+    """K3 [tag]'s wire mode (one launch a call) against its plain version
+    at K3_SIZES (and K3_G128_LARGE at [gf2_128], one lane), the round's
+    shifts 0-3 of h and ho (ho one further on, as on a round's second
+    hand), 1 and 8 lanes, each twice back to back on the same scratch,
+    and K1's hv update by the same shift at up to 4,097 terms; then every
+    ticket of K3's scratch must be zero.  From K3_PLAIN_SHIFT0 terms,
+    shifts 1-3 are held to the kernel at shift 0 on the indices shifted
+    beforehand (the shift only moves the indices), which the plain
+    version checks at shift 0.  Returns the largest error."""
+    from longfellow_zk_tpu_torch.fields import fp as fpm
+
+    pm = fpm.plain_of(F)
+    elts = bulk_elts(F, rng, dev)
+    err, ncall = 0, 0
+    sizes = K3_SIZES + ((K3_G128_LARGE,) if F.kCharacteristicTwo else ())
+    for T in sizes:
+        N = 1 << max(4, (T - 1).bit_length())
+        h = torch.as_tensor(rng.integers(0, N, T, dtype=np.int32),
+                            device=dev)
+        ho = torch.as_tensor(rng.integers(0, N, T, dtype=np.int32),
+                             device=dev)
+        for lanes in ((1,) if T == K3_G128_LARGE else (1, 8)):
+            hv = elts(lanes * T).reshape(lanes, T, F.nlimb)
+            Wh = elts(lanes * N).reshape(lanes, N, F.nlimb)
+            r = elts(lanes)
+            for s in range(4):
+                n = N >> s
+                Whs = Wh[:, :n].contiguous()
+                Wo = Wh[:, n // 2 : n].contiguous()
+                if s and T >= K3_PLAIN_SHIFT0:
+                    want = fpm.fp_wire_sums(F, hv, Whs, Wo, h >> s,
+                                            ho >> (s + 1))
+                else:
+                    want = pm.wire_sums_plain(F, hv, Whs, Wo, h, ho, s,
+                                              s + 1)
+                for _ in range(2):
+                    err = max(err, max_err(
+                        fpm.fp_wire_sums(F, hv, Whs, Wo, h, ho, s, s + 1),
+                        want))
+                    ncall += 1
+                if T <= 4097:
+                    err = max(err, max_err(
+                        F.hv_update(hv, h, r, s),
+                        pm.elementwise_plain(F, fpm.HV, hv, r, h, s)))
+    torch.cuda.synchronize()
+    left = sum(int(t.abs().sum()) for _, t in fpm._K3_SCRATCH.values())
+    print("K3[%s] wire mode at %s terms, shifts 0-3 (from %d terms 1-3 "
+          "against shift 0 on the shifted indices), lanes 1 and 8: %d "
+          "calls, max_abs_err %d, tickets left %d" % (
+              tag, ", ".join(map(str, sizes)), K3_PLAIN_SHIFT0, ncall, err,
+              left))
+    return err + left
+
+
+def check_layer_hv(rows, F, tag, circs, dev, rng):
+    """K23 [tag] (layer_hv) against its plain version at every layer of
+    each circuit of `circs`, in the order of its wire rounds
+    (SumcheckProver._hv_terms: the merge plan's permutation applied to
+    the terms at upload), 1 and 8 lanes, beta a strided view as the
+    prover's draws; the row "layer_hv[tag]" at the largest layer of the
+    first circuit, one lane.  Bound: the bytes (layer_hv_bytes: hv
+    written, dot read once at each distinct g, g, v and bmask read once)
+    or the products; library: one index_select of dot by the terms' g
+    (a part of the work)."""
+    from longfellow_zk_tpu_torch.fields import fp as fpm
+    from longfellow_zk_tpu_torch.sumcheck.prover import SumcheckProver
+
+    elts = bulk_elts(F, rng, dev)
+    sp = SumcheckProver(F, dev)
+    eb, mops = 4 * F.nlimb, MUL_OPS[tag]
+    err, nlayers = 0, 0
+    for circ in circs:
+        for ly, layer in enumerate(circ.layers):
+            nv = circ.layers[ly - 1].nw if ly > 0 else circ.nv
+            nv = 1 << max(0, (nv - 1).bit_length())
+            ht = sp._hv_terms(layer.quad, layer.logw)
+            for lanes in (1, 8):
+                dot = elts(lanes * nv).reshape(lanes, nv, F.nlimb)
+                ab = elts(2 * lanes).reshape(lanes, 2, F.nlimb)
+                args = (dot, ht["g"], ht["v"], ht["bmask"], ab[:, 1])
+                err = max(err, max_err(F.layer_hv(*args),
+                                       fpm.layer_hv_plain(F, *args)))
+            nlayers += 1
+    circ = circs[0]
+    ly = max(range(circ.nl), key=lambda i: circ.layers[i].nterms)
+    layer = circ.layers[ly]
+    nv = circ.layers[ly - 1].nw if ly > 0 else circ.nv
+    nv = 1 << max(0, (nv - 1).bit_length())
+    ht = sp._hv_terms(layer.quad, layer.logw)
+    T = layer.nterms
+    nd = int(torch.unique(ht["g"]).numel())
+    dot = elts(nv).reshape(1, nv, F.nlimb)
+    ab = elts(2).reshape(1, 2, F.nlimb)
+    args = (dot, ht["g"], ht["v"], ht["bmask"], ab[:, 1])
+    print("K23[%s] at every layer of %d circuit(s) (%d layers), 1 and 8 "
+          "lanes: max_abs_err %d; the row at layer %d: %d terms, %d "
+          "output wires (%d of them named by a term)" % (
+              tag, len(circs), nlayers, err, ly, T, nv, nd))
+    rows.record("layer_hv[%s]" % tag,
+                "longfellow_zk_tpu_torch/csrc/layer_hv.cu",
+                "longfellow_zk_tpu/sumcheck/prover_device.py:667", err,
+                lambda: F.layer_hv(*args),
+                lambda: fpm.layer_hv_plain(F, *args),
+                layer_hv_bytes(eb, T, nd, 1), mops * T,
+                library_fn=lambda: dot.index_select(1, ht["g"]), iters=20)
 
 
 def check_round_tail(rows, F, dev, tag, rng, clock_mhz, cubic=False):
@@ -1842,19 +1993,7 @@ class FieldApi:
         return list(v) if isinstance(v, np.ndarray) else v
 
     def fast_elts(self, F):
-        """elts(n): n random canonical elements of F on the card, made in
-        bulk: uniform words, the top one below p's top word (GF(2^128):
-        any words)."""
-        N, rng, dev = F.nlimb, self.rng, self.dev
-        ptop = None if F.kCharacteristicTwo else F.p >> (32 * (N - 1))
-
-        def elts(m):
-            w = rng.integers(0, 1 << 32, (m, N), dtype=np.uint64)
-            if ptop is not None:
-                w[:, -1] %= ptop
-            return torch.as_tensor(w.astype(np.uint32).view(np.int32),
-                                   device=dev)
-        return elts
+        return bulk_elts(F, self.rng, self.dev)
 
     def operands(self, make, n=None):
         n = n or self.n
@@ -2932,7 +3071,7 @@ def copy_split(prove):
     """Device ms of one proof: the copy rounds' own kernels (K16 and the
     K10 launches that follow one, its cubic mode), the wire rounds' (K3's
     wire sums and the K10 launches that follow them) and the rest (K1's
-    binds and products, K2, K3's finish and sums, K9, copies; shared by
+    binds and products, K2, K3's sums, K9, K23, copies; shared by
     both and by the evaluation), from the profiler's kernel names in
     stream order; and the wall ms."""
     from torch.profiler import ProfilerActivity, profile
@@ -2951,7 +3090,7 @@ def copy_split(prove):
         if "k_copy_round" in e.name:
             last = "copy"
             split["copy"] += ms
-        elif "k_wire_partial" in e.name:
+        elif "k_wire" in e.name:
             last = "wire"
             split["wire"] += ms
         elif "k_round_tail<" in e.name:
@@ -3011,7 +3150,7 @@ def run_copies_path(F, circ, W_host, dev, kernels, rows, smi):
               k.startswith(("fp_elementwise[", "fp_segment_sum[",
                             "fp_wire_round[", "fs_oracle[",
                             "sumcheck_round_tail[", "copy_round_sums[",
-                            "sumcheck_round_tail_cubic["))]
+                            "sumcheck_round_tail_cubic[", "layer_hv["))]
     _, first_ms, launches, why = first_run(kernels, expect,
                                            lambda: prove([]))
     print("first proof: %.1f ms (uploads the circuit's copy tables)"
@@ -3063,7 +3202,7 @@ def run_copies_path(F, circ, W_host, dev, kernels, rows, smi):
     busy = sum(split.values())
     print("sumcheck_sha256_copies64 device ms of one proof: copy rounds "
           "%.3f (K16, K10 cubic), wire rounds %.3f (K3 wire sums, K10), "
-          "the rest %.3f (K1, K2, K3 finish and sums, K9); %.1f ms wall, "
+          "the rest %.3f (K1, K2, K3 sums, K9, K23); %.1f ms wall, "
           "busy share %.4f on %s" % (split["copy"], split["wire"],
                                      split["rest"], wall, busy / wall, smi))
 
@@ -3441,6 +3580,13 @@ def main() -> int:
                                (FK, "fp256k1", "bitaddr", zp_bit)):
         check_k9_ligero(rows, Fx, tag, label, zp, dev, rng, clock_mhz)
     check_k1_hand_round(rows, FB, "fp256", c_sig, dev, rng)
+
+    # -- 3n. K23 (the layer prologue) at every layer of the five circuits,
+    #        1 and 8 lanes; a row at each field's largest layer -----------
+    for Fx, tag, cs in ((F, "fp128", [circ]), (FB, "fp256", [c_sig, ecirc]),
+                        (GF, "gf2_128", [c_hash]),
+                        (FK, "fp256k1", [bcirc])):
+        check_layer_hv(rows, Fx, tag, cs, dev, rng)
     if rows.failures:
         print("FAIL: kernels disagree with their plain versions:",
               rows.failures)

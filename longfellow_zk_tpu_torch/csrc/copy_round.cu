@@ -49,9 +49,9 @@ __global__ void k_copy_round(uint4* __restrict__ out,
   typedef Fp<C> E;
   constexpr int N = C::N;
   const long long npair = ncopy / 2;
-  u64 s0[N], s2[N], s3[N];
+  u64 sums[3][N];  // c0, c2, c3
 #pragma unroll
-  for (int k = 0; k < N; k++) s0[k] = s2[k] = s3[k] = 0;
+  for (int k = 0; k < N; k++) sums[0][k] = sums[1][k] = sums[2][k] = 0;
   for (long long t = (long long)blockIdx.x * NT + threadIdx.x; t < T;
        t += (long long)gridDim.x * NT) {
     const long long wr = (long long)h0[t] * ncopy;
@@ -73,23 +73,11 @@ __global__ void k_copy_round(uint4* __restrict__ out,
       fp_acc(p3, fp_mul(d2, c1m));
     }
     const E h = E::load(hv, t);
-    fp_acc(s0, fp_mul(fp_reduce_acc<C>(p0), h));
-    fp_acc(s2, fp_mul(fp_reduce_acc<C>(p2), h));
-    fp_acc(s3, fp_mul(fp_reduce_acc<C>(p3), h));
+    fp_acc(sums[0], fp_mul(fp_reduce_acc<C>(p0), h));
+    fp_acc(sums[1], fp_mul(fp_reduce_acc<C>(p2), h));
+    fp_acc(sums[2], fp_mul(fp_reduce_acc<C>(p3), h));
   }
-  const int nblk = gridDim.x;
-  block_sum<C>(s0, partial + N * (0LL * nblk + blockIdx.x));
-  block_sum<C>(s2, partial + N * (1LL * nblk + blockIdx.x));
-  block_sum<C>(s3, partial + N * (2LL * nblk + blockIdx.x));
-  // the partials (thread 0's writes) are visible before the count moves
-  __threadfence();
-  __shared__ bool last;
-  if (threadIdx.x == 0) last = atomicAdd(done, 1u) == (unsigned)nblk - 1u;
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
-  for (int o = 0; o < 3; o++) finish_one<C>(partial, nblk, o, out);
-  if (threadIdx.x == 0) *done = 0u;  // ready for the next launch
+  sum_group<C, 3>(sums, partial, gridDim.x, 0, blockIdx.x, done, out);
 }
 
 // scratch: 3 N nblk 64-bit words of partials, then the count of blocks

@@ -49,7 +49,8 @@
 //   3 bind  the bound half of each row of a (rows of length `row`): out
 //           has row / 2 elements a row, out[j] = lo + (hi - lo) * r for the
 //           pair (a[2j], a[2j+1]) of its row
-//   4 hv    out[i] = a[i] * (h[i % bdiv] odd ? r : 1 - r)
+//   4 hv    out[i] = a[i] * ((h[i % bdiv] >> shift) odd ? r : 1 - r), the
+//           round's shift of the hand's indices an argument (0-31)
 //   5 sqr   out[i] = a[i]^2
 //   6 neg   out[i] = -a[i]
 //   7 eq    outb[i] = (a[i] == b[...]), one byte (0 or 1)
@@ -101,7 +102,7 @@ __global__ void k_fp_elementwise(int mode, uint4* __restrict__ out,
                                  const uint4* __restrict__ b,
                                  const int* __restrict__ h, long long n,
                                  long long row, long long bdiv,
-                                 long long bmod, int bkind) {
+                                 long long bmod, int bkind, int shift) {
   typedef Fp<C> E;
   long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
@@ -147,7 +148,7 @@ __global__ void k_fp_elementwise(int mode, uint4* __restrict__ out,
     }
     default: {
       E rr = E::load(b, (i / bdiv) * bmod);
-      E f = (h[i % bdiv] & 1) ? rr : fp_sub(fp_one<C>(), rr);
+      E f = ((h[i % bdiv] >> shift) & 1) ? rr : fp_sub(fp_one<C>(), rr);
       r = fp_mul(E::load(a, i), f);
       break;
     }
@@ -553,7 +554,7 @@ template <int MODE, bool TAB>
 __global__ void __launch_bounds__(G128_THREADS)
     k_g128_lane(uint4* __restrict__ out, const uint4* __restrict__ a,
                 const uint4* __restrict__ b, const int* __restrict__ h,
-                long long L, long long bmod) {
+                long long L, long long bmod, int shift) {
   typedef Fp<G128> F;
   extern __shared__ __align__(16) uint4 g128_tab[];
   const long long lane = blockIdx.y;
@@ -585,7 +586,7 @@ __global__ void __launch_bounds__(G128_THREADS)
     if constexpr (MODE == M_BIND)
       p = fp_add(lo, p);
     else if constexpr (MODE == M_HV)
-      p = (h[j] & 1) ? p : fp_add(x, p);
+      p = ((h[j] >> shift) & 1) ? p : fp_add(x, p);
     p.store(out, o0 + j);
   }
 }
@@ -607,7 +608,7 @@ static int g128_resident(K kernel, size_t smem) {
 template <int MODE>
 static void g128_lane_launch(void* out, const void* a, const void* b,
                              const void* h, long long lanes, long long L,
-                             long long bmod, cudaStream_t s) {
+                             long long bmod, int shift, cudaStream_t s) {
   const long long need = (L + G128_THREADS - 1) / G128_THREADS;
   if (lanes * L >= G128_TAB_MIN) {
     static const int resident =
@@ -616,12 +617,13 @@ static void g128_lane_launch(void* out, const void* a, const void* b,
     k_g128_lane<MODE, true>
         <<<dim3((unsigned)std::min(need, per), (unsigned)lanes), G128_THREADS,
            G128_TAB_BYTES, s>>>((uint4*)out, (const uint4*)a,
-                                (const uint4*)b, (const int*)h, L, bmod);
+                                (const uint4*)b, (const int*)h, L, bmod,
+                                shift);
   } else {
     k_g128_lane<MODE, false>
         <<<dim3((unsigned)need, (unsigned)lanes), G128_THREADS, 0, s>>>(
             (uint4*)out, (const uint4*)a, (const uint4*)b, (const int*)h, L,
-            bmod);
+            bmod, shift);
   }
 }
 
@@ -641,21 +643,21 @@ static void g128_ew_launch(void* out, const void* a, const void* b,
 static int g128_elementwise(int mode, void* out, const void* a,
                             const void* b, const void* h, long long n,
                             long long bdiv, long long bmod, int bkind,
-                            cudaStream_t s) {
+                            int shift, cudaStream_t s) {
   if (mode == M_BIND || mode == M_HV) {
     const long long lanes = n / bdiv;
     if (lanes > 65535) return (int)cudaErrorInvalidValue;
     if (mode == M_BIND)
-      g128_lane_launch<M_BIND>(out, a, b, h, lanes, bdiv, bmod, s);
+      g128_lane_launch<M_BIND>(out, a, b, h, lanes, bdiv, bmod, 0, s);
     else
-      g128_lane_launch<M_HV>(out, a, b, h, lanes, bdiv, bmod, s);
+      g128_lane_launch<M_HV>(out, a, b, h, lanes, bdiv, bmod, shift, s);
     return (int)cudaGetLastError();
   }
   if (mode == M_MUL && (bkind == B_ONE || (bkind != B_FULL &&
                                             bdiv >= G128_LANE_MIN &&
                                             n / bdiv <= 65535))) {
     const long long lanes = bkind == B_ONE ? 1 : n / bdiv;
-    g128_lane_launch<M_MUL>(out, a, b, h, lanes, n / lanes, bmod, s);
+    g128_lane_launch<M_MUL>(out, a, b, h, lanes, n / lanes, bmod, 0, s);
     return (int)cudaGetLastError();
   }
 #define LFZK_G128(M)                                            \
@@ -760,7 +762,8 @@ __global__ void __launch_bounds__(EW_THREADS)
     k_fp_lane(uint4* __restrict__ outw, const uint4* __restrict__ w,
               uint4* __restrict__ outh, const uint4* __restrict__ hv,
               const int* __restrict__ h, const uint4* __restrict__ r,
-              uint32_t LW, uint32_t LH, uint32_t nbw, long long bmod) {
+              uint32_t LW, uint32_t LH, uint32_t nbw, long long bmod,
+              int shift) {
   typedef Fp<C> E;
   const uint32_t lane = blockIdx.y;
   const E rr = E::load(r, (long long)lane * bmod);
@@ -779,7 +782,7 @@ __global__ void __launch_bounds__(EW_THREADS)
         threadIdx.x;
     if (j >= LH) return;
     const u64 i = (u64)lane * LH + j;
-    const E f = (h[j] & 1) ? rr : fp_sub(fp_one<C>(), rr);
+    const E f = ((h[j] >> shift) & 1) ? rr : fp_sub(fp_one<C>(), rr);
     fp_mul(E::load(hv, (long long)i), f).store(outh, (long long)i);
   }
 }
@@ -788,7 +791,7 @@ template <class C, int MODE>
 static int lane_launch(void* outw, const void* w, void* outh,
                        const void* hv, const void* h, const void* r,
                        long long lanes, long long LW, long long LH,
-                       long long bmod, cudaStream_t s) {
+                       long long bmod, int shift, cudaStream_t s) {
   if (lanes <= 0 || lanes > 65535 || LW >= (1ll << 32) ||
       LH >= (1ll << 32))
     return (int)cudaErrorInvalidValue;
@@ -800,7 +803,7 @@ static int lane_launch(void* outw, const void* w, void* outh,
                        EW_THREADS, 0, s>>>(
       (uint4*)outw, (const uint4*)w, (uint4*)outh, (const uint4*)hv,
       (const int*)h, (const uint4*)r, (uint32_t)LW, (uint32_t)LH,
-      (uint32_t)nbw, bmod);
+      (uint32_t)nbw, bmod, shift);
   return (int)cudaGetLastError();
 }
 
@@ -825,20 +828,20 @@ static int words_elementwise(int mode, void* out, const void* a,
                              const void* b, const void* h, long long n,
                              long long bdiv, long long bmod, int bkind,
                              void* out2, const void* a2, long long n2,
-                             cudaStream_t s) {
+                             int shift, cudaStream_t s) {
   const long long lanes = (mode == M_BIND || mode == M_HV ||
                            mode == M_BIND_HV) ? n / bdiv : 0;
   switch (mode) {
     case M_BIND:
       return lane_launch<C, M_BIND>(out, a, nullptr, nullptr, nullptr, b,
-                                    lanes, bdiv, 0, bmod, s);
+                                    lanes, bdiv, 0, bmod, 0, s);
     case M_HV:
       return lane_launch<C, M_HV>(nullptr, nullptr, out, a, h, b, lanes, 0,
-                                  bdiv, bmod, s);
+                                  bdiv, bmod, shift, s);
     case M_BIND_HV:
       if (n2 % lanes) return (int)cudaErrorInvalidValue;
       return lane_launch<C, M_BIND_HV>(out, a, out2, a2, h, b, lanes, bdiv,
-                                       n2 / lanes, bmod, s);
+                                       n2 / lanes, bmod, shift, s);
 #define LFZK_EW(M) \
   case M:          \
     return ew_launch<C, M>(out, a, b, h, n, bdiv, bmod, bkind, s);
@@ -860,15 +863,18 @@ template <class C>
 static int fp_elementwise(int mode, void* out, const void* a, const void* b,
                           const void* h, long long n, long long row,
                           long long bdiv, long long bmod, void* out2,
-                          const void* a2, long long n2, void* stream) {
+                          const void* a2, long long n2, int shift,
+                          void* stream) {
   if (n <= 0) return 0;
+  if (shift < 0 || shift > 31) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const int bkind = bdiv == 1 && bmod >= n ? B_FULL
                     : bmod == 1            ? B_ONE
                     : n <= 0xFFFFFFFFll    ? B_DIV32
                                            : B_DIV64;
   if constexpr (std::is_same<C, G128>::value) {
-    return g128_elementwise(mode, out, a, b, h, n, bdiv, bmod, bkind, s);
+    return g128_elementwise(mode, out, a, b, h, n, bdiv, bmod, bkind, shift,
+                            s);
   } else if constexpr (C::N == 1 || C::N == 17) {
 #define LFZK_MODE(M)                                                \
   case M:                                                           \
@@ -894,20 +900,20 @@ static int fp_elementwise(int mode, void* out, const void* a, const void* b,
     long long blocks = (n + threads - 1) / threads;
     k_fp_elementwise<C><<<(unsigned)blocks, threads, 0, s>>>(
         mode, (uint4*)out, (const uint4*)a, (const uint4*)b, (const int*)h,
-        n, row, bdiv, bmod, bkind);
+        n, row, bdiv, bmod, bkind, shift);
     return (int)cudaGetLastError();
   } else {
     return words_elementwise<C>(mode, out, a, b, h, n, bdiv, bmod, bkind,
-                                out2, a2, n2, s);
+                                out2, a2, n2, shift, s);
   }
 }
 
 #define LFZK_ARGS                                                          \
   int mode, void *out, const void *a, const void *b, const void *h,       \
       long long n, long long row, long long bdiv, long long bmod,         \
-      void *out2, const void *a2, long long n2, void *stream
+      void *out2, const void *a2, long long n2, int shift, void *stream
 #define LFZK_PASS \
-  mode, out, a, b, h, n, row, bdiv, bmod, out2, a2, n2, stream
+  mode, out, a, b, h, n, row, bdiv, bmod, out2, a2, n2, shift, stream
 extern "C" int fp_elementwise_fp128(LFZK_ARGS) {
   return fp_elementwise<P128>(LFZK_PASS);
 }

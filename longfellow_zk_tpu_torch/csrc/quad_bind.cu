@@ -19,54 +19,56 @@
 // the tables of at most 2^20 elements keep mostly in L2); for GF(2^128)
 // the three shift-and-XOR products (about 6,000 32-bit operations a term,
 // gf2.cuh) set the time.  A simple design: one thread per term,
-// grid-stride, then the two-pass sum of reduce.cuh (per-block 64-bit limb
-// partials, k_finish reduces once): exact, deterministic, no atomics.
+// grid-stride, then the two-pass sum of reduce.cuh in the same launch
+// (per-block 64-bit limb partials, the last block to finish sums them and
+// reduces once: sum_group): exact, deterministic, no atomic in a sum.
 // 3.58M terms of 32-bit limbs stay below 2^54 in each accumulator.
 #include "reduce.cuh"
 
 template <class C>
-__global__ void k_quad_partial(const long long* __restrict__ g,
-                               const int* __restrict__ h0,
-                               const int* __restrict__ h1,
-                               const uint4* __restrict__ v,
-                               const unsigned char* __restrict__ bmask,
-                               const uint4* __restrict__ dot,
-                               const uint4* __restrict__ eqh0,
-                               const uint4* __restrict__ eqh1,
-                               const uint4* __restrict__ beta, long long T,
-                               u64* __restrict__ partial) {
+__global__ void k_quad_bind(const long long* __restrict__ g,
+                            const int* __restrict__ h0,
+                            const int* __restrict__ h1,
+                            const uint4* __restrict__ v,
+                            const unsigned char* __restrict__ bmask,
+                            const uint4* __restrict__ dot,
+                            const uint4* __restrict__ eqh0,
+                            const uint4* __restrict__ eqh1,
+                            const uint4* __restrict__ beta, long long T,
+                            u64* __restrict__ partial,
+                            unsigned int* __restrict__ ticket,
+                            uint4* __restrict__ out) {
   typedef Fp<C> E;
   constexpr int N = C::N;
-  u64 acc[N];
+  u64 acc[1][N];
 #pragma unroll
-  for (int j = 0; j < N; j++) acc[j] = 0;
+  for (int j = 0; j < N; j++) acc[0][j] = 0;
   const E b = E::load(beta, 0);
   for (long long t = (long long)blockIdx.x * NT + threadIdx.x; t < T;
        t += (long long)gridDim.x * NT) {
     E x = bmask[t] ? b : E::load(v, t);
     x = fp_mul(x, E::load(dot, g[t]));
     x = fp_mul(x, E::load(eqh0, h0[t]));
-    fp_acc(acc, fp_mul(x, E::load(eqh1, h1[t])));
+    fp_acc(acc[0], fp_mul(x, E::load(eqh1, h1[t])));
   }
-  block_sum<C>(acc, partial + N * (long long)blockIdx.x);
+  sum_group<C, 1>(acc, partial, gridDim.x, 0, blockIdx.x, ticket, out);
 }
 
-// scratch: at least N * nblk 64-bit words.
+// scratch: at least N * nblk 64-bit words; ticket: one count, zero before
+// the launch and left zero by it.
 template <class C>
 static int fp_quad_bind(void* out, void* scratch, const void* g,
                         const void* h0, const void* h1, const void* v,
                         const void* bmask, const void* dot, const void* eqh0,
                         const void* eqh1, const void* beta, long long T,
-                        int nblk, void* stream) {
+                        int nblk, void* ticket, void* stream) {
+  if (nblk <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  u64* partial = (u64*)scratch;
-  k_quad_partial<C><<<nblk, NT, 0, st>>>(
+  k_quad_bind<C><<<nblk, NT, 0, st>>>(
       (const long long*)g, (const int*)h0, (const int*)h1, (const uint4*)v,
       (const unsigned char*)bmask, (const uint4*)dot, (const uint4*)eqh0,
-      (const uint4*)eqh1, (const uint4*)beta, T, partial);
-  int e = (int)cudaGetLastError();
-  if (e) return e;
-  k_finish<C><<<1, NT, 0, st>>>(partial, nblk, (uint4*)out);
+      (const uint4*)eqh1, (const uint4*)beta, T, (u64*)scratch,
+      (unsigned int*)ticket, (uint4*)out);
   return (int)cudaGetLastError();
 }
 
@@ -74,20 +76,20 @@ static int fp_quad_bind(void* out, void* scratch, const void* g,
   void *out, void *scratch, const void *g, const void *h0, const void *h1, \
       const void *v, const void *bmask, const void *dot, const void *eqh0, \
       const void *eqh1, const void *beta, long long T, int nblk,           \
-      void *stream
+      void *ticket, void *stream
 extern "C" int fp_quad_bind_fp128(LFZK_ARGS) {
   return fp_quad_bind<P128>(out, scratch, g, h0, h1, v, bmask, dot, eqh0,
-                            eqh1, beta, T, nblk, stream);
+                            eqh1, beta, T, nblk, ticket, stream);
 }
 extern "C" int fp_quad_bind_fp256(LFZK_ARGS) {
   return fp_quad_bind<P256>(out, scratch, g, h0, h1, v, bmask, dot, eqh0,
-                            eqh1, beta, T, nblk, stream);
+                            eqh1, beta, T, nblk, ticket, stream);
 }
 extern "C" int fp_quad_bind_fp256k1(LFZK_ARGS) {
   return fp_quad_bind<P256K1>(out, scratch, g, h0, h1, v, bmask, dot, eqh0,
-                              eqh1, beta, T, nblk, stream);
+                              eqh1, beta, T, nblk, ticket, stream);
 }
 extern "C" int fp_quad_bind_gf2_128(LFZK_ARGS) {
   return fp_quad_bind<G128>(out, scratch, g, h0, h1, v, bmask, dot, eqh0,
-                            eqh1, beta, T, nblk, stream);
+                            eqh1, beta, T, nblk, ticket, stream);
 }

@@ -13,14 +13,15 @@ limbs), so the two packages hold the same integers
 
 Every tensor operation is a wrapper over one of the hand-written kernels
 (K1 fp_elementwise, K2 fp_segment_sum, K3 fp_wire_round, K16
-copy_round_sums, the sums of the plain sumcheck's copy rounds, and K21
-fp_inv; see kernels.py).  For a CUDA tensor the wrapper launches its
+copy_round_sums, the sums of the plain sumcheck's copy rounds, K21
+fp_inv, and K23 layer_hv, the sumcheck's layer prologue; see
+kernels.py).  For a CUDA tensor the wrapper launches its
 kernel; for a CPU tensor it runs the kernel's plain PyTorch version,
 which lives in this module too (`*_plain`) and computes in int64 over
 16-bit limbs (CPU PyTorch has no uint32 `+`, `<<` or `>>`).  The kernels
 have an instance for each field of `fp_instances.KERNEL_TAGS` (K1-K3
-and K21 for all of them; K16 for the sumcheck fields Fp128, P-256 and
-secp256k1) and one for GF(2^128) (fields/gf2.py, whose plain versions
+and K21 for all of them, K3's wire mode up to 8 words; K16 and K23 for
+the sumcheck fields Fp128, P-256 and secp256k1) and one for GF(2^128) (fields/gf2.py, whose plain versions
 the wrappers take for it); a CUDA tensor of another field raises.  The
 plain versions here take any odd p below 2^544.
 """
@@ -51,8 +52,15 @@ BIND_HV_WORDS = (2, 4, 8, 12)
 UNARY = (SQR, NEG, IS_ZERO, INV)
 BOOL_OUT = (EQ, IS_ZERO)
 
-# K3 grid: blocks per output, at most
+# K3 grid: blocks per output, at most.  The prime wire mode
+# (csrc/wire_round.cu k_wire) takes its wide body (products unreduced,
+# reduced once a thread) from _K3_WIDE_MIN terms a launch,
+# _K3_WIDE_TERMS terms a thread at least: the batch prover's 8 SHA-256
+# lanes (8 x 72,534 terms) are the served launches past _K3_WIDE_MIN,
+# and on an H100 they ran fastest at 4 terms a thread (PERF.md, PR 18)
 _K3_MAX_BLOCKS = 264
+_K3_WIDE_MIN = 1 << 19
+_K3_WIDE_TERMS = 4
 # K16 grid: blocks, at most; copy pairs per chunk of its plain version
 # (bounds the plain products' int64 temporaries: about 0.5 GB for a
 # P-256 product)
@@ -100,11 +108,19 @@ class FieldOps:
         return fp_elementwise(self, SELECT, a, b, h=cond)
 
     def bind_hv(self, W: torch.Tensor, hv: torch.Tensor, h: torch.Tensor,
-                r: torch.Tensor):
+                r: torch.Tensor, s: int = 0):
         """A hand-round's two updates by its challenge r: (bind(W, r),
-        hv_update(hv, h, r)), one K1 launch where K1 has the mode
+        hv_update(hv, h, r, s)), one K1 launch where K1 has the mode
         (fp_bind_hv)."""
-        return fp_bind_hv(self, W, hv, h, r)
+        return fp_bind_hv(self, W, hv, h, r, s)
+
+    def layer_hv(self, dot: torch.Tensor, g: torch.Tensor, v: torch.Tensor,
+                 bmask: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
+        """The layer prologue, hv [B, T, N]: hv[b, j] = (bmask[j] ?
+        beta[b] : v[j]) * dot[b, g[j]] for dot [B, nv, N], the terms'
+        output wires g (int32 [T]), coefficients v [T, N] and beta flags
+        bmask (bool [T]), and beta [B, N] (K23, fp_layer_hv)."""
+        return fp_layer_hv(self, dot, g, v, bmask, beta)
 
     def natural_limbs_to_bytes_dev(self, x: torch.Tensor) -> torch.Tensor:
         """Natural-form limbs [..., N] -> their little-endian bytes, uint8
@@ -284,10 +300,10 @@ class PrimeField(FieldOps):
         return fp_elementwise(self, BIND, x, r)
 
     def hv_update(self, hv: torch.Tensor, h: torch.Tensor,
-                  r: torch.Tensor) -> torch.Tensor:
-        """hv[t] * (h[t] odd ? r : 1 - r); r [N], or [B, N] for hv [B,
-        T, N] with h [T] shared by the lanes."""
-        return fp_elementwise(self, HV, hv, r, h=h)
+                  r: torch.Tensor, s: int = 0) -> torch.Tensor:
+        """hv[t] * ((h[t] >> s) odd ? r : 1 - r); r [N], or [B, N] for hv
+        [B, T, N] with h [T] shared by the lanes."""
+        return fp_elementwise(self, HV, hv, r, h=h, shift=s)
 
     def lazy_sum(self, x: torch.Tensor, dim: int) -> torch.Tensor:
         """Field sum along element axis `dim` of x [..., N]."""
@@ -438,10 +454,12 @@ def compare_plain(mode: int, a: torch.Tensor, b: torch.Tensor,
 
 
 def elementwise_plain(F: PrimeField, mode: int, a: torch.Tensor,
-                      b: torch.Tensor, h: Optional[torch.Tensor] = None):
+                      b: torch.Tensor, h: Optional[torch.Tensor] = None,
+                      shift: int = 0):
     """Plain version of K1 (fp_elementwise); any device.  In bind and hv
     b holds one challenge per lane (lanes = b's elements), lane-major in
-    a; in select h holds the conditions (bool)."""
+    a; hv reads h[t] >> shift; in select h holds the conditions
+    (bool)."""
     if mode in (EQ, IS_ZERO, SELECT):
         return compare_plain(mode, a, b, h)
     if mode == SQR:
@@ -462,8 +480,8 @@ def elementwise_plain(F: PrimeField, mode: int, a: torch.Tensor,
         return _join16(bound).reshape(a.shape[:-2] + (row // 2, F.nlimb))
     if mode == HV:
         one = _const16(F._one16, r)
-        f = torch.where((h.reshape(1, -1) & 1).bool()[..., None], r,
-                        _sub16(F, one, r))
+        f = torch.where(((h.reshape(1, -1) >> shift) & 1).bool()[..., None],
+                        r, _sub16(F, one, r))
         a16 = _split16(a).reshape(nl, -1, F.nl16)
         return _join16(_mont_mul16(F, a16, f.expand_as(a16))).reshape(
             a.shape)
@@ -530,11 +548,13 @@ def axis_sum_plain(F: PrimeField, x: torch.Tensor, dim: int) -> torch.Tensor:
     return _join16(_renorm16(F, _split16(x).sum(dim=dim)))
 
 
-def wire_sums_plain(F: PrimeField, hv, Wh, Wo, h, ho) -> torch.Tensor:
+def wire_sums_plain(F: PrimeField, hv, Wh, Wo, h, ho, s: int = 0,
+                    so: int = 0) -> torch.Tensor:
     """Plain version of K3 mode 0: [a0, a2] as a [2, N] tensor; [B, 2,
-    N] with a leading lane axis on hv, Wh and Wo."""
-    h, ax = h.long(), hv.dim() - 2
-    z = elementwise_plain(F, MUL, hv, Wo.index_select(ax, ho.long()))
+    N] with a leading lane axis on hv, Wh and Wo.  The round's indices
+    are h >> s and ho >> so."""
+    h, ax = h.long() >> s, hv.dim() - 2
+    z = elementwise_plain(F, MUL, hv, Wo.index_select(ax, ho.long() >> so))
     whi, wlo = Wh.index_select(ax, h | 1), Wh.index_select(ax, h & ~1)
     odd = (h & 1).bool()[:, None]
     t0 = elementwise_plain(F, MUL, z, wlo)
@@ -581,6 +601,18 @@ def copy_round_sums_plain(F, EQ: torch.Tensor, W: torch.Tensor,
                 F, mul(per_term, hv[s : s + step]), 0))
     return torch.stack([pm.axis_sum_plain(F, torch.stack(p), 0)
                         for p in parts])
+
+
+def layer_hv_plain(F, dot: torch.Tensor, g: torch.Tensor, v: torch.Tensor,
+                   bmask: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
+    """Plain version of K23 (csrc/layer_hv.cu), for any sumcheck field
+    (the product of plain_of(F)): the gather of dot [B, nv, N] by g, the
+    select of beta [B, N] or v [T, N] by bmask, their product [B, T,
+    N]."""
+    vq = torch.where(bmask[None, :, None], beta[:, None],
+                     v[None].expand((beta.shape[0],) + tuple(v.shape)))
+    return plain_of(F).elementwise_plain(F, MUL, vq,
+                                         dot.index_select(1, g.long()))
 
 
 # ----------------------------------------------------------------------
@@ -714,19 +746,21 @@ def elementwise_operands(mode: int, a: torch.Tensor, b: torch.Tensor,
 
 
 def fp_elementwise(F: PrimeField, mode: int, a: torch.Tensor, b: torch.Tensor,
-                   h: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   h: Optional[torch.Tensor] = None,
+                   shift: int = 0) -> torch.Tensor:
     """K1 wrapper.  mul/add/sub/eq broadcast a and b over the element
     axes; sqr, neg and is_zero read a alone; select takes its bool
     conditions as h and broadcasts them with a and b.  bind and hv take
     the challenge r as b: one element [N], or one per lane [B, N], lane b
     of a being its b-th B-th part (a [B, ..., N]); hv's indices h are
-    shared by the lanes; bind returns the bound half."""
+    shared by the lanes and read as h >> shift (the round's shift, 0-31);
+    bind returns the bound half."""
     if mode not in range(SELECT + 1):
         raise ValueError("K1 has no mode %d" % mode)
     name = route("fp_elementwise", F,
                  *[t for t in (a, b, h) if t is not None])
     if name is None:
-        return plain_of(F).elementwise_plain(F, mode, a, b, h)
+        return plain_of(F).elementwise_plain(F, mode, a, b, h, shift)
     if mode in (BIND, HV):
         lanes, rstride = _lane_challenges(F, b)
         if mode == BIND:
@@ -737,15 +771,24 @@ def fp_elementwise(F: PrimeField, mode: int, a: torch.Tensor, b: torch.Tensor,
             hp = h.data_ptr()
         n = out.numel() // F.nlimb
         kernels.launch(name, 1, mode, out.data_ptr(), a.data_ptr(),
-                       b.data_ptr(), hp, n, row, n // lanes, rstride, 0, 0, 0)
+                       b.data_ptr(), hp, n, row, n // lanes, rstride, 0, 0, 0,
+                       _shift(shift))
         return out
     # the full operand goes first (sub and select do not commute)
     out, a, b, cond, n, bdiv, bmod = elementwise_operands(
         mode, a, b, h, F.elt_shape)
     kernels.launch(name, 1, mode, out.data_ptr(), a.data_ptr(), b.data_ptr(),
                    0 if cond is None else cond.data_ptr(), n, 1, bdiv, bmod,
-                   0, 0, 0)
+                   0, 0, 0, 0)
     return out
+
+
+def _shift(s: int) -> int:
+    """A round's shift of the hand indices (checked: 0-31)."""
+    if not 0 <= s <= 31:
+        raise ValueError("a shift of the indices must lie in 0-31, got %r"
+                         % (s,))
+    return int(s)
 
 
 def _bind_out(F, a: torch.Tensor, lanes: int) -> torch.Tensor:
@@ -776,27 +819,28 @@ def _hv_out(F, a: torch.Tensor, h, lanes: int) -> torch.Tensor:
 
 
 def fp_bind_hv(F, W: torch.Tensor, hv: torch.Tensor, h: torch.Tensor,
-               r: torch.Tensor):
+               r: torch.Tensor, s: int = 0):
     """K1 wrapper, a hand-round's two updates by its challenge r (one
-    element [N], or one a lane [B, N]): (bind(W, r), hv_update(hv, h, r)),
-    W [..., row, N] and hv [..., T, N] lane-major as in fp_elementwise.
-    One launch (mode BIND_HV) at the 2-12-word prime instances; at the
-    others (GF(2^128), the one- and 17-word primes) the launches of bind
-    and hv.  The plain version composes the plain bind and hv."""
+    element [N], or one a lane [B, N]): (bind(W, r), hv_update(hv, h, r,
+    s)), W [..., row, N] and hv [..., T, N] lane-major as in
+    fp_elementwise, h read as h >> s.  One launch (mode BIND_HV) at the
+    2-12-word prime instances; at the others (GF(2^128), the one- and
+    17-word primes) the launches of bind and hv.  The plain version
+    composes the plain bind and hv."""
     name = route("fp_elementwise", F, W, hv, h, r)
     if name is None:
         pm = plain_of(F)
         return (pm.elementwise_plain(F, BIND, W, r),
-                pm.elementwise_plain(F, HV, hv, r, h))
+                pm.elementwise_plain(F, HV, hv, r, h, s))
     if F.kCharacteristicTwo or F.nlimb not in BIND_HV_WORDS:
         return (fp_elementwise(F, BIND, W, r),
-                fp_elementwise(F, HV, hv, r, h=h))
+                fp_elementwise(F, HV, hv, r, h=h, shift=s))
     lanes, rstride = _lane_challenges(F, r)
     outw, outh = _bind_out(F, W, lanes), _hv_out(F, hv, h, lanes)
     n, n2 = outw.numel() // F.nlimb, outh.numel() // F.nlimb
     kernels.launch(name, 1, BIND_HV, outw.data_ptr(), W.data_ptr(),
                    r.data_ptr(), h.data_ptr(), n, W.shape[-2], n // lanes,
-                   rstride, outh.data_ptr(), hv.data_ptr(), n2)
+                   rstride, outh.data_ptr(), hv.data_ptr(), n2, _shift(s))
     return outw, outh
 
 
@@ -916,12 +960,46 @@ def fp_eval_layer(F: PrimeField, W: torch.Tensor, h0: torch.Tensor,
     return out, bad[0] == 0
 
 
-def _k3_blocks(n: int) -> int:
-    return max(1, min(_K3_MAX_BLOCKS, (n + 255) // 256))
+def _k3_blocks(n: int, per_thread: int = 1) -> int:
+    """K3's blocks for n terms (or summed rows), per_thread of them a
+    thread at least: up to _K3_MAX_BLOCKS, which fill the card."""
+    return max(1, min(_K3_MAX_BLOCKS, -(-n // (256 * per_thread))))
+
+
+def _k3_wire_grid(F, T: int, lanes: int):
+    """(nblk, wide) of a K3 wire launch over T terms a lane."""
+    if not F.kCharacteristicTwo and T * lanes >= _K3_WIDE_MIN:
+        return _k3_blocks(T, _K3_WIDE_TERMS), 1
+    return _k3_blocks(T), 0
+
+
+# the K3 scratch of each (device, stream), which K7 shares: the partial
+# sums of a call (int64) and the tickets, one count a group of blocks
+# (int32, zero between launches: each launch's last block of a group
+# resets its own), grown as calls need; one stream's launches run in
+# order, so they can share them
+_K3_SCRATCH = {}
+
+
+def _k3_scratch(device, npartial: int, ntickets: int):
+    """(partials, tickets) for one K3 or K7 launch on the current stream of
+    `device`: at least npartial int64 words and ntickets zero counts."""
+    st = torch.cuda.current_stream(device)
+    key = (device.index, st.cuda_stream)
+    part, tick = _K3_SCRATCH.get(key, (None, None))
+    if part is None or part.numel() < npartial:
+        part = torch.empty(max(npartial, 1 << 16), dtype=torch.int64,
+                           device=device)
+    if tick is None or tick.numel() < ntickets:
+        tick = torch.zeros(max(ntickets, 1 << 12), dtype=torch.int32,
+                           device=device)
+    _K3_SCRATCH[key] = (part, tick)
+    return part, tick
 
 
 def fp_axis_sum(F: PrimeField, x: torch.Tensor, dim: int) -> torch.Tensor:
-    """K3 wrapper, mode 1: field sum along element axis `dim`."""
+    """K3 wrapper, mode 1: field sum along element axis `dim` (one
+    launch)."""
     name = route("fp_wire_round", F, x)
     if name is None:
         return plain_of(F).axis_sum_plain(F, x, dim)
@@ -934,22 +1012,27 @@ def fp_axis_sum(F: PrimeField, x: torch.Tensor, dim: int) -> torch.Tensor:
     out = torch.empty(tuple(eshape[:dim]) + tuple(eshape[dim + 1 :]) +
                       F.elt_shape, dtype=torch.int32, device=x.device)
     nblk = _k3_blocks(R)
-    scratch = torch.empty(F.nlimb * A * B * nblk, dtype=torch.int64,
-                          device=x.device)
-    kernels.launch(name, 2, 1, out.data_ptr(), scratch.data_ptr(),
-                   x.data_ptr(), 0, 0, 0, 0, 0, A, R, B, nblk)
+    part, tick = _k3_scratch(x.device, F.nlimb * A * B * nblk, A * B)
+    kernels.launch(name, 1, 1, out.data_ptr(), part.data_ptr(),
+                   x.data_ptr(), 0, 0, 0, 0, 0, A, R, B, nblk, 0, 0, 0,
+                   tick.data_ptr())
     return out
 
 
 def fp_wire_sums(F: PrimeField, hv: torch.Tensor, Wh: torch.Tensor,
-                 Wo: torch.Tensor, h: torch.Tensor,
-                 ho: torch.Tensor) -> torch.Tensor:
-    """K3 wrapper, mode 0: [a0, a2] ([2, N]) of one hand's wire round;
-    with a leading lane axis on hv [B, T, N], Wh [B, nh, N] and Wo [B, no,
-    N] (h and ho shared), [B, 2, N] in the same two launches."""
+                 Wo: torch.Tensor, h: torch.Tensor, ho: torch.Tensor,
+                 s: int = 0, so: int = 0) -> torch.Tensor:
+    """K3 wrapper, mode 0: [a0, a2] ([2, N]) of one hand's wire round, its
+    indices h >> s and the other hand's ho >> so (the round's shifts,
+    0-31); with a leading lane axis on hv [B, T, N], Wh [B, nh, N] and Wo
+    [B, no, N] (h and ho shared), [B, 2, N] in the same one launch.  At
+    the instances of up to 8 words and GF(2^128)."""
     name = route("fp_wire_round", F, hv, Wh, Wo, h, ho)
     if name is None:
-        return plain_of(F).wire_sums_plain(F, hv, Wh, Wo, h, ho)
+        return plain_of(F).wire_sums_plain(F, hv, Wh, Wo, h, ho, s, so)
+    if F.nlimb > 8:
+        raise NotImplementedError("K3's wire mode has no CUDA instance for "
+                                  "%s" % F.name)
     for t, tname in ((hv, "hv"), (Wh, "Wh"), (Wo, "Wo")):
         check_elts(t, tname, F.elt_shape)
     _i32(h, "h")
@@ -961,13 +1044,41 @@ def fp_wire_sums(F: PrimeField, hv: torch.Tensor, Wh: torch.Tensor,
         raise ValueError("hv, Wh and Wo need the same lanes")
     T = hv.shape[-2]
     out = torch.empty((B, 2, F.nlimb), dtype=torch.int32, device=hv.device)
-    nblk = _k3_blocks(T)
-    scratch = torch.empty(2 * B * F.nlimb * nblk, dtype=torch.int64,
-                          device=hv.device)
-    kernels.launch(name, 2, 0, out.data_ptr(), scratch.data_ptr(),
+    nblk, wide = _k3_wire_grid(F, T, B)
+    part, tick = _k3_scratch(hv.device, 2 * B * F.nlimb * nblk, B)
+    kernels.launch(name, 1, 0, out.data_ptr(), part.data_ptr(),
                    hv.data_ptr(), Wh.data_ptr(), Wo.data_ptr(), h.data_ptr(),
-                   ho.data_ptr(), T, B, Wh.shape[-2], Wo.shape[-2], nblk)
+                   ho.data_ptr(), T, B, Wh.shape[-2], Wo.shape[-2], nblk,
+                   _shift(s), _shift(so), wide, tick.data_ptr())
     return out if lanes else out[0]
+
+
+def fp_layer_hv(F, dot: torch.Tensor, g: torch.Tensor, v: torch.Tensor,
+                bmask: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
+    """K23 wrapper: the layer prologue hv [B, T, N] (FieldOps.layer_hv),
+    one launch; beta [B, N] may be a view whose lanes lie a multiple of N
+    words apart (the sumcheck's draws)."""
+    name = route("layer_hv", F, dot, g, v, bmask, beta)
+    if name is None:
+        return plain_of(F).layer_hv_plain(F, dot, g, v, bmask, beta)
+    check_elts(dot, "dot", F.elt_shape)
+    check_elts(v, "v", F.elt_shape)
+    _i32(g, "g")
+    if bmask.dtype != torch.bool or not bmask.is_contiguous():
+        raise ValueError("bmask must be a contiguous bool tensor")
+    T = g.numel()
+    if dot.dim() != 3 or v.shape[0] != T or bmask.numel() != T:
+        raise ValueError("dot must be [B, nv, N] and g, v, bmask hold one "
+                         "entry a term")
+    if beta.dim() != 2 or beta.shape[0] != dot.shape[0]:
+        raise ValueError("beta must hold one element a lane of dot")
+    lanes, bstride = _lane_challenges(F, beta)
+    out = torch.empty((lanes, T) + F.elt_shape, dtype=torch.int32,
+                      device=dot.device)
+    kernels.launch(name, 1, out.data_ptr(), dot.data_ptr(), g.data_ptr(),
+                   v.data_ptr(), bmask.data_ptr(), beta.data_ptr(), T, lanes,
+                   dot.shape[1], bstride)
+    return out
 
 
 def fp_copy_round_sums(F, EQ: torch.Tensor, W: torch.Tensor,

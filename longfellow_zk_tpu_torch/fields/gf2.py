@@ -35,7 +35,8 @@ import torch
 
 from .fp import (ADD, BIND, EQ, HV, IS_ZERO, MUL, NEG, SELECT, SQR, SUB,
                  FieldOps, _join16, _split16, compare_plain, fp_axis_sum,
-                 fp_elementwise, fp_segment_sum)
+                 fp_elementwise, fp_segment_sum,
+                 layer_hv_plain)  # K23's plain version, for plain_of(F)
 
 MASK16 = 0xFFFF
 M128 = (1 << 128) - 1
@@ -258,10 +259,10 @@ class GF2_128(FieldOps):
         return fp_elementwise(self, BIND, x, r)
 
     def hv_update(self, hv: torch.Tensor, h: torch.Tensor,
-                  r: torch.Tensor) -> torch.Tensor:
-        """hv[t] * (h[t] odd ? r : 1 - r); r [4], or [B, 4] for hv [B,
-        T, 4] with h [T] shared."""
-        return fp_elementwise(self, HV, hv, r, h=h)
+                  r: torch.Tensor, s: int = 0) -> torch.Tensor:
+        """hv[t] * ((h[t] >> s) odd ? r : 1 - r); r [4], or [B, 4] for
+        hv [B, T, 4] with h [T] shared."""
+        return fp_elementwise(self, HV, hv, r, h=h, shift=s)
 
     def lazy_sum(self, x: torch.Tensor, dim: int) -> torch.Tensor:
         """XOR along element axis `dim` of x [..., 4]."""
@@ -370,10 +371,11 @@ def _one_like(r: torch.Tensor) -> torch.Tensor:
 
 
 def elementwise_plain(F, mode: int, a: torch.Tensor, b: torch.Tensor,
-                      h: Optional[torch.Tensor] = None) -> torch.Tensor:
+                      h: Optional[torch.Tensor] = None,
+                      shift: int = 0) -> torch.Tensor:
     """Plain version of K1[gf2_128]; any device.  In bind and hv b holds
-    one challenge per lane (lanes = b's elements), lane-major in a; in
-    select h holds the conditions (bool)."""
+    one challenge per lane (lanes = b's elements), lane-major in a; hv
+    reads h[t] >> shift; in select h holds the conditions (bool)."""
     if mode in (EQ, IS_ZERO, SELECT):
         return compare_plain(mode, a, b, h)
     if mode == SQR:
@@ -390,8 +392,8 @@ def elementwise_plain(F, mode: int, a: torch.Tensor, b: torch.Tensor,
         bound = lo ^ mul_plain(hi ^ lo, r[:, None])
         return bound.reshape(a.shape[:-2] + (row // 2, 4))
     if mode == HV:
-        f = torch.where((h.reshape(1, -1) & 1).bool()[..., None], r,
-                        r ^ _one_like(r))
+        f = torch.where(((h.reshape(1, -1) >> shift) & 1).bool()[..., None],
+                        r, r ^ _one_like(r))
         return mul_plain(a.reshape(nl, -1, 4), f).reshape(a.shape)
     if mode == MUL:
         return mul_plain(a, b)
@@ -443,12 +445,13 @@ def axis_sum_plain(F, x: torch.Tensor, dim: int) -> torch.Tensor:
     return y[0].contiguous()
 
 
-def wire_sums_plain(F, hv, Wh, Wo, h, ho) -> torch.Tensor:
+def wire_sums_plain(F, hv, Wh, Wo, h, ho, s: int = 0,
+                    so: int = 0) -> torch.Tensor:
     """Plain version of K3[gf2_128] mode 0: [a0, a2] as a [2, 4] tensor
     (-1 = 1 in characteristic 2); [B, 2, 4] with a leading lane axis on
-    hv, Wh and Wo."""
-    h, ax = h.long(), hv.dim() - 2
-    z = mul_plain(hv, Wo.index_select(ax, ho.long()))
+    hv, Wh and Wo.  The round's indices are h >> s and ho >> so."""
+    h, ax = h.long() >> s, hv.dim() - 2
+    z = mul_plain(hv, Wo.index_select(ax, ho.long() >> so))
     whi, wlo = Wh.index_select(ax, h | 1), Wh.index_select(ax, h & ~1)
     odd = (h & 1).bool()[:, None]
     t0 = mul_plain(z, wlo)

@@ -52,6 +52,7 @@ entry point) per field.  K9's mode 9 (CHOOSE) has entry points of its own,
                                                      fp2.py
     K22 fp24x6_elementwise
                        fp24x6.cu      fp24x6         fields/fp24.py
+    K23 layer_hv       layer_hv.cu    P gf2_128      fields/fp.py
 
 (P: the prime fields fp128, fp256 and fp256k1.  fp128: p = 2^128 -
 2^108 + 1; fp256: the P-256 base field; fp256x2: Fp2 over it; fp256k1:
@@ -68,8 +69,8 @@ sqr and inv; its per-coefficient ops are K1 [fp24] on the six words),
 and K2 and K3 at fp64, p256n, p256k1n, p384 and p521 are the field API
 that no proof path calls (the JAX package's tests drive it):
 chip_smoke.py's sections 3l and 4l check them on the card.  K1's bind
-and hv, K3, K9 (mode 9 too), K10 (its cubic mode too), K11 and K12 take
-a lane axis: the proofs of a batch (zk/batch.py) run in the launches of
+and hv, K3, K9 (mode 9 too), K10 (its cubic mode too), K11, K12 and K23
+take a lane axis: the proofs of a batch (zk/batch.py) run in the launches of
 one proof.  A kernel's name
 here is "kernel[instance]".  `LAUNCHES` counts, per instance, the CUDA
 launches its wrapper made (K2: one a call, its route one kernel or two); a run sets the counts to zero with
@@ -110,13 +111,14 @@ _CRT_TARGETS = ("fp256k1", "p256n", "fp256", "p384", "p521")
 # instance is "<kernel>_<instance>"
 _SOURCES = {
     "fp_elementwise": ("fp_ops.cu", [_I, _P, _P, _P, _P, _LL, _LL, _LL, _LL,
-                                     _P, _P, _LL, _P],
+                                     _P, _P, _LL, _I, _P],
                        _PRIME_API),
     "fp_segment_sum": ("segsum.cu", [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                      _P, _I, _LL, _I, _P, _P],
                        _PRIME_API),
     "fp_wire_round": ("wire_round.cu", [_I, _P, _P, _P, _P, _P, _P, _P, _LL,
-                                        _LL, _LL, _LL, _I, _P], _PRIME_API),
+                                        _LL, _LL, _LL, _I, _I, _I, _I, _P, _P],
+                      _PRIME_API),
     "fp_ntt": ("ntt.cu", [_P, _P, _P, _LL, _I, _LL, _P],
                ("fp128", "fp256x2", "crt")),
     "fp2_elementwise": ("fp2_ops.cu", [_I, _P, _P, _P, _P, _LL, _LL, _LL,
@@ -124,7 +126,7 @@ _SOURCES = {
     "gf2_lch14": ("lch14.cu", [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                _I, _I, _P], ("gf2_128",)),
     "fp_quad_bind": ("quad_bind.cu", [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                      _P, _LL, _I, _P],
+                                      _P, _LL, _I, _P, _P],
                      ("fp128", "fp256", "fp256k1", "gf2_128")),
     "sha256_msgs": ("sha256.cu", [_P, _P, _LL, _I, _P], ("bytes",)),
     "fs_oracle": ("fs.cu", [_I, _P, _P, _P, _P, _LL, _I, _LL, _LL, _P],
@@ -163,6 +165,8 @@ _SOURCES = {
                 "p256k1n", "p384", "p521", "gf2_128", "fp256x2")),
     "fp24x6_elementwise": ("fp24x6.cu", [_I, _P, _P, _P, _LL, _LL, _LL, _P],
                            ("fp24x6",)),
+    "layer_hv": ("layer_hv.cu", [_P, _P, _P, _P, _P, _P, _LL, _LL, _LL, _LL,
+                                 _P], ("fp128", "fp256", "fp256k1", "gf2_128")),
 }
 
 # "kernel[instance]" -> (source, C entry point, argtypes)

@@ -369,7 +369,8 @@ def check_copies(world):
     rec, (proof, got), (_, one) = measure(
         mesh, prove(mesh), prove(None),
         ["copy_round_sums[fp128]", "sumcheck_round_tail_cubic[fp128]",
-         "fp_wire_round[fp128]", "sumcheck_round_tail[fp128]"],
+         "fp_wire_round[fp128]", "sumcheck_round_tail[fp128]",
+         "layer_hv[fp128]"],
         ops_card * world / INT32_OPS_PER_S * 1e3)
     ok = got == golden and one == golden
     if mesh.rank == 0:

@@ -22,8 +22,10 @@ transcript on the card for the constraint build), `words` and
   - begin_circuit (2 x 40 challenges) and each layer's alpha and beta:
     K9 (device_fs.dev_sample_elts; layer 0 continues begin_circuit's
     PRF stream);
-  - the layer prologue (EQ tables from the challenge tensors,
-    hv = vq * dot[g]): K1;
+  - the layer prologue: the EQ tables from the challenge tensors (K1),
+    then hv = (beta-flagged ? beta : v) * dot[g] in the order of the wire
+    rounds (the merge plan's permutation applied to g, v and the flags
+    once, at upload: _wm_for): K23 (F.layer_hv);
   - the copy rounds of a circuit with nc > 1 copies, logc = lg(nc)
     cubic rounds a layer before its wire rounds (prover_layers.h:415-496;
     the JAX package's _copy_scan, :519): K16 (fp_copy_round_sums) sums
@@ -33,14 +35,17 @@ transcript on the card for the constraint build), `words` and
     copies (arrays/dense.bind); the bound EQ[0] weighs the wire rounds
     and the closing check.  The copy challenges of a layer bind the next
     layer's copy EQ (layer 0's are begin_circuit's q);
-  - per hand-round, with z_t = hv_t * W_o[ho_t],
+  - per hand-round, with the hand's indices h and the other's ho as
+    uploaded and the round's shift an argument (h_t = h[t] >> s: the
+    hands' indices move right one bit a round, so the second hand of a
+    round reads ho one round further on), z_t = hv_t * W_o[ho_t],
         a0 = sum_{t: h_t even} z_t * W_h[h_t]
         a2 = sum_t (-1)^(h_t+1) * z_t * (W_h[h_t|1] - W_h[h_t & ~1])
-    in K3 (fp_wire_sums); then K10 (device_fs.round_tail): the round
-    polynomial, the pad, its absorb, the challenge r and the new claim,
-    into the layer's row tensor; then the bind of W_h and the hv update
-    by one K1 launch (F.bind_hv; two at GF(2^128)), reading r from that
-    row;
+    in K3 (fp_wire_sums, one launch); then K10 (device_fs.round_tail):
+    the round polynomial, the pad, its absorb, the challenge r and the
+    new claim, into the layer's row tensor; then the bind of W_h and the
+    hv update by one K1 launch (F.bind_hv; two at GF(2^128)), reading r
+    from that row;
   - wire-round term merging (terms with equal (h0, h1) summed into one,
     a host schedule from _wire_merge_plan): K2 (contiguous folds);
   - bound_quad, the sum of the fully bound hv: K3; the closing check
@@ -283,7 +288,10 @@ class SumcheckProver:
 
     def _wm_for(self, quad, logw: int):
         """Device arrays of the term-merge plan, or None below the
-        K_MERGE_MIN_TERMS threshold."""
+        K_MERGE_MIN_TERMS threshold: its stages, each stage's longest
+        fold, and "terms", the layer's terms in the plan's order (g as
+        int32, v, bmask, h0 and h1 of quad_tensors, permuted once here by
+        the host permutation, which is not kept on the card)."""
         cache = quad.__dict__.setdefault("_torch_cache", {})
         key = ("wm", str(self.device), logw, self.K_MERGE_MIN_TERMS)
         if key not in cache:
@@ -298,15 +306,36 @@ class SumcheckProver:
                 def t(a):
                     return torch.as_tensor(a, device=dev)
 
+                pd = t(perm.astype(np.int64))
+                terms = {k: qd[k][pd].contiguous() for k in ("v", "bmask")}
+                for k in ("g", "h0", "h1"):
+                    terms[k] = t(qd[k + "_np"][perm].astype(np.int32))
                 # each stage's longest fold (K2 takes its scan past a
                 # warp's reach: the first stages hold segments of 10^5
                 # terms)
                 cache[key] = dict(
-                    perm=t(perm.astype(np.int64)),
+                    terms=terms,
                     stages=[(nr, t(s), t(e), t(h0r), t(h1r))
                             for nr, s, e, h0r, h1r in stages],
                     longest=[int((e - s).max()) for _, s, e, _, _ in stages])
         return cache[key]
+
+    def _hv_terms(self, quad, logw: int) -> dict:
+        """The terms of a layer in the order its rounds take them, for
+        K23's prologue and the copy rounds: g (int32), v, bmask, h0 and
+        h1, the merge plan's "terms" where there is a plan, else the
+        quad's g-ordered arrays (g as int32, kept with the quad; the
+        verifier reads the g-ordered ones of quad_tensors)."""
+        plan = self._wm_for(quad, logw)
+        if plan is not None:
+            return plan["terms"]
+        cache = quad.__dict__.setdefault("_torch_cache", {})
+        key = ("g32", str(self.device))
+        qd = quad_tensors(self.F, quad, self.device)
+        if key not in cache:
+            cache[key] = qd["g"].to(torch.int32)
+        return dict(g=cache[key], v=qd["v"], bmask=qd["bmask"], h0=qd["h0"],
+                    h1=qd["h1"])
 
     # ------------------------------------------------------------------
     # circuit evaluation
@@ -365,11 +394,12 @@ class SumcheckProver:
 
     def prepare(self, circ: Circuit, pads: List[Optional[Proof]]):
         """Every upload the rounds need, made before them (the merge
-        plans, the lanes' pads, the constants; the quads went up with the
-        evaluation): (pads, consts) for _rounds."""
+        plans and the terms in their order, the lanes' pads, the
+        constants; the quads went up with the evaluation): (pads, consts)
+        for _rounds."""
         F, dev = self.F, self.device
         for layer in circ.layers:
-            self._wm_for(layer.quad, layer.logw)
+            self._hv_terms(layer.quad, layer.logw)
         return self._pads_dev(circ, pads), dict(one=F.to_limbs(1, dev),
                                                 rc=round_consts(F, dev))
 
@@ -511,11 +541,10 @@ class SumcheckProver:
         ab = dfs.dev_sample_elts(F, prf, 2, fs=fs if fresh else None)
         alpha, beta = ab[:, 0], ab[:, 1]
         claim = F.add(WC[:, 0], F.mul(alpha, WC[:, 1]))
-        qd = quad_tensors(self.F, layer.quad, self.device)
+        ht = self._hv_terms(layer.quad, layer.logw)
         dot = _raw_eq2_dev(F, logv, 1 << logv, bnd_g[0], bnd_g[1], alpha,
                            one)
-        vq = torch.where(qd["bmask"][:, None], beta[:, None], qd["v"])
-        hv = F.mul(vq, dot[:, qd["g"]])
+        hv = F.layer_hv(dot, ht["g"], ht["v"], ht["bmask"], beta)
         # the copy rounds (prover_layers.h:415-496): EQ [1, C] over the
         # copies and the inputs W [nw, C] (copies inner, both zero past
         # nc), bound to each round's challenge; one copy: eq0 = 1
@@ -540,11 +569,11 @@ class SumcheckProver:
                     EQ, Wc = self._gather_copies(EQ, Wc)
                     shard = None
                 if shard is None:
-                    c = fp_copy_round_sums(F, EQ[0], Wc, qd["h0"], qd["h1"],
+                    c = fp_copy_round_sums(F, EQ[0], Wc, ht["h0"], ht["h1"],
                                            hv[0])
                 else:
                     c = sharded_copy_round_coeffs(F, self.mesh, EQ[0], Wc,
-                                                  hv[0], qd["h0"], qd["h1"],
+                                                  hv[0], ht["h0"], ht["h1"],
                                                   axis="cols")
                 row = cp[:, rnd]
                 dfs.round_tail_cubic(F, fs, claim, row, c[None],
@@ -561,10 +590,9 @@ class SumcheckProver:
         WH = [Wh, Wh]
         plan = self._wm_for(layer.quad, layer.logw)
         if plan is None:
-            stages = [(layer.logw, None, None, qd["h0"], qd["h1"])]
+            stages = [(layer.logw, None, None, ht["h0"], ht["h1"])]
             longest = [None]
         else:
-            hv = hv[:, plan["perm"]]
             stages, longest = plan["stages"], plan["longest"]
 
         rnd = 0
@@ -578,19 +606,21 @@ class SumcheckProver:
                     (starts[None] + lane * T).reshape(-1),
                     (ends[None] + lane * T).reshape(-1), most).reshape(
                         (B, -1) + F.elt_shape)
-            h = [h0, h1]
-            for _ in range(nr):
+            h = (h0, h1)
+            for sh in range(nr):
                 for hand in range(2):
+                    # the stage's indices as uploaded, shifted in the
+                    # kernels: this hand's by the rounds of the stage so
+                    # far, the other's one further on the second hand
                     a = fp_wire_sums(F, hv, WH[hand], WH[1 - hand], h[hand],
-                                     h[1 - hand])
+                                     h[1 - hand], sh, sh + hand)
                     row = rows[:, rnd, hand]
                     dfs.round_tail(F, fs, claim, row, a, eq0,
                                    hp_pad[:, rnd, hand], rc)
                     r_t = row[:, 3]
-                    # the bound half: the hands' indices are shifted
-                    # right each round, so the zero tail is never read
-                    WH[hand], hv = F.bind_hv(WH[hand], hv, h[hand], r_t)
-                    h[hand] = h[hand] >> 1
+                    # the bound half: the hands' indices move right each
+                    # round, so the zero tail is never read
+                    WH[hand], hv = F.bind_hv(WH[hand], hv, h[hand], r_t, sh)
                 rnd += 1
 
         bq = F.lazy_sum(hv, 1)

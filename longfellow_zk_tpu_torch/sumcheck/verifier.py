@@ -20,7 +20,7 @@ import torch
 
 from .. import kernels
 from ..device import resolve_device
-from ..fields.fp import MUL, check_elts, plain_of, route
+from ..fields.fp import MUL, _k3_scratch, check_elts, plain_of, route
 from .circuit import (Challenge, Circuit, KMAX_COPIES, KMAX_LAYERS,
                       KMAX_OUTPUTS, LayerChallenge, Proof)
 from .eqs import eq_array_host, eq_eval_host, raw_eq2_host
@@ -104,11 +104,11 @@ def fp_quad_bind(F, g, h0, h1, v, bmask, dot, eqh0, eqh1,
     beta = beta.contiguous()
     nblk = max(1, min(_K7_MAX_BLOCKS, (T + 255) // 256))
     out = torch.empty(F.elt_shape, dtype=torch.int32, device=v.device)
-    scratch = torch.empty(F.nlimb * nblk, dtype=torch.int64, device=v.device)
-    kernels.launch(name, 2, out.data_ptr(), scratch.data_ptr(),
+    part, tick = _k3_scratch(v.device, F.nlimb * nblk, 1)
+    kernels.launch(name, 1, out.data_ptr(), part.data_ptr(),
                    g.data_ptr(), h0.data_ptr(), h1.data_ptr(), v.data_ptr(),
                    bmask.data_ptr(), dot.data_ptr(), eqh0.data_ptr(),
-                   eqh1.data_ptr(), beta.data_ptr(), T, nblk)
+                   eqh1.data_ptr(), beta.data_ptr(), T, nblk, tick.data_ptr())
     return out
 
 

@@ -5,7 +5,7 @@
 // (threadIdx 0, blockDim 1).  tests/test_torch_fs_words.py builds the
 // Fiat-Shamir oracle of K9 and K10 with it and holds it to the host
 // transcript on the CPU; tests/test_torch_gf2_mul.py the GF(2^128)
-// products of gf2.cuh and K3's term.
+// products of gf2.cuh and K3's terms (GF(2^128) and prime).
 #pragma once
 #include <stdint.h>
 #include <string.h>
@@ -37,5 +37,8 @@ static Dim3 threadIdx = {0, 0, 0}, blockIdx = {0, 0, 0}, blockDim = {1, 1, 1},
     gridDim = {1, 1, 1};
 inline void __syncwarp() {}
 inline void __syncthreads() {}
+inline void __threadfence() {}
+inline unsigned atomicAdd(unsigned* p, unsigned v) {
+  unsigned o = *p; *p += v; return o; }
 typedef int cudaError_t;
 inline const char* cudaGetErrorString(cudaError_t) { return ""; }

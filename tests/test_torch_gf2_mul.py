@@ -4,7 +4,10 @@ and products by one element run) and K3's
 GF(2^128) term (csrc/wire_round.cu g128_wire_term: z split once, two
 unreduced products, the sums folded once), compiled for the host and held
 on the CPU, exactly, to the JAX package's GF2_128.mul (eager) and to the
-port's host product gf_mul_int.
+port's host product gf_mul_int; and K3's prime term (prime_wire_term: z
+reduced once, the two sums of products kept as unreduced double-width
+columns and Montgomery-reduced once, redc_wide) at Fp128, P-256 and
+secp256k1, against the sums of Montgomery products of host ints.
 
 The device code builds with a host C++ compiler through
 tests/cuda_host/cuda_runtime.h (the CUDA qualifiers empty, one thread);
@@ -49,9 +52,38 @@ static char* next(char** p) {
   char* t = strtok_r(nullptr, " \n", p);
   return t;
 }
+template <class C>
+static Fp<C> pelt_in(const char* h) {
+  Fp<C> x;
+  for (int i = 0; i < 4 * C::N; i++) {
+    unsigned v;
+    sscanf(h + 2 * i, "%2x", &v);
+    ((uint8_t*)x.l)[i] = (uint8_t)v;
+  }
+  return x;
+}
+template <class C>
+static void pelt_out(const Fp<C>& x) {
+  for (int i = 0; i < 4 * C::N; i++)
+    printf("%02x", ((const uint8_t*)x.l)[i]);
+}
+// P<field> n (hv wo wlo whi h)...: a thread's a0 and a2 over n terms
+template <class C>
+static void prime_terms(char** p) {
+  u64 w0[2 * C::N] = {0}, w2[2 * C::N] = {0};
+  int n = atoi(next(p));
+  for (int i = 0; i < n; i++) {
+    const Fp<C> hv = pelt_in<C>(next(p)), wo = pelt_in<C>(next(p));
+    const Fp<C> wlo = pelt_in<C>(next(p)), whi = pelt_in<C>(next(p));
+    prime_wire_term<C>(hv, wo, wlo, whi, atoi(next(p)), w0, w2);
+  }
+  pelt_out(redc_wide<C>(w0));
+  printf(" ");
+  pelt_out(redc_wide<C>(w2));
+}
 
 int main() {
-  static char line[1 << 20];
+  static char line[1 << 22];
   static uint4 tab[G128_TAB_BYTES / 16];
   while (fgets(line, sizeof line, stdin)) {
     char* p;
@@ -81,6 +113,12 @@ int main() {
       elt_out(g128_fold(s0));
       printf(" ");
       elt_out(g128_fold(s2));
+    } else if (!strcmp(cmd, "P128")) {
+      prime_terms<P128>(&p);
+    } else if (!strcmp(cmd, "P256")) {
+      prime_terms<P256>(&p);
+    } else if (!strcmp(cmd, "P256K1")) {
+      prime_terms<P256K1>(&p);
     }
     printf("\n");
     fflush(stdout);
@@ -205,3 +243,59 @@ def test_wire_term_fold_once(harness):
                 a0 ^= lo
             a2 ^= lo ^ hi
         assert (_int(g[0]), _int(g[1])) == (a0, a2)
+
+
+# the prime fields of K3's wire mode in the proofs: command, p, words
+PRIMES = {"fp128": ("P128", (1 << 128) - (1 << 108) + 1, 4),
+          "p256_base": ("P256", 2**256 - 2**224 + 2**192 + 2**96 - 1, 8),
+          "p256k1_base": ("P256K1", 2**256 - 2**32 - 977, 8)}
+
+
+@pytest.mark.parametrize("field", list(PRIMES))
+def test_prime_wire_term_reduced_once(harness, field):
+    """K3's prime sums over one thread's terms, the products z Wh
+    unreduced in 2 N columns and reduced once, against a0 = sum over even
+    h of z W[h & ~1] and a2 = sum of +-z (W[h | 1] - W[h & ~1]) (+ for
+    odd h), z = hv Wo, by Montgomery products of host ints (R = 2^(32
+    N)), as canonical Montgomery forms; edge operands (0, 1, p - 1, p -
+    2) on long runs, so the columns grow."""
+    cmd, p, nw = PRIMES[field]
+    R = 1 << (32 * nw)
+    rinv = pow(R, -1, p)
+
+    def mont(a, b):
+        return a * b * rinv % p
+
+    def hx(x):
+        return x.to_bytes(4 * nw, "little").hex()
+
+    rng = np.random.default_rng(163)
+    edge = [0, 1, p - 1, p - 2, R % p, (R * R) % p]
+    cases = []
+    for c, n in enumerate([1, 2, 9, 300, 700, 64]):
+        if c == 4:
+            vals = [p - 1] * (4 * n)
+        elif c == 5:
+            vals = [edge[(5 * i + 3) % len(edge)] for i in range(4 * n)]
+        else:
+            vals = [int.from_bytes(rng.bytes(4 * nw), "little") % p
+                    for _ in range(4 * n)]
+        hs = [int(v) for v in rng.integers(0, 1 << 20, n)]
+        if c == 4:
+            hs = [2 * (i % 3) + (i % 5 == 0) for i in range(n)]
+        cases.append([(vals[4 * i], vals[4 * i + 1], vals[4 * i + 2],
+                       vals[4 * i + 3], hs[i]) for i in range(n)])
+    got = harness(["%s %d %s" % (cmd, len(ts), " ".join(
+        "%s %s %s %s %d" % (hx(hv), hx(wo), hx(lo), hx(hi), h)
+        for hv, wo, lo, hi, h in ts)) for ts in cases])
+    for ts, g in zip(cases, got):
+        a0 = a2 = 0
+        for hv, wo, lo, hi, h in ts:
+            z = mont(hv, wo)
+            if h % 2 == 0:
+                a0 += mont(z, lo)
+                a2 += mont(z, (lo - hi) % p)
+            else:
+                a2 += mont(z, (hi - lo) % p)
+        got0, got2 = (int.from_bytes(bytes.fromhex(x), "little") for x in g)
+        assert (got0, got2) == (a0 % p, a2 % p)

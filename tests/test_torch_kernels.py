@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (K1-K22, every instance) against their plain
+"""The port's CUDA kernels (K1-K23, every instance) against their plain
 PyTorch versions, on the card.  Field arithmetic, hashing and the
 Fiat-Shamir states are exact: equality, tolerance 0.
 
@@ -185,8 +185,11 @@ def test_k3_wire_and_sums(dev, field):
 
 
 @pytest.mark.parametrize("field", list(FIELDS))
-@pytest.mark.parametrize("T", [0, 1, 70000])
+@pytest.mark.parametrize("T", [0, 1, 70000, 300000])
 def test_k7_quad_bind(dev, field, T):
+    """K7 against its plain version, one launch a call (the last block
+    sums the partials; 1,024 blocks at 300,000 terms), twice back to back
+    on the same scratch, the tickets left zero."""
     F, rng = FIELDS[field](), np.random.default_rng(10)
     nv, nw = 1 << 9, 1 << 12
     g = torch.as_tensor(np.sort(rng.integers(0, nv, T)), device=dev)
@@ -197,7 +200,12 @@ def test_k7_quad_bind(dev, field, T):
     dot, eqh0, eqh1 = (_elts(F, rng, n, dev) for n in (nv, nw, nw))
     beta = _elts(F, rng, 5, dev)[4]
     args = (g, h0, h1, v, bmask, dot, eqh0, eqh1, beta)
-    _same(verifier.fp_quad_bind(F, *args), verifier.quad_bind_plain(F, *args))
+    n0 = kernels.LAUNCHES["fp_quad_bind[%s]" % F.tag]
+    want = verifier.quad_bind_plain(F, *args)
+    _same(verifier.fp_quad_bind(F, *args), want)
+    _same(verifier.fp_quad_bind(F, *args), want)
+    assert kernels.LAUNCHES["fp_quad_bind[%s]" % F.tag] - n0 == 2
+    _k3_scratch_clear()
 
 
 @pytest.mark.parametrize("n", [2, 64, 2048])
@@ -1470,3 +1478,128 @@ def test_k1_bind_hv_one_launch(dev, field, lanes):
         _same(h2, F.hv_update(hv, h, r))
         _same(w2, P.elementwise_plain(F, fpm.BIND, W, r))
         _same(h2, P.elementwise_plain(F, fpm.HV, hv, r, h))
+
+
+# K3's wire mode at the term counts around a block and its grid (one
+# block a lane up to 256 terms, which writes its sums directly), a mid and
+# a large layer (8 lanes of the last two take the wide prime body); the
+# mdoc hash circuit's largest layer at GF(2^128)
+K3_SIZES = [1, 255, 256, 257, 1000, 4097, (1 << 16) + 3, 158231]
+
+
+def _k3_scratch_clear():
+    """Every ticket of K3's scratch is zero between launches."""
+    torch.cuda.synchronize()
+    for _, tick in fpm._K3_SCRATCH.values():
+        assert int(tick.abs().sum()) == 0
+
+
+@pytest.mark.parametrize("lanes", [1, 8])
+@pytest.mark.parametrize("field", list(FIELDS))
+def test_k3_one_launch_shifts(dev, field, lanes):
+    """K3's wire mode (one launch: the last block of a lane sums the
+    partials) at the sizes of K3_SIZES (and 3,578,789 terms at
+    GF(2^128)) and the round's shifts 0-3 of h and ho (ho one further on,
+    as on a round's second hand), 1 and 8 lanes, against its plain
+    version; the hv update by the same shift (K1, and bind_hv); two
+    launches back to back on the same scratch, and the tickets left
+    zero."""
+    F, rng = FIELDS[field](), np.random.default_rng(230 + lanes)
+    P = fpm.plain_of(F)
+    sizes = K3_SIZES + ([3578789] if F.kCharacteristicTwo and lanes == 1
+                        else [])
+    n0 = kernels.LAUNCHES["fp_wire_round[%s]" % F.tag]
+    calls = 0
+    for T in sizes:
+        logw = max(4, (T - 1).bit_length())
+        N = 1 << logw
+        hv = _elts(F, rng, lanes * T, dev).reshape(lanes, T, F.nlimb)
+        Wh = _elts(F, rng, lanes * N, dev).reshape(lanes, N, F.nlimb)
+        h = torch.as_tensor(rng.integers(0, N, T, dtype=np.int32),
+                            device=dev)
+        ho = torch.as_tensor(rng.integers(0, N, T, dtype=np.int32),
+                             device=dev)
+        r = _elts(F, rng, lanes, dev)
+        for s in range(4):
+            # the bound halves: Wh of round s, Wo one round further on
+            n = N >> s
+            Whs, Wo = Wh[:, :n].contiguous(), Wh[:, n // 2 : n].contiguous()
+            so = s + 1
+            got = fpm.fp_wire_sums(F, hv, Whs, Wo, h, ho, s, so)
+            again = fpm.fp_wire_sums(F, hv, Whs, Wo, h, ho, s, so)
+            calls += 2
+            want = P.wire_sums_plain(F, hv, Whs, Wo, h, ho, s, so)
+            _same(got, want)
+            _same(again, want)
+            if T <= 4097:
+                _same(F.hv_update(hv, h, r, s),
+                      P.elementwise_plain(F, fpm.HV, hv, r, h, s))
+                w2, hv2 = F.bind_hv(Whs, hv, h, r, s)
+                _same(hv2, P.elementwise_plain(F, fpm.HV, hv, r, h, s))
+                _same(w2, P.elementwise_plain(F, fpm.BIND, Whs, r))
+    _k3_scratch_clear()
+    assert kernels.LAUNCHES["fp_wire_round[%s]" % F.tag] - n0 == calls
+
+
+@pytest.mark.parametrize("field", list(FIELDS) + ["fp24", "fp64", "p256n",
+                                                  "p256k1n", "p384", "p521"])
+def test_k3_axis_sum_one_launch(dev, field):
+    """K3's sum mode (one launch: the last block of an output sums its
+    partials) at every instance: many blocks an output (R = 70,000) over
+    15 outputs, one block an output over 1,000, back to back; the
+    tickets left zero."""
+    mk = dict(FIELDS, **API_FIELDS)
+    F, rng = mk[field](), np.random.default_rng(240)
+    x = _elts(F, rng, 3 * 70000 * 5, dev).reshape(3, 70000, 5, F.nlimb)
+    x[0, :20000] = F.to_limbs(F.p - 1 if not F.kCharacteristicTwo
+                              else (1 << 128) - 1, dev)
+    y = x[:, :200].contiguous()
+    for t, dim in ((x, 1), (y, 1), (y, 0), (x, 1)):
+        _same(F.lazy_sum(t, dim), fpm.plain_of(F).axis_sum_plain(F, t, dim))
+    _k3_scratch_clear()
+
+
+@pytest.mark.parametrize("lanes", [1, 8])
+@pytest.mark.parametrize("T", [0, 1, 1000, 70001])
+@pytest.mark.parametrize("field", list(FIELDS))
+def test_k23_layer_hv(dev, field, T, lanes):
+    """K23 against its plain version: hv = (bmask ? beta : v) * dot[g],
+    beta a view with its lanes 2 elements apart (the prover's alpha and
+    beta draws), every output wire reached, a quarter of the terms
+    flagged."""
+    F, rng = FIELDS[field](), np.random.default_rng(250 + T)
+    nv = 1 << 10
+    dot = _elts(F, rng, lanes * nv, dev).reshape(lanes, nv, F.nlimb)
+    g = torch.as_tensor(rng.integers(0, nv, T, dtype=np.int32), device=dev)
+    v = _elts(F, rng, T, dev)
+    bmask = torch.as_tensor(rng.random(T) < 0.25, device=dev)
+    ab = _elts(F, rng, 2 * lanes, dev).reshape(lanes, 2, F.nlimb)
+    n0 = kernels.LAUNCHES["layer_hv[%s]" % F.tag]
+    got = F.layer_hv(dot, g, v, bmask, ab[:, 1])
+    assert kernels.LAUNCHES["layer_hv[%s]" % F.tag] - n0 == 1
+    _same(got, fpm.plain_of(F).layer_hv_plain(F, dot, g, v, bmask, ab[:, 1]))
+
+
+@pytest.mark.parametrize("lanes", [1, 8])
+def test_k23_sha_circuit_layers(dev, lanes):
+    """K23 at every layer of the SHA-256 circuit, in the order of its
+    wire rounds (SumcheckProver._hv_terms: the merge plan's permutation
+    where the layer has one), against its plain version."""
+    import gzip
+    import os
+    from longfellow_zk_tpu_torch.proto.lfc1 import FP128_ID, read_circuit
+    from longfellow_zk_tpu_torch.sumcheck.prover import SumcheckProver
+    F, rng = fp128(), np.random.default_rng(260)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    circ = read_circuit(F, FP128_ID, gzip.open(os.path.join(
+        root, "artifacts", "sha256_1block_fp128.lfc1.gz"), "rb").read())
+    sp = SumcheckProver(F, dev)
+    for ly, layer in enumerate(circ.layers):
+        nv = circ.layers[ly - 1].nw if ly > 0 else circ.nv
+        nv = 1 << max(0, (nv - 1).bit_length())
+        ht = sp._hv_terms(layer.quad, layer.logw)
+        dot = _elts(F, rng, lanes * nv, dev).reshape(lanes, nv, F.nlimb)
+        beta = _elts(F, rng, lanes, dev)
+        _same(F.layer_hv(dot, ht["g"], ht["v"], ht["bmask"], beta),
+              fpm.layer_hv_plain(F, dot, ht["g"], ht["v"], ht["bmask"],
+                                 beta))
