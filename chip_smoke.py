@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 1. Prints the card (name, count, power limit).
-2. Builds the kernels K1-K23 from longfellow_zk_tpu_torch/csrc with nvcc.
+2. Builds the kernels K1-K24 from longfellow_zk_tpu_torch/csrc with nvcc.
 3. Runs each kernel instance at the shapes of the proofs below, holds
    it against its plain PyTorch version on the same inputs (field
    arithmetic, hashing and the transcript states are exact: tolerance 0)
@@ -94,7 +94,15 @@
       of their wire rounds, 1 and 8 lanes, against its plain version; a
       row "layer_hv[<tag>]" at the largest layer of the SHA-256, mdoc
       signature, mdoc hash and bitaddr circuits, with one index_select
-      of dot by g as its library call.
+      of dot by g as its library call;
+   o. K24 (eq_table, the EQ tables) at every layer of the same circuits:
+      the prover's dot (mode 2, EQ(G0, .) + alpha EQ(G1, .) over the
+      layer's 2^logv outputs) and the verifier's input tables (mode 1,
+      EQ(H0, .) and EQ(H1, .) over 2^logw, two lanes of one launch), the
+      challenges views of rows as the prover's, against its plain
+      version; 8 lanes at each circuit's largest table; a row
+      "eq_table[<tag>]" at the largest dot of the SHA-256, mdoc
+      signature, mdoc hash and bitaddr circuits (eq_table_bound).
 4. Drives the port's three prover paths, each with the launch counts set
    to zero just before it and read just after (every kernel instance of
    the path must have launched, K8-K12 included), its bytes under
@@ -107,7 +115,10 @@
    (any host synchronisation there fails the run); each proof's profile
    ends with a line of its device ms and launches a port kernel, the
    sums that rank the kernels for redesign, and the same by wrapper
-   instance (K1's and K9's kernels of every mode together):
+   instance (K1's and K9's kernels of every mode together), and a line
+   of its EQ builds (K24 launches and device ms, the torch kernels
+   launched inside them: none) and of torch's CatArrayBatchedCopy in the
+   whole call:
    a. the Fp128 SHA-256 one-block proof (the JAX package's bytes);
    b. the batched SHA-256 proofs (B = 8, zk/batch.py BatchZkProver, as
       bench.py's phase_sha_batch): lane 0 the golden's witness and tag,
@@ -164,8 +175,9 @@
       P-256 and secp256k1 orders, P-384 and P-521 (2^20 terms, a quarter
       p - 1), K13 and K15 at the P-256 order, the P-256 base field,
       P-384 and P-521, K4 [crt] and K14 at 26 and 35 lanes (the bitaddr
-      tableau, 25 x 4,096), K19 and K20 over Fp2 (the ECDSA tableau, 14 x
-      2,048; rows "... vs=26" and "... vs=35" for the lanes); then the
+      tableau, 25 x 4,096; K14's rows "... vs=26" and "... vs=35", K4's
+      checked there and timed only at the proofs' 18 lanes), K19 and K20
+      over Fp2 (the ECDSA tableau, 14 x 2,048); then the
       path: rs_factory_for(F)(682, 4096).interpolate on 25 rows (the
       bitaddr commit's encode) over the P-256 order, P-384 and P-521,
       the launch counts zeroed before and read after each, held to the
@@ -324,6 +336,37 @@ def layer_hv_bytes(eb, T, nd, lanes):
     beta and its dot read once at each of the nd distinct output wires
     that the terms' g name; g (int32), v and bmask read once."""
     return lanes * (T + nd + 1) * eb + T * (4 + eb + 1)
+
+
+def _csrc_consts(src, names):
+    """Integer constexprs of a csrc file, by name."""
+    with open(os.path.join(REPO, "longfellow_zk_tpu_torch", "csrc",
+                           src)) as f:
+        text = f.read()
+    return [int(re.search(r"constexpr (?:int|long long) %s = (\d+);" % k,
+                          text).group(1)) for k in names]
+
+
+def eq_table_bound(tag, logn, n, lanes, nq):
+    """(ms, by) of K24 building `lanes` tables of n entries over logn
+    challenges (nq = 2: EQ(q, .) + alpha EQ(q1, .)): the bytes (the tables
+    written, the challenges and alpha read once) or the products the
+    kernel's plan makes (csrc/eq_table.cu): one an entry a table, each
+    block's half tables (2^k + 2^r - 2 a table), each chunk's top chain
+    and its fold into M (top + 2^r a table) and alpha's fold."""
+    cmin, tmax, nth, maxb = _csrc_consts("eq_table.cu", (
+        "EQ_CHUNK_MIN", "EQ_TOP_MAX", "EQ_THREADS", "EQ_MAX_BLOCKS"))
+    c = logn if logn <= cmin else max(cmin, logn - tmax)
+    k = (c + 1) // 2
+    r, top = c - k, logn - c
+    chunks = -(-n // (1 << c))
+    G = min(chunks, max(-(-chunks // nth), max(1, maxb // lanes)))
+    prods = lanes * (nq * n + G * nq * ((1 << k) + (1 << r) - 2) +
+                     chunks * (nq * (top + (1 << r)) + (nq == 2)))
+    eb = 4 * (4 if tag in ("fp128", "gf2_128") else 8)
+    nbytes = lanes * eb * (n + nq * logn + (nq == 2))
+    return bound_ms(nbytes, MUL_OPS[tag] * prods), nbytes, \
+        MUL_OPS[tag] * prods
 
 
 def chain_ms(steps, clock_mhz):
@@ -887,7 +930,9 @@ def check_crt(rows, F, dev, nrows, m, rng, tag="fp256k1", lanes=""):
 def check_crt_lanes(rows, mp, z, tab, nrows, m, lanes):
     """K14 and K4 [crt] at VS = mp.vs lanes on the residues z [VS, nrows,
     m, 1] and a per-lane table tab [VS, m, 1]; rows named with the suffix
-    `lanes`."""
+    `lanes` (K4's only at the proofs' 18 lanes, lanes "": at more lanes
+    its rows, one launch a row a block as at 18, are checked and not
+    timed)."""
     from longfellow_zk_tpu_torch.fields import multiprime as mpm
     from longfellow_zk_tpu_torch.transforms.ntt import NTT, fp_ntt, ntt_plain
 
@@ -911,6 +956,12 @@ def check_crt_lanes(rows, mp, z, tab, nrows, m, lanes):
         tw = ntt.twiddles(m, inverse)
         err = max(err, max_err(fp_ntt(mp, zr, tw), ntt_plain(mp, zr, tw)))
     logm = m.bit_length() - 1
+    if lanes:
+        print("K4[crt]%s at %d x %d: max_abs_err %d (tolerance 0)"
+              % (lanes, vs * nrows, m, err))
+        if err:
+            rows.failures.append("fp_ntt[crt]" + lanes)
+        return
     rows.record("fp_ntt[crt]" + lanes, "longfellow_zk_tpu_torch/csrc/ntt.cu",
                 "longfellow_zk_tpu/transforms/ntt.py:94", err,
                 lambda: fp_ntt(mp, zr, tw), lambda: ntt_plain(mp, zr, tw),
@@ -1353,6 +1404,60 @@ def check_layer_hv(rows, F, tag, circs, dev, rng):
                 lambda: fpm.layer_hv_plain(F, *args),
                 layer_hv_bytes(eb, T, nd, 1), mops * T,
                 library_fn=lambda: dot.index_select(1, ht["g"]), iters=20)
+
+
+def check_eq_table(rows, F, tag, circs, dev, rng):
+    """K24 [tag] (eq_table) against its plain version at every layer of
+    each circuit of `circs`: the prover's dot (mode 2 over the layer's
+    2^logv outputs; its challenges and alpha views of rows as the
+    prover's) and the verifier's input tables (mode 1 over 2^logw, two
+    lanes of one launch), one launch a call; 8 lanes of the dot at each
+    circuit's largest; the row "eq_table[tag]" at the largest dot of the
+    first circuit, one lane.  Bound: eq_table_bound; no one PyTorch call
+    computes the table (library: none)."""
+    from longfellow_zk_tpu_torch.fields import fp as fpm
+
+    elts = bulk_elts(F, rng, dev)
+    plain = fpm.plain_of(F).eq_table_plain
+    k = kernels_mod()
+    name = "eq_table[%s]" % tag
+
+    def dot_args(logv, lanes):
+        # rows [B, logv, 2, 4]: the hands' challenges at [:, :, h, 3]
+        rw = elts(lanes * max(1, logv) * 8).reshape(
+            (lanes, max(1, logv), 2, 4) + F.elt_shape)[:, :logv]
+        ab = elts(2 * lanes).reshape((lanes, 2) + F.elt_shape)
+        return rw[:, :, 0, 3], 1 << logv, ab[:, 0], rw[:, :, 1, 3]
+
+    err, calls, n0 = 0, 0, k.LAUNCHES[name]
+    for circ in circs:
+        logvs = [circ.logv] + [ly.logw for ly in circ.layers[:-1]]
+        for ly, layer in enumerate(circ.layers):
+            for args in (dot_args(logvs[ly], 1),
+                         (elts(2 * layer.logw).reshape(
+                             (2, layer.logw) + F.elt_shape),
+                          1 << layer.logw)):
+                err = max(err, max_err(F.eq_table(*args), plain(F, *args)))
+                calls += 1
+        # 8 lanes at the largest table up to 2^17 entries (the plain
+        # version's time grows with the entries)
+        args = dot_args(min(max(logvs), 17), 8)
+        err = max(err, max_err(F.eq_table(*args), plain(F, *args)))
+        calls += 1
+    launches = k.LAUNCHES[name] - n0
+    logv = max([circs[0].logv] + [ly.logw for ly in circs[0].layers[:-1]])
+    args = dot_args(logv, 1)
+    (b, by), nbytes, ops = eq_table_bound(tag, logv, 1 << logv, 1, 2)
+    print("K24[%s] at every layer of %d circuit(s): %d calls, %d launches, "
+          "max_abs_err %d; the row: the dot over 2^%d outputs"
+          % (tag, len(circs), calls, launches, err, logv))
+    if launches != calls:
+        err = max(err, 1)
+        print("FAIL: K24 made %d launches in %d calls" % (launches, calls))
+    rows.record(name, "longfellow_zk_tpu_torch/csrc/eq_table.cu",
+                "longfellow_zk_tpu/sumcheck/prover_device.py:124", err,
+                lambda: F.eq_table(*args), lambda: plain(F, *args),
+                nbytes, ops, iters=20)
 
 
 def check_round_tail(rows, F, dev, tag, rng, clock_mhz, cubic=False):
@@ -2503,7 +2608,8 @@ def run_crt_route(F, tag, lanes, nrows, n, m, dev, kernels, rows, rng, smi):
             if lanes is None:
                 continue
             k += lanes
-        rows.rows[k]["launches"] = v
+        if k in rows.rows:  # K4 has no row at 26 and 35 lanes
+            rows.rows[k]["launches"] = v
     return True
 
 
@@ -2630,16 +2736,29 @@ def profile_one(run):
     print("host field products in the profiled call: %d gf_mul_int, %d "
           "mul_i calls" % (nprod["gf_mul_int"], nprod["mul_i"]))
 
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        run(phases)
-        wall_ms = (time.perf_counter() - t) * 1e3
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from longfellow_zk_tpu_torch.fields import fp as fpm
+
+    # each EQ build (K24's wrapper) in a range of its own, so that the
+    # torch kernels launched inside one show
+    eq_fn = fpm.fp_eq_table
+
+    def eq_ranged(*a, **kw):
+        with record_function(EQ_RANGE):
+            return eq_fn(*a, **kw)
+    fpm.fp_eq_table = eq_ranged
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            run(phases)
+            wall_ms = (time.perf_counter() - t) * 1e3
+    finally:
+        fpm.fp_eq_table = eq_fn
     cuda = torch.autograd.DeviceType.CUDA
     by_name = {}
     for e in prof.events():
-        if e.device_type == cuda:
+        if e.device_type == cuda and e.name != EQ_RANGE:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time / 1e3
     copies = {d: sum(1 for e in prof.events() if e.device_type == cuda
                      and "Memcpy %s" % d in e.name) for d in ("DtoH", "HtoD")}
@@ -2656,10 +2775,53 @@ def profile_one(run):
               json.dumps(sums))
         print("port kernels by wrapper instance (device ms, launches):",
               json.dumps(wrapper_sums(sums)))
+        print(eq_line(prof, sums))
     else:
         print("profiled call: %.1f ms wall, device busy share not "
               "measured (the profiler recorded no device time)" % wall_ms)
     return copies
+
+
+EQ_RANGE = "eq_table build"
+
+
+def eq_line(prof, sums):
+    """The profiled call's EQ builds: calls, K24's launches and device ms,
+    the torch kernels launched inside a build (by name), and torch's
+    CatArrayBatchedCopy (the stack of the step-by-step EQ build it
+    replaced) in the whole call."""
+    cuda = torch.autograd.DeviceType.CUDA
+
+    def in_eq(e):
+        while e is not None:
+            if e.name == EQ_RANGE:
+                return True
+            e = e.cpu_parent
+        return False
+    calls, inside, cat = 0, {}, [0, 0.0]
+    for e in prof.events():
+        if e.device_type == cuda:
+            if "CatArrayBatchedCopy" in e.name:
+                cat[0] += 1
+                cat[1] += e.device_time / 1e3
+            continue
+        calls += e.name == EQ_RANGE
+        if not getattr(e, "kernels", None) or not in_eq(e):
+            continue
+        for kk in e.kernels:
+            if not PORT_KERNEL.search(kk.name):
+                kn = kk.name.split("(")[0][:60]
+                inside[kn] = inside.get(kn, 0) + 1
+    k24 = [sum(v[i] for k, v in sums.items() if k.startswith("k_eq_table"))
+           for i in (0, 1)]
+    k4 = [sum(v[i] for k, v in sums.items() if k.startswith("k_ntt"))
+          for i in (0, 1)]
+    return ("EQ builds in the profiled call: %d calls, K24 %d records "
+            "%.3f ms; torch kernels inside them: %s; K4 %d records %.3f "
+            "ms; torch's CatArrayBatchedCopy in the whole call: %d records "
+            "%.3f ms (records: the profiler's, which can lose a few)"
+            % (calls, k24[1], k24[0], json.dumps(inside), k4[1], k4[0],
+               cat[0], cat[1]))
 
 
 def port_kernel_sums(prof):
@@ -3071,7 +3233,7 @@ def copy_split(prove):
     """Device ms of one proof: the copy rounds' own kernels (K16 and the
     K10 launches that follow one, its cubic mode), the wire rounds' (K3's
     wire sums and the K10 launches that follow them) and the rest (K1's
-    binds and products, K2, K3's sums, K9, K23, copies; shared by
+    binds and products, K2, K3's sums, K9, K23, K24, copies; shared by
     both and by the evaluation), from the profiler's kernel names in
     stream order; and the wall ms."""
     from torch.profiler import ProfilerActivity, profile
@@ -3150,7 +3312,8 @@ def run_copies_path(F, circ, W_host, dev, kernels, rows, smi):
               k.startswith(("fp_elementwise[", "fp_segment_sum[",
                             "fp_wire_round[", "fs_oracle[",
                             "sumcheck_round_tail[", "copy_round_sums[",
-                            "sumcheck_round_tail_cubic[", "layer_hv["))]
+                            "sumcheck_round_tail_cubic[", "layer_hv[",
+                            "eq_table["))]
     _, first_ms, launches, why = first_run(kernels, expect,
                                            lambda: prove([]))
     print("first proof: %.1f ms (uploads the circuit's copy tables)"
@@ -3202,7 +3365,7 @@ def run_copies_path(F, circ, W_host, dev, kernels, rows, smi):
     busy = sum(split.values())
     print("sumcheck_sha256_copies64 device ms of one proof: copy rounds "
           "%.3f (K16, K10 cubic), wire rounds %.3f (K3 wire sums, K10), "
-          "the rest %.3f (K1, K2, K3 sums, K9, K23); %.1f ms wall, "
+          "the rest %.3f (K1, K2, K3 sums, K9, K23, K24); %.1f ms wall, "
           "busy share %.4f on %s" % (split["copy"], split["wire"],
                                      split["rest"], wall, busy / wall, smi))
 
@@ -3587,6 +3750,13 @@ def main() -> int:
                         (GF, "gf2_128", [c_hash]),
                         (FK, "fp256k1", [bcirc])):
         check_layer_hv(rows, Fx, tag, cs, dev, rng)
+
+    # -- 3o. K24 (the EQ tables) at every layer of the five circuits; a
+    #        row at each field's largest dot ------------------------------
+    for Fx, tag, cs in ((F, "fp128", [circ]), (FB, "fp256", [c_sig, ecirc]),
+                        (GF, "gf2_128", [c_hash]),
+                        (FK, "fp256k1", [bcirc])):
+        check_eq_table(rows, Fx, tag, cs, dev, rng)
     if rows.failures:
         print("FAIL: kernels disagree with their plain versions:",
               rows.failures)
@@ -3776,7 +3946,8 @@ def main() -> int:
             golden, states["sha256_1block_fp128"], flipped(golden, 32, 1),
             kernels, rows,
             ["fp_elementwise[fp128]", "fp_quad_bind[fp128]",
-             "fp_matmul_ntt[fp128]"], smi, None, timed=False):
+             "eq_table[fp128]", "fp_matmul_ntt[fp128]"], smi, None,
+            timed=False):
         return 1
 
     # -- 4i. the P-256 ECDSA proof, its Reed-Solomon code through the
@@ -3799,7 +3970,7 @@ def main() -> int:
                                dev),
             egolden, states["ecdsa_p256"], flipped(egolden, 32, 1), kernels,
             rows,
-            ["fp_elementwise[fp256]", "fp_quad_bind[fp256]",
+            ["fp_elementwise[fp256]", "fp_quad_bind[fp256]", "eq_table[fp256]",
              "fp_ntt[fp256x2]", "rfft_pass[fp256x2]"], smi, None,
             timed=False):
         return 1
@@ -3825,8 +3996,8 @@ def main() -> int:
             bgolden, states["bitaddr_p256k1"], flipped(bgolden, 32, 1),
             kernels, rows,
             ["fp_elementwise[fp256k1]", "fp_quad_bind[fp256k1]",
-             "nb_butterfly[fp256k1]", "nb_base_conv[fp256k1]"], smi, None,
-            timed=False):
+             "eq_table[fp256k1]", "nb_butterfly[fp256k1]",
+             "nb_base_conv[fp256k1]"], smi, None, timed=False):
         return 1
 
     # -- 4k. bench.py's phase_fft on its inputs ----------------------------
@@ -3861,9 +4032,9 @@ def main() -> int:
             zk_verify_fn(FB, ecirc, crs, EW[: ecirc.npub_in], emeta, dev),
             egolden, states["ecdsa_p256"], flipped(egolden, 32, 1), kernels,
             rows,
-            ["fp_elementwise[fp256]", "fp_quad_bind[fp256]", "crt_to[fp256]",
-             "fp_ntt[crt]", "mp_elementwise[crt]", "crt_from[fp256]"], smi,
-            None, timed=False):
+            ["fp_elementwise[fp256]", "fp_quad_bind[fp256]", "eq_table[fp256]",
+             "crt_to[fp256]", "fp_ntt[crt]", "mp_elementwise[crt]",
+             "crt_from[fp256]"], smi, None, timed=False):
         return 1
     print("section 4l: %.1f s" % (time.perf_counter() - t4l))
 
@@ -3892,7 +4063,8 @@ def main() -> int:
             states["sha256_1block_fp128"], flipped(golden, 32, 1), kernels,
             rows,
             ["fp_elementwise[fp128]", "fp_quad_bind[fp128]",
-             "fp_ntt[fp128]"], smi, ("read", "recv_commitment + verify")):
+             "eq_table[fp128]", "fp_ntt[fp128]"], smi,
+            ("read", "recv_commitment + verify")):
         return 1
     if not run_verifier_path(
             "the P-256 ECDSA verifier", "ecdsa_zk_verifier_ms",
@@ -3900,7 +4072,7 @@ def main() -> int:
                          dev),
             egolden, states["ecdsa_p256"], flipped(egolden, 32, 1), kernels,
             rows,
-            ["fp_elementwise[fp256]", "fp_quad_bind[fp256]",
+            ["fp_elementwise[fp256]", "fp_quad_bind[fp256]", "eq_table[fp256]",
              "fp_ntt[fp256x2]", "fp2_elementwise[fp256x2]"], smi,
             ("read", "recv_commitment + verify")):
         return 1
@@ -3921,9 +4093,10 @@ def main() -> int:
             "mdoc_verifier_ms", mdoc_verify, mgolden,
             states["mdoc_v7_1attr"], flipped(mgolden, 6 * 16 + 32 + 5, 0x10),
             kernels, rows,
-            ["fp_elementwise[gf2_128]", "fp_quad_bind[gf2_128]",
+            ["fp_quad_bind[gf2_128]", "eq_table[gf2_128]",
              "gf2_lch14[gf2_128]", "fp_elementwise[fp256]",
-             "fp_quad_bind[fp256]", "fp_ntt[fp256x2]",
+             "fp_quad_bind[fp256]",
+             "eq_table[fp256]", "fp_ntt[fp256x2]",
              "fp2_elementwise[fp256x2]"], smi,
             ("read", "hash verify", "sig verify")):
         return 1
@@ -3934,8 +4107,8 @@ def main() -> int:
             bgolden, states["bitaddr_p256k1"], flipped(bgolden, 32, 1),
             kernels, rows,
             ["fp_elementwise[fp256k1]", "fp_quad_bind[fp256k1]",
-             "crt_to[fp256k1]", "fp_ntt[crt]", "mp_elementwise[crt]",
-             "crt_from[fp256k1]"], smi,
+             "eq_table[fp256k1]", "crt_to[fp256k1]", "fp_ntt[crt]",
+             "mp_elementwise[crt]", "crt_from[fp256k1]"], smi,
             ("read", "recv_commitment + verify")):
         return 1
 

@@ -14,14 +14,14 @@ limbs), so the two packages hold the same integers
 Every tensor operation is a wrapper over one of the hand-written kernels
 (K1 fp_elementwise, K2 fp_segment_sum, K3 fp_wire_round, K16
 copy_round_sums, the sums of the plain sumcheck's copy rounds, K21
-fp_inv, and K23 layer_hv, the sumcheck's layer prologue; see
-kernels.py).  For a CUDA tensor the wrapper launches its
+fp_inv, K23 layer_hv, the sumcheck's layer prologue, and K24 eq_table,
+its EQ tables; see kernels.py).  For a CUDA tensor the wrapper launches its
 kernel; for a CPU tensor it runs the kernel's plain PyTorch version,
 which lives in this module too (`*_plain`) and computes in int64 over
 16-bit limbs (CPU PyTorch has no uint32 `+`, `<<` or `>>`).  The kernels
 have an instance for each field of `fp_instances.KERNEL_TAGS` (K1-K3
-and K21 for all of them, K3's wire mode up to 8 words; K16 and K23 for
-the sumcheck fields Fp128, P-256 and secp256k1) and one for GF(2^128) (fields/gf2.py, whose plain versions
+and K21 for all of them, K3's wire mode up to 8 words; K16, K23 and K24
+for the sumcheck fields Fp128, P-256 and secp256k1) and one for GF(2^128) (fields/gf2.py, whose plain versions
 the wrappers take for it); a CUDA tensor of another field raises.  The
 plain versions here take any odd p below 2^544.
 """
@@ -121,6 +121,16 @@ class FieldOps:
         output wires g (int32 [T]), coefficients v [T, N] and beta flags
         bmask (bool [T]), and beta [B, N] (K23, fp_layer_hv)."""
         return fp_layer_hv(self, dot, g, v, bmask, beta)
+
+    def eq_table(self, q: torch.Tensor, n: int,
+                 alpha: Optional[torch.Tensor] = None,
+                 q1: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The EQ table over the challenges q [logn, N] (or [B, logn, N],
+        a table a lane; views with elements a multiple of N words apart):
+        EQ(q, i) for 0 <= i < n, [n, N] (or [B, n, N]); with alpha [N] (or
+        [B, N]) and q1 like q, EQ(q, i) + alpha EQ(q1, i) (K24,
+        fp_eq_table)."""
+        return fp_eq_table(self, q, n, alpha, q1)
 
     def natural_limbs_to_bytes_dev(self, x: torch.Tensor) -> torch.Tensor:
         """Natural-form limbs [..., N] -> their little-endian bytes, uint8
@@ -615,6 +625,35 @@ def layer_hv_plain(F, dot: torch.Tensor, g: torch.Tensor, v: torch.Tensor,
                                          dot.index_select(1, g.long()))
 
 
+def eq_table_plain(F, q: torch.Tensor, n: int,
+                   alpha: Optional[torch.Tensor] = None,
+                   q1: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain version of K24 (csrc/eq_table.cu), for any sumcheck field:
+    the JAX package's _eq_dev and _raw_eq2_dev (sumcheck/prover_device.py:
+    107, :124), logn interleave steps on the products of plain_of(F) (a
+    product, a difference and a stack each; the last pairs the lowest bit
+    of i with q_0), the table cut to n entries."""
+    ew = plain_of(F).elementwise_plain
+
+    def table(q):
+        lead, logn, N = tuple(q.shape[:-2]), q.shape[-2], F.nlimb
+        eq = F.to_limbs(1, q.device).expand(lead + (1, N))
+        sizes = [n]
+        for _ in range(logn):
+            sizes.append((sizes[-1] + 1) // 2)
+        for l in range(logn - 1, -1, -1):
+            hi = ew(F, MUL, eq, q[..., l : l + 1, :])
+            lo = ew(F, SUB, eq, hi)
+            eq = torch.stack([lo, hi], dim=-2).reshape(lead + (-1, N))
+            eq = eq[..., : sizes[l], :]
+        return eq[..., :n, :].contiguous()
+
+    e0 = table(q)
+    if alpha is None:
+        return e0
+    return ew(F, ADD, e0, ew(F, MUL, table(q1), alpha.unsqueeze(-2)))
+
+
 # ----------------------------------------------------------------------
 # wrappers: the kernel for a CUDA tensor, the plain version for a CPU one
 # ----------------------------------------------------------------------
@@ -1079,6 +1118,68 @@ def fp_layer_hv(F, dot: torch.Tensor, g: torch.Tensor, v: torch.Tensor,
                    v.data_ptr(), bmask.data_ptr(), beta.data_ptr(), T, lanes,
                    dot.shape[1], bstride)
     return out
+
+
+# K24: the most challenges a table (2^24 entries; its shared memory at
+# that size is 44 KB at P-256 in mode 2)
+EQ_LOGN_MAX = 24
+
+
+def _eq_challenges(F, q: torch.Tensor, name: str):
+    """(lanes, lane stride, challenge stride), the strides in elements,
+    of K24's challenges q [logn, N] or [B, logn, N]: each element's words
+    contiguous, the challenges and the lanes any multiple of N words
+    apart (views of the sumcheck's rows of draws)."""
+    N = F.nlimb
+    if q.dtype != torch.int32 or q.dim() not in (2, 3) or \
+            q.shape[-1] != N or q.stride(-1) != 1 or \
+            any(q.stride(d) % N for d in range(q.dim() - 1)):
+        raise ValueError("%s must be int32 [logn, N] or [B, logn, N], each "
+                         "element's words contiguous and the elements a "
+                         "multiple of N words apart, got %s %s %s"
+                         % (name, q.dtype, tuple(q.shape), q.stride()))
+    qt = q.stride(-2) // N
+    if q.dim() == 2:
+        return 1, 0, qt
+    return q.shape[0], q.stride(0) // N, qt
+
+
+def fp_eq_table(F, q: torch.Tensor, n: int,
+                alpha: Optional[torch.Tensor] = None,
+                q1: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K24 wrapper: the EQ table (FieldOps.eq_table), one launch; with
+    alpha and q1, EQ(q, .) + alpha EQ(q1, .)."""
+    if (alpha is None) != (q1 is None):
+        raise ValueError("mode 2 takes both alpha and q1")
+    ts = (q,) if alpha is None else (q, alpha, q1)
+    name = route("eq_table", F, *ts)
+    if name is None:
+        return plain_of(F).eq_table_plain(F, q, n, alpha, q1)
+    lanes, qs0, qt0 = _eq_challenges(F, q, "q")
+    logn = q.shape[-2]
+    if not 0 <= logn <= EQ_LOGN_MAX or not 1 <= n <= 1 << logn:
+        raise ValueError("K24 takes 1 <= n <= 2^logn, logn <= %d; got n %d, "
+                         "logn %d" % (EQ_LOGN_MAX, n, logn))
+    qs1 = qt1 = as_ = 0
+    if alpha is not None:
+        if q1.shape != q.shape:
+            raise ValueError("q1 must have q's shape %s, got %s"
+                             % (tuple(q.shape), tuple(q1.shape)))
+        _, qs1, qt1 = _eq_challenges(F, q1, "q1")
+        if alpha.dim() != q.dim() - 1 or (q.dim() == 3 and
+                                          alpha.shape[0] != lanes):
+            raise ValueError("alpha must hold one element a lane of q")
+        as_ = _lane_challenges(F, alpha)[1]
+    if lanes > 65535:
+        raise ValueError("K24 takes at most 65,535 lanes")
+    out = torch.empty((lanes, n) + F.elt_shape, dtype=torch.int32,
+                      device=q.device)
+    kernels.launch(name, 1, out.data_ptr(), q.data_ptr(),
+                   0 if q1 is None else q1.data_ptr(),
+                   0 if alpha is None else alpha.data_ptr(),
+                   1 if alpha is None else 2, n, logn, lanes, qs0, qt0, qs1,
+                   qt1, as_)
+    return out if q.dim() == 3 else out[0]
 
 
 def fp_copy_round_sums(F, EQ: torch.Tensor, W: torch.Tensor,

@@ -36,7 +36,8 @@ import torch
 from .fp import (ADD, BIND, EQ, HV, IS_ZERO, MUL, NEG, SELECT, SQR, SUB,
                  FieldOps, _join16, _split16, compare_plain, fp_axis_sum,
                  fp_elementwise, fp_segment_sum,
-                 layer_hv_plain)  # K23's plain version, for plain_of(F)
+                 # K23's and K24's plain versions, for plain_of(F)
+                 eq_table_plain, layer_hv_plain)
 
 MASK16 = 0xFFFF
 M128 = (1 << 128) - 1

@@ -53,6 +53,7 @@ entry point) per field.  K9's mode 9 (CHOOSE) has entry points of its own,
     K22 fp24x6_elementwise
                        fp24x6.cu      fp24x6         fields/fp24.py
     K23 layer_hv       layer_hv.cu    P gf2_128      fields/fp.py
+    K24 eq_table       eq_table.cu    P gf2_128      fields/fp.py
 
 (P: the prime fields fp128, fp256 and fp256k1.  fp128: p = 2^128 -
 2^108 + 1; fp256: the P-256 base field; fp256x2: Fp2 over it; fp256k1:
@@ -69,9 +70,9 @@ sqr and inv; its per-coefficient ops are K1 [fp24] on the six words),
 and K2 and K3 at fp64, p256n, p256k1n, p384 and p521 are the field API
 that no proof path calls (the JAX package's tests drive it):
 chip_smoke.py's sections 3l and 4l check them on the card.  K1's bind
-and hv, K3, K9 (mode 9 too), K10 (its cubic mode too), K11, K12 and K23
-take a lane axis: the proofs of a batch (zk/batch.py) run in the launches of
-one proof.  A kernel's name
+and hv, K3, K9 (mode 9 too), K10 (its cubic mode too), K11, K12, K23
+and K24 take a lane axis: the proofs of a batch (zk/batch.py) run in the
+launches of one proof.  A kernel's name
 here is "kernel[instance]".  `LAUNCHES` counts, per instance, the CUDA
 launches its wrapper made (K2: one a call, its route one kernel or two); a run sets the counts to zero with
 `reset_launches()` and reads them after.
@@ -119,7 +120,8 @@ _SOURCES = {
     "fp_wire_round": ("wire_round.cu", [_I, _P, _P, _P, _P, _P, _P, _P, _LL,
                                         _LL, _LL, _LL, _I, _I, _I, _I, _P, _P],
                       _PRIME_API),
-    "fp_ntt": ("ntt.cu", [_P, _P, _P, _LL, _I, _LL, _P],
+    "fp_ntt": ("ntt.cu", [_P, _P, _P, _P, _LL, _I, _LL, _I, _I, _I, _I, _I,
+                          _I, _P],
                ("fp128", "fp256x2", "crt")),
     "fp2_elementwise": ("fp2_ops.cu", [_I, _P, _P, _P, _P, _LL, _LL, _LL,
                                        _P], ("fp256x2",)),
@@ -167,6 +169,9 @@ _SOURCES = {
                            ("fp24x6",)),
     "layer_hv": ("layer_hv.cu", [_P, _P, _P, _P, _P, _P, _LL, _LL, _LL, _LL,
                                  _P], ("fp128", "fp256", "fp256k1", "gf2_128")),
+    "eq_table": ("eq_table.cu", [_P, _P, _P, _P, _I, _LL, _I, _LL, _LL, _LL,
+                                 _LL, _LL, _LL, _P],
+                 ("fp128", "fp256", "fp256k1", "gf2_128")),
 }
 
 # "kernel[instance]" -> (source, C entry point, argtypes)

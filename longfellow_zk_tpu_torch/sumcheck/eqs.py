@@ -6,7 +6,8 @@ prod_l (i_l Q_l + (1-i_l)(1-Q_l)), materialized to arbitrary length n
 convention treats them as zero — the verifier compensates with the
 closed-form Eq::eval, eq.h:53-71).
 
-The prover's tensor EQ arrays are built in sumcheck/prover.py (_eq_dev).
+The tensor EQ arrays of the prover and the verifiers are built by K24
+(fields/fp.py fp_eq_table, csrc/eq_table.cu).
 """
 
 from __future__ import annotations

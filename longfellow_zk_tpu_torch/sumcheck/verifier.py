@@ -4,7 +4,7 @@ verifier.h:32-94); port of the JAX package's sumcheck/verifier.py.
 The layer checks, the transcript and the input binding are host scalar
 work, as in the JAX package.  The one O(terms) step of a layer, the
 fully bound quad (the combined bind_gh_all form, quad.h:188-210), runs on
-`device`: `bind_quad` builds the EQ arrays (K1) and sums the terms in K7
+`device`: `bind_quad` builds the EQ arrays (K24) and sums the terms in K7
 `fp_quad_bind` (csrc/quad_bind.cu), whose plain PyTorch version
 (`quad_bind_plain`) is in this module too and runs for CPU tensors.
 `bind_quad_host` is the JAX package's host loop, kept as the reference
@@ -25,7 +25,7 @@ from .circuit import (Challenge, Circuit, KMAX_COPIES, KMAX_LAYERS,
                       KMAX_OUTPUTS, LayerChallenge, Proof)
 from .eqs import eq_array_host, eq_eval_host, raw_eq2_host
 from .poly import eval_lagrange
-from .prover import _eq_dev, _raw_eq2_dev, quad_tensors
+from .prover import quad_tensors
 
 # K7 grid: blocks of the first pass, at most
 _K7_MAX_BLOCKS = 1024
@@ -116,18 +116,19 @@ def bind_quad(F, quad, logv: int, g0, g1, alpha, beta, logw: int, h0_ch,
               h1_ch, device):
     """bind_gh_all on `device` (the JAX package's bind_quad_device): the
     EQ arrays dot = EQ(G0, .) + alpha EQ(G1, .) over 2^logv outputs and
-    EQ(H0, .), EQ(H1, .) over 2^logw inputs (K1), then K7 over the
+    EQ(H0, .), EQ(H1, .) over 2^logw inputs (K24: two launches, the
+    input tables two lanes of one), then K7 over the
     layer's uploaded terms (the circuit reader has checked their wire
     indices against the layers' widths).  Returns the bound quad as a
     host element."""
     qd = quad_tensors(F, quad, device)
     nv, nw = 1 << logv, 1 << logw
-    one = F.to_limbs(1, device)
-    dot = _raw_eq2_dev(F, logv, nv, F.to_limbs(list(g0[:logv]), device),
-                       F.to_limbs(list(g1[:logv]), device),
-                       F.to_limbs(alpha, device), one)
-    eqh0 = _eq_dev(F, logw, nw, F.to_limbs(list(h0_ch), device), one)
-    eqh1 = _eq_dev(F, logw, nw, F.to_limbs(list(h1_ch), device), one)
+    dot = F.eq_table(F.to_limbs(list(g0[:logv]), device), nv,
+                     F.to_limbs(alpha, device),
+                     F.to_limbs(list(g1[:logv]), device))
+    eqh0, eqh1 = F.eq_table(F.to_limbs(
+        list(h0_ch[:logw]) + list(h1_ch[:logw]), device).reshape(
+            (2, logw) + F.elt_shape), nw)
     return F.from_limbs(fp_quad_bind(
         F, qd["g"], qd["h0"], qd["h1"], qd["v"], qd["bmask"], dot, eqh0,
         eqh1, F.to_limbs(beta, device)))

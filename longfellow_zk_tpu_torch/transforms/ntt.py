@@ -10,7 +10,9 @@ Port of the JAX package's transforms/ntt.py, twin of the reference FFT
 
 The transform runs in kernel K4 (`fp_ntt`, csrc/ntt.cu) over a batch of
 rows: bit reversal, then log2(n) butterfly stages with per-stage twiddle
-tables computed on the host.  K4 has an instance over Fp128, one over
+tables computed on the host, a row kept on chip through all of them (one
+launch a transform, two where a row does not fit: `ntt_plan`).  K4 has an
+instance over Fp128, one over
 Fp2 on the P-256 base field and one over the multi-prime field of the
 CRT convolution (transforms/crt_conv.py).  Tensors are int32 [..., n,
 *F.elt_shape] (fields/fp.py: [..., n, N]; fields/fp2.py: [..., n, 2, N];
@@ -24,7 +26,7 @@ convolve there, take the real part.
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -81,13 +83,105 @@ def ntt_plain(F, x: torch.Tensor, tw: torch.Tensor) -> torch.Tensor:
     return x.reshape((rows, n) + E)
 
 
+# K4's plan (csrc/ntt.cu): threads a block at most; blocks a cluster at
+# most; the blocks a launch that the routes spread a batch's rows to (two
+# an SM) while a block of route 1 keeps NTT_BLOCK_ELTS elements or more;
+# a block's data tiles (bytes) at most; its stage twiddles in shared
+# memory up to NTT_TW_SMEM bytes; route 2's tile (bytes, one column or
+# row at least): at 2^20 points tiles of 128 KB held one block an SM and
+# ran 1.16-1.30x the parent's twenty launches on the H100 (PERF.md
+# section 6)
+NTT_THREADS = 256
+NTT_CS_MAX = 8
+NTT_BLOCKS = 264
+NTT_BLOCK_ELTS = 256
+NTT_SMEM = 192 * 1024
+NTT_TW_SMEM = 32 * 1024
+NTT_TILE2_BYTES = 32 * 1024
+
+
+class NttPlan(NamedTuple):
+    """How K4 transforms rows of n = 2^logn points: route 1, one launch, a
+    row a cluster of 2^la blocks (the n1 x n2 split l1 + l2 = logn, l1 = 0
+    for a row a block); route 2, two launches through a scratch, step A
+    on 2^la columns a block, step B on 2^lb rows."""
+    route: int
+    l1: int
+    la: int
+    lb: int
+    threads: int
+    tw_smem: bool
+    launches: int
+
+
+def _threads(pairs: int) -> int:
+    return min(NTT_THREADS, max(32, pairs))
+
+
+def ntt_plan(n: int, rows: int, eb: int) -> NttPlan:
+    """K4's plan for `rows` rows of n = 2^logn elements of eb bytes:
+    route 1 where a cluster of at most NTT_CS_MAX blocks holds a row,
+    else route 2 (ntt_plan_two)."""
+    logn = n.bit_length() - 1
+
+    def data(lcs):  # a block's tiles: the row, or two of its 2^-lcs parts
+        return n * eb if lcs == 0 else (2 * n >> lcs) * eb
+
+    # a cluster splits each half of the n1 x n2 split into its blocks
+    top = min(NTT_CS_MAX.bit_length() - 1, logn // 2)
+    lcs = 0
+    while lcs < top and (data(lcs) > NTT_SMEM or (
+            rows << lcs < NTT_BLOCKS and n >> (lcs + 1) >= NTT_BLOCK_ELTS)):
+        lcs += 1
+    if data(lcs) > NTT_SMEM:
+        return ntt_plan_two(n, rows, eb)
+    l1 = (logn + 1) // 2 if lcs else 0
+    m = 1 << max(l1, logn - l1)
+    return NttPlan(1, l1, lcs, 0, _threads(n >> (lcs + 1)),
+                   m * eb <= NTT_TW_SMEM, 1)
+
+
+def ntt_plan_two(n: int, rows: int, eb: int) -> NttPlan:
+    """K4's route 2 for rows of n elements of eb bytes: the four-step
+    split through a scratch, 2^la columns a block of its first launch and
+    2^lb rows of its second, tiles of about NTT_TILE2_BYTES, cut further
+    until the launch has NTT_BLOCKS blocks (the route of rows that no
+    cluster holds, and at any n the other side of the routes'
+    comparison, tools/eq_ntt_bench.py)."""
+    logn = n.bit_length() - 1
+    l1 = logn // 2
+    l2 = logn - l1
+    if (1 << max(l1, l2)) * eb > NTT_SMEM:
+        raise ValueError("K4 cannot transform rows of %d elements of %d "
+                         "bytes" % (n, eb))
+    tile = max(1 << max(l1, l2), NTT_TILE2_BYTES // eb)
+    la = min(l2, (tile >> l1).bit_length() - 1)
+    while la and rows << (l2 - la) < NTT_BLOCKS:
+        la -= 1
+    lb = min(l1, (tile >> l2).bit_length() - 1)
+    while lb and rows << (l1 - lb) < NTT_BLOCKS:
+        lb -= 1
+    return NttPlan(2, l1, la, lb, _threads(max(1 << (l1 + la),
+                                                1 << (lb + l2)) >> 1),
+                   (1 << max(l1, l2)) * eb <= NTT_TW_SMEM, 2)
+
+
 def fp_ntt(F, x: torch.Tensor, tw: torch.Tensor) -> torch.Tensor:
     """K4 wrapper: transform of every row of x [rows, n, *F.elt_shape],
     n = 2^logn; over a multi-prime field the rows come lane-major, lane b
-    with the twiddles tw[b] ([VS, n - 1, 1])."""
+    with the twiddles tw[b] ([VS, n - 1, 1]).  One launch, or two (a
+    scratch of x's size) where a row does not fit a cluster (ntt_plan)."""
+    if route("fp_ntt", F, x, tw) is None:
+        return ntt_plain(F, x, tw)
+    return ntt_run(F, x, tw, ntt_plan)
+
+
+def ntt_run(F, x: torch.Tensor, tw: torch.Tensor, planner) -> torch.Tensor:
+    """K4 on CUDA tensors by the plan planner(n, rows, eb) makes (fp_ntt's
+    ntt_plan; ntt_plan_two for the routes' comparison)."""
     name = route("fp_ntt", F, x, tw)
     if name is None:
-        return ntt_plain(F, x, tw)
+        raise ValueError("ntt_run launches K4: CUDA tensors only")
     rows, n, E = x.shape[0], x.shape[1], tuple(F.elt_shape)
     logn = n.bit_length() - 1
     L = _lanes(F)
@@ -96,11 +190,17 @@ def fp_ntt(F, x: torch.Tensor, tw: torch.Tensor) -> torch.Tensor:
             tw.numel() != L * (n - 1) * int(np.prod(E)):
         raise ValueError("fp_ntt takes int32 [rows, 2^k, %s] and 2^k - 1 "
                          "twiddles a lane, got %s" % (E, tuple(x.shape)))
+    if logn == 0:
+        return x.clone()
     x = x.contiguous()
     tw = tw.contiguous()
     y = torch.empty_like(x)
-    kernels.launch(name, logn, y.data_ptr(), x.data_ptr(), tw.data_ptr(),
-                   rows, logn, rows // L)
+    p = planner(n, rows, 4 * int(np.prod(E)))
+    z = torch.empty_like(x) if p.route == 2 else None
+    kernels.launch(name, p.launches, y.data_ptr(), x.data_ptr(),
+                   tw.data_ptr(), 0 if z is None else z.data_ptr(), rows,
+                   logn, rows // L, p.route, p.l1, p.la, p.lb, p.threads,
+                   int(p.tw_smem))
     return y
 
 

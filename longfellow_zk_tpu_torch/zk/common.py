@@ -25,7 +25,6 @@ from ..ligero.param import LigeroLinearConstraint, LigeroQuadraticConstraint
 from ..sumcheck.circuit import Circuit, Proof
 from ..sumcheck.eqs import eq_eval_host
 from ..sumcheck.poly import eval_newton, newton_of_lagrange
-from ..sumcheck.prover import _raw_eq2_dev
 from ..sumcheck.transcript_sumcheck import TranscriptSumcheck
 from ..sumcheck.verifier import bind_quad
 
@@ -208,11 +207,11 @@ def verifier_constraints(circ: Circuit, pub: List, proof: Proof, ts, pi: int,
     got = F.add_i(plr.wc[0], F.mul_i(alpha, plr.wc[1]))
 
     ninp, npub = circ.ninputs, circ.npub_in
-    # b_i = EQ(G0, i) + alpha * EQ(G1, i), on `device` (K1)
-    bs = F.from_limbs(_raw_eq2_dev(
-        F, cla_logv, ninp, F.to_limbs(list(cla_g[0][:cla_logv]), device),
-        F.to_limbs(list(cla_g[1][:cla_logv]), device),
-        F.to_limbs(alpha, device), F.to_limbs(1, device)))
+    # b_i = EQ(G0, i) + alpha * EQ(G1, i), on `device` (K24)
+    bs = F.from_limbs(F.eq_table(
+        F.to_limbs(list(cla_g[0][:cla_logv]), device), ninp,
+        F.to_limbs(alpha, device),
+        F.to_limbs(list(cla_g[1][:cla_logv]), device)))
     pub_binding = F.of_scalar(0)
     for i in range(ninp):
         b_i = int(bs[i])

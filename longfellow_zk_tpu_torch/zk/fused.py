@@ -15,7 +15,7 @@ packs or unpacks a program's output.
     left on the card.  Per layer, K11 (`zk_constraints`) replays the
     verifier's symbolic coefficient vector; the input binding then takes
     alpha_b from K9 and EQ(G0, .) + alpha_b EQ(G1, .) over the inputs from
-    K1, closed by (-1, -alpha_b);
+    one K24 launch, closed by (-1, -alpha_b);
   - ligero_finish_dev: the twin of LigeroProver's host prove
     (ligero_prover.h:84-146): the HASH_OF_A write, the challenge draws
     (u_ldt, alphal, alphaq, u_quad from one stream), A in K12
@@ -46,7 +46,6 @@ from .. import kernels
 from ..fields.fp import ADD, MUL, SUB, check_elts, plain_of, route
 from ..random_oracle import device_fs as dfs
 from ..sumcheck.circuit import Circuit
-from ..sumcheck.prover import _raw_eq2_dev
 from .common import HASH_OF_A, PadLayout
 
 
@@ -300,8 +299,7 @@ def constraints_dev(F, tabs: FusedTables, outs: List[dict],
     alpha_b = dfs.dev_sample_elts(F, dfs.new_prf(fs.device, B), 1,
                                   fs=fs)[:, 0]
     g0, g1 = outs[-1]["g"]
-    vec = _raw_eq2_dev(F, circ.layers[-1].logw, circ.ninputs, g0, g1,
-                       alpha_b, one)
+    vec = F.eq_table(g0, circ.ninputs, alpha_b, g1)
     pair = F.sub(torch.zeros_like(tabs.lag[:2]),
                  torch.stack([one.expand_as(alpha_b), alpha_b], dim=1))
     return torch.cat([k_layers, vec[:, circ.npub_in :], pair], dim=1)

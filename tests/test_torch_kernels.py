@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (K1-K23, every instance) against their plain
+"""The port's CUDA kernels (K1-K24, every instance) against their plain
 PyTorch versions, on the card.  Field arithmetic, hashing and the
 Fiat-Shamir states are exact: equality, tolerance 0.
 
@@ -34,7 +34,8 @@ from longfellow_zk_tpu_torch.transforms import crt_conv, lch14
 from longfellow_zk_tpu_torch.transforms import matmul_ntt as mnt
 from longfellow_zk_tpu_torch.transforms import nussbaumer as nbm
 from longfellow_zk_tpu_torch.transforms import rfft as rfm
-from longfellow_zk_tpu_torch.transforms.ntt import NTT, fp_ntt, ntt_plain
+from longfellow_zk_tpu_torch.transforms.ntt import (
+    NTT, fp_ntt, ntt_plain, ntt_plan, ntt_plan_two, ntt_run)
 from longfellow_zk_tpu_torch.zk import fused
 
 
@@ -226,6 +227,64 @@ def test_k4_ntt_fp2(dev, n):
     for inverse in (False, True):
         tw = ntt.twiddles(n, inverse)
         _same(fp_ntt(F2, x, tw), ntt_plain(F2, x, tw))
+
+
+def _k4_case(inst, rows, n, dev, rng):
+    """(field, rows x n elements, twiddles of both directions) of K4
+    instance inst; [crt] rows come in 18 lanes (one lane at 1 row)."""
+    if inst == "fp128":
+        F = fp128()
+        x = _elts(F, rng, rows * n, dev).reshape(rows, n, 4)
+        ntt = NTT(F, P128_OMEGA, P128_OMEGA_ORDER, dev)
+    elif inst == "fp256x2":
+        F = Fp2(p256_base())
+        x = _elts2(F, rng, rows * n, dev).reshape(rows, n, 2, F.nlimb)
+        ntt = NTT(F, (P256_FP2_ROOT_X, P256_FP2_ROOT_Y), P256_FP2_ROOT_ORDER,
+                  dev)
+    else:
+        F = mpm.MultiPrimeField(18 if rows % 18 == 0 else 1)
+        x = _residues(F, rng, (rows // F.vs, n), dev).reshape(rows, n, 1)
+        ntt = NTT(F, F.omegas, F.omega_order, dev)
+    return F, x, [ntt.twiddles(n, inv) for inv in (False, True)]
+
+
+@pytest.mark.parametrize("rows", [1, 18, 450])
+@pytest.mark.parametrize("inst", ["fp128", "fp256x2", "crt"])
+def test_k4_ntt_one_launch(dev, inst, rows):
+    """K4 at n = 2^1 .. 2^12 against its plain version, both directions,
+    one launch a call where a cluster holds a row (ntt_plan: all these
+    but 2^12 Fp2 points at one row), two elsewhere; route 2 (the
+    four-step split through a scratch, two launches) at the same
+    shapes."""
+    rng = np.random.default_rng(280 + rows)
+    name = "fp_ntt[%s]" % inst
+    for logn in range(1, 13):
+        n = 1 << logn
+        F, x, tws = _k4_case(inst, rows, n, dev, rng)
+        eb = 4 * int(np.prod(F.elt_shape))
+        for tw in tws:
+            want = ntt_plain(F, x, tw)
+            for planner in (ntt_plan, ntt_plan_two):
+                plan = planner(n, rows, eb)
+                n0 = kernels.LAUNCHES[name]
+                got = ntt_run(F, x, tw, planner)
+                assert kernels.LAUNCHES[name] - n0 == plan.launches <= 2
+                assert planner is ntt_plan_two or plan.launches == 1
+                _same(got, want)
+
+
+@pytest.mark.parametrize("logn", [14, 16, 20])
+@pytest.mark.parametrize("inst", ["fp128", "fp256x2"])
+def test_k4_ntt_long_rows(dev, inst, logn):
+    """K4 on one row of 2^14, 2^16 and 2^20 points (route 2 past a
+    cluster's tiles; bench.py's phase_fft takes 2^20) against its plain
+    version, in two launches or one."""
+    F, x, tws = _k4_case(inst, 1, 1 << logn, dev,
+                         np.random.default_rng(290 + logn))
+    n0 = kernels.LAUNCHES["fp_ntt[%s]" % inst]
+    _same(fp_ntt(F, x, tws[0]), ntt_plain(F, x, tws[0]))
+    assert kernels.LAUNCHES["fp_ntt[%s]" % inst] - n0 == ntt_plan(
+        1 << logn, 1, 4 * int(np.prod(F.elt_shape))).launches
 
 
 def _residues(mp, rng, shape, dev):
@@ -1603,3 +1662,49 @@ def test_k23_sha_circuit_layers(dev, lanes):
         _same(F.layer_hv(dot, ht["g"], ht["v"], ht["bmask"], beta),
               fpm.layer_hv_plain(F, dot, ht["g"], ht["v"], ht["bmask"],
                                  beta))
+
+
+@pytest.mark.parametrize("lanes", [1, 8])
+@pytest.mark.parametrize("field", list(FIELDS))
+def test_k24_eq_table(dev, field, lanes):
+    """K24 against its plain version in modes 1 and 2 at logn 0-20 (8
+    lanes to 2^16), n = 2^logn, 2^logn - 3 and 2^(logn - 1) + 1: the
+    challenges views of rows as the prover's (2 x 4 elements apart, the
+    lanes a row apart; at one lane contiguous [logn, N]), alpha a view 2
+    elements apart; one launch a call."""
+    F, rng = FIELDS[field](), np.random.default_rng(300 + lanes)
+    name = "eq_table[%s]" % F.tag
+    for logn in range(21):
+        B = lanes if logn <= 16 else 1
+        rows = _elts(F, rng, B * max(1, logn) * 8, dev).reshape(
+            (B, max(1, logn), 2, 4) + F.elt_shape)[:, :logn]
+        ab = _elts(F, rng, 2 * B, dev).reshape((B, 2) + F.elt_shape)
+        q, q1, alpha = rows[:, :, 0, 3], rows[:, :, 1, 3], ab[:, 0]
+        if B == 1:
+            q, q1, alpha = (q[0].contiguous(), q1[0].contiguous(),
+                            alpha[0].contiguous())
+        for n in sorted({1 << logn, max(1, (1 << logn) - 3),
+                         (1 << logn) // 2 + 1}):
+            for args in ((q, n), (q, n, alpha, q1)):
+                n0 = kernels.LAUNCHES[name]
+                got = F.eq_table(*args)
+                assert kernels.LAUNCHES[name] - n0 == 1
+                _same(got, fpm.plain_of(F).eq_table_plain(F, *args))
+
+
+def test_k24_bad_inputs_raise(dev):
+    """K24 raises on inputs it does not take; nothing falls back."""
+    F, rng = fp128(), np.random.default_rng(310)
+    q = _elts(F, rng, 8, dev).reshape(2, 4, 4)
+    a = _elts(F, rng, 2, dev)
+    for call in (lambda: F.eq_table(q, 17),            # n > 2^logn
+                 lambda: F.eq_table(q, 0),
+                 lambda: F.eq_table(q, 16, a),          # alpha without q1
+                 lambda: F.eq_table(q, 16, a[:1], q),   # one alpha, 2 lanes
+                 lambda: F.eq_table(q[:, :3], 8, a, q),  # q1's shape
+                 lambda: F.eq_table(q.to(torch.int64), 16),
+                 lambda: F.eq_table(q.transpose(1, 2), 16)):
+        with pytest.raises(ValueError):
+            call()
+    with pytest.raises(NotImplementedError):
+        fpm.fp_eq_table(p256_scalar(), _elts(p256_scalar(), rng, 2, dev), 4)

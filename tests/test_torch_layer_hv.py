@@ -5,7 +5,8 @@ the JAX package's functions, on numpy inputs from a seed, as canonical
 integers (exact).
 
   - the prologue: hv = F.mul(F.select(bmask, beta, v), jnp.take(dot, g))
-    with dot = _raw_eq2_dev(...) (sumcheck/prover_device.py:667-671),
+    with dot = _raw_eq2_dev(...) (sumcheck/prover_device.py:667-671;
+    the port's dot from F.eq_table, K24's plain version),
     then jnp.take(hv, wm_perm) where a merge plan exists (:623), one
     lane at a time as the JAX batch prover's vmap takes them, against
     F.layer_hv over 1 and 3 lanes on SumcheckProver._hv_terms' arrays
@@ -30,8 +31,7 @@ from longfellow_zk_tpu_torch.fields import fp as fpm
 from longfellow_zk_tpu_torch.fields import fp_instances as pfi
 from longfellow_zk_tpu_torch.fields.gf2 import gf2_128
 from longfellow_zk_tpu_torch.sumcheck.circuit import Quad
-from longfellow_zk_tpu_torch.sumcheck.prover import (
-    SumcheckProver, _raw_eq2_dev)
+from longfellow_zk_tpu_torch.sumcheck.prover import SumcheckProver
 
 # the sumcheck fields: the three prime fields of the proofs and GF(2^128)
 FIELDS = {"fp128": (jfi.fp128, pfi.fp128),
@@ -85,13 +85,11 @@ def test_layer_hv_matches_jax(field, lanes, plan):
     ht = sp._hv_terms(quad, logw)
     wm = sp._wm_for(quad, logw)
     assert (wm is not None) == plan
-    one = F.to_limbs(1, "cpu")
     abt = F.to_limbs(ab, "cpu").reshape((lanes, 2) + F.elt_shape)
-    dot = _raw_eq2_dev(
-        F, logv, nv, F.to_limbs(g0, "cpu").reshape((lanes, logv) +
-                                                   F.elt_shape),
-        F.to_limbs(g1, "cpu").reshape((lanes, logv) + F.elt_shape),
-        abt[:, 0], one)
+    dot = F.eq_table(
+        F.to_limbs(g0, "cpu").reshape((lanes, logv) + F.elt_shape), nv,
+        abt[:, 0], F.to_limbs(g1, "cpu").reshape((lanes, logv) +
+                                                 F.elt_shape))
     got = F.layer_hv(dot, ht["g"], ht["v"], ht["bmask"], abt[:, 1])
     assert got.shape == (lanes, T) + F.elt_shape
 
